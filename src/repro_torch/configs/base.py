@@ -1,0 +1,128 @@
+"""Model configuration: the port's copy of ``repro.configs.base``.
+
+``ModelConfig`` keeps every field of the reference (so configs read the same
+and ``reduced_config`` shrinks them the same way); the port serves only the
+dense pure-attention families for now and its model raises on anything else.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+__all__ = ["LayerSpec", "ModelConfig", "reduced_config"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One block in the schedule."""
+
+    kind: str = "attn"           # "attn" | "mamba" | "slstm" | "mlstm"
+    moe: bool = False            # routed-experts MLP instead of dense MLP
+    window: Optional[int] = None  # sliding-window width (None = global attn)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    layers: Tuple[LayerSpec, ...] = ()
+
+    # attention details
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+
+    # SSM (Mamba)
+    ssm_d_state: int = 16
+    ssm_d_conv: int = 4
+    ssm_expand: int = 2
+    ssm_dt_rank: int = 0
+
+    # xLSTM
+    xlstm_proj_factor: float = 2.0
+    xlstm_conv: int = 4
+
+    # encoder-decoder (audio)
+    encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500
+
+    # multimodal early fusion (vlm)
+    frontend: Optional[str] = None
+    n_patches: int = 256
+
+    # misc
+    norm: str = "rmsnorm"        # rmsnorm | layernorm
+    activation: str = "silu"     # silu | gelu
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    source: str = ""             # citation
+
+    def __post_init__(self):
+        if not self.layers:
+            object.__setattr__(
+                self, "layers", tuple(LayerSpec() for _ in range(self.n_layers))
+            )
+        assert len(self.layers) == self.n_layers
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+
+def reduced_config(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
+                   max_experts: int = 4, vocab: int = 512) -> ModelConfig:
+    """Smoke-test variant of the same family, shrunk exactly as the
+    reference's ``reduced_config`` shrinks it (same schedule pattern, <= 4
+    heads, head_dim 32, d_ff <= 512)."""
+    kinds_needed = []
+    seen = set()
+    for spec in cfg.layers:
+        key = (spec.kind, spec.moe, spec.window is not None)
+        if key not in seen:
+            seen.add(key)
+            kinds_needed.append(spec)
+    layers = tuple(kinds_needed[:n_layers])
+    while len(layers) < n_layers:
+        layers = layers + (cfg.layers[len(layers) % cfg.n_layers],)
+    n_heads = min(cfg.n_heads, 4)
+    n_kv = max(1, min(cfg.n_kv_heads, n_heads))
+    return dataclasses.replace(
+        cfg,
+        n_layers=len(layers),
+        layers=tuple(
+            dataclasses.replace(l, window=min(l.window, 32) if l.window else None)
+            for l in layers
+        ),
+        d_model=min(d_model, cfg.d_model),
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=32,
+        d_ff=min(512, cfg.d_ff) if cfg.d_ff else 0,
+        vocab_size=vocab,
+        n_experts=min(cfg.n_experts, max_experts) if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        ssm_d_state=8,
+        n_encoder_layers=min(cfg.n_encoder_layers, 2),
+        encoder_seq=min(cfg.encoder_seq, 64),
+        n_patches=min(cfg.n_patches, 16),
+        ssm_dt_rank=8 if cfg.family in ("ssm", "hybrid") else 0,
+    )

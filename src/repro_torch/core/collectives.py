@@ -1,0 +1,87 @@
+"""The compressed row-parallel reduction (the paper's Fig. 1b, gather
+variant) over N stacked partial sums — what one card needs.
+
+``compressed_psum`` quantizes every partial to the MX wire format (payload +
+scale bytes), [gathers the N shards' bytes], and dequantizes and sums them
+in fp32 in shard order 0..N-1 in one fused pass, casting back to the
+partials' dtype. Under ``TPContext.simulate_tp`` the N partials already sit
+stacked on one device, so the gather step is the identity; a multi-GPU slice
+replaces it with ``torch.distributed.all_gather_into_tensor`` of the two
+uint8 tensors and nothing else changes. The codec runs through
+``kernels/ops.py``: the hand-written kernels on the card, their plain
+versions on the CPU.
+
+Not ported yet (see ROADMAP.md): the straight-through-estimator gradient,
+the ``two_phase`` variant, ``keep_local_fp`` and ``overlap_chunks`` (a
+policy that asks for any of them raises, see ``check_ported``),
+``compressed_all_to_all`` and ``masked_owner_psum``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.formats import MXSpec
+from repro_torch.core.mx import MXCompressed
+from repro_torch.core.policy import CompressionPolicy
+from repro_torch.kernels import ops
+
+__all__ = ["compressed_psum", "psum", "psum_maybe_compressed", "check_ported"]
+
+
+def check_ported(policy: CompressionPolicy) -> None:
+    """Raise on a policy option whose reduction is not ported yet, so that a
+    request for it is refused and never silently served by the plain gather
+    variant."""
+    unported = [name for name, asked in (
+        (f"variant={policy.variant!r}", policy.variant != "gather"),
+        ("keep_local_fp", policy.keep_local_fp),
+        (f"overlap_chunks={policy.overlap_chunks}", policy.overlap_chunks != 1),
+        (f"accum_dtype={policy.accum_dtype!r}", policy.accum_dtype != "float32"),
+    ) if asked]
+    if unported:
+        raise NotImplementedError(
+            f"compressed reduction option(s) not ported yet: {', '.join(unported)}; "
+            f"only the paper's 'gather' variant with an fp32 accumulator runs")
+
+
+def compressed_psum(partials: torch.Tensor, spec: MXSpec, *,
+                    variant: str = "gather") -> torch.Tensor:
+    """Sum N stacked partials ``(N, ..., F)`` through the MX wire format:
+    quantize -> [gather] -> fused dequantize + fp32 sum (order 0..N-1) ->
+    cast to ``partials.dtype``. Returns ``(..., F)``."""
+    if variant != "gather":
+        raise NotImplementedError(
+            f"compressed_psum variant {variant!r} is not ported yet; only the "
+            f"paper's 'gather' variant runs")
+    comp = ops.mx_quantize(partials, spec)
+    # [gather]: the N shards' wire bytes are already stacked on this device
+    gathered = MXCompressed(comp.payload, comp.scales)
+    return ops.mx_dequant_reduce(gathered, spec, out_dtype=partials.dtype)
+
+
+def psum(partials: torch.Tensor) -> torch.Tensor:
+    """Uncompressed reduction of N stacked partials: fp32 sum in shard
+    order 0..N-1, cast back."""
+    total = partials[0].float()
+    for i in range(1, partials.shape[0]):
+        total = total + partials[i].float()
+    return total.to(partials.dtype)
+
+
+def psum_maybe_compressed(partials: torch.Tensor,
+                          policy: Optional[CompressionPolicy], *,
+                          n_tokens: Optional[int] = None) -> torch.Tensor:
+    """Policy-gated reduction of N stacked partials ``(N, ..., F)``.
+
+    ``n_tokens`` defaults to the number of activation rows crossing the wire
+    (the product of the dims between the shard axis and the features) — the
+    prefill/decode discriminator of ``CompressionPolicy.active_for``."""
+    if n_tokens is None:
+        n_tokens = math.prod(partials.shape[1:-1]) if partials.dim() > 2 else 1
+    if policy is None or not policy.active_for(n_tokens):
+        return psum(partials)
+    check_ported(policy)
+    return compressed_psum(partials, policy.spec)

@@ -1,0 +1,110 @@
+"""Where the time of a serving run goes on the card: the llama2-7b mixed-step
+serve of ``chip_smoke.py`` under ``torch.profiler``, device kernel time
+summed by layer of the stack (paged attention, MX codec, GEMMs, the rest),
+against the run's wall time (the rest is the device's idle share: host-side
+dispatch and scheduling). The profiler slows the host, so the same run is
+also timed without it, and the idle share is given against both walls.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --cache-spec fp4_e2m1
+
+Writes the table to ``--out`` as JSON as well. Needs a GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import pathlib
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.policy import PAPER_DEFAULT
+from repro_torch.core.tp import TPContext
+from repro_torch.models.model import Model
+from repro_torch.serving import Engine, Request
+
+CATEGORIES = (  # (category, substrings of the device kernel's name)
+    ("paged_attention", ("paged_attention_kernel",)),
+    ("mx_codec", ("mx_quant_kernel", "mx_dequant_kernel", "mx_dequant_reduce_kernel")),
+    ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90")),
+)
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--cache-spec", default="fp4_e2m1")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="chiprun_out/profile_serve.json")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    model = Model(cfg)
+    params = model.init_params(device="cuda", seed=args.seed)
+    engine = Engine(model, params, TPContext(policy=PAPER_DEFAULT, simulate_tp=4),
+                    max_slots=4, max_len=args.prompt_len + args.new_tokens, block_size=16,
+                    prefill_chunk=256, token_budget=260, cache_spec=args.cache_spec)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32)
+               for _ in range(args.requests)]
+    engine.run([Request(prompt=prompts[0].copy(), max_new_tokens=2)])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run([Request(prompt=p.copy(), max_new_tokens=args.new_tokens) for p in prompts],
+               seed=args.seed)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        engine.run([Request(prompt=p.copy(), max_new_tokens=args.new_tokens) for p in prompts],
+                   seed=args.seed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_cat, by_kernel = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            by_cat[category(e.name)] += us / 1e3
+            by_kernel[e.name] += us / 1e3
+    busy = sum(by_cat.values())
+    steps = engine.stats.n_steps
+    name = torch.cuda.get_device_name(0)
+    print(f"{name}; {cfg.name}, {args.cache_spec} pools, {steps} steps "
+          f"({engine.gate_counts}), wall {wall_ms:.1f} ms under the profiler, "
+          f"{plain_wall_ms:.1f} ms without it")
+    for cat in ("paged_attention", "mx_codec", "gemm", "other"):
+        print(f"  {cat:16s} {by_cat[cat]:9.1f} ms  {by_cat[cat] / wall_ms:6.1%} of wall  "
+              f"{by_cat[cat] / max(steps, 1):7.2f} ms/step")
+    print(f"  device busy {busy:.1f} ms = {busy / wall_ms:.1%} of wall; idle share "
+          f"{1 - busy / wall_ms:.1%} under the profiler, {1 - busy / plain_wall_ms:.1%} "
+          f"against the wall without it")
+    top = by_kernel.most_common(8)
+    for k, ms in top:
+        print(f"    {ms:9.1f} ms  {k[:100]}")
+    out = pathlib.Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"device": name, "cache_spec": args.cache_spec, "steps": steps,
+                               "gate_counts": engine.gate_counts, "wall_ms": wall_ms,
+                               "plain_wall_ms": plain_wall_ms,
+                               "device_ms_by_category": dict(by_cat),
+                               "top_kernels_ms": dict(top)}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,208 @@
+"""The port's mixed-step serving engine against the reference's Engine.
+
+Greedy outputs must be token-identical to a single-device reference Engine
+on the traffic of ``tests/test_serving_parity.py::parity_traffic`` (cold
+prompts: lengths 5..32 straddling chunk and block boundaries, 4..7 new
+tokens) with ``max_slots=2, max_len=64, block_size=16, prefill_chunk=16,
+token_budget=18``, over {bf16, fp4_e2m1} pools (dense pools at fp32, as in
+the parity matrix) and {dense context, gated ``simulate_tp=2``
+PAPER_DEFAULT context}. Every request arrives at t=0 (the parity traffic
+staggers arrivals by 2 ms): admission, and with it each step's composition
+and compression gate, then depend on no clock, so both engines pack the
+same steps. The reference engine runs with its host arrays copied at each
+step (see ``reference_copies_host_arrays``): without that its own tokens
+vary from run to run. Gate counts equal the reference's and the free list
+is conserved after ``run()``. Also: the block allocator's invariants, the
+batch geometry, entry points that default to the card, and the options the
+engine refuses because they are not ported. TF32 is off for torch matmuls.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.policy import PAPER_DEFAULT as J_PAPER_DEFAULT
+from repro.core.tp import TPContext as JTPContext
+from repro.models.model import Model as JModel
+from repro.serving import Engine as JEngine
+from repro.serving import Request as JRequest
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.core.policy import PAPER_DEFAULT
+from repro_torch.core.tp import TPContext
+from repro_torch.launch import serve
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.model import Model
+from repro_torch.serving import (
+    BlockAllocator, Engine, InvalidRequest, PoolExhausted, Request, build_mixed_batch,
+)
+from tests.conftest import fp32_reduced
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+ENGINE_KW = dict(max_slots=2, max_len=64, block_size=16, prefill_chunk=16, token_budget=18)
+
+
+class _CopyingJnp:
+    """``jnp`` with an ``asarray`` that copies host arrays (``jnp.array``)."""
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def asarray(a, *args, **kw):
+        return jnp.array(a, *args, **kw)
+
+
+@pytest.fixture
+def reference_copies_host_arrays(monkeypatch):
+    """The reference engine hands its block tables, lengths and current
+    tokens to each step with ``jnp.asarray``, which on the CPU may alias the
+    numpy buffers, and updates them in place while the asynchronously
+    dispatched step may still read them: its greedy tokens then vary from
+    run to run in one process. Copying them makes it deterministic (ROADMAP
+    Queue 3); the port copies them itself."""
+    import repro.serving.engine as reference_engine
+
+    monkeypatch.setattr(reference_engine, "jnp", _CopyingJnp())
+
+
+@pytest.fixture(scope="module")
+def models():
+    cfg_j = fp32_reduced("internlm2-1.8b")
+    cfg_t = dataclasses.replace(reduced_config(get_config("internlm2-1.8b")), dtype="float32")
+    model_j = JModel(cfg_j)
+    params_j = model_j.init_params(jax.random.PRNGKey(0))
+    params_t = params_from_numpy(jax.tree.map(np.asarray, params_j), cfg_t, "cpu")
+    return cfg_t, model_j, params_j, Model(cfg_t), params_t
+
+
+def _prompts(vocab):
+    """parity_traffic(cfg, shared_prefix=False): prompt i is 5 + 9 i tokens."""
+    return [((np.arange(5 + 9 * i, dtype=np.int32) * 11) % vocab).astype(np.int32)
+            for i in range(4)]
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["dense-ctx", "gated-simulate_tp2"])
+@pytest.mark.parametrize("cache", ["bf16", "fp4_e2m1"])
+def test_greedy_tokens_identical_to_reference_engine(models, cache, gated,
+                                                    reference_copies_host_arrays):
+    cfg, model_j, params_j, model_t, params_t = models
+    ctx_j = (JTPContext(mesh=None, policy=J_PAPER_DEFAULT, simulate_tp=2) if gated
+             else JTPContext(mesh=None))
+    ctx_t = TPContext(policy=PAPER_DEFAULT, simulate_tp=2) if gated else TPContext()
+    prompts = _prompts(cfg.vocab_size)
+
+    eng_j = JEngine(model_j, params_j, ctx_j, cache_dtype=jnp.float32, cache_spec=cache,
+                    **ENGINE_KW)
+    reqs_j = eng_j.run([JRequest(prompt=p, max_new_tokens=4 + i, arrival_s=0.0)
+                        for i, p in enumerate(prompts)])
+    eng_t = Engine(model_t, params_t, ctx_t, cache_dtype=torch.float32, cache_spec=cache,
+                   device="cpu", **ENGINE_KW)
+    reqs_t = eng_t.run([Request(prompt=p, max_new_tokens=4 + i, arrival_s=0.0)
+                        for i, p in enumerate(prompts)])
+
+    assert [r.output.tolist() for r in reqs_t] == [r.output.tolist() for r in reqs_j]
+    assert all(r.outcome == "ok" for r in reqs_t)
+    assert eng_t.gate_counts == eng_j.gate_counts
+    assert eng_t.gate_variants() == eng_j.gate_variants()
+    if gated:
+        assert eng_t.gate_counts["compressed"] > 0 and eng_t.gate_counts["dense"] > 0
+    s_t, s_j = eng_t.stats.summary(), eng_j.stats.summary()
+    for key in ("n_steps", "prefill_tokens", "decode_tokens", "n_generated",
+                "n_compressed_steps"):
+        assert s_t[key] == s_j[key], key
+    # free list conserved: every block back, nothing referenced
+    assert eng_t.allocator.n_free == eng_t.n_blocks - 1
+    assert eng_t.allocator.n_allocated == 0
+    assert eng_t.logits_finite()
+
+
+def test_block_allocator_invariants():
+    a = BlockAllocator(6)
+    ids = a.alloc(3)
+    assert ids == [1, 2, 3] and a.n_free == 2 and a.alloc(3) is None and a.n_free == 2
+    blocks = [ids[0]]
+    assert a.alloc_to(blocks, 1) == [] and a.alloc_to(blocks, 3) == [4, 5]
+    a.share([1])
+    a.release([1])
+    assert a.refcount(1) == 1
+    with pytest.raises(ValueError, match="NULL_BLOCK"):
+        a.release([0])
+    with pytest.raises(ValueError, match="exceeds its refcount"):
+        a.release([2, 2])
+    with pytest.raises(ValueError, match="out-of-range"):
+        a.release([9])
+    a.release([1, 2, 3, 4, 5])
+    assert a.n_free == 5 and a.n_allocated == 0 and a.high_water == 5
+
+
+def test_mixed_batch_geometry():
+    b = build_mixed_batch([(1, np.array([7, 8, 9], np.int32), 4)], [(0, 3, 10)], 6, 2)
+    assert b.tokens.tolist() == [[7, 8, 9, 3, 0, 0]]
+    assert b.slot_ids.tolist() == [1, 1, 1, 0, 0, 0]
+    assert b.positions.tolist() == [4, 5, 6, 10, 0, 0]
+    assert b.valid.tolist() == [True] * 4 + [False] * 2
+    assert b.is_decode.tolist() == [False] * 3 + [True] + [False] * 2
+    assert b.sample_idx.tolist() == [3, 2] and (b.n_prefill, b.n_decode) == (3, 1)
+    with pytest.raises(ValueError, match="exceeds token_budget"):
+        build_mixed_batch([(0, np.arange(6, dtype=np.int32), 0)], [(1, 0, 0)], 6, 2)
+    with pytest.raises(ValueError, match="twice"):
+        build_mixed_batch([(0, np.arange(2, dtype=np.int32), 0)], [(0, 0, 0)], 6, 2)
+
+
+def test_pool_exhaustion_raises_without_preemption(models):
+    cfg, _, _, model_t, params_t = models
+    eng = Engine(model_t, params_t, TPContext(), n_blocks=3, device="cpu", **ENGINE_KW)
+    with pytest.raises(PoolExhausted):
+        eng.run([Request(prompt=np.arange(40, dtype=np.int32) % cfg.vocab_size,
+                         max_new_tokens=4)])
+
+
+def test_request_validation(models):
+    cfg, _, _, model_t, params_t = models
+    with pytest.raises(InvalidRequest):
+        Request(prompt=np.zeros((0,), np.int32))
+    with pytest.raises(InvalidRequest):
+        Request(prompt=np.ones(3, np.int32), max_new_tokens=0)
+    eng = Engine(model_t, params_t, TPContext(), device="cpu", **ENGINE_KW)
+    with pytest.raises(InvalidRequest, match="max_len"):
+        eng.run([Request(prompt=np.ones(60, np.int32), max_new_tokens=10)])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(token_budget=0), dict(prefill_chunk=0), dict(prefix_cache=True),
+    dict(fault_plan=object()), dict(deadline_s=1.0), dict(deadline_ttft_s=1.0),
+    dict(max_queue=4)], ids=lambda kw: next(iter(kw)))
+def test_engine_refuses_unported_options(models, kw):
+    _, _, _, model_t, params_t = models
+    base = {**ENGINE_KW, **kw}
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Engine(model_t, params_t, TPContext(), device="cpu", **base)
+
+
+def test_entry_points_default_to_the_card(models, monkeypatch):
+    """Without device="cpu" the entry points ask for CUDA and raise when
+    there is none (this test forces the no-GPU answer)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, _, _, model_t, params_t = models
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model_t.init_params()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(model_t, params_t, TPContext(), **ENGINE_KW)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced", "--requests", "1"])
+
+
+def test_serve_driver_runs_on_cpu(capsys):
+    engine, out = serve.main(["--reduced", "--device", "cpu", "--slots", "2", "--requests", "3",
+                              "--prompt-len", "20", "--new-tokens", "3",
+                              "--cache-spec", "fp4_e2m1", "--simulate-tp", "2"])
+    text = capsys.readouterr().out
+    assert "3 requests, 9 tokens" in text and "compression gate:" in text
+    assert "TTFT p50" in text and "first request tokens:" in text
+    assert all(r.outcome == "ok" and len(r.output) == 3 for r in out)
+    assert engine.gate_counts["compressed"] > 0
