@@ -14,9 +14,10 @@ Phases (any failure exits non-zero):
               256-token prefill chunk + 4 decode slots, TP 4, d_model 4096):
               codec bytes exact for all 13 element formats (zero, NaN, inf and
               subnormal blocks included), dequantize and dequantize+reduce
-              exact, paged attention within one bf16 step (mixed geometry over
-              bf16 and fp4 pools, and a decode geometry). Prints each kernel's
-              median time (CUDA events), bytes moved and bound.
+              exact, paged attention within one bf16 rounding of each element
+              (mixed geometry over bf16 and fp4 pools, and a decode geometry).
+              Prints each kernel's median time (CUDA events), bytes moved and
+              bound.
 4. reference— reduced llama2 on the card vs the same engine on the CPU (plain
               versions): greedy tokens identical (dense), one compressed
               mixed step on fp4 pools within a stated tolerance.
@@ -117,6 +118,21 @@ def phase_kernels(torch, dev="cuda"):
     def max_err(a, b):  # max |a - b| over the finite values (inf/NaN must match)
         fin = torch.isfinite(a) & torch.isfinite(b)
         return float((a.float() - b.float())[fin].abs().max()) if fin.any() else 0.0
+
+    def check_bf16(out, ref, what):
+        """Kernel and plain version both accumulate in fp32 and round to bf16
+        once, so each element may differ by one bf16 rounding of the
+        reference, 2^-7 |ref|, plus 1e-4 for fp32 summation order near zero;
+        rel-L2 stays below 2e-3. Returns (max |err|, elements not equal, rel-L2)."""
+        o, r = out.float(), ref.float()
+        d = (o - r).abs()
+        over = int((d > 2.0**-7 * r.abs() + 1e-4).sum())
+        rel = float((o - r).norm() / r.norm())
+        err = float(d.max())
+        check(math.isfinite(err) and over == 0 and rel <= 2e-3,
+              f"paged_attention ({what}): {over} elements beyond 2^-7 |ref| + 1e-4, "
+              f"max |err| {err}, rel-L2 {rel}")
+        return err, int((d > 0).sum()), rel
 
     # --- quantize: (TP*T, D) bf16 partials of row_linear, with edge blocks
     x = torch.randn(TP * T, D, generator=g, device=dev)
@@ -236,10 +252,7 @@ def phase_kernels(torch, dev="cuda"):
         args = (q, pk, pv, my_tables, hist, qpos, ke, ve, t_extra)
         out = pa.paged_attention(*args, spec=spec, **kw)
         ref = pa.paged_attention_plain(*args, spec=spec, **kw)
-        err = float((out.float() - ref.float()).abs().max())
-        tol = 1e-2 * max(1.0, float(ref.float().abs().max()))
-        check(math.isfinite(err) and err <= tol,
-              f"paged_attention ({name} pools, mixed) max |err| {err} > {tol}")
+        err, n_diff, rel = check_bf16(out, ref, f"{name} pools, mixed")
         ms = median_ms(torch, lambda: pa.paged_attention(*args, spec=spec, **kw))
         plain = median_ms(torch, lambda: pa.paged_attention_plain(*args, spec=spec, **kw),
                           iters=3, warmup=1)
@@ -265,12 +278,13 @@ def phase_kernels(torch, dev="cuda"):
             [2 * CHUNK, 521, 531, 541], device=dev, dtype=torch.int32)).sum())
         nbytes = (2 * pool_pos * per_pos + 2 * q.numel() * 2 + 2 * ke.numel() * 2
                   + t_extra.numel() * 4 + my_tables.numel() * 4)
-        b_ms, b_by = bound(nbytes, 4 * n_pairs * hd * H, FP32_OPS_PER_S)
+        b_ms, b_by = bound(nbytes, 4 * n_pairs * hd * H, BF16_OPS_PER_S)
         pa_info[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib, bytes=nbytes,
+                             bound_by=b_by, library_ms=lib, bytes=nbytes, rel_l2=rel,
+                             elements_differing=n_diff,
                              shape=f"mixed R={T} Sq=1 H={H} hd={hd} E={T}, {name} pools")
-        log(f"kernel paged_attention ({name} pools, mixed R={T}): max|err| {err:.3g} <= "
-            f"{tol:.3g}; {ms:.4f} ms (plain {plain:.4f} ms, SDPA on gathered K/V "
+        log(f"kernel paged_attention ({name} pools, mixed R={T}): max|err| {err:.3g}, "
+            f"rel-L2 {rel:.3g}, {n_diff} of {out.numel()} elements differ; {ms:.4f} ms (plain {plain:.4f} ms, SDPA on gathered K/V "
             f"{lib:.4f} ms), {nbytes / 1e6:.2f} MB, bound {b_ms:.4f} ms ({b_by})")
     # decode geometry: one row per slot, its token already in the pool
     lengths = torch.tensor([300, 520, 530, 540], device=dev, dtype=torch.int32)
@@ -279,11 +293,9 @@ def phase_kernels(torch, dev="cuda"):
         args = (qd, pk, pv, tables, (lengths + 1).contiguous(), lengths[:, None].contiguous())
         out = pa.paged_attention(*args, spec=spec, **kw)
         ref = pa.paged_attention_plain(*args, spec=spec, **kw)
-        err = float((out.float() - ref.float()).abs().max())
-        tol = 1e-2 * max(1.0, float(ref.float().abs().max()))
-        check(math.isfinite(err) and err <= tol,
-              f"paged_attention ({name} pools, decode) max |err| {err} > {tol}")
-        log(f"kernel paged_attention ({name} pools, decode R={SLOTS}): max|err| {err:.3g}")
+        err, n_diff, rel = check_bf16(out, ref, f"{name} pools, decode")
+        log(f"kernel paged_attention ({name} pools, decode R={SLOTS}): max|err| {err:.3g}, "
+            f"rel-L2 {rel:.3g}, {n_diff} of {out.numel()} elements differ")
     info["paged_attention"] = pa_info["fp4"]
     info["paged_attention"]["bf16_pools"] = pa_info["bf16"]
     return info
@@ -452,7 +464,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.kernels.build import build_seconds, load_kernels
+        from repro_torch.kernels.build import build_seconds, builder, load_kernels
     except ImportError as e:
         print(f"chip_smoke: the port (src/repro_torch) is missing: {e}", file=sys.stderr)
         return 1
@@ -470,7 +482,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} capability {major}.{minor}")
 
     load_kernels()
-    log(f"build: {build_seconds():.1f} s for {len(KERNELS)} kernels")
+    log(f"build: {build_seconds():.1f} s for {len(KERNELS)} kernels ({builder()} path)")
     info = phase_kernels(torch)
     phase_reference(torch)
     runs, totals = phase_serve(torch)
@@ -483,7 +495,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_s": build_seconds(), "kernels": info, "serve": runs,
+        {"card": card, "build_s": build_seconds(), "builder": builder(), "kernels": info, "serve": runs,
          "launches": totals}, indent=1, default=str))
     log("kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g} "

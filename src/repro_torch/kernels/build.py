@@ -10,8 +10,8 @@ flush-to-zero would break the codec's byte-exactness):
 * with ``ninja`` present, in ONE ``torch.utils.cpp_extension.load`` call
   (ninja compiles the sources in parallel, and ``load`` links the result as
   a plain shared library);
-* otherwise with one ``nvcc`` per source, all started together, and an
-  ``nvcc -shared`` link.
+* otherwise, or when ``REPRO_TORCH_BUILDER=nvcc`` asks for it, with one
+  ``nvcc`` per source, all started together, and an ``nvcc -shared`` link.
 
 Either way the library is opened with ``ctypes`` and the wrappers call the
 same launchers. Nothing here runs at import time: the CPU tests import every
@@ -30,7 +30,8 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["load_kernels", "launch_counts", "reset_launch_counts", "count_launch",
-           "check_launch", "stream_ptr", "KERNEL_NAMES", "BUILD_DIR", "build_seconds"]
+           "check_launch", "stream_ptr", "KERNEL_NAMES", "BUILD_DIR", "build_seconds",
+           "builder"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(os.environ.get(
@@ -52,6 +53,7 @@ _SIGNATURES = {
 
 _lib: Optional[ctypes.CDLL] = None
 _build_s: Optional[float] = None
+_builder: Optional[str] = None
 
 
 def launch_counts() -> Dict[str, int]:
@@ -82,6 +84,11 @@ def stream_ptr() -> int:
 def build_seconds() -> Optional[float]:
     """Wall seconds the first ``load_kernels()`` call spent building."""
     return _build_s
+
+
+def builder() -> Optional[str]:
+    """Which path built the library: ``"load"`` or ``"nvcc"``."""
+    return _builder
 
 
 def _nvcc() -> str:
@@ -122,7 +129,7 @@ def _build_with_nvcc() -> pathlib.Path:
 
 def load_kernels() -> ctypes.CDLL:
     """Build (first call only) and open the kernel library."""
-    global _lib, _build_s
+    global _lib, _build_s, _builder
     if _lib is not None:
         return _lib
     if not torch.cuda.is_available():
@@ -132,12 +139,14 @@ def load_kernels() -> ctypes.CDLL:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     (BUILD_DIR / "lock").unlink(missing_ok=True)  # left by a build that was cut off
-    path = _build_with_load() if is_ninja_available() else _build_with_nvcc()
+    use_load = is_ninja_available() and os.environ.get("REPRO_TORCH_BUILDER") != "nvcc"
+    path = _build_with_load() if use_load else _build_with_nvcc()
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in _SIGNATURES.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
     _build_s = time.perf_counter() - t0
+    _builder = "load" if use_load else "nvcc"
     _lib = lib
     return lib
