@@ -15,9 +15,12 @@ Phases (any failure exits non-zero):
               codec bytes exact for all 13 element formats (zero, NaN, inf and
               subnormal blocks included), dequantize and dequantize+reduce
               exact, paged attention within one bf16 rounding of each element
-              (mixed geometry over bf16 and fp4 pools, and a decode geometry).
-              Prints each kernel's median time (CUDA events), bytes moved and
-              bound.
+              over bf16 and fp4 pools in the geometries the served steps run
+              (mixed, decode-only with 256 budget pads, the same pads of an
+              empty slot, and the split scheduler's decode), plus a sweep of
+              small shapes through every path of the paged kernel. Prints
+              each kernel's device time (CUDA events around back-to-back
+              launches), bytes moved and bound.
 4. reference— reduced llama2 on the card vs the same engine on the CPU (plain
               versions): greedy tokens identical (dense), one compressed
               mixed step on fp4 pools within a stated tolerance.
@@ -76,21 +79,40 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times (ms)."""
-    for _ in range(warmup):
-        fn()
+def device_ms(torch, fn, n: int = 50, reps: int = 3) -> float:
+    """Device time per launch (ms): one event pair around ``n`` back-to-back
+    calls, queued behind a ``torch.cuda._sleep`` long enough for the host to
+    enqueue all of them, so the card runs them without a gap; the median of
+    ``reps`` such runs, divided by ``n``. A run whose enqueue outlasted its
+    sleep is repeated with a sleep twice as long (at most 4 times); a
+    function that waits for the card inside fails here."""
+    fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    sleep_s = max(10 * (time.perf_counter() - t0), 0.025)   # 10x the enqueue, >= 25 ms
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        for _ in range(4):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            slept = min(sleep_s, 2.0)
+            torch.cuda._sleep(int(slept * 2e9))   # <= 2 GHz: sleeps >= slept
+            a.record()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            enq = time.perf_counter() - t0
+            b.record()
+            b.synchronize()
+            if enq < slept:
+                break
+            sleep_s *= 2
+        check(enq < slept, f"device_ms: the host enqueue ({enq:.4f} s) outlasted the sleep")
+        runs.append(a.elapsed_time(b) / n)
+    runs.sort()
+    return runs[len(runs) // 2]
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float):
@@ -119,21 +141,6 @@ def phase_kernels(torch, dev="cuda"):
         fin = torch.isfinite(a) & torch.isfinite(b)
         return float((a.float() - b.float())[fin].abs().max()) if fin.any() else 0.0
 
-    def check_bf16(out, ref, what):
-        """Kernel and plain version both accumulate in fp32 and round to bf16
-        once, so each element may differ by one bf16 rounding of the
-        reference, 2^-7 |ref|, plus 1e-4 for fp32 summation order near zero;
-        rel-L2 stays below 2e-3. Returns (max |err|, elements not equal, rel-L2)."""
-        o, r = out.float(), ref.float()
-        d = (o - r).abs()
-        over = int((d > 2.0**-7 * r.abs() + 1e-4).sum())
-        rel = float((o - r).norm() / r.norm())
-        err = float(d.max())
-        check(math.isfinite(err) and over == 0 and rel <= 2e-3,
-              f"paged_attention ({what}): {over} elements beyond 2^-7 |ref| + 1e-4, "
-              f"max |err| {err}, rel-L2 {rel}")
-        return err, int((d > 0).sum()), rel
-
     # --- quantize: (TP*T, D) bf16 partials of row_linear, with edge blocks
     x = torch.randn(TP * T, D, generator=g, device=dev)
     x = x * torch.pow(10.0, torch.rand(TP * T, 1, generator=g, device=dev) * 6 - 3)
@@ -156,16 +163,17 @@ def phase_kernels(torch, dev="cuda"):
             q_err = max(q_err, max_err(k.payload, p.payload), max_err(k.scales, p.scales))
     check(not bad, f"mx_quant bytes differ from the plain version: {bad}")
     comp = mx_quant.mx_quantize_2d(x, fp4)
-    ms = median_ms(torch, lambda: mx_quant.mx_quantize_2d(x, fp4))
-    plain = median_ms(torch, lambda: mx_quant.quantize_plain(x, fp4), iters=5)
+    run = lambda: mx_quant.mx_quantize_2d(x, fp4)
+    ms = device_ms(torch, run)
+    plain = device_ms(torch, lambda: mx_quant.quantize_plain(x, fp4), n=5)
     nbytes = x.numel() * 2 + comp.payload.numel() + comp.scales.numel()
     b_ms, b_by = bound(nbytes, x.numel() * 20, FP32_OPS_PER_S)
     info["mx_quant"] = dict(max_abs_err=q_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                             bound_by=b_by, library_ms=None, bytes=nbytes,
                             shape=f"({TP * T}, {D}) bf16 -> fp4_e2m1_b32")
     log(f"kernel mx_quant: bytes exact on {len(specs)} specs x (bf16, fp32) incl. zero/"
-        f"subnormal/NaN/inf blocks; ({TP * T},{D}) bf16 {ms:.4f} ms (plain {plain:.4f} "
-        f"ms), {nbytes / 1e6:.2f} MB, bound {b_ms:.4f} ms")
+        f"subnormal/NaN/inf blocks; ({TP * T},{D}) bf16 {ms:.4f} ms on the device (plain "
+        f"{plain:.4f} ms), {nbytes / 1e6:.2f} MB, bound {b_ms:.4f} ms")
 
     # --- dequantize: the step's K/V round trip, (T, D) -> bf16
     bad, d_err = [], 0.0
@@ -179,18 +187,17 @@ def phase_kernels(torch, dev="cuda"):
             d_err = max(d_err, max_err(k, p))
     check(not bad, f"mx_dequant differs from the plain version: {bad}")
     c = mx_quant.mx_quantize_2d(x[:T], fp4)
-    ms = median_ms(torch, lambda: mx_dequant.mx_dequantize_2d(c.payload, c.scales, fp4,
-                                                              torch.bfloat16))
-    plain = median_ms(torch, lambda: mx_dequant.dequantize_plain(c, fp4, torch.bfloat16),
-                      iters=5)
+    run = lambda: mx_dequant.mx_dequantize_2d(c.payload, c.scales, fp4, torch.bfloat16)
+    ms = device_ms(torch, run)
+    plain = device_ms(torch, lambda: mx_dequant.dequantize_plain(c, fp4, torch.bfloat16), n=5)
     nbytes = c.payload.numel() + c.scales.numel() + T * D * 2
     b_ms, b_by = bound(nbytes, T * D * 2, FP32_OPS_PER_S)
     info["mx_dequant"] = dict(max_abs_err=d_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                               bound_by=b_by, library_ms=None, bytes=nbytes,
                               shape=f"({T}, {D}) fp4_e2m1_b32 -> bf16")
     log(f"kernel mx_dequant: exact on {len(specs)} specs x (bf16, fp32); ({T},{D}) -> "
-        f"bf16 {ms:.4f} ms (plain {plain:.4f} ms), {nbytes / 1e6:.2f} MB, bound "
-        f"{b_ms:.4f} ms")
+        f"bf16 {ms:.4f} ms on the device (plain {plain:.4f} ms), "
+        f"{nbytes / 1e6:.2f} MB, bound {b_ms:.4f} ms")
 
     # --- dequantize + reduce: the compressed row-parallel epilogue, S = TP
     w = MXCompressed(comp.payload.reshape(TP, T, -1), comp.scales.reshape(TP, T, -1))
@@ -200,105 +207,268 @@ def phase_kernels(torch, dev="cuda"):
         p = mx_dequant.dequant_reduce_plain(w, fp4, dt)
         check(same(k, p), f"mx_dequant_reduce differs from the plain version ({dt})")
         r_err = max(r_err, max_err(k, p))
-    ms = median_ms(torch, lambda: mx_dequant.dequant_reduce(w.payload, w.scales, fp4,
-                                                            torch.bfloat16))
-    plain = median_ms(torch, lambda: mx_dequant.dequant_reduce_plain(w, fp4, torch.bfloat16),
-                      iters=5)
+    run = lambda: mx_dequant.dequant_reduce(w.payload, w.scales, fp4, torch.bfloat16)
+    ms = device_ms(torch, run)
+    plain = device_ms(torch, lambda: mx_dequant.dequant_reduce_plain(w, fp4, torch.bfloat16),
+                      n=5)
     nbytes = w.payload.numel() + w.scales.numel() + T * D * 2
     b_ms, b_by = bound(nbytes, TP * T * D * 2, FP32_OPS_PER_S)
-    info["mx_dequant_reduce"] = dict(max_abs_err=r_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+    info["mx_dequant_reduce"] = dict(max_abs_err=r_err, ms=ms, plain_ms=plain,
+                                     bound_ms=b_ms,
                                      bound_by=b_by, library_ms=None, bytes=nbytes,
                                      shape=f"S={TP} x ({T}, {D}) fp4_e2m1_b32 -> bf16")
     log(f"kernel mx_dequant_reduce: exact (bf16, fp32); S={TP} ({T},{D}) -> bf16 "
-        f"{ms:.4f} ms (plain {plain:.4f} ms), {nbytes / 1e6:.2f} MB, bound {b_ms:.4f} ms")
+        f"{ms:.4f} ms on the device (plain {plain:.4f} ms), "
+        f"{nbytes / 1e6:.2f} MB, bound {b_ms:.4f} ms")
 
-    # --- paged attention: the mixed geometry over bf16 and fp4 pools + decode
+    info["paged_attention"] = phase_paged(torch, dev)
+    return info
+
+
+# ------------------------------------------------------------- paged attention
+
+
+def check_paged(torch, out, ref, what):
+    """Hold the paged kernel's output against its plain version. bf16: both
+    accumulate in fp32 and round to bf16 once, so each element may differ by
+    one bf16 rounding of the reference, 2^-7 |ref|, plus 1e-4 for fp32
+    summation order near zero; rel-L2 stays below 2e-3. fp32: summation
+    order only, 1e-4 |ref| + 1e-5. Returns (max |err|, elements not equal,
+    rel-L2)."""
+    o, r = out.float(), ref.float()
+    d = (o - r).abs()
+    rtol, atol = (2.0**-7, 1e-4) if out.dtype == torch.bfloat16 else (1e-4, 1e-5)
+    over = int((d > rtol * r.abs() + atol).sum())
+    rel = float((o - r).norm() / r.norm())
+    err = float(d.max())
+    check(math.isfinite(err) and over == 0 and rel <= 2e-3,
+          f"paged_attention ({what}): {over} elements beyond {rtol:.3g} |ref| + {atol:.3g}, "
+          f"max |err| {err}, rel-L2 {rel}")
+    return err, int((d > 0).sum()), rel
+
+
+def slot_rows(torch, dev, slot_tables, starts, segs=(), decodes=(), pads=()):
+    """The paged read's row arguments for a mixed step laid out as
+    ``build_mixed_batch`` does: prefill segments ``(slot, start, n)``, then
+    decode rows ``(slot, position)``, then budget pads ``(slot, count)`` (a
+    pad sits at position 0; a slot >= len(starts) is empty: null table, no
+    history). Returns (tables, hist, q_pos, t_extra)."""
+    from repro_torch.kernels.paged_attention import T_INVALID
+
+    sid, pos, valid = [], [], []
+    for slot, start, n in segs:
+        sid += [slot] * n
+        pos += list(range(start, start + n))
+        valid += [True] * n
+    for slot, p in decodes:
+        sid, pos, valid = sid + [slot], pos + [p], valid + [True]
+    for slot, n in pads:
+        sid, pos, valid = sid + [slot] * n, pos + [0] * n, valid + [False] * n
+    n_slots = len(starts)
+    sid = torch.tensor(sid, device=dev)
+    pos = torch.tensor(pos, device=dev, dtype=torch.int32)
+    valid = torch.tensor(valid, device=dev)
+    live = sid < n_slots
+    own = sid.clamp(max=n_slots - 1)
+    tables = torch.where(live[:, None], slot_tables[own], 0).to(torch.int32).contiguous()
+    hist = torch.where(live, starts[own], 0).to(torch.int32).contiguous()
+    same = (sid[None, :] == sid[:, None]) & valid[None, :]
+    t_extra = torch.where(same, pos[None, :], T_INVALID).to(torch.int32).contiguous()
+    return tables, hist, pos[:, None].contiguous(), t_extra
+
+
+def paged_bound(torch, q, spec, kv_dim, tables, hist, qpos, t_extra, H, hd):
+    """(bound ms, bound by, bytes) of one paged read on these inputs: each
+    pool position some row may see, once (rows that share a table share
+    it), the extras some row may see, q, out, t_extra and the tables; the
+    operations are 4*hd per valid (query head, key) pair at the bf16 rate."""
+    per_pos = (kv_dim * 2 if spec is None
+               else kv_dim * spec.elem.bits // 8 + kv_dim // spec.block_size)
+    need = torch.minimum(hist, qpos.max(1).values + 1).clamp(min=0)
+    seen = {}
+    for tb, n in zip(tables.tolist(), need.tolist()):
+        seen[tuple(tb)] = max(seen.get(tuple(tb), 0), n)
+    n_pairs = float(torch.minimum(hist[:, None], qpos + 1).clamp(min=0).sum())
+    nbytes = (2 * sum(seen.values()) * per_pos + 2 * q.numel() * q.element_size()
+              + (tables.numel() + hist.numel() + qpos.numel()) * 4)
+    if t_extra is not None:
+        vis = t_extra[:, None, :] <= qpos[:, :, None]
+        n_pairs += float(vis.sum())
+        nbytes += (2 * int(vis.any(1).any(0).sum()) * kv_dim * q.element_size()
+                   + t_extra.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4 * n_pairs * hd * H, BF16_OPS_PER_S)
+    return b_ms, b_by, nbytes
+
+
+def phase_paged(torch, dev="cuda"):
+    """Paged attention at llama2-7b width (H = KV = 32, hd = 128) in the
+    geometries the served steps run, over bf16 and fp4 pools, plus a sweep
+    of small shapes through every path of the kernel."""
+    from repro_torch.core.formats import MXSpec
+    from repro_torch.core.mx import MXCompressed
+    from repro_torch.kernels import mx_quant
+    from repro_torch.kernels import paged_attention as pa
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    fp4 = MXSpec.make("fp4_e2m1", 32, "e8m0")
     H = KV = 32
     hd = D // H
     max_blocks = MAX_LEN // BS
     n_blocks = SLOTS * max_blocks + 1
-    tables = torch.arange(1, n_blocks, device=dev, dtype=torch.int32).reshape(SLOTS, -1)
-    starts = torch.tensor([CHUNK, 520, 530, 540], device=dev, dtype=torch.int32)
-    slot_ids = torch.zeros(T, dtype=torch.long, device=dev)
-    slot_ids[CHUNK:CHUNK + 3] = torch.arange(1, 4, device=dev)
-    positions = torch.zeros(T, dtype=torch.int32, device=dev)
-    positions[:CHUNK] = torch.arange(CHUNK, 2 * CHUNK, device=dev, dtype=torch.int32)
-    positions[CHUNK:CHUNK + 3] = starts[1:]
-    valid = torch.ones(T, dtype=torch.bool, device=dev)
-    valid[-1] = False            # one budget pad, owned by an empty slot 4: it has
-    slot_ids[-1] = SLOTS         # no valid key, so it averages every key it addresses
-    same_slot = (slot_ids[None, :] == slot_ids[:, None]) & valid[None, :]
-    t_extra = torch.where(same_slot, positions[None, :], pa.T_INVALID).to(torch.int32)
-    q = torch.randn(T, 1, D, generator=g, device=dev).to(torch.bfloat16)
-    ke = torch.randn(T, D, generator=g, device=dev).to(torch.bfloat16)
-    ve = torch.randn(T, D, generator=g, device=dev).to(torch.bfloat16)
-    dense_k = torch.randn(n_blocks, BS, D, generator=g, device=dev).to(torch.bfloat16)
-    dense_v = torch.randn(n_blocks, BS, D, generator=g, device=dev).to(torch.bfloat16)
+    slot_tables = torch.arange(1, n_blocks, device=dev, dtype=torch.int32).reshape(SLOTS, -1)
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    dense_k, dense_v = randn(n_blocks, BS, D), randn(n_blocks, BS, D)
     wire = lambda p: MXCompressed(*(a.reshape(n_blocks, BS, -1) for a in
                                     mx_quant.mx_quantize_2d(p.reshape(-1, D), fp4)))
-    pools = {"bf16": (dense_k, dense_v, None), "fp4": (wire(dense_k), wire(dense_v), fp4)}
-    my_tables = tables[slot_ids.clamp(max=SLOTS - 1)].contiguous()
-    my_tables[-1] = 0                                        # the empty slot's table
-    hist = starts[slot_ids.clamp(max=SLOTS - 1)].contiguous()
-    hist[-1] = 0
-    qpos = positions[:, None].contiguous()
+    pools = {"fp4": (wire(dense_k), wire(dense_v), fp4), "bf16": (dense_k, dense_v, None)}
+    q, ke, ve = randn(T, 1, D), randn(T, D), randn(T, D)
     kw = dict(kv_heads=KV, scale=hd**-0.5)
-    # keys each row may attend (valid pool positions + valid extras)
-    n_keys = (torch.minimum(hist, positions + 1).clamp(min=0)
-              + (t_extra <= positions[:, None]).sum(dim=1))
-    n_pairs = float(n_keys.sum())
-    pa_info = {}
-    for name, (pk, pv, spec) in pools.items():
-        args = (q, pk, pv, my_tables, hist, qpos, ke, ve, t_extra)
-        out = pa.paged_attention(*args, spec=spec, **kw)
-        ref = pa.paged_attention_plain(*args, spec=spec, **kw)
-        err, n_diff, rel = check_bf16(out, ref, f"{name} pools, mixed")
-        ms = median_ms(torch, lambda: pa.paged_attention(*args, spec=spec, **kw))
-        plain = median_ms(torch, lambda: pa.paged_attention_plain(*args, spec=spec, **kw),
-                          iters=3, warmup=1)
-        # library yardstick: one SDPA call over the gathered K/V (never used by the port)
-        kg = pa._gather_pool(pk, my_tables, spec).to(torch.bfloat16)
-        vg = pa._gather_pool(pv, my_tables, spec).to(torch.bfloat16)
-        kk = torch.cat([kg, ke[None].expand(T, -1, -1)], 1).reshape(T, -1, H, hd).transpose(1, 2)
-        vv = torch.cat([vg, ve[None].expand(T, -1, -1)], 1).reshape(T, -1, H, hd).transpose(1, 2)
-        cap = kg.shape[1]
-        tpos = torch.cat([torch.where(torch.arange(cap, device=dev)[None] < hist[:, None],
-                                      torch.arange(cap, device=dev)[None], pa.T_INVALID),
-                          t_extra], 1)
-        mask = (tpos <= positions[:, None])
-        mask[-1] = True                      # SDPA would give NaN on the no-key pad
-        mask = mask[:, None, None, :]
-        qq = q.reshape(T, 1, H, hd).transpose(1, 2)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = median_ms(torch, lambda: sdpa(qq, kk, vv, attn_mask=mask, scale=hd**-0.5),
-                        iters=10)
-        del kg, vg, kk, vv
-        per_pos = (D * 2) if spec is None else (D * fp4.elem.bits // 8 + D // fp4.block_size)
-        pool_pos = float(torch.minimum(starts, torch.tensor(
-            [2 * CHUNK, 521, 531, 541], device=dev, dtype=torch.int32)).sum())
-        nbytes = (2 * pool_pos * per_pos + 2 * q.numel() * 2 + 2 * ke.numel() * 2
-                  + t_extra.numel() * 4 + my_tables.numel() * 4)
-        b_ms, b_by = bound(nbytes, 4 * n_pairs * hd * H, BF16_OPS_PER_S)
-        pa_info[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib, bytes=nbytes, rel_l2=rel,
-                             elements_differing=n_diff,
-                             shape=f"mixed R={T} Sq=1 H={H} hd={hd} E={T}, {name} pools")
-        log(f"kernel paged_attention ({name} pools, mixed R={T}): max|err| {err:.3g}, "
-            f"rel-L2 {rel:.3g}, {n_diff} of {out.numel()} elements differ; {ms:.4f} ms (plain {plain:.4f} ms, SDPA on gathered K/V "
-            f"{lib:.4f} ms), {nbytes / 1e6:.2f} MB, bound {b_ms:.4f} ms ({b_by})")
-    # decode geometry: one row per slot, its token already in the pool
+    decoding = [(0, 520), (1, 527), (2, 533), (3, 540)]
+    mixed_starts = torch.tensor([CHUNK, 520, 530, 540], device=dev, dtype=torch.int32)
+    dec_starts = torch.tensor([p for _, p in decoding], device=dev, dtype=torch.int32)
     lengths = torch.tensor([300, 520, 530, 540], device=dev, dtype=torch.int32)
-    qd = torch.randn(SLOTS, 1, D, generator=g, device=dev).to(torch.bfloat16)
-    for name, (pk, pv, spec) in pools.items():
-        args = (qd, pk, pv, tables, (lengths + 1).contiguous(), lengths[:, None].contiguous())
-        out = pa.paged_attention(*args, spec=spec, **kw)
-        ref = pa.paged_attention_plain(*args, spec=spec, **kw)
-        err, n_diff, rel = check_bf16(out, ref, f"{name} pools, decode")
-        log(f"kernel paged_attention ({name} pools, decode R={SLOTS}): max|err| {err:.3g}, "
-            f"rel-L2 {rel:.3g}, {n_diff} of {out.numel()} elements differ")
-    info["paged_attention"] = pa_info["fp4"]
-    info["paged_attention"]["bf16_pools"] = pa_info["bf16"]
-    return info
+    geometries = {
+        # 16 of the 72 served steps: a 256-token chunk + 3 decode rows, and a
+        # pad of an empty slot (no valid key: the mean of every key it addresses)
+        "mixed": (q, slot_rows(torch, dev, slot_tables, mixed_starts, [(0, CHUNK, CHUNK)],
+                               [(1, 520), (2, 530), (3, 540)], [(SLOTS, 1)]), True),
+        # 56 of 72: 4 decode rows, then 256 budget pads owned by slot 0
+        "decode_only": (q, slot_rows(torch, dev, slot_tables, dec_starts, (), decoding,
+                                     [(0, T - SLOTS)]), True),
+        # the same with the pads owned by an empty slot: a 256-row run over
+        # five 64-row tiles with no valid key, held on the mean path
+        "empty_pads": (q, slot_rows(torch, dev, slot_tables, dec_starts, (), decoding,
+                                    [(SLOTS, T - SLOTS)]), False),
+        # the split scheduler's decode: one row per slot, its token in the pool
+        "decode": (q[:SLOTS].contiguous(), (slot_tables, (lengths + 1).contiguous(),
+                                            lengths[:, None].contiguous(), None), True),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {}
+    for geo, (qq, (tables, hist, qpos, t_extra), timed) in geometries.items():
+        R = qq.shape[0]
+        extras = (ke, ve, t_extra) if t_extra is not None else ()
+        for name, (pk, pv, spec) in pools.items():
+            args = (qq, pk, pv, tables, hist, qpos, *extras)
+            run = lambda: pa.paged_attention(*args, spec=spec, **kw)
+            out = run()
+            ref = pa.paged_attention_plain(*args, spec=spec, **kw)
+            err, n_diff, rel = check_paged(torch, out, ref, f"{name} pools, {geo}")
+            r = dict(geometry=geo, pools=name, max_abs_err=err, rel_l2=rel,
+                     elements_differing=n_diff, shape=f"{geo} R={R} Sq=1 H={H} hd={hd} "
+                     f"E={t_extra.shape[1] if t_extra is not None else 0}, {name} pools")
+            msg = (f"kernel paged_attention ({name} pools, {geo} R={R}): max|err| {err:.3g}, "
+                   f"rel-L2 {rel:.3g}, {n_diff} of {out.numel()} elements differ")
+            if timed:
+                r["ms"] = device_ms(torch, run)
+                r["plain_ms"] = device_ms(torch, lambda: pa.paged_attention_plain(
+                    *args, spec=spec, **kw), n=3)
+                # library yardstick: one SDPA call over the K/V gathered to
+                # dense bf16 (the gather is not timed; the port never calls it)
+                kg = pa._gather_pool(pk, tables, spec).to(torch.bfloat16)
+                vg = pa._gather_pool(pv, tables, spec).to(torch.bfloat16)
+                cap = kg.shape[1]
+                t = torch.arange(cap, device=dev)[None]
+                tpos = torch.where(t < hist[:, None], t, pa.T_INVALID)
+                if t_extra is not None:
+                    kg = torch.cat([kg, ke[None].expand(R, -1, -1)], 1)
+                    vg = torch.cat([vg, ve[None].expand(R, -1, -1)], 1)
+                    tpos = torch.cat([tpos, t_extra], 1)
+                mask = tpos <= qpos
+                mask[~mask.any(1)] = True            # SDPA gives NaN on a row with no key
+                kk = kg.reshape(R, -1, H, hd).transpose(1, 2)
+                vv = vg.reshape(R, -1, H, hd).transpose(1, 2)
+                qh = qq.reshape(R, 1, H, hd).transpose(1, 2)
+                m4 = mask[:, None, None, :]
+                r["library_ms"] = device_ms(torch, lambda: sdpa(qh, kk, vv, attn_mask=m4,
+                                                                scale=hd**-0.5), n=10)
+                del kg, vg, kk, vv
+                r["bound_ms"], r["bound_by"], r["bytes"] = paged_bound(
+                    torch, qq, spec, D, tables, hist, qpos, t_extra, H, hd)
+                msg += (f"; {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms, "
+                        f"SDPA on gathered K/V "
+                        f"{r['library_ms']:.4f} ms), {r['bytes'] / 1e6:.2f} MB, bound "
+                        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            res[f"{geo}/{name}"] = r
+            log(msg)
+    n_sweep = paged_sweep(torch, dev)
+    log(f"kernel paged_attention: {n_sweep} small-shape cases through every path match "
+        f"the plain version (fp32 / bf16 q; fp32, bf16, fp4, fp6, int8 pools; hd 32-128; "
+        f"G 1-2; window; chunk, decode and multi-run mixed geometries)")
+    main = dict(res["mixed/fp4"])
+    main["geometries"] = [res[k] for k in res if k != "mixed/fp4"]
+    main["sweep_cases"] = n_sweep
+    return main
+
+
+def paged_sweep(torch, dev):
+    """Small shapes through every path of the paged kernel, each against its
+    plain version: fp32 q (CUDA-core block and vector paths) and bf16 q
+    (tensor-core block path, vector path; CUDA cores over fp32 pools), dense
+    and MX pools (fp4 and fp6 at block 32, int8 at block 16), hd 32..128,
+    G = 1 and 2, with and without a window, in a mixed geometry whose runs
+    cross 64-row tiles (two prefill segments, decode rows, pads of an empty
+    slot and of a live one), a chunk geometry (Sq = 40) and a decode
+    geometry. Returns the number of cases."""
+    from repro_torch.core.formats import MXSpec
+    from repro_torch.core.mx import MXCompressed
+    from repro_torch.kernels import mx_quant
+    from repro_torch.kernels import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    bs, nb, n_slots, KV = 16, 8, 4, 2
+    n_blocks = n_slots * nb + 1
+    slot_tables = torch.arange(1, n_blocks, device=dev, dtype=torch.int32).reshape(n_slots, nb)
+    starts = torch.tensor([37, 50, 60, 45], device=dev, dtype=torch.int32)
+    mixed = slot_rows(torch, dev, slot_tables, starts, [(0, 37, 70), (1, 50, 20)],
+                      [(2, 60), (3, 45)], [(n_slots, 40), (0, 12)])
+    cpos = torch.arange(37, 77, device=dev, dtype=torch.int32)[None]
+    chunk = (slot_tables[:1].contiguous(), starts[:1].contiguous(), cpos.contiguous(),
+             cpos.contiguous())
+    lengths = torch.tensor([37, 52, 90], device=dev, dtype=torch.int32)
+    decode = (slot_tables[:3].contiguous(), (lengths + 1).contiguous(),
+              lengths[:, None].contiguous(), None)
+    pool_fmts = {"f32": None, "bf16": None, "fp4": MXSpec.make("fp4_e2m1", 32, "e8m0"),
+                 "fp6": MXSpec.make("fp6_e3m2", 32, "e8m0"), "int8": MXSpec.make("int8", 16, "e8m0")}
+    combos = [(torch.float32, "f32"), (torch.float32, "bf16"), (torch.float32, "fp4"),
+              (torch.bfloat16, "bf16"), (torch.bfloat16, "f32"), (torch.bfloat16, "fp4"),
+              (torch.bfloat16, "fp6"), (torch.bfloat16, "int8")]
+    n = 0
+    for hd in (32, 64, 96, 128):
+        kv_dim = KV * hd
+        raw_k = torch.randn(n_blocks, bs, kv_dim, generator=g, device=dev)
+        raw_v = torch.randn(n_blocks, bs, kv_dim, generator=g, device=dev)
+        for dt, fmt in combos:
+            spec = pool_fmts[fmt]
+            if spec is not None:
+                pk, pv = (MXCompressed(*(a.reshape(n_blocks, bs, -1) for a in
+                                         mx_quant.mx_quantize_2d(p.reshape(-1, kv_dim), spec)))
+                          for p in (raw_k, raw_v))
+            else:
+                cast = torch.float32 if fmt == "f32" else torch.bfloat16
+                pk, pv = raw_k.to(cast), raw_v.to(cast)
+            for G in (1, 2):
+                for geo, (tables, hist, qpos, t_extra), windows in (
+                        ("mixed", mixed, (None, 24)), ("chunk", chunk, (None,)),
+                        ("decode", decode, (None,))):
+                    R, Sq = qpos.shape
+                    q = torch.randn(R, Sq, KV * G * hd, generator=g, device=dev).to(dt)
+                    extras = ()
+                    if t_extra is not None:
+                        E = t_extra.shape[1]
+                        extras = (torch.randn(E, kv_dim, generator=g, device=dev).to(dt),
+                                  torch.randn(E, kv_dim, generator=g, device=dev).to(dt),
+                                  t_extra)
+                    for window in windows:
+                        args = (q, pk, pv, tables, hist, qpos, *extras)
+                        kw = dict(spec=spec, kv_heads=KV, scale=hd**-0.5, window=window)
+                        check_paged(torch, pa.paged_attention(*args, **kw),
+                                    pa.paged_attention_plain(*args, **kw),
+                                    f"sweep {geo} q {dt} {fmt} pools hd {hd} G {G} "
+                                    f"window {window}")
+                        n += 1
+    return n
 
 
 # ------------------------------------------------------------------- reference
@@ -484,16 +654,19 @@ def main() -> int:
     load_kernels()
     log(f"build: {build_seconds():.1f} s for {len(KERNELS)} kernels ({builder()} path)")
     info = phase_kernels(torch)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
     phase_reference(torch)
     runs, totals = phase_serve(torch)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=totals[n],
-                    max_abs_err=info[n]["max_abs_err"], ms=info[n]["ms"],
-                    plain_ms=info[n]["plain_ms"], bound_ms=info[n]["bound_ms"],
-                    bound_by=info[n]["bound_by"], library_ms=info[n]["library_ms"])
+                    **{k: info[n][k] for k in keys})
                for n, (src, rep) in KERNELS.items()]
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
+    # paged attention's other geometries and pool formats, each with its bound
+    kernels[-1]["geometries"] = [
+        {k: v for k, v in r.items() if k in keys + ("geometry", "pools", "rel_l2")}
+        for r in info["paged_attention"]["geometries"]]
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_seconds(), "builder": builder(), "kernels": info, "serve": runs,
          "launches": totals}, indent=1, default=str))

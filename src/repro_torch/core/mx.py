@@ -28,7 +28,7 @@ per block).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -38,10 +38,12 @@ from repro_torch.core.packing import pack_codes, unpack_codes
 __all__ = [
     "MXCompressed", "quantize", "dequantize", "quantize_codes",
     "codes_to_values", "fake_quantize", "wire_arrays_shape", "pow2",
-    "MIN_NORMAL_EXP",
+    "MIN_NORMAL_EXP", "code_tables",
 ]
 
 MIN_NORMAL_EXP = -126  # smallest exponent of a normal float32
+
+_TABLES: Dict[Tuple[str, str], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 class MXCompressed(NamedTuple):
@@ -65,8 +67,16 @@ def _blocked(x: torch.Tensor, block: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], x.shape[-1] // block, block)
 
 
-def _table(values, device) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=device)
+def code_tables(spec: MXSpec, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(midpoints, code values) of ``spec``'s element format as float32
+    tensors on ``device``, built once per device: on a GPU, a host-to-device
+    copy per call would make every call wait for the card."""
+    key = (spec.elem.name, str(device))
+    if key not in _TABLES:
+        _TABLES[key] = (
+            torch.tensor(spec.elem.midpoints, dtype=torch.float32, device=device),
+            torch.tensor(spec.elem.code_values, dtype=torch.float32, device=device))
+    return _TABLES[key]
 
 
 def shared_exponents(blocks: torch.Tensor, spec: MXSpec) -> torch.Tensor:
@@ -87,7 +97,7 @@ def quantize_codes(x: torch.Tensor, spec: MXSpec) -> Tuple[torch.Tensor, torch.T
     blocks = _blocked(x.to(torch.float32), spec.block_size)
     e = shared_exponents(blocks, spec)
     norm = blocks * pow2(-e)[..., None]
-    mids = _table(spec.elem.midpoints, x.device)
+    mids, _ = code_tables(spec, x.device)
     idx = torch.bucketize(norm, mids, right=False)       # == searchsorted left
     idx = torch.where(norm.isnan(), len(mids), idx)
     idx = torch.where((e < MIN_NORMAL_EXP)[..., None], spec.elem.zero_code, idx)
@@ -103,7 +113,7 @@ def quantize(x: torch.Tensor, spec: MXSpec) -> MXCompressed:
 
 
 def codes_to_values(codes: torch.Tensor, spec: MXSpec) -> torch.Tensor:
-    return _table(spec.elem.code_values, codes.device)[codes.long()]
+    return code_tables(spec, codes.device)[1][codes.long()]
 
 
 def _scale_values(e: torch.Tensor) -> torch.Tensor:

@@ -14,9 +14,9 @@ import torch
 
 from repro_torch.core import mx as _mx
 from repro_torch.core.formats import MXSpec
-from repro_torch.core.mx import MXCompressed
+from repro_torch.core.mx import MXCompressed, code_tables
 from repro_torch.kernels.build import check_launch, count_launch, load_kernels, stream_ptr
-from repro_torch.kernels.mx_quant import check_block, code_tables
+from repro_torch.kernels.mx_quant import check_block
 
 __all__ = ["mx_dequantize_2d", "dequant_reduce", "dequantize_plain",
            "dequant_reduce_plain"]

@@ -5,30 +5,14 @@ the plain version (``repro_torch.core.mx.quantize``) only for a CPU tensor.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
-
 import torch
 
 from repro_torch.core import mx as _mx
 from repro_torch.core.formats import MXSpec
-from repro_torch.core.mx import MXCompressed
+from repro_torch.core.mx import MXCompressed, code_tables
 from repro_torch.kernels.build import check_launch, count_launch, load_kernels, stream_ptr
 
-__all__ = ["mx_quantize_2d", "quantize_plain", "code_tables"]
-
-_TABLES: Dict[Tuple[str, str], Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def code_tables(spec: MXSpec, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(midpoints, code values) of ``spec``'s element format as float32
-    tensors on ``device`` (cached; the kernels stage them in shared memory)."""
-    key = (spec.elem.name, str(device))
-    if key not in _TABLES:
-        _TABLES[key] = (
-            torch.tensor(spec.elem.midpoints, dtype=torch.float32, device=device),
-            torch.tensor(spec.elem.code_values, dtype=torch.float32, device=device))
-    return _TABLES[key]
-
+__all__ = ["mx_quantize_2d", "quantize_plain"]
 
 def quantize_plain(x: torch.Tensor, spec: MXSpec) -> MXCompressed:
     """Plain PyTorch version of the kernel (the port's codec oracle)."""

@@ -11,9 +11,10 @@ precision. Masking uses the finite ``NEG_INF = -1e30``: a row with no valid
 key averages every key it addresses, as in the reference.
 
 For a CUDA tensor ``paged_attention`` launches ``csrc/paged_attention.cu``
-(which walks each row's block table itself) or raises; the plain version,
-which gathers ``pool[tables]`` at full capacity, runs only for CPU tensors
-and as the kernel's reference.
+(which walks the block tables itself and stages each key tile once for all
+consecutive rows that share a table) or raises; the plain version, which
+gathers ``pool[tables]`` at full capacity, runs only for CPU tensors and as
+the kernel's reference.
 """
 from __future__ import annotations
 
@@ -23,9 +24,8 @@ import torch
 
 from repro_torch.core import mx as _mx
 from repro_torch.core.formats import MXSpec
-from repro_torch.core.mx import MXCompressed
+from repro_torch.core.mx import MXCompressed, code_tables
 from repro_torch.kernels.build import check_launch, count_launch, load_kernels, stream_ptr
-from repro_torch.kernels.mx_quant import code_tables
 
 __all__ = ["paged_attention", "paged_attention_plain", "attend_block", "NEG_INF",
            "T_INVALID"]
@@ -177,6 +177,9 @@ def paged_attention(q, pool_k, pool_v, tables, hist_len, q_pos, k_extra=None,
     out = torch.empty_like(q)
     if R == 0 or Sq == 0:
         return out
+    vectors = [q, out, *arrays] + ([k_extra, v_extra] if E else [])
+    _require(all(t.data_ptr() % 16 == 0 for t in vectors),
+             "q, out, pools and extras must start on 16-byte boundaries")
     ptr = lambda t: t.data_ptr() if t is not None else None
     err = load_kernels().mxk_paged_attention(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), ptr(ks), ptr(vs),

@@ -7,7 +7,10 @@ also timed without it, and the idle share is given against both walls.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --cache-spec fp4_e2m1
 
-Writes the table to ``--out`` as JSON as well. Needs a GPU.
+``--cache-spec`` takes a comma-separated list, e.g. ``fp4_e2m1,bf16,bf16,fp4_e2m1``:
+the cells then run in that order in one process on the same weights, so
+their numbers compare within one call. Writes the tables to ``--out`` as a
+JSON list as well. Needs a GPU.
 """
 from __future__ import annotations
 
@@ -55,12 +58,22 @@ def main(argv=None):
     cfg = get_config(args.arch)
     model = Model(cfg)
     params = model.init_params(device="cuda", seed=args.seed)
-    engine = Engine(model, params, TPContext(policy=PAPER_DEFAULT, simulate_tp=4),
-                    max_slots=4, max_len=args.prompt_len + args.new_tokens, block_size=16,
-                    prefill_chunk=256, token_budget=260, cache_spec=args.cache_spec)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32)
                for _ in range(args.requests)]
+    results = [profile_cell(model, params, spec, prompts, args)
+               for spec in args.cache_spec.split(",")]
+    out = pathlib.Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(results, indent=1))
+
+
+def profile_cell(model, params, cache_spec, prompts, args):
+    """One cell: an unprofiled run, then the same traffic under the profiler."""
+    cfg = model.cfg
+    engine = Engine(model, params, TPContext(policy=PAPER_DEFAULT, simulate_tp=4),
+                    max_slots=4, max_len=args.prompt_len + args.new_tokens, block_size=16,
+                    prefill_chunk=256, token_budget=260, cache_spec=cache_spec)
     engine.run([Request(prompt=prompts[0].copy(), max_new_tokens=2)])  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -85,7 +98,7 @@ def main(argv=None):
     busy = sum(by_cat.values())
     steps = engine.stats.n_steps
     name = torch.cuda.get_device_name(0)
-    print(f"{name}; {cfg.name}, {args.cache_spec} pools, {steps} steps "
+    print(f"{name}; {cfg.name}, {cache_spec} pools, {steps} steps "
           f"({engine.gate_counts}), wall {wall_ms:.1f} ms under the profiler, "
           f"{plain_wall_ms:.1f} ms without it")
     for cat in ("paged_attention", "mx_codec", "gemm", "other"):
@@ -97,13 +110,10 @@ def main(argv=None):
     top = by_kernel.most_common(8)
     for k, ms in top:
         print(f"    {ms:9.1f} ms  {k[:100]}")
-    out = pathlib.Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps({"device": name, "cache_spec": args.cache_spec, "steps": steps,
-                               "gate_counts": engine.gate_counts, "wall_ms": wall_ms,
-                               "plain_wall_ms": plain_wall_ms,
-                               "device_ms_by_category": dict(by_cat),
-                               "top_kernels_ms": dict(top)}, indent=1))
+    return {"device": name, "cache_spec": cache_spec, "steps": steps,
+            "gate_counts": engine.gate_counts, "wall_ms": wall_ms,
+            "plain_wall_ms": plain_wall_ms, "device_ms_by_category": dict(by_cat),
+            "top_kernels_ms": dict(top)}
 
 
 if __name__ == "__main__":

@@ -5,7 +5,17 @@ budget pads, and a row that has no valid key at all), the decode geometry,
 a chunk geometry (Sq > 1), dense and fp4 wire pools, GQA groups G = 1 and 2,
 and one sliding-window case. fp32 throughout; tolerance 1e-5 (summation
 order only). TF32 is switched off for torch matmuls in this file.
+
+The CUDA kernel cuts the query vectors into 64-vector tiles and those into
+runs of rows that share a block table; a multi-segment mixed geometry whose
+runs cross tile boundaries is held against Pallas here, and a torch
+emulation of the kernel's tiled online softmax (bf16 tensor-core operands,
+P split into bf16 hi + lo parts) is held against the plain version within
+``chip_smoke.py``'s per-element tolerance, so a precision fault of that
+design shows on the CPU.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,12 +37,12 @@ HD, BS, N_BLOCKS = 32, 16, 12
 T_INVALID = 2**30
 
 
-def _pools(kv_dim, fmt, seed=0):
+def _pools(kv_dim, fmt, seed=0, n_blocks=N_BLOCKS):
     """The same random K/V pools for both frameworks (fp4: the reference
     codec's wire bytes, handed to the port as they are)."""
     rng = np.random.default_rng(seed)
-    k = rng.normal(size=(N_BLOCKS, BS, kv_dim)).astype(np.float32)
-    v = rng.normal(size=(N_BLOCKS, BS, kv_dim)).astype(np.float32)
+    k = rng.normal(size=(n_blocks, BS, kv_dim)).astype(np.float32)
+    v = rng.normal(size=(n_blocks, BS, kv_dim)).astype(np.float32)
     if fmt == "dense":
         return (jnp.asarray(k), jnp.asarray(v)), (torch.from_numpy(k), torch.from_numpy(v)), None
     jspec = JMXSpec.make(fmt, 32)
@@ -148,3 +158,209 @@ def test_row_map_is_not_ported():
         paged_attention(q, pool, pool, torch.zeros(1, 1, dtype=torch.int32),
                         torch.zeros(1, dtype=torch.int32), torch.zeros(1, 1, dtype=torch.int32),
                         row_map=torch.zeros(1, dtype=torch.int32), kv_heads=1, scale=1.0)
+
+
+# ------------------------------------------- runs across the kernel's 64-vector tiles
+
+
+def _slot_rows(slot_tables, starts, segs, decodes, pads):
+    """Rows of a mixed step as ``build_mixed_batch`` lays them out: prefill
+    segments (slot, start, n), decode rows (slot, position), then budget pads
+    (slot, count) at position 0; a slot >= len(starts) is empty (null table,
+    no history). Returns (tables, hist, q_pos, t_extra) as numpy int32."""
+    sid, pos, valid = [], [], []
+    for slot, start, n in segs:
+        sid, pos, valid = sid + [slot] * n, pos + list(range(start, start + n)), valid + [1] * n
+    for slot, p in decodes:
+        sid, pos, valid = sid + [slot], pos + [p], valid + [1]
+    for slot, n in pads:
+        sid, pos, valid = sid + [slot] * n, pos + [0] * n, valid + [0] * n
+    sid, pos, valid = np.array(sid), np.array(pos, np.int32), np.array(valid, bool)
+    live = sid < len(starts)
+    own = np.minimum(sid, len(starts) - 1)
+    tables = np.where(live[:, None], slot_tables[own], 0).astype(np.int32)
+    hist = np.where(live, starts[own], 0).astype(np.int32)
+    same = (sid[None, :] == sid[:, None]) & valid[None, :]
+    t_extra = np.where(same, pos[None, :], T_INVALID).astype(np.int32)
+    return tables, hist, pos[:, None].copy(), t_extra
+
+
+def _multi_segment_geometry():
+    """144 rows: a 70-row prefill segment of slot 0 (it crosses the first
+    64-row tile boundary), a 20-row segment of slot 1, decode rows of slots 2
+    and 3, 40 pads of an empty slot (they cross the second boundary and see
+    no key) and 12 pads of slot 0 (one key each)."""
+    nb = 8
+    slot_tables = np.arange(1, 1 + 4 * nb, dtype=np.int32).reshape(4, nb)
+    starts = np.array([37, 50, 60, 45], np.int32)
+    return _slot_rows(slot_tables, starts, [(0, 37, 70), (1, 50, 20)], [(2, 60), (3, 45)],
+                      [(4, 40), (0, 12)])
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("fmt", ["dense", "fp4_e2m1"])
+def test_multi_segment_mixed_matches_pallas(fmt, groups, window):
+    kv_heads, n_heads = 4 // groups, 4
+    pools_j, pools_t, specs = _pools(kv_heads * HD, fmt, seed=8, n_blocks=33)
+    tables, hist, q_pos, t_extra = _multi_segment_geometry()
+    rng = np.random.default_rng(9)
+    R = len(tables)
+    q = rng.normal(size=(R, 1, n_heads * HD)).astype(np.float32)
+    ke = rng.normal(size=(R, kv_heads * HD)).astype(np.float32)
+    ve = rng.normal(size=(R, kv_heads * HD)).astype(np.float32)
+    got, ref = _run_both(q, pools_j, pools_t, specs, tables, hist, q_pos,
+                         (ke, ve, t_extra), kv_heads, window)
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def _kernel_runs(tables, hist, n_vectors, per_row):
+    """The CUDA kernel's runs: within each tile of 64 query vectors, maximal
+    ranges whose rows share (tables[r], hist[r]) with the row before."""
+    runs = []
+    for u0 in range(0, n_vectors, 64):
+        u1 = min(u0 + 64, n_vectors)
+        start = u0
+        for u in range(u0 + 1, u1):
+            r, rp = u // per_row, (u - 1) // per_row
+            if r != rp and not (hist[r] == hist[rp] and torch.equal(tables[r], tables[rp])):
+                runs.append((start, u))
+                start = u
+        runs.append((start, u1))
+    return runs
+
+
+def _emulate_kernel(q, pool_k, pool_v, tables, hist, q_pos, k_extra, v_extra, t_extra, *,
+                    spec, kv_heads, scale, window=None, split_p=True):
+    """Torch emulation of the kernel's bf16 path: per kv head, per run, key
+    tiles of 64 (the run's pool positions, then the extras), skipping tiles
+    no vector of the run may see. Runs of more than 8 vectors take the
+    tensor-core path: bf16 operands, fp32 products and sums, online softmax
+    in fp32, P split into bf16 hi + lo parts (``split_p``; hi alone when
+    False). Shorter runs take the CUDA-core path, fp32 throughout. Vectors
+    with no valid key get the mean of every key their row addresses."""
+    from repro_torch.kernels.paged_attention import _gather_pool
+
+    R, Sq, q_dim = q.shape
+    keys, vals = _gather_pool(pool_k, tables, spec), _gather_pool(pool_v, tables, spec)
+    cap, kv_dim = keys.shape[1], keys.shape[2]
+    hd = kv_dim // kv_heads
+    G = q_dim // hd // kv_heads
+    qf = q.float().reshape(R, Sq, kv_heads, G, hd)
+    ke = k_extra.float() if k_extra is not None else torch.zeros(0, kv_dim)
+    ve = v_extra.float() if v_extra is not None else torch.zeros(0, kv_dim)
+    E = ke.shape[0]
+    out = torch.zeros(R, Sq, kv_heads, G, hd)
+    hist = hist.clamp(0, cap)
+    visible = lambda t, qp: (t <= qp) & ((t > qp - window) if window else True)
+    for kvh in range(kv_heads):
+        cols = slice(kvh * hd, (kvh + 1) * hd)
+        for u0, u1 in _kernel_runs(tables, hist, R * Sq * G, Sq * G):
+            u = torch.arange(u0, u1)
+            r, s, g = u // (Sq * G), (u // G) % Sq, u % G
+            Q, qp = qf[r, s, kvh, g], q_pos[r, s][:, None].long()
+            r0 = int(r[0])
+            t_hi = max(0, min(int(hist[r0]), int(qp.max()) + 1))
+            t_lo = max(0, int(qp.min()) - window + 1) if window else 0
+            tiles = [(keys[r0, t0:min(t0 + 64, t_hi), cols], vals[r0, t0:min(t0 + 64, t_hi), cols],
+                      visible(torch.arange(t0, min(t0 + 64, t_hi))[None], qp))
+                     for t0 in range(t_lo, t_hi, 64)]
+            tiles += [(ke[e0:e0 + 64, cols], ve[e0:e0 + 64, cols],
+                       visible(t_extra[r, e0:e0 + 64].long(), qp)) for e0 in range(0, E, 64)]
+            mma = len(u) > 8
+            m = torch.full((len(u), 1), -1e30)
+            l, acc = torch.zeros(len(u), 1), torch.zeros(len(u), hd)
+            for Kt, Vt, ok in tiles:
+                if not ok.any():
+                    continue
+                sc = torch.where(ok, (Q @ Kt.T) * scale, torch.tensor(-math.inf))
+                m_new = torch.maximum(m, sc.max(1, keepdim=True).values)
+                alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new)
+                l = l * alpha + p.sum(1, keepdim=True)
+                if mma:
+                    hi = p.to(torch.bfloat16).float()
+                    pv = hi @ Vt + ((p - hi).to(torch.bfloat16).float() @ Vt if split_p else 0)
+                else:
+                    pv = p @ Vt
+                acc, m = acc * alpha + pv, m_new
+            mean = torch.cat([vals[r0, :, cols], ve[:, cols]]).mean(0)
+            out[r, s, kvh, g] = torch.where(l > 0, acc / l.clamp(min=1e-38), mean)
+    return out.reshape(R, Sq, q_dim).to(q.dtype)
+
+
+def _within_chip_tolerance(got, ref):
+    """``chip_smoke.py``'s check of the card's bf16 output: each element
+    within one bf16 rounding of the reference (2^-7 |ref| + 1e-4), rel-L2
+    at most 2e-3. Returns (elements over, rel-L2)."""
+    o, r = got.float(), ref.float()
+    over = int(((o - r).abs() > 2.0**-7 * r.abs() + 1e-4).sum())
+    return over, float((o - r).norm() / r.norm())
+
+
+def _llama2_mixed_one_head(fmt):
+    """chip_smoke's mixed geometry at llama2-7b's head dim on one kv head: a
+    256-row prefill chunk over 256 positions of history, 3 decode rows at
+    history 520-540, one pad of an empty slot; bf16 q, extras and pools."""
+    from repro_torch.core.mx import quantize
+
+    hd, nb, bs = 128, 34, 16
+    slot_tables = np.arange(1, 1 + 4 * nb, dtype=np.int32).reshape(4, nb)
+    starts = np.array([256, 520, 530, 540], np.int32)
+    rows = _slot_rows(slot_tables, starts, [(0, 256, 256)], [(1, 520), (2, 530), (3, 540)],
+                      [(4, 1)])
+    rng = np.random.default_rng(10)
+    bf = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+    pk, pv = bf(4 * nb + 1, bs, hd), bf(4 * nb + 1, bs, hd)
+    spec = None
+    if fmt == "fp4_e2m1":
+        spec = MXSpec.make(fmt, 32)
+        pk, pv = (MXCompressed(*(a.reshape(4 * nb + 1, bs, -1) for a in
+                                 quantize(p.reshape(-1, hd), spec))) for p in (pk, pv))
+    R = len(rows[0])
+    return bf(R, 1, hd), pk, pv, rows, bf(R, hd), bf(R, hd), spec
+
+
+def _small_bf16_case(fmt):
+    tables, hist, q_pos, t_extra = _multi_segment_geometry()
+    _, (pk, pv), specs = _pools(2 * HD, fmt, seed=11, n_blocks=33)
+    spec = specs[1] if specs else None
+    if spec is None:
+        pk, pv = pk.to(torch.bfloat16), pv.to(torch.bfloat16)
+    rng = np.random.default_rng(12)
+    bf = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+    R = len(tables)
+    return bf(R, 1, 4 * HD), pk, pv, (tables, hist, q_pos, t_extra), bf(R, 2 * HD), \
+        bf(R, 2 * HD), spec
+
+
+@pytest.mark.parametrize("fmt", ["dense", "fp4_e2m1"])
+@pytest.mark.parametrize("case", ["multi_segment_G2_window", "llama2_mixed"])
+def test_tiled_kernel_emulation_within_chip_tolerance(case, fmt):
+    """The kernel's tiling, run split and hi/lo probabilities keep its bf16
+    output within chip_smoke's per-element tolerance of the plain version."""
+    if case == "llama2_mixed":
+        q, pk, pv, rows, ke, ve, spec = _llama2_mixed_one_head(fmt)
+        kw = dict(spec=spec, kv_heads=1, scale=128**-0.5, window=None)
+    else:
+        q, pk, pv, rows, ke, ve, spec = _small_bf16_case(fmt)
+        kw = dict(spec=spec, kv_heads=2, scale=HD**-0.5, window=24)
+    rows = [torch.from_numpy(a) for a in rows]
+    args = (q, pk, pv, *rows[:3], ke, ve, rows[3])
+    ref = paged_attention_plain(*args, **kw)
+    got = _emulate_kernel(*args, **kw)
+    assert got.dtype == ref.dtype == torch.bfloat16
+    over, rel = _within_chip_tolerance(got, ref)
+    assert over == 0 and rel <= 2e-3, (over, rel)
+
+
+def test_bf16_probabilities_alone_break_the_chip_tolerance():
+    """Why the kernel splits P: rounded to bf16 once for the PV product, the
+    probabilities of the llama2-7b mixed geometry leave elements beyond one
+    bf16 step of the reference; the hi + lo split above does not."""
+    q, pk, pv, rows, ke, ve, spec = _llama2_mixed_one_head("dense")
+    rows = [torch.from_numpy(a) for a in rows]
+    args = (q, pk, pv, *rows[:3], ke, ve, rows[3])
+    kw = dict(spec=spec, kv_heads=1, scale=128**-0.5)
+    over, rel = _within_chip_tolerance(_emulate_kernel(*args, **kw, split_p=False),
+                                       paged_attention_plain(*args, **kw))
+    assert over > 0
