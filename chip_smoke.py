@@ -12,15 +12,20 @@ Phases (any failure exits non-zero):
 3. kernels  — each kernel against its plain PyTorch version on the card, at
               the shapes of the llama2-7b mixed step (T = 260 tokens = a
               256-token prefill chunk + 4 decode slots, TP 4, d_model 4096):
-              codec bytes exact for all 13 element formats (zero, NaN, inf and
-              subnormal blocks included), dequantize and dequantize+reduce
-              exact, paged attention within one bf16 rounding of each element
+              codec bytes exact for all 13 element formats at block 32 and
+              for fp4_e2m1 and int8 at blocks 8-256, on bf16 and fp32 inputs
+              (fp32 with full mantissas too, amaxes just below powers of two
+              and midpoints with their neighbours), ragged row counts and
+              zero, NaN, inf and subnormal blocks;
+              dequantize and dequantize+reduce exact on every such case;
+              paged attention within one bf16 rounding of each element
               over bf16 and fp4 pools in the geometries the served steps run
               (mixed, decode-only with 256 budget pads, the same pads of an
               empty slot, and the split scheduler's decode), plus a sweep of
               small shapes through every path of the paged kernel. Prints
               each kernel's device time (CUDA events around back-to-back
-              launches), bytes moved and bound.
+              launches) at every shape the served step launches it, bytes
+              moved and bound, and the launch floor (an add on one element).
 4. reference— reduced llama2 on the card vs the same engine on the CPU (plain
               versions): greedy tokens identical (dense), one compressed
               mixed step on fp4 pools within a stated tolerance.
@@ -123,11 +128,79 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float):
 # --------------------------------------------------------------------- kernels
 
 
+CODEC_BLOCKS = (8, 16, 64, 128, 256)   # block sizes held beside 32, for fp4_e2m1 and int8
+RAGGED_ROWS = (1, 3, 257)
+
+
+def codec_partials(torch, rows, width, g, dev):
+    """The quantize checks' base inputs: ``(rows, width)`` partials at
+    row_linear's spread of scales (randn times 10^[-3, 3) per row) in fp32,
+    where hardly any value is a bf16, and rounded to bf16 with rows 0-5
+    holding the edge blocks."""
+    xf = torch.randn(rows, width, generator=g, device=dev)
+    xf = xf * torch.pow(10.0, torch.rand(rows, 1, generator=g, device=dev) * 6 - 3)
+    x = xf.to(torch.bfloat16)
+    x[0] = 0.0                       # zero row
+    x[1] = 1e-40                     # subnormal amax
+    x[2, 5] = float("nan")           # NaN block
+    x[3, 7] = float("inf")           # +inf block
+    x[4, 9] = float("-inf")          # -inf block
+    x[5, :32] = 0.0                  # zero block inside a normal row
+    return x, xf
+
+
+def fp32_edge_rows(torch, spec, width, dev):
+    """Two fp32 rows that put the quantizer on its edges. In the first, block
+    b's amax is the float just below 2^k (k = -40 .. 39 over the blocks), so
+    the exponent field is one below k's and the mantissa all ones. In the
+    second, block b holds 2^emax * 2^e first (so its shared exponent is e)
+    and then the format's midpoints and their fp32 neighbours times 2^e,
+    cycled so that the blocks together hold each of them; e runs over -126,
+    -125, -100, 100 - emax and -20 .. 19."""
+    from repro_torch.core.mx import pow2
+
+    B = spec.block_size
+    i = torch.arange(width // B, device=dev)
+    p2 = pow2(i % 80 - 40)
+    a = torch.linspace(-0.5, 0.5, B, device=dev) * p2[:, None]    # |a| <= 2^(k-1)
+    a[:, 0] = torch.nextafter(p2, torch.zeros_like(p2))
+    m = torch.tensor(spec.elem.midpoints, dtype=torch.float32, device=dev)
+    inf = torch.full_like(m, float("inf"))
+    near = torch.cat([m, torch.nextafter(m, -inf), torch.nextafter(m, inf)])
+    exps = torch.tensor([-126, -125, -100, 100 - spec.elem.emax] + list(range(-20, 20)),
+                        device=dev)
+    e = exps[i % len(exps)]
+    b = near[(i[:, None] * (B - 1) + torch.arange(B, device=dev)) % len(near)] * pow2(e)[:, None]
+    b[:, 0] = pow2(e + spec.elem.emax)
+    return torch.stack([a.reshape(-1), b.reshape(-1)])
+
+
+def codec_inputs(torch, x, xf, spec, t):
+    """The quantize checks' inputs for ``spec`` from ``codec_partials``: the
+    bf16 partials, ``t`` rows of them in fp32 (bf16-exact), ``t`` rows of the
+    fp32 partials with ``fp32_edge_rows`` below them, then ragged row counts
+    from row 3 on (an inf block first) at full width and at 3 blocks a row
+    (so the last warp and CTA are partial), in bf16 and fp32."""
+    edge = torch.cat([xf[:t], fp32_edge_rows(torch, spec, x.shape[1], x.device)])
+    return [x, x[:t].float(), edge] + [x[3:3 + m, :n].contiguous().to(dt) for m in RAGGED_ROWS
+                                       for n in (x.shape[1], 3 * spec.block_size)
+                                       for dt in (torch.bfloat16, torch.float32)]
+
+
 def phase_kernels(torch, dev="cuda"):
+    """The codec kernels (``phase_codec``), then paged attention."""
+    info = phase_codec(torch, dev)
+    info["paged_attention"] = dict(phase_paged(torch, dev),
+                                   launch_floor_ms=info["mx_quant"]["launch_floor_ms"])
+    return info
+
+
+def phase_codec(torch, dev="cuda"):
+    """The three codec kernels against their plain versions, timed at every
+    shape the served step launches them, and the launch floor."""
     from repro_torch.core.formats import ELEMENT_FORMATS, MXSpec
     from repro_torch.core.mx import MXCompressed
     from repro_torch.kernels import mx_dequant, mx_quant
-    from repro_torch.kernels import paged_attention as pa
 
     dev = torch.device(dev)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -141,87 +214,98 @@ def phase_kernels(torch, dev="cuda"):
         fin = torch.isfinite(a) & torch.isfinite(b)
         return float((a.float() - b.float())[fin].abs().max()) if fin.any() else 0.0
 
-    # --- quantize: (TP*T, D) bf16 partials of row_linear, with edge blocks
-    x = torch.randn(TP * T, D, generator=g, device=dev)
-    x = x * torch.pow(10.0, torch.rand(TP * T, 1, generator=g, device=dev) * 6 - 3)
-    x = x.to(torch.bfloat16)
-    x[0] = 0.0                       # zero row
-    x[1] = 1e-40                     # subnormal amax
-    x[2, 5] = float("nan")           # NaN block
-    x[3, 7] = float("inf")           # +inf block
-    x[4, 9] = float("-inf")          # -inf block
-    x[5, :32] = 0.0                  # zero block inside a normal row
+    def timed(run, plain, nbytes, n_ops, shape):
+        b_ms, b_by = bound(nbytes, n_ops, FP32_OPS_PER_S)
+        return dict(ms=device_ms(torch, run), plain_ms=device_ms(torch, plain, n=5),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=nbytes, shape=shape)
+
+    # the launch floor: device time of the smallest kernel, an add on one element
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(torch, lambda: one.add_(1.0))
+    log(f"kernel launch floor: {floor_ms:.4f} ms on the device (in-place add, one element)")
+
+    # --- quantize: (TP*T, D) partials of row_linear, with edge blocks
+    x, xf = codec_partials(torch, TP * T, D, g, dev)
     specs = [MXSpec.make(f, 32, "e8m0") for f in sorted(ELEMENT_FORMATS)]
-    specs.append(MXSpec.make("fp4_e2m1", 16, "e8m0"))
-    bad, q_err = [], 0.0
+    specs += [MXSpec.make(f, b, "e8m0") for f in ("fp4_e2m1", "int8") for b in CODEC_BLOCKS]
+    bad, q_err, n_q, quantized = [], 0.0, 0, {}
     for spec in specs:
-        for xin in (x, x[:T].float().contiguous()):
+        for xin in codec_inputs(torch, x, xf, spec, T):
             k = mx_quant.mx_quantize_2d(xin, spec)
             p = mx_quant.quantize_plain(xin, spec)
             if not (torch.equal(k.payload, p.payload) and torch.equal(k.scales, p.scales)):
-                bad.append(f"{spec.name}/{xin.dtype}")
+                bad.append(f"{spec.name}/{xin.dtype}/{tuple(xin.shape)}")
             q_err = max(q_err, max_err(k.payload, p.payload), max_err(k.scales, p.scales))
+            quantized.setdefault(spec.name, []).append(k)
+            n_q += 1
     check(not bad, f"mx_quant bytes differ from the plain version: {bad}")
-    comp = mx_quant.mx_quantize_2d(x, fp4)
-    run = lambda: mx_quant.mx_quantize_2d(x, fp4)
-    ms = device_ms(torch, run)
-    plain = device_ms(torch, lambda: mx_quant.quantize_plain(x, fp4), n=5)
-    nbytes = x.numel() * 2 + comp.payload.numel() + comp.scales.numel()
-    b_ms, b_by = bound(nbytes, x.numel() * 20, FP32_OPS_PER_S)
-    info["mx_quant"] = dict(max_abs_err=q_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=None, bytes=nbytes,
-                            shape=f"({TP * T}, {D}) bf16 -> fp4_e2m1_b32")
-    log(f"kernel mx_quant: bytes exact on {len(specs)} specs x (bf16, fp32) incl. zero/"
-        f"subnormal/NaN/inf blocks; ({TP * T},{D}) bf16 {ms:.4f} ms on the device (plain "
-        f"{plain:.4f} ms), {nbytes / 1e6:.2f} MB, bound {b_ms:.4f} ms")
+    what = (f"{len(specs)} specs (13 formats at block 32; fp4_e2m1, int8 at blocks "
+            f"{', '.join(map(str, CODEC_BLOCKS))}) x ({TP * T}, {D}) bf16, ({T}, {D}) fp32 "
+            f"bf16-exact, ({T + 2}, {D}) fp32 not bf16-exact with 2 edge rows, and rows "
+            f"{', '.join(map(str, RAGGED_ROWS))} at width {D} and 3 blocks in bf16 and fp32")
+    shapes = []
+    for m in (TP * T, T):   # the TP partials, the pool append's K or V
+        xm = x[:m]
+        comp = mx_quant.mx_quantize_2d(xm, fp4)
+        nbytes = xm.numel() * 2 + comp.payload.numel() + comp.scales.numel()
+        shapes.append(timed(lambda: mx_quant.mx_quantize_2d(xm, fp4),
+                            lambda: mx_quant.quantize_plain(xm, fp4), nbytes, xm.numel() * 20,
+                            f"({m}, {D}) bf16 -> fp4_e2m1_b32"))
+    info["mx_quant"] = dict(shapes[0], max_abs_err=q_err, launch_floor_ms=floor_ms, cases=n_q,
+                            shapes=shapes[1:])
+    log(f"kernel mx_quant: bytes exact in {n_q} cases, {what}, zero/subnormal/NaN/inf blocks "
+        f"included; " + "; ".join(f"{r['shape']} {r['ms']:.4f} ms on the device (plain "
+                                  f"{r['plain_ms']:.4f} ms), {r['bytes'] / 1e6:.2f} MB, bound "
+                                  f"{r['bound_ms']:.4f} ms" for r in shapes))
 
-    # --- dequantize: the step's K/V round trip, (T, D) -> bf16
-    bad, d_err = [], 0.0
+    # --- dequantize: every quantized case above, to bf16 and fp32
+    bad, d_err, n_d = [], 0.0, 0
     for spec in specs:
-        c = mx_quant.mx_quantize_2d(x[:T], spec)
-        for dt in (torch.bfloat16, torch.float32):
-            k = mx_dequant.mx_dequantize_2d(c.payload, c.scales, spec, dt)
-            p = mx_dequant.dequantize_plain(c, spec, dt)
-            if not same(k, p):
-                bad.append(f"{spec.name}/{dt}")
-            d_err = max(d_err, max_err(k, p))
+        for c in quantized[spec.name]:
+            for dt in (torch.bfloat16, torch.float32):
+                k = mx_dequant.mx_dequantize_2d(c.payload, c.scales, spec, dt)
+                p = mx_dequant.dequantize_plain(c, spec, dt)
+                if not same(k, p):
+                    bad.append(f"{spec.name}/{dt}/{tuple(c.payload.shape)}")
+                d_err = max(d_err, max_err(k, p))
+                n_d += 1
     check(not bad, f"mx_dequant differs from the plain version: {bad}")
-    c = mx_quant.mx_quantize_2d(x[:T], fp4)
-    run = lambda: mx_dequant.mx_dequantize_2d(c.payload, c.scales, fp4, torch.bfloat16)
-    ms = device_ms(torch, run)
-    plain = device_ms(torch, lambda: mx_dequant.dequantize_plain(c, fp4, torch.bfloat16), n=5)
+    c = mx_quant.mx_quantize_2d(x[:T], fp4)   # the step's K/V round trip, (T, D) -> bf16
     nbytes = c.payload.numel() + c.scales.numel() + T * D * 2
-    b_ms, b_by = bound(nbytes, T * D * 2, FP32_OPS_PER_S)
-    info["mx_dequant"] = dict(max_abs_err=d_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                              bound_by=b_by, library_ms=None, bytes=nbytes,
-                              shape=f"({T}, {D}) fp4_e2m1_b32 -> bf16")
-    log(f"kernel mx_dequant: exact on {len(specs)} specs x (bf16, fp32); ({T},{D}) -> "
-        f"bf16 {ms:.4f} ms on the device (plain {plain:.4f} ms), "
-        f"{nbytes / 1e6:.2f} MB, bound {b_ms:.4f} ms")
+    info["mx_dequant"] = dict(
+        timed(lambda: mx_dequant.mx_dequantize_2d(c.payload, c.scales, fp4, torch.bfloat16),
+              lambda: mx_dequant.dequantize_plain(c, fp4, torch.bfloat16), nbytes, T * D * 2,
+              f"({T}, {D}) fp4_e2m1_b32 -> bf16"),
+        max_abs_err=d_err, launch_floor_ms=floor_ms, cases=n_d)
+    r = info["mx_dequant"]
+    log(f"kernel mx_dequant: exact in {n_d} cases (every quantize case -> bf16, fp32); "
+        f"({T},{D}) -> bf16 {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms), "
+        f"{nbytes / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms")
 
     # --- dequantize + reduce: the compressed row-parallel epilogue, S = TP
+    r_err, n_r = 0.0, 0
+    for spec in specs:
+        full = quantized[spec.name][0]           # the (TP*T, D) bf16 partials
+        w = MXCompressed(full.payload.reshape(TP, T, -1), full.scales.reshape(TP, T, -1))
+        for dt in (torch.bfloat16, torch.float32):
+            k = mx_dequant.dequant_reduce(w.payload, w.scales, spec, dt)
+            p = mx_dequant.dequant_reduce_plain(w, spec, dt)
+            check(same(k, p), f"mx_dequant_reduce differs from the plain version "
+                              f"({spec.name}, {dt})")
+            r_err = max(r_err, max_err(k, p))
+            n_r += 1
+    comp = quantized[fp4.name][0]
     w = MXCompressed(comp.payload.reshape(TP, T, -1), comp.scales.reshape(TP, T, -1))
-    r_err = 0.0
-    for dt in (torch.bfloat16, torch.float32):
-        k = mx_dequant.dequant_reduce(w.payload, w.scales, fp4, dt)
-        p = mx_dequant.dequant_reduce_plain(w, fp4, dt)
-        check(same(k, p), f"mx_dequant_reduce differs from the plain version ({dt})")
-        r_err = max(r_err, max_err(k, p))
-    run = lambda: mx_dequant.dequant_reduce(w.payload, w.scales, fp4, torch.bfloat16)
-    ms = device_ms(torch, run)
-    plain = device_ms(torch, lambda: mx_dequant.dequant_reduce_plain(w, fp4, torch.bfloat16),
-                      n=5)
     nbytes = w.payload.numel() + w.scales.numel() + T * D * 2
-    b_ms, b_by = bound(nbytes, TP * T * D * 2, FP32_OPS_PER_S)
-    info["mx_dequant_reduce"] = dict(max_abs_err=r_err, ms=ms, plain_ms=plain,
-                                     bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=None, bytes=nbytes,
-                                     shape=f"S={TP} x ({T}, {D}) fp4_e2m1_b32 -> bf16")
-    log(f"kernel mx_dequant_reduce: exact (bf16, fp32); S={TP} ({T},{D}) -> bf16 "
-        f"{ms:.4f} ms on the device (plain {plain:.4f} ms), "
-        f"{nbytes / 1e6:.2f} MB, bound {b_ms:.4f} ms")
-
-    info["paged_attention"] = phase_paged(torch, dev)
+    info["mx_dequant_reduce"] = dict(
+        timed(lambda: mx_dequant.dequant_reduce(w.payload, w.scales, fp4, torch.bfloat16),
+              lambda: mx_dequant.dequant_reduce_plain(w, fp4, torch.bfloat16), nbytes,
+              TP * T * D * 2, f"S={TP} x ({T}, {D}) fp4_e2m1_b32 -> bf16"),
+        max_abs_err=r_err, launch_floor_ms=floor_ms, cases=n_r)
+    r = info["mx_dequant_reduce"]
+    log(f"kernel mx_dequant_reduce: exact in {n_r} cases ({len(specs)} specs x (bf16, fp32)); "
+        f"S={TP} ({T},{D}) -> bf16 {r['ms']:.4f} ms on the device (plain "
+        f"{r['plain_ms']:.4f} ms), {nbytes / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms")
     return info
 
 
@@ -663,6 +747,11 @@ def main() -> int:
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=totals[n],
                     **{k: info[n][k] for k in keys})
                for n, (src, rep) in KERNELS.items()]
+    # mx_quant's other call site (the pool append), each kernel's launch floor
+    kernels[0]["shapes"] = [{k: v for k, v in r.items() if k in keys + ("shape",)}
+                            for r in info["mx_quant"]["shapes"]]
+    for k in kernels:
+        k["launch_floor_ms"] = info[k["name"]]["launch_floor_ms"]
     # paged attention's other geometries and pool formats, each with its bound
     kernels[-1]["geometries"] = [
         {k: v for k, v in r.items() if k in keys + ("geometry", "pools", "rel_l2")}

@@ -157,20 +157,6 @@ __device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
   }
 }
 
-template <typename D>
-__device__ __forceinline__ void store8(D* dst, const float f[8]) {
-  if constexpr (sizeof(D) == 4) {
-    reinterpret_cast<float4*>(dst)[0] = make_float4(f[0], f[1], f[2], f[3]);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
-  } else {
-    uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    *reinterpret_cast<uint4*>(dst) = u;
-  }
-}
-
 template <typename S>
 __device__ __forceinline__ void load8(const S* src, float f[8]) {
   if constexpr (sizeof(S) == 4) {
@@ -191,7 +177,7 @@ __device__ __forceinline__ void copy8(const S* src, D* dst) {
   } else {
     float f[8];
     load8(src, f);
-    store8(dst, f);
+    mxk::store8(dst, f);
   }
 }
 
@@ -299,14 +285,14 @@ __device__ __forceinline__ void store_unit(const PagedArgs& a, const MxCol& mc, 
                  mxk::scale_value(static_cast<int>((sb >> (8 * (k & 3))) & 0xffu) - a.bias);
         }
       }
-      store8(dst, f);
+      mxk::store8(dst, f);
     } else if constexpr (sizeof(P) != sizeof(CT)) {
       load8(reinterpret_cast<const P*>(&r), f);
-      store8(dst, f);
+      mxk::store8(dst, f);
     }
   } else if constexpr (sizeof(T) != sizeof(CT)) {
     load8(reinterpret_cast<const T*>(&r), f);
-    store8(dst, f);
+    mxk::store8(dst, f);
   }
 }
 
@@ -364,8 +350,8 @@ __device__ __forceinline__ void stage(const PagedArgs& a, const int* tbl, int kv
       CT* dv = sV + i * ld + uu * 8;
       if (i >= n) {
         const float z[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (want_k) store8(dk, z);
-        store8(dv, z);
+        if (want_k) mxk::store8(dk, z);
+        mxk::store8(dv, z);
       } else {
         const bool pool = first + i < pool_end;
         if (want_k) store_unit<T, P, MX, CT>(a, mc, pool, rk[b], s_vals, dk);

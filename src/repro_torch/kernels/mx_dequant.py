@@ -51,6 +51,9 @@ def _check_wire(payload: torch.Tensor, scales: torch.Tensor, spec: MXSpec,
         raise ValueError(f"{name}: expected {ndim}-D wire arrays")
     if not (payload.is_contiguous() and scales.is_contiguous()):
         raise ValueError(f"{name}: wire arrays must be contiguous")
+    if payload.data_ptr() % 16:
+        raise ValueError(f"{name}: the payload must be 16-byte aligned (the kernel reads "
+                         f"whole groups as words)")
     if out_dtype not in _OUT_DTYPES:
         raise ValueError(f"{name}: out_dtype must be float32 or bfloat16")
     gpb = check_block(spec)

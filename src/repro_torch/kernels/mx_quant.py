@@ -20,8 +20,9 @@ def quantize_plain(x: torch.Tensor, spec: MXSpec) -> MXCompressed:
 
 
 def check_block(spec: MXSpec) -> int:
-    """Groups of 8 values per MX block; the codec kernels reduce a block's
-    groups with warp shuffles, so this must be a power of two <= 32."""
+    """Groups of 8 values per MX block. The quantize kernel gives a block of
+    up to 32 values to one thread and splits a larger one over up to 8
+    lanes of a warp, so this must be a power of two <= 32."""
     gpb = spec.block_size // 8
     if spec.block_size % 8 or gpb & (gpb - 1) or gpb > 32:
         raise ValueError(f"MX block size {spec.block_size}: the CUDA codec takes "

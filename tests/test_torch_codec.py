@@ -18,7 +18,13 @@
   reference stores 0/0 or x/0 codes there (XLA flushes 2**-127 to zero) that
   its own dequantize also decodes as 0.0 — the port's bytes are pinned below;
 * the plain versions of the three codec kernels against the reference's
-  Pallas kernels run in interpret mode (``repro.kernels.ops``).
+  Pallas kernels run in interpret mode (``repro.kernels.ops``);
+* the quantize kernel's code selection (a binary search over the midpoints
+  padded with +inf, ``csrc/mx_common.cuh:search_code``), mirrored step for
+  step, against ``torch.bucketize`` on every bf16 bit pattern at the extreme
+  and central shared exponents and on every midpoint and its neighbours
+  (the kernels' sources themselves run on the CPU in
+  ``test_torch_codec_source.py``).
 
 Everything runs on the CPU (the port's plain versions). TF32 is switched off
 for every torch matmul in this file (it would only matter on a GPU).
@@ -288,3 +294,52 @@ def test_wrappers_refuse_non_cpu_non_cuda_devices():
     x = torch.zeros(2, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         mx_quant.mx_quantize_2d(x, spec)
+
+
+# ------------------------------------------- the kernel's code selection rule
+
+
+def _kernel_search(v: torch.Tensor, mids: np.ndarray, bits: int) -> torch.Tensor:
+    """``csrc/mx_common.cuh:search_code`` step for step: the fp32 midpoints
+    padded with +inf to 2**bits - 1 entries, then ``bits`` steps of
+    ``c += t[c + s - 1] < v ? s : 0`` for s = 2**(bits-1) .. 1; NaN takes
+    the top code. (The kernel searches rather than computing a code in
+    floats: for int4 ``ceil(v + 6.5)`` looks like the code, but the add
+    rounds, so tiny values and values just above a midpoint would land on
+    the wrong one.)"""
+    table = torch.full(((1 << bits) - 1,), float("inf"), dtype=torch.float32)
+    table[:len(mids)] = torch.from_numpy(mids.astype(np.float32))
+    c = torch.zeros(v.shape, dtype=torch.int64)
+    s = 1 << (bits - 1)
+    while s:
+        c = c + torch.where(table[c + s - 1] < v, s, 0)
+        s >>= 1
+    return torch.where(v.isnan(), len(mids), c)
+
+
+def _selection_inputs(spec: MXSpec) -> torch.Tensor:
+    """Every bf16 bit pattern as fp32, normalised as the kernel does it
+    (times the exact 2**-e) at shared exponents min_exp, -126, -1, 0, 1 and
+    max_exp; then every midpoint, its fp32 neighbours, +-0 and +-inf."""
+    x = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).float()
+    exps = (spec.scale.min_exp, -126, -1, 0, 1, spec.scale.max_exp)
+    norm = [x * tmx.pow2(torch.tensor(-e)) for e in exps]
+    m = spec.elem.midpoints.astype(np.float32)
+    near = np.concatenate([m, np.nextafter(m, np.float32(-np.inf)),
+                           np.nextafter(m, np.float32(np.inf)),
+                           np.array([0.0, -0.0, np.inf, -np.inf], np.float32)])
+    return torch.cat(norm + [torch.from_numpy(near)])
+
+
+@pytest.mark.parametrize("elem", FORMATS)
+def test_kernel_code_selection_is_exact(elem):
+    """The binary search picks the plain version's code (searchsorted left,
+    NaN -> the top code) on every input, the NaN bf16 patterns included."""
+    spec = MXSpec.make(elem, 32)
+    v = _selection_inputs(spec)
+    mids, _ = tmx.code_tables(spec, torch.device("cpu"))
+    want = torch.where(v.isnan(), len(mids), torch.bucketize(v, mids, right=False))
+    got = _kernel_search(v, spec.elem.midpoints, spec.elem.bits)
+    assert v.isnan().any() and v.isinf().any()
+    assert torch.equal(got, want), int((got != want).sum())
+

@@ -1,13 +1,15 @@
-"""The port stands alone: no module of src/repro_torch/ and not chip_smoke.py
-imports jax or the reference package ``repro`` (checked on the source with
-``ast``, so nothing is imported to check it)."""
+"""The port stands alone: no module of src/repro_torch/, and neither
+chip_smoke.py nor kernel_ab.py, imports jax or the reference package
+``repro`` (checked on the source with ``ast``, so nothing is imported to
+check it)."""
 import ast
 import pathlib
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                 ROOT / "kernel_ab.py"]
 
 
 def _forbidden(name: str) -> bool:
