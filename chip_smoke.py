@@ -10,7 +10,7 @@ Phases (any failure exits non-zero):
 2. build    — compiles every hand-written kernel of the serving path from
               src/repro_torch/kernels/csrc (one parallel build).
 3. kernels  — each kernel against its plain PyTorch version on the card, at
-              the shapes of the llama2-7b mixed step (T = 260 tokens = a
+              the shapes of the llama2-7b serving steps (T = 260 tokens = a
               256-token prefill chunk + 4 decode slots, TP 4, d_model 4096):
               codec bytes exact for all 13 element formats at block 32 and
               for fp4_e2m1 and int8 at blocks 8-256, on bf16 and fp32 inputs
@@ -18,23 +18,39 @@ Phases (any failure exits non-zero):
               and midpoints with their neighbours), ragged row counts and
               zero, NaN, inf and subnormal blocks;
               dequantize and dequantize+reduce exact on every such case;
+              the codec also exact and timed at the split chunk's and the
+              whole-prompt prefill's TP partials (4 x 256 and 4 x 512 rows),
+              the 512-row whole-prompt insert and the 4-row decode append;
               paged attention within one bf16 rounding of each element
               over bf16 and fp4 pools in the geometries the served steps run
               (mixed, decode-only with 256 budget pads, the same pads of an
-              empty slot, and the split scheduler's decode), plus a sweep of
-              small shapes through every path of the paged kernel. Prints
-              each kernel's device time (CUDA events around back-to-back
-              launches) at every shape the served step launches it, bytes
-              moved and bound, and the launch floor (an add on one element).
+              empty slot, the split scheduler's decode, R = 4, and its chunk,
+              R = 1, Sq = 256 over 256 history positions with the chunk as
+              256 extras), plus a sweep of small shapes through every path of
+              the paged kernel. Prints each kernel's device time (CUDA events
+              around back-to-back launches) at every shape the served steps
+              launch it, bytes moved and bound, and the launch floor (an add
+              on one element).
 4. reference— reduced llama2 on the card vs the same engine on the CPU (plain
-              versions): greedy tokens identical (dense), one compressed
-              mixed step on fp4 pools within a stated tolerance.
+              versions), dense fp32 pools: greedy tokens, steps, dispatches,
+              preemptions and skipped prompt tokens identical on the mixed
+              and split schedulers, whole-prompt prefill, a prefix-cache COW
+              fork and eviction under a 7-block pool; one compressed mixed
+              step on fp4 pools within a stated tolerance.
 5. serve    — llama2-7b at full width and depth, random bf16 weights from a
-              seed, TPContext(PAPER_DEFAULT, simulate_tp=4): 8 requests x 512
-              prompt tokens x 32 new tokens through the mixed-step engine, once
-              on fp4_e2m1 pools and once on bf16 pools; checks every request
-              finished ok, finite logits, that the compressed gate fired and
-              that every kernel launched (launch counts reset just before).
+              seed, TPContext(PAPER_DEFAULT, simulate_tp=4), 8 requests x 512
+              prompt tokens x 32 new tokens: the mixed-step engine on fp4 and
+              bf16 pools; (a) the split scheduler (chunk 256) on fp4 and bf16
+              pools; (b) whole-prompt prefill on fp4 pools; (c) the mixed
+              engine with prefix_cache and persistent_cache, prompts sharing
+              a 256-token prefix, run twice on fp4 and on bf16 pools (the warm
+              run forks tail blocks on bf16 and resumes at the aligned
+              boundary on fp4); (d) the mixed engine on fp4 pools of 102
+              blocks, so that it preempts; (e) measure_ttft at 512 and 2048
+              prompt tokens, compressed vs uncompressed reductions. Every run
+              checks that each request finished ok, finite logits, a conserved
+              free list, and each kernel's launch count against the count the
+              run's own stats give (launch counts reset just before each run).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Details go to
@@ -69,6 +85,7 @@ KERNELS = {  # name -> (source in the repo, the TPU kernel it replaces)
 # the slice's shapes (llama2-7b, mixed step)
 T, TP, D, SLOTS, BS, CHUNK, PROMPT, NEW = 260, 4, 4096, 4, 16, 256, 512, 32
 MAX_LEN = PROMPT + NEW
+TTFT_LENS, TTFT_ITERS = (512, 2048), 6   # measure_ttft prompt lengths, prefills each
 
 
 class SmokeFailure(RuntimeError):
@@ -251,6 +268,21 @@ def phase_codec(torch, dev="cuda"):
         shapes.append(timed(lambda: mx_quant.mx_quantize_2d(xm, fp4),
                             lambda: mx_quant.quantize_plain(xm, fp4), nbytes, xm.numel() * 20,
                             f"({m}, {D}) bf16 -> fp4_e2m1_b32"))
+    # the other served call sites: the split chunk's and the whole-prompt
+    # prefill's TP partials, the whole-prompt insert and the split decode's
+    # pool append (K or V), each bytes exact and timed
+    xb, _ = codec_partials(torch, TP * PROMPT, D, g, dev)
+    for m, site in ((TP * CHUNK, "chunk TP partials"), (TP * PROMPT, "whole-prompt TP partials"),
+                    (PROMPT, "whole-prompt insert"), (SLOTS, "split decode append")):
+        xm = xb[:m]
+        k, pl = mx_quant.mx_quantize_2d(xm, fp4), mx_quant.quantize_plain(xm, fp4)
+        check(torch.equal(k.payload, pl.payload) and torch.equal(k.scales, pl.scales),
+              f"mx_quant bytes differ from the plain version at ({m}, {D}), {site}")
+        nbytes = xm.numel() * 2 + k.payload.numel() + k.scales.numel()
+        shapes.append(timed(lambda: mx_quant.mx_quantize_2d(xm, fp4),
+                            lambda: mx_quant.quantize_plain(xm, fp4), nbytes, xm.numel() * 20,
+                            f"({m}, {D}) bf16 -> fp4_e2m1_b32, {site}"))
+        n_q += 1
     info["mx_quant"] = dict(shapes[0], max_abs_err=q_err, launch_floor_ms=floor_ms, cases=n_q,
                             shapes=shapes[1:])
     log(f"kernel mx_quant: bytes exact in {n_q} cases, {what}, zero/subnormal/NaN/inf blocks "
@@ -294,18 +326,28 @@ def phase_codec(torch, dev="cuda"):
                               f"({spec.name}, {dt})")
             r_err = max(r_err, max_err(k, p))
             n_r += 1
-    comp = quantized[fp4.name][0]
-    w = MXCompressed(comp.payload.reshape(TP, T, -1), comp.scales.reshape(TP, T, -1))
-    nbytes = w.payload.numel() + w.scales.numel() + T * D * 2
-    info["mx_dequant_reduce"] = dict(
-        timed(lambda: mx_dequant.dequant_reduce(w.payload, w.scales, fp4, torch.bfloat16),
-              lambda: mx_dequant.dequant_reduce_plain(w, fp4, torch.bfloat16), nbytes,
-              TP * T * D * 2, f"S={TP} x ({T}, {D}) fp4_e2m1_b32 -> bf16"),
-        max_abs_err=r_err, launch_floor_ms=floor_ms, cases=n_r)
+    red_shapes = []
+    for rows, site, src in ((T, "mixed step", x), (CHUNK, "split chunk", xb),
+                            (PROMPT, "whole-prompt prefill", xb)):
+        comp = mx_quant.mx_quantize_2d(src[:TP * rows], fp4)
+        w = MXCompressed(comp.payload.reshape(TP, rows, -1), comp.scales.reshape(TP, rows, -1))
+        if rows != T:   # the new served shapes, exact like every case above
+            check(same(mx_dequant.dequant_reduce(w.payload, w.scales, fp4, torch.bfloat16),
+                       mx_dequant.dequant_reduce_plain(w, fp4, torch.bfloat16)),
+                  f"mx_dequant_reduce differs from the plain version at S={TP} x {rows}")
+            n_r += 1
+        nbytes = w.payload.numel() + w.scales.numel() + rows * D * 2
+        red_shapes.append(timed(
+            lambda w=w: mx_dequant.dequant_reduce(w.payload, w.scales, fp4, torch.bfloat16),
+            lambda w=w: mx_dequant.dequant_reduce_plain(w, fp4, torch.bfloat16), nbytes,
+            TP * rows * D * 2, f"S={TP} x ({rows}, {D}) fp4_e2m1_b32 -> bf16, {site}"))
+    info["mx_dequant_reduce"] = dict(red_shapes[0], max_abs_err=r_err, launch_floor_ms=floor_ms,
+                                     cases=n_r, shapes=red_shapes[1:])
     r = info["mx_dequant_reduce"]
-    log(f"kernel mx_dequant_reduce: exact in {n_r} cases ({len(specs)} specs x (bf16, fp32)); "
-        f"S={TP} ({T},{D}) -> bf16 {r['ms']:.4f} ms on the device (plain "
-        f"{r['plain_ms']:.4f} ms), {nbytes / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms")
+    log(f"kernel mx_dequant_reduce: exact in {n_r} cases ({len(specs)} specs x (bf16, fp32) "
+        f"and the chunk and whole-prompt shapes); " + "; ".join(
+            f"{r['shape']} {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms), "
+            f"{r['bytes'] / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms" for r in red_shapes))
     return info
 
 
@@ -412,6 +454,7 @@ def phase_paged(torch, dev="cuda"):
     mixed_starts = torch.tensor([CHUNK, 520, 530, 540], device=dev, dtype=torch.int32)
     dec_starts = torch.tensor([p for _, p in decoding], device=dev, dtype=torch.int32)
     lengths = torch.tensor([300, 520, 530, 540], device=dev, dtype=torch.int32)
+    chunk_pos = torch.arange(CHUNK, 2 * CHUNK, device=dev, dtype=torch.int32)[None].contiguous()
     geometries = {
         # 16 of the 72 served steps: a 256-token chunk + 3 decode rows, and a
         # pad of an empty slot (no valid key: the mean of every key it addresses)
@@ -427,12 +470,18 @@ def phase_paged(torch, dev="cuda"):
         # the split scheduler's decode: one row per slot, its token in the pool
         "decode": (q[:SLOTS].contiguous(), (slot_tables, (lengths + 1).contiguous(),
                                             lengths[:, None].contiguous(), None), True),
+        # the split scheduler's chunk: slot 0's second 256-token chunk, history
+        # 0..255 in its blocks, the chunk's own K/V as extras at 256..511
+        "chunk": (randn(1, CHUNK, D), (slot_tables[:1].contiguous(),
+                                       torch.tensor([CHUNK], device=dev, dtype=torch.int32),
+                                       chunk_pos, chunk_pos), True),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res = {}
     for geo, (qq, (tables, hist, qpos, t_extra), timed) in geometries.items():
-        R = qq.shape[0]
-        extras = (ke, ve, t_extra) if t_extra is not None else ()
+        R, Sq = qpos.shape
+        E = t_extra.shape[1] if t_extra is not None else 0
+        extras = (ke[:E], ve[:E], t_extra) if E else ()
         for name, (pk, pv, spec) in pools.items():
             args = (qq, pk, pv, tables, hist, qpos, *extras)
             run = lambda: pa.paged_attention(*args, spec=spec, **kw)
@@ -440,10 +489,10 @@ def phase_paged(torch, dev="cuda"):
             ref = pa.paged_attention_plain(*args, spec=spec, **kw)
             err, n_diff, rel = check_paged(torch, out, ref, f"{name} pools, {geo}")
             r = dict(geometry=geo, pools=name, max_abs_err=err, rel_l2=rel,
-                     elements_differing=n_diff, shape=f"{geo} R={R} Sq=1 H={H} hd={hd} "
-                     f"E={t_extra.shape[1] if t_extra is not None else 0}, {name} pools")
-            msg = (f"kernel paged_attention ({name} pools, {geo} R={R}): max|err| {err:.3g}, "
-                   f"rel-L2 {rel:.3g}, {n_diff} of {out.numel()} elements differ")
+                     elements_differing=n_diff,
+                     shape=f"{geo} R={R} Sq={Sq} H={H} hd={hd} E={E}, {name} pools")
+            msg = (f"kernel paged_attention ({name} pools, {geo} R={R} Sq={Sq}): max|err| "
+                   f"{err:.3g}, rel-L2 {rel:.3g}, {n_diff} of {out.numel()} elements differ")
             if timed:
                 r["ms"] = device_ms(torch, run)
                 r["plain_ms"] = device_ms(torch, lambda: pa.paged_attention_plain(
@@ -455,16 +504,16 @@ def phase_paged(torch, dev="cuda"):
                 cap = kg.shape[1]
                 t = torch.arange(cap, device=dev)[None]
                 tpos = torch.where(t < hist[:, None], t, pa.T_INVALID)
-                if t_extra is not None:
-                    kg = torch.cat([kg, ke[None].expand(R, -1, -1)], 1)
-                    vg = torch.cat([vg, ve[None].expand(R, -1, -1)], 1)
+                if E:
+                    kg = torch.cat([kg, ke[:E][None].expand(R, -1, -1)], 1)
+                    vg = torch.cat([vg, ve[:E][None].expand(R, -1, -1)], 1)
                     tpos = torch.cat([tpos, t_extra], 1)
-                mask = tpos <= qpos
-                mask[~mask.any(1)] = True            # SDPA gives NaN on a row with no key
+                mask = tpos[:, None, :] <= qpos[:, :, None]             # (R, Sq, keys)
+                mask[~mask.any(-1)] = True           # SDPA gives NaN on a row with no key
                 kk = kg.reshape(R, -1, H, hd).transpose(1, 2)
                 vv = vg.reshape(R, -1, H, hd).transpose(1, 2)
-                qh = qq.reshape(R, 1, H, hd).transpose(1, 2)
-                m4 = mask[:, None, None, :]
+                qh = qq.reshape(R, Sq, H, hd).transpose(1, 2)
+                m4 = mask[:, None]
                 r["library_ms"] = device_ms(torch, lambda: sdpa(qh, kk, vv, attn_mask=m4,
                                                                 scale=hd**-0.5), n=10)
                 del kg, vg, kk, vv
@@ -578,20 +627,41 @@ def phase_reference(torch, dev="cuda"):
     cpu = model.init_params(device="cpu", seed=1)
     gpu = _tree_to(cpu, torch.device(dev))
 
-    def reqs():
-        return [Request(prompt=((np.arange(5 + 9 * i) * 11 + i) % cfg.vocab_size).astype(np.int32),
-                        max_new_tokens=4 + i, arrival_s=0.0) for i in range(4)]
-
-    outs = {}
-    for name, params in (("cpu", cpu), ("card", gpu)):
-        eng = Engine(model, params, TPContext(), max_slots=2, max_len=64, block_size=16,
-                     prefill_chunk=16, token_budget=18, cache_dtype=torch.float32,
-                     cache_spec="bf16", device=params["embed"]["w"].device)
-        outs[name] = [r.output.tolist() for r in eng.run(reqs())]
-    check(outs["cpu"] == outs["card"],
-          f"greedy tokens differ card vs CPU: {outs['card']} vs {outs['cpu']}")
-    log(f"reference: reduced llama2 fp32 greedy tokens identical card vs CPU "
-        f"({sum(map(len, outs['cpu']))} tokens, dense pools, mixed engine)")
+    parity = [(((np.arange(5 + 9 * i) * 11 + i) % cfg.vocab_size).astype(np.int32), 4 + i)
+              for i in range(4)]
+    dup = ((np.arange(32) * 7) % cfg.vocab_size).astype(np.int32)
+    evict = [(np.arange(20, dtype=np.int32), 30)] * 2
+    base = dict(max_slots=2, max_len=64, block_size=16, cache_dtype=torch.float32,
+                cache_spec="bf16")
+    cases = {  # name -> (engine options, traffic); dense fp32 pools throughout
+        "mixed": (dict(prefill_chunk=16, token_budget=18), parity),
+        "split": (dict(prefill_chunk=16, token_budget=0), parity),
+        "whole-prompt": (dict(prefill_chunk=0), parity),
+        "prefix COW": (dict(max_slots=1, prefill_chunk=32, prefix_cache=True), [(dup, 5)] * 3),
+        "evict mixed": (dict(prefill_chunk=8, n_blocks=7), evict),
+        "evict split": (dict(prefill_chunk=8, token_budget=0, n_blocks=7), evict),
+    }
+    for case, (opts, traffic) in cases.items():
+        outs, stats = {}, {}
+        for name, params in (("cpu", cpu), ("card", gpu)):
+            eng = Engine(model, params, TPContext(), device=params["embed"]["w"].device,
+                         **{**base, **opts})
+            reqs = eng.run([Request(prompt=p.copy(), max_new_tokens=n) for p, n in traffic])
+            outs[name] = [r.output.tolist() for r in reqs]
+            s = eng.stats.summary()
+            stats[name] = (s["n_steps"], s["n_dispatches"], s["n_preemptions"],
+                           s["prefill_tokens_skipped"])
+        check(outs["cpu"] == outs["card"],
+              f"{case}: greedy tokens differ card vs CPU: {outs['card']} vs {outs['cpu']}")
+        check(stats["cpu"] == stats["card"], f"{case}: steps, dispatches, preemptions, "
+              f"skipped tokens differ card vs CPU: {stats['card']} vs {stats['cpu']}")
+        if case == "prefix COW":
+            check(stats["card"][3] == 62, f"prefix COW: {stats['card'][3]} tokens skipped")
+        if case.startswith("evict"):
+            check(stats["card"][2] >= 1, f"{case}: no preemption")
+        log(f"reference[{case}]: reduced llama2 fp32 greedy tokens identical card vs CPU "
+            f"({sum(map(len, outs['cpu']))} tokens); steps, dispatches, preemptions, "
+            f"skipped tokens {stats['card']} on both")
 
     # one compressed mixed step on fp4 pools, card vs CPU
     ctx = TPContext(policy=PAPER_DEFAULT, simulate_tp=4)
@@ -635,17 +705,49 @@ def _tree_to(tree, device):
 # ----------------------------------------------------------------------- serve
 
 
+def expected_launches(eng, n_layers: int) -> dict:
+    """Kernel launches of one ``Engine.run``, derived from the run's own
+    stats. Per layer: a compressed row-parallel reduction (``wo``, ``down``)
+    is one ``mx_quant`` + one ``mx_dequant_reduce``; a paged step (mixed,
+    chunk or decode) is one ``paged_attention``; fp4 pools add one
+    ``mx_quant`` each for K and V per write (step append, whole-prompt
+    insert) and, in the mixed step only, one ``mx_dequant`` each for the
+    decode round trip. The mixed step compresses under its compressed gate;
+    the split chunk and the whole-prompt prefill under the engine's context,
+    the split decode under ``ctx_decode``. A COW fork launches nothing."""
+    L, q = n_layers, eng.cache_spec.quantized
+    if eng.token_budget:
+        n_c, n_d = eng.gate_counts["compressed"], eng.gate_counts["dense"]
+        return {"mx_quant": L * 2 * n_c + (L * 2 * (n_c + n_d) if q else 0),
+                "mx_dequant_reduce": L * 2 * n_c,
+                "mx_dequant": L * 2 * (n_c + n_d) if q else 0,
+                "paged_attention": L * (n_c + n_d)}
+    s = eng.stats
+    n_chunk = sum(1 for p, _ in s.step_tokens if p)
+    n_dec = sum(1 for _, d in s.step_tokens if d)
+    n_whole = (s.n_dispatches - n_chunk - n_dec) // 2   # prefill + insert each
+    comp = (n_chunk + n_whole) * eng.ctx.policy.enabled + n_dec * eng.ctx_decode.policy.enabled
+    return {"mx_quant": L * 2 * comp + (L * 2 * (n_chunk + n_dec + n_whole) if q else 0),
+            "mx_dequant_reduce": L * 2 * comp, "mx_dequant": 0,
+            "paged_attention": L * (n_chunk + n_dec)}
+
+
 def phase_serve(torch, dev="cuda", cfg=None):
+    """llama2-7b at full width and depth (or ``cfg``), one set of weights,
+    through every scheduler and cache path of the port. Each run is driven
+    with the launch counts set to 0 just before it and read just after, and
+    held to the counts its own stats give (``expected_launches``)."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import PAPER_DEFAULT
+    from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
     from repro_torch.core.tp import TPContext
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.models.model import Model
     from repro_torch.serving import Engine, Request
 
     cfg = cfg or get_config("llama2-7b")
+    L = cfg.n_layers
     model = Model(cfg)
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     t0 = time.perf_counter()
@@ -655,49 +757,125 @@ def phase_serve(torch, dev="cuda", cfg=None):
         f"{cfg.dtype} weights (seed 0) in {time.perf_counter() - t0:.1f} s; "
         f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB")
     ctx = TPContext(policy=PAPER_DEFAULT, simulate_tp=TP)
-    engines = {spec: Engine(model, params, ctx, max_slots=SLOTS, max_len=MAX_LEN,
-                            block_size=BS, prefill_chunk=CHUNK, token_budget=T,
-                            cache_spec=spec, device=dev)
-               for spec in ("fp4_e2m1", "bf16")}
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32) for _ in range(8)]
-    for eng in engines.values():  # warm-up (cuBLAS handles, first launches)
-        eng.run([Request(prompt=prompts[0].copy(), max_new_tokens=2)])
-    sync()
+    shared = rng.integers(0, cfg.vocab_size, CHUNK).astype(np.int32)
+    shared_prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, PROMPT - CHUNK)
+                                      .astype(np.int32)]) for _ in range(8)]
+    runs, totals = {}, {k: 0 for k in KERNELS}
 
-    runs = {}
-    reset_launch_counts()        # the main path starts here
-    for spec, eng in engines.items():
-        before = launch_counts()
-        reqs = [Request(prompt=p.copy(), max_new_tokens=NEW) for p in prompts]
+    def serve(name, eng, traffic, warm=True):
+        """One measured run of ``eng`` on ``traffic``, with its checks."""
+        if warm:   # cuBLAS handles and first launches, outside the count
+            eng.run([Request(prompt=traffic[0].copy(), max_new_tokens=2)])
+            sync()
+        reqs = [Request(prompt=p.copy(), max_new_tokens=NEW) for p in traffic]
+        reset_launch_counts()
         t0 = time.perf_counter()
         eng.run(reqs, seed=0)
         sync()
         wall = time.perf_counter() - t0
-        after = launch_counts()
+        got = launch_counts()
         s = eng.stats.summary()
-        per_run = {k: after[k] - before[k] for k in after}
-        n_c, n_d = eng.gate_counts["compressed"], eng.gate_counts["dense"]
-        runs[spec] = dict(summary=s, launches=per_run, gate=dict(eng.gate_counts), wall_s=wall,
-                          pool_mb=eng.kv_pool_bytes() / 1e6)
+        expect = expected_launches(eng, L)
+        a = eng.allocator
         check(all(r.outcome == "ok" and len(r.output) == NEW for r in reqs),
-              f"{spec}: not every request finished ok with {NEW} tokens")
-        check(eng.logits_finite(), f"{spec}: non-finite logits")
-        check(n_c > 0 and n_d > 0, f"{spec}: gate counts {eng.gate_counts}")
-        L = cfg.n_layers
-        quantized = spec != "bf16"
-        expect = {"mx_quant": L * 2 * n_c + (L * 2 * (n_c + n_d) if quantized else 0),
-                  "mx_dequant_reduce": L * 2 * n_c,
-                  "mx_dequant": L * 2 * (n_c + n_d) if quantized else 0,
-                  "paged_attention": L * (n_c + n_d)}
+              f"{name}: not every request finished ok with {NEW} tokens")
+        check(eng.logits_finite(), f"{name}: non-finite logits")
+        check(a.n_free + a.n_cached == eng.n_blocks - 1 and a.n_allocated == 0,
+              f"{name}: free list not conserved ({a.n_free} free, {a.n_cached} cached, "
+              f"{a.n_allocated} referenced of {eng.n_blocks - 1})")
         if dev == "cuda":  # kernels launch only on the card
-            check(per_run == expect, f"{spec}: launches {per_run} != expected {expect}")
-        log(f"serve[{spec} pools]: 8 requests ok, {s['n_generated']} tokens; TTFT p50 "
-            f"{s['ttft_p50_s'] * 1e3:.1f} ms p90 {s['ttft_p90_s'] * 1e3:.1f} ms; TPOT p50 "
-            f"{s['tpot_p50_s'] * 1e3:.2f} ms; {s['tokens_per_s']:.1f} tokens/s; "
-            f"{s['n_steps']} steps ({n_c} compressed, {n_d} dense); pool "
-            f"{runs[spec]['pool_mb']:.1f} MB; launches {per_run}")
-    totals = launch_counts()     # ... and ends here
+            check(got == expect, f"{name}: launches {got} != expected {expect}")
+        for k in totals:
+            totals[k] += got[k]
+        runs[name] = dict(summary=s, launches=got, gate=dict(eng.gate_counts), wall_s=wall,
+                          pool_mb=eng.kv_pool_bytes() / 1e6,
+                          outputs=[r.output.tolist() for r in reqs])
+        log(f"serve[{name}]: {len(reqs)} requests ok, {s['n_generated']} tokens in "
+            f"{wall:.2f} s; TTFT p50 {s['ttft_p50_s'] * 1e3:.1f} ms p90 "
+            f"{s['ttft_p90_s'] * 1e3:.1f} ms; TPOT p50 {s['tpot_p50_s'] * 1e3:.2f} ms; "
+            f"{s['tokens_per_s']:.1f} tokens/s; {s['n_steps']} steps, {s['n_dispatches']} "
+            f"dispatches (gate {eng.gate_counts}); {s['n_preemptions']} preemptions; "
+            f"{s['prefill_tokens_skipped']} prompt tokens skipped; pool "
+            f"{runs[name]['pool_mb']:.1f} MB; launches {got}")
+        return s
+
+    kw = dict(max_slots=SLOTS, max_len=MAX_LEN, block_size=BS, device=dev)
+    # the mixed token-budget step
+    for spec in ("fp4_e2m1", "bf16"):
+        eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=T, cache_spec=spec,
+                     **kw)
+        serve(f"mixed/{spec}", eng, prompts)
+        check(eng.gate_counts["compressed"] > 0 and eng.gate_counts["dense"] > 0,
+              f"mixed/{spec}: gate counts {eng.gate_counts}")
+    # (a) the split scheduler: one 256-token chunk, then the batched decode
+    for spec in ("fp4_e2m1", "bf16"):
+        eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=0, cache_spec=spec,
+                     **kw)
+        s = serve(f"split/{spec}", eng, prompts)
+        check(s["n_dispatches"] > s["n_steps"], f"split/{spec}: one dispatch per step")
+    # (b) whole-prompt prefill + insert, then the batched decode
+    eng = Engine(model, params, ctx, prefill_chunk=0, cache_spec="fp4_e2m1", **kw)
+    s = serve("whole/fp4_e2m1", eng, prompts)
+    check(s["prefill_tokens"] == 8 * PROMPT and s["n_dispatches"] > s["n_steps"],
+          "whole/fp4_e2m1: prompts not prefilled whole")
+    # (c) prefix cache kept warm across runs: a shared 256-token prefix, then
+    # the same prompts again (bf16 pools fork the tail block, fp4 pools
+    # resume at the aligned boundary); pools sized to keep every prompt block
+    for spec in ("fp4_e2m1", "bf16"):
+        eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=T, cache_spec=spec,
+                     prefix_cache=True, persistent_cache=True,
+                     n_blocks=8 * (MAX_LEN // BS) + 1, **kw)
+        first = serve(f"prefix/{spec}/run1", eng, shared_prompts, warm=False)
+        second = serve(f"prefix/{spec}/run2", eng, shared_prompts, warm=False)
+        check(first["prefill_tokens_skipped"] > 0 and second["prefill_tokens_skipped"] > 0,
+              f"prefix/{spec}: no prompt tokens skipped")
+        # the warm run reads through other kernel geometries and GEMM shapes,
+        # so its tokens may part from the cold run's at a near tie: counted
+        same = sum(a == b for a, b in zip(runs[f"prefix/{spec}/run1"]["outputs"],
+                                          runs[f"prefix/{spec}/run2"]["outputs"]))
+        runs[f"prefix/{spec}/run2"]["same_tokens_as_run1"] = same
+        log(f"prefix[{spec}]: the warm run decoded the cold run's tokens for {same} of 8 "
+            f"requests")
+        cow = second["n_dispatches"] - second["n_steps"]
+        if spec == "bf16":
+            check(eng._exact_pools and cow == 8 and second["prefill_tokens_skipped"]
+                  == 8 * (PROMPT - 1), f"prefix/bf16: {cow} COW forks, "
+                  f"{second['prefill_tokens_skipped']} tokens skipped on the warm run")
+        else:
+            check(cow == 0 and second["prefill_tokens_skipped"] == 8 * CHUNK,
+                  f"prefix/fp4: {cow} COW forks, {second['prefill_tokens_skipped']} skipped")
+    # (d) preemption: 101 usable blocks for 4 slots of 34. (With one block
+    # more, three requests' worth, the fourth slot's chunk defers in place and
+    # the three decodes fit exactly, so nothing is preempted.)
+    eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=T, cache_spec="fp4_e2m1",
+                 n_blocks=3 * (MAX_LEN // BS), **kw)
+    s = serve("evict/fp4_e2m1", eng, prompts)
+    check(s["n_preemptions"] >= 1, "evict/fp4_e2m1: no preemption")
+
+    # (e) whole-prompt TTFT (Table 3's metric), compressed vs uncompressed
+    # reductions on the one card: the simulated codec's cost, not a TP saving
+    ttft = {}
+    for label, policy in (("compressed", PAPER_DEFAULT), ("uncompressed", NO_COMPRESSION)):
+        eng = Engine(model, params, TPContext(policy=policy, simulate_tp=TP), max_slots=1,
+                     max_len=max(TTFT_LENS), block_size=BS, prefill_chunk=0, device=dev)
+        for n in TTFT_LENS:
+            reset_launch_counts()
+            r = eng.measure_ttft(n, iters=TTFT_ITERS)
+            got = launch_counts()
+            comp = int(policy.enabled)
+            expect = {"mx_quant": TTFT_ITERS * L * 2 * comp, "mx_dequant": 0,
+                      "mx_dequant_reduce": TTFT_ITERS * L * 2 * comp, "paged_attention": 0}
+            if dev == "cuda":
+                check(got == expect, f"ttft/{label}/{n}: launches {got} != {expect}")
+            for k in totals:
+                totals[k] += got[k]
+            ttft[f"{label}/{n}"] = dict(r, launches=got)
+            log(f"ttft[{n} tokens, {label}]: median {r['median_s'] * 1e3:.2f} ms, std "
+                f"{r['std_s'] * 1e3:.2f} ms over {r['iters']} prefills")
+        del eng
+    runs["ttft"] = ttft
     check(dev != "cuda" or all(totals[k] > 0 for k in KERNELS),
           f"a kernel never launched: {totals}")
     return runs, totals
@@ -747,9 +925,11 @@ def main() -> int:
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=totals[n],
                     **{k: info[n][k] for k in keys})
                for n, (src, rep) in KERNELS.items()]
-    # mx_quant's other call site (the pool append), each kernel's launch floor
-    kernels[0]["shapes"] = [{k: v for k, v in r.items() if k in keys + ("shape",)}
-                            for r in info["mx_quant"]["shapes"]]
+    # the codec's other served shapes, each kernel's launch floor
+    for k in kernels:
+        if "shapes" in info[k["name"]]:
+            k["shapes"] = [{f: v for f, v in r.items() if f in keys + ("shape",)}
+                           for r in info[k["name"]]["shapes"]]
     for k in kernels:
         k["launch_floor_ms"] = info[k["name"]]["launch_floor_ms"]
     # paged attention's other geometries and pool formats, each with its bound

@@ -1,5 +1,5 @@
-"""Where the time of a serving run goes on the card: the llama2-7b mixed-step
-serve of ``chip_smoke.py`` under ``torch.profiler``, device kernel time
+"""Where the time of a serving run goes on the card: the llama2-7b serve of
+``chip_smoke.py`` under ``torch.profiler``, device kernel time
 summed by layer of the stack (paged attention, MX codec, GEMMs, the rest),
 against the run's wall time (the rest is the device's idle share: host-side
 dispatch and scheduling). The profiler slows the host, so the same run is
@@ -9,8 +9,10 @@ also timed without it, and the idle share is given against both walls.
 
 ``--cache-spec`` takes a comma-separated list, e.g. ``fp4_e2m1,bf16,bf16,fp4_e2m1``:
 the cells then run in that order in one process on the same weights, so
-their numbers compare within one call. Writes the tables to ``--out`` as a
-JSON list as well. Needs a GPU.
+their numbers compare within one call. A cell runs the mixed token-budget
+scheduler (budget 260, chunk 256); a cell written ``<spec>:split`` runs the
+split chunk-then-decode scheduler (``token_budget=0``, chunk 256) instead.
+Writes the tables to ``--out`` as a JSON list as well. Needs a GPU.
 """
 from __future__ import annotations
 
@@ -68,12 +70,17 @@ def main(argv=None):
     out.write_text(json.dumps(results, indent=1))
 
 
-def profile_cell(model, params, cache_spec, prompts, args):
+def profile_cell(model, params, cell, prompts, args):
     """One cell: an unprofiled run, then the same traffic under the profiler."""
     cfg = model.cfg
+    cache_spec, _, scheduler = cell.partition(":")
+    scheduler = scheduler or "mixed"
+    if scheduler not in ("mixed", "split"):
+        raise ValueError(f"cell {cell!r}: the scheduler is 'mixed' or 'split'")
     engine = Engine(model, params, TPContext(policy=PAPER_DEFAULT, simulate_tp=4),
                     max_slots=4, max_len=args.prompt_len + args.new_tokens, block_size=16,
-                    prefill_chunk=256, token_budget=260, cache_spec=cache_spec)
+                    prefill_chunk=256, token_budget=260 if scheduler == "mixed" else 0,
+                    cache_spec=cache_spec)
     engine.run([Request(prompt=prompts[0].copy(), max_new_tokens=2)])  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -97,10 +104,11 @@ def profile_cell(model, params, cache_spec, prompts, args):
             by_kernel[e.name] += us / 1e3
     busy = sum(by_cat.values())
     steps = engine.stats.n_steps
+    dispatches = engine.stats.n_dispatches
     name = torch.cuda.get_device_name(0)
-    print(f"{name}; {cfg.name}, {cache_spec} pools, {steps} steps "
-          f"({engine.gate_counts}), wall {wall_ms:.1f} ms under the profiler, "
-          f"{plain_wall_ms:.1f} ms without it")
+    print(f"{name}; {cfg.name}, {cache_spec} pools, {scheduler} scheduler, {steps} steps, "
+          f"{dispatches} dispatches ({engine.gate_counts}), wall {wall_ms:.1f} ms under "
+          f"the profiler, {plain_wall_ms:.1f} ms without it")
     for cat in ("paged_attention", "mx_codec", "gemm", "other"):
         print(f"  {cat:16s} {by_cat[cat]:9.1f} ms  {by_cat[cat] / wall_ms:6.1%} of wall  "
               f"{by_cat[cat] / max(steps, 1):7.2f} ms/step")
@@ -110,7 +118,8 @@ def profile_cell(model, params, cache_spec, prompts, args):
     top = by_kernel.most_common(8)
     for k, ms in top:
         print(f"    {ms:9.1f} ms  {k[:100]}")
-    return {"device": name, "cache_spec": cache_spec, "steps": steps,
+    return {"device": name, "cache_spec": cache_spec, "scheduler": scheduler,
+            "steps": steps, "dispatches": dispatches,
             "gate_counts": engine.gate_counts, "wall_ms": wall_ms,
             "plain_wall_ms": plain_wall_ms, "device_ms_by_category": dict(by_cat),
             "top_kernels_ms": dict(top)}

@@ -1,13 +1,18 @@
 """Single-device serving driver of the port: continuous-batching requests
-through the mixed-step Engine with MX-compressed row-parallel reductions
-simulated over ``--simulate-tp`` shards.
+through the Engine with MX-compressed row-parallel reductions simulated over
+``--simulate-tp`` shards.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --slots 4 --requests 8 --prompt-len 512 --new-tokens 32 \
       --prefill-chunk 256 --cache-spec fp4_e2m1
 
-Runs on the GPU by default; ``--device cpu`` runs the plain PyTorch path on
-the CPU (use ``--reduced`` there). Weights are random, drawn from ``--seed``.
+``--token-budget 0`` selects the split chunk-then-decode scheduler,
+``--prefill-chunk 0`` whole-prompt prefill, and ``--prefix-cache 1`` prefix
+caching (the prompts then share their first half, so there is something to
+share; the report prints the prompt tokens skipped). The banner names the
+step mode. Runs on the GPU by default; ``--device cpu`` runs the plain
+PyTorch path on the CPU (use ``--reduced`` there). Weights are random, drawn
+from ``--seed``.
 """
 from __future__ import annotations
 
@@ -49,9 +54,12 @@ def main(argv=None):
                          "('fp4_e2m1', 'fp5_e2m2_b16_e8m0', ...)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="prompt tokens per PREFILLING slot per step "
-                         "(default 2*block_size)")
+                         "(default 2*block_size; 0 = whole-prompt prefill)")
     ap.add_argument("--token-budget", type=int, default=None,
-                    help="flattened tokens per mixed step (default prefill_chunk + slots)")
+                    help="flattened tokens per mixed step (default prefill_chunk + "
+                         "slots; 0 = the split chunk-then-decode scheduler)")
+    ap.add_argument("--prefix-cache", type=int, default=0, choices=[0, 1],
+                    help="share KV blocks of a common prompt prefix across requests")
     ap.add_argument("--stagger", type=float, default=0.0,
                     help="inter-arrival gap in seconds (simulated traffic)")
     ap.add_argument("--seed", type=int, default=0,
@@ -76,14 +84,22 @@ def main(argv=None):
                     max_len=args.prompt_len + args.new_tokens,
                     block_size=args.block_size, cache_spec=args.cache_spec,
                     prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
-                    device=device)
+                    prefix_cache=bool(args.prefix_cache), device=device)
+    step = (f"mixed, {engine.token_budget}-token budget ({engine.prefill_chunk} "
+            f"tokens/chunk)" if engine.token_budget
+            else (f"split, chunked {engine.prefill_chunk} tokens/step"
+                  if engine.prefill_chunk else "split, whole-prompt"))
     print(f"kv cache: {engine.cache_spec.describe()} "
-          f"({engine.kv_pool_bytes() / 1e6:.2f} MB pools); step: mixed, "
-          f"{engine.token_budget}-token budget ({engine.prefill_chunk} tokens/chunk)")
+          f"({engine.kv_pool_bytes() / 1e6:.2f} MB pools); step: {step}; "
+          f"prefix cache: {'on' if engine.prefix_cache else 'off'}")
 
     n_req = args.requests or args.slots
     rng = np.random.default_rng(args.seed)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32),
+    # with the prefix cache on, every prompt opens with the same half
+    shared = rng.integers(0, cfg.vocab_size, args.prompt_len // 2 if args.prefix_cache
+                          else 0).astype(np.int32)
+    reqs = [Request(prompt=np.concatenate([shared, rng.integers(
+                        0, cfg.vocab_size, args.prompt_len - len(shared)).astype(np.int32)]),
                     max_new_tokens=args.new_tokens, temperature=args.temperature,
                     arrival_s=i * args.stagger)
             for i in range(n_req)]
@@ -103,6 +119,10 @@ def main(argv=None):
     if "compressed" in engine.gate_variants():
         print(f"compression gate: {s['n_compressed_steps']} compressed / "
               f"{s['n_steps'] - s['n_compressed_steps']} dense steps")
+    if engine.prefix_cache:
+        print(f"prefix cache: {s['prefill_tokens_skipped']} prompt tokens skipped "
+              f"(hit rate {s['prefix_hit_rate']:.2f})")
+    print(f"preemptions: {s['n_preemptions']}")
     print(f"TTFT p50 {s['ttft_p50_s']*1e3:.1f} ms, p90 {s['ttft_p90_s']*1e3:.1f} ms; "
           f"TPOT p50 {s['tpot_p50_s']*1e3:.2f} ms, p95 {s['tpot_p95_s']*1e3:.2f} ms; "
           f"latency p50 {s['latency_p50_s']*1e3:.1f} ms")

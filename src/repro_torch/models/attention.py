@@ -1,16 +1,19 @@
-"""GQA attention with RoPE over paged KV pools — the mixed token-budget path
-of the reference's ``models/attention.py``.
+"""GQA attention with RoPE: the dense self-attention of whole-prompt prefill
+and the three paged geometries of the reference's ``models/attention.py``
+(decode, chunk, mixed token-budget step).
 
-KV pools are flat ``(n_blocks, block_size, kv_dim)`` (dense) or MX wire
-pairs ``(payload (n_blocks, bs, kv_dim*bits/8), scales (n_blocks, bs,
-kv_dim/B))``, as in the reference. One difference in idiom: pool appends are
-in-place ``index_put_`` on the pool tensors (JAX returns updated copies via
-``.at[].set``); the functions still return the pools so call sites read the
-same.
+Dense caches are flat ``(B, S_max, kv_dim)``; KV pools are flat
+``(n_blocks, block_size, kv_dim)`` (dense) or MX wire pairs ``(payload
+(n_blocks, bs, kv_dim*bits/8), scales (n_blocks, bs, kv_dim/B))``, as in the
+reference. Every paged read goes through ``kernels.paged_attention`` (the
+CUDA kernel on the card, its plain version on the CPU). One difference in
+idiom: cache and pool writes are in place (``index_put_`` / slice
+assignment; JAX returns updated copies via ``.at[].set``); the functions
+still return the cache or pools so call sites read the same.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -18,14 +21,33 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import KVCacheSpec, MXSpec
 from repro_torch.core.mx import MXCompressed
 from repro_torch.core.tp import TPContext, column_linear, row_linear
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import (
     NEG_INF, T_INVALID, attend_block as _attend_block, paged_attention,
 )
 from repro_torch.models.common import apply_rope, make_rope, rms_norm
 
-__all__ = ["paged_attention_mixed", "quantize_kv_pages", "NEG_INF", "T_INVALID",
-           "_attend_block", "_qkv"]
+__all__ = ["KVCache", "init_cache", "attention", "paged_attention_decode",
+           "paged_attention_chunk", "paged_attention_mixed", "quantize_kv_pages",
+           "pool_rows", "write_pool_rows", "NEG_INF", "T_INVALID", "_attend_block",
+           "_qkv"]
+
+_Q_CHUNK = 1024
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_max, kv_dim) flat: n_kv_heads * head_dim
+    v: torch.Tensor  # (B, S_max, kv_dim)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device = "cuda") -> KVCache:
+    shape = (batch, max_len, cfg.kv_dim)
+    dev = resolve_device(device)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev))
 
 
 def _qkv(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig, positions):
@@ -46,10 +68,160 @@ def _qkv(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig, positions):
     return q, k.reshape(B, S, cfg.kv_dim), v
 
 
+def _attend(q, k, v, q_pos, t_pos, *, window, scale, kv_heads, chunk: int = _Q_CHUNK):
+    """Causal attention q-chunked as in the reference: q (B, S, H, hd), k/v
+    flat (B, T, kv_dim), q_pos (S,), t_pos (T,); the scores transient stays
+    (B, chunk, H, T). Returns (B, S, H*hd)."""
+    B, S = q.shape[:2]
+    q_pos, t_pos = q_pos.expand(B, S), t_pos.expand(B, k.shape[1])
+    if S <= chunk:
+        return _attend_block(q, k, v, q_pos, t_pos, window=window, scale=scale,
+                             kv_heads=kv_heads)
+    while S % chunk:
+        chunk //= 2
+    return torch.cat([_attend_block(q[:, i:i + chunk], k, v, q_pos[:, i:i + chunk], t_pos,
+                                    window=window, scale=scale, kv_heads=kv_heads)
+                      for i in range(0, S, chunk)], dim=1)
+
+
+def attention(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig, *, pos: int,
+              cache: Optional[KVCache] = None, window: Optional[int] = None,
+              cross_kv: Optional[KVCache] = None):
+    """Dense causal self-attention over x (B, S, d_model) at positions
+    ``pos + [0, S)``: without a cache (every key is in x), or writing the new
+    K/V into ``cache`` at ``pos`` (in place, cast to the cache's dtype) and
+    attending the whole cache read back at that precision (the reference's
+    prefill). Plain PyTorch on the reference's arithmetic: einsum products,
+    fp32 masked softmax, q-chunked at 1024. Returns (out (B, S, d_model),
+    cache). Cross-attention (``cross_kv``) is not ported."""
+    if cross_kv is not None:
+        raise NotImplementedError("cross-attention is not ported yet (encoder-decoder "
+                                  "models)")
+    B, S = x.shape[:2]
+    positions = pos + torch.arange(S, device=x.device, dtype=torch.int32)
+    q, k_new, v_new = _qkv(ctx, params, x, cfg, positions[None, :])
+    if cache is None:
+        t_pos, k_all, v_all = positions, k_new, v_new
+    else:
+        cache.k[:, pos:pos + S] = k_new.to(cache.k.dtype)
+        cache.v[:, pos:pos + S] = v_new.to(cache.v.dtype)
+        k_all, v_all = cache
+        t_pos = torch.arange(k_all.shape[1], device=x.device, dtype=torch.int32)
+    out = _attend(q, k_all.to(q.dtype), v_all.to(q.dtype), positions, t_pos,
+                  window=window, scale=cfg.head_dim**-0.5, kv_heads=cfg.n_kv_heads)
+    y = row_linear(ctx, out, params["wo"]["w"], n_tokens=B * S)
+    return y, cache
+
+
 def quantize_kv_pages(k: torch.Tensor, v: torch.Tensor, spec: MXSpec):
     """Quantize dense K/V (..., kv_dim) into wire pages — the single
     append-path codec entry (the quantize kernel on the card)."""
     return ops.mx_quantize(k, spec), ops.mx_quantize(v, spec)
+
+
+def pool_rows(k: torch.Tensor, v: torch.Tensor, pool_k, cache_spec):
+    """K/V rows (N, kv_dim) in the pools' storage format: MX wire pairs
+    through ``quantize_kv_pages``, or cast to the dense pools' dtype."""
+    if cache_spec is not None and cache_spec.quantized:
+        return quantize_kv_pages(k, v, cache_spec.mx)
+    return k.to(pool_k.dtype), v.to(pool_k.dtype)
+
+
+def write_pool_rows(pool_k, pool_v, k_rows, v_rows, blk: torch.Tensor, offs: torch.Tensor):
+    """Store rows from ``_pool_rows`` at (block, offset) pairs, in place."""
+    for pool, rows in ((pool_k, k_rows), (pool_v, v_rows)):
+        if isinstance(pool, MXCompressed):
+            pool.payload.index_put_((blk, offs), rows.payload)
+            pool.scales.index_put_((blk, offs), rows.scales)
+        else:
+            pool.index_put_((blk, offs), rows)
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def _spec_args(cfg: ModelConfig, cache_spec: Optional[KVCacheSpec], window):
+    quantized = cache_spec is not None and cache_spec.quantized
+    return dict(spec=cache_spec.mx if quantized else None, kv_heads=cfg.n_kv_heads,
+                scale=cfg.head_dim**-0.5, window=window)
+
+
+def _block_size(pool) -> int:
+    return (pool.payload if isinstance(pool, MXCompressed) else pool).shape[1]
+
+
+def paged_attention_decode(
+    ctx: TPContext,
+    params,
+    x: torch.Tensor,                   # (B, 1, d_model) — one token per slot
+    cfg: ModelConfig,
+    *,
+    lengths: torch.Tensor,             # (B,) int32 per-slot write position
+    pool_k,                            # dense pool or MXCompressed wire pool
+    pool_v,
+    tables: torch.Tensor,              # (B, max_blocks) int32 block ids
+    window: Optional[int] = None,
+    cache_spec: Optional[KVCacheSpec] = None,
+):
+    """One decode step of every slot against the paged pools: write the new
+    K/V at position ``lengths[b]`` of slot b's table first (MX-quantized on
+    wire pools), then ONE paged read in which row b attends its history up
+    to and including that token (``hist_len = lengths + 1``, at pool
+    precision). Inactive slots point at the null block; their writes and
+    rows are garbage that the engine discards. Returns (out, pool_k, pool_v).
+    """
+    B = x.shape[0]
+    q, k_new, v_new = _qkv(ctx, params, x, cfg, lengths[:, None])
+    nb, bs = tables.shape[1], _block_size(pool_k)
+    pos = lengths.long()
+    blk = tables.long().gather(1, (pos // bs).clamp(max=nb - 1)[:, None])[:, 0]
+    k_rows, v_rows = pool_rows(k_new[:, 0], v_new[:, 0], pool_k, cache_spec)
+    write_pool_rows(pool_k, pool_v, k_rows, v_rows, blk, pos % bs)
+    out = paged_attention(q.reshape(B, 1, -1).contiguous(), pool_k, pool_v, _i32(tables),
+                          _i32(lengths + 1), _i32(lengths[:, None]),
+                          **_spec_args(cfg, cache_spec, window))
+    y = row_linear(ctx, out, params["wo"]["w"], n_tokens=B)
+    return y, pool_k, pool_v
+
+
+def paged_attention_chunk(
+    ctx: TPContext,
+    params,
+    x: torch.Tensor,                   # (1, C, d_model) — one prompt chunk
+    cfg: ModelConfig,
+    *,
+    start: int,                        # position of x[:, 0]
+    table_row: torch.Tensor,           # (max_blocks,) int32: the slot's blocks
+    pool_k,
+    pool_v,
+    window: Optional[int] = None,
+    cache_spec: Optional[KVCacheSpec] = None,
+):
+    """Chunked-prefill attention for ONE slot: a paged read (R = 1, Sq = C)
+    of the slot's history below ``start`` at pool precision, with the chunk's
+    own K/V as compute-precision extras, read BEFORE the append; then the
+    chunk's K/V goes into the pools at ``start + [0, C)`` (positions past the
+    table, pads included, fall into the null block).
+    Returns (out (1, C, d_model), pool_k, pool_v)."""
+    B, C = x.shape[:2]
+    dev = x.device
+    p = start + torch.arange(C, device=dev, dtype=torch.int32)
+    q, k_new, v_new = _qkv(ctx, params, x, cfg, p[None, :])
+    nb, bs = table_row.shape[0], _block_size(pool_k)
+    pl = p.long()
+    blk = torch.where(pl < nb * bs, table_row.long()[(pl // bs).clamp(0, nb - 1)],
+                      torch.zeros((), dtype=torch.long, device=dev))
+    p_row = p[None, :].contiguous()
+    out = paged_attention(
+        q.reshape(1, C, -1).contiguous(), pool_k, pool_v, _i32(table_row[None]),
+        torch.full((1,), start, dtype=torch.int32, device=dev), p_row,
+        k_new[0].to(q.dtype).contiguous(), v_new[0].to(q.dtype).contiguous(), p_row,
+        **_spec_args(cfg, cache_spec, window))
+    k_rows, v_rows = pool_rows(k_new[0], v_new[0], pool_k, cache_spec)
+    write_pool_rows(pool_k, pool_v, k_rows, v_rows, blk, pl % bs)
+    y = row_linear(ctx, out, params["wo"]["w"], n_tokens=B * C)
+    return y, pool_k, pool_v
 
 
 def paged_attention_mixed(
@@ -84,24 +256,21 @@ def paged_attention_mixed(
     B, T = x.shape[:2]
     quantized = cache_spec is not None and cache_spec.quantized
     dev = x.device
-    i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()
 
     q, k_new, v_new = _qkv(ctx, params, x, cfg, positions[None, :])
     sid = slot_ids.long()
-    my_tables = i32(tables[sid])                         # (T, max_blocks)
+    my_tables = _i32(tables[sid])                         # (T, max_blocks)
     nb = tables.shape[1]
-    bs = (pool_k.payload if quantized else pool_k).shape[1]
+    bs = _block_size(pool_k)
     cap = nb * bs
-    start = i32(slot_starts[sid])                         # (T,)
+    start = _i32(slot_starts[sid])                         # (T,)
 
+    k_rows, v_rows = pool_rows(k_new[0], v_new[0], pool_k, cache_spec)
     if quantized:
-        mxs = cache_spec.mx
-        kq, vq = quantize_kv_pages(k_new[0], v_new[0], mxs)
-        k_rt = ops.mx_dequantize(kq, mxs, out_dtype=q.dtype)
-        v_rt = ops.mx_dequantize(vq, mxs, out_dtype=q.dtype)
+        k_rt = ops.mx_dequantize(k_rows, cache_spec.mx, out_dtype=q.dtype)
+        v_rt = ops.mx_dequantize(v_rows, cache_spec.mx, out_dtype=q.dtype)
     else:
-        k_rt = k_new[0].to(pool_k.dtype).to(q.dtype)
-        v_rt = v_new[0].to(pool_v.dtype).to(q.dtype)
+        k_rt, v_rt = k_rows.to(q.dtype), v_rows.to(q.dtype)
 
     # in-batch K/V: decode tokens read their own write back at pool
     # precision; prefill tokens stay in compute precision
@@ -109,15 +278,14 @@ def paged_attention_mixed(
     k_step = torch.where(dec, k_rt, k_new[0].to(q.dtype)).contiguous()
     v_step = torch.where(dec, v_rt, v_new[0].to(q.dtype)).contiguous()
     same = (slot_ids[None, :] == slot_ids[:, None]) & valid[None, :]
-    t_step = i32(torch.where(same, positions[None, :], T_INVALID))   # (T, T)
+    t_step = _i32(torch.where(same, positions[None, :], T_INVALID))   # (T, T)
 
     # the paged read: the gather-free kernel on the card, its plain version
     # (the pool[my_tables] gather) on the CPU
     out = paged_attention(
         q[0].reshape(T, 1, -1).contiguous(), pool_k, pool_v, my_tables, start,
-        i32(positions[:, None]), k_step, v_step, t_step,
-        spec=cache_spec.mx if quantized else None, kv_heads=cfg.n_kv_heads,
-        scale=cfg.head_dim**-0.5, window=window)
+        _i32(positions[:, None]), k_step, v_step, t_step,
+        **_spec_args(cfg, cache_spec, window))
     out = out[:, 0][None]                                # (1, T, H*hd)
 
     # append every real token's K/V; pads fall into the null block
@@ -125,14 +293,7 @@ def paged_attention_mixed(
     blk = torch.where(valid & (positions < cap),
                       my_tables[torch.arange(T, device=dev), col].long(),
                       torch.zeros((), dtype=torch.long, device=dev))
-    offs = (positions % bs).long()
-    if quantized:
-        for pool, new in ((pool_k, kq), (pool_v, vq)):
-            pool.payload.index_put_((blk, offs), new.payload)
-            pool.scales.index_put_((blk, offs), new.scales)
-    else:
-        pool_k.index_put_((blk, offs), k_new[0].to(pool_k.dtype))
-        pool_v.index_put_((blk, offs), v_new[0].to(pool_v.dtype))
+    write_pool_rows(pool_k, pool_v, k_rows, v_rows, blk, (positions % bs).long())
 
     y = row_linear(ctx, out, params["wo"]["w"], n_tokens=B * T)
     return y, pool_k, pool_v

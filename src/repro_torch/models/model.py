@@ -1,6 +1,8 @@
-"""The port's Model: parameter init and the unified mixed token-budget step
-for dense pure-attention decoders (the reference's ``Model.init_params`` and
-``Model.mixed_step``). Other families raise ``NotImplementedError``.
+"""The port's Model for dense pure-attention decoders: parameter init, the
+whole-prompt prefill over a dense cache, and the three paged serving steps
+(the reference's ``Model.init_params``, ``init_cache``, ``prefill``,
+``prefill_chunk``, ``decode_step_paged`` and ``mixed_step``). Other families
+raise ``NotImplementedError``.
 
 Parameters are a plain nested dict with the reference's tree and names
 (``embed``, ``layers[i].{ln1, core.{wq, wk, wv, wo}, ln2, mlp.{up, down,
@@ -9,16 +11,19 @@ gate}}``, ``final_norm``, ``lm_head``) and its layouts (linear weights
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tp import TPContext
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import paged_attention_mixed
+from repro_torch.models.attention import (
+    init_cache, paged_attention_chunk, paged_attention_decode, paged_attention_mixed,
+)
 from repro_torch.models.common import Initializer, embed, rms_norm, unembed
 from repro_torch.models.mlp import mlp
+from repro_torch.models.transformer import apply_stack
 
 __all__ = ["Model", "torch_dtype"]
 
@@ -87,6 +92,84 @@ class Model:
             p["lm_head"] = {"w": init.linear((cfg.vocab_size, d))}
         return p
 
+    # ----------------------------------------------------------------- serve
+
+    def _embed(self, ctx: TPContext, params, tokens: torch.Tensor) -> torch.Tensor:
+        x = embed(ctx, params["embed"]["w"], tokens)
+        return x * torch.tensor(self.cfg.d_model**0.5, dtype=x.dtype)
+
+    def _logits(self, ctx: TPContext, params, x: torch.Tensor) -> torch.Tensor:
+        """Final norm + unembed of x (N, 1, d_model) -> logits (N, V)."""
+        x = rms_norm(x, params["final_norm"]["w"])
+        head = params.get("lm_head", params["embed"])["w"]
+        return unembed(ctx, x, head)[:, 0]
+
+    def _paged_layers(self, ctx: TPContext, params, x: torch.Tensor, state,
+                      attend: Callable) -> Tuple[torch.Tensor, Any]:
+        """Every layer over the paged pools of ``state``: ``attend(core
+        params, h, pool_k, pool_v, window)`` is the step's paged attention and
+        returns (out, pool_k, pool_v); then the SwiGLU MLP. Pools update in
+        place. Returns (x, state)."""
+        pools_k, pools_v = list(state["pools_k"]), list(state["pools_v"])
+        for i, spec in enumerate(self.cfg.layers):
+            lp = params["layers"][i]
+            h = rms_norm(x, lp["ln1"]["w"])
+            out, pools_k[i], pools_v[i] = attend(lp["core"], h, pools_k[i], pools_v[i],
+                                                 spec.window)
+            x = x + out
+            h = rms_norm(x, lp["ln2"]["w"])
+            x = x + mlp(ctx, lp["mlp"], h, self.cfg)
+        return x, {**state, "pools_k": pools_k, "pools_v": pools_v}
+
+    def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+                   device: str | torch.device = "cuda") -> Dict[str, Any]:
+        """Dense per-layer K/V caches for whole-prompt prefill."""
+        return {"layers": [init_cache(self.cfg, batch, max_len, dtype, device)
+                           for _ in self.cfg.layers],
+                "pos": 0}
+
+    def prefill(self, ctx: TPContext, params, batch, cache, *,
+                last_index: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
+        """Whole-prompt prefill of ``batch["tokens"]`` (B, S) into ``cache``
+        (written in place); returns (logits (B, V) at ``last_index``, the last
+        position by default, and the cache). The engine right-pads prompts to
+        a length bucket and passes the last real token's index (causal
+        masking hides the pads)."""
+        tokens = batch["tokens"]
+        x = self._embed(ctx, params, tokens)
+        x, layer_caches = apply_stack(ctx, self.cfg, params["layers"], x, pos=0,
+                                      caches=cache["layers"])
+        i = tokens.shape[1] - 1 if last_index is None else int(last_index)
+        logits = self._logits(ctx, params, x[:, i:i + 1])
+        return logits, {"layers": layer_caches, "pos": tokens.shape[1]}
+
+    def prefill_chunk(self, ctx: TPContext, params, tokens, state, table_row, start: int,
+                      n_valid: int, cache_spec=None) -> Tuple[torch.Tensor, Any]:
+        """Chunked prefill of ONE slot: tokens (1, C) int32, right-padded
+        after ``n_valid`` real tokens; table_row (max_blocks,) int32 the
+        slot's blocks; ``start`` the position of tokens[0, 0]. Each layer
+        attends the slot's paged history plus the chunk, then appends the
+        chunk's K/V to the pools (in place). Returns (logits (1, V) at chunk
+        index ``n_valid - 1``, state)."""
+        x = self._embed(ctx, params, tokens)
+        x, state = self._paged_layers(
+            ctx, params, x, state, lambda p, h, pk, pv, window: paged_attention_chunk(
+                ctx, p, h, self.cfg, start=start, table_row=table_row, pool_k=pk,
+                pool_v=pv, window=window, cache_spec=cache_spec))
+        return self._logits(ctx, params, x[:, n_valid - 1:n_valid]), state
+
+    def decode_step_paged(self, ctx: TPContext, params, tokens, state, tables, lengths,
+                          cache_spec=None) -> Tuple[torch.Tensor, Any]:
+        """Batched decode of every slot: tokens (B, 1) int32, tables (B,
+        max_blocks) int32, lengths (B,) int32 per-slot write positions.
+        Returns (logits (B, V), state); the pools update in place."""
+        x = self._embed(ctx, params, tokens)
+        x, state = self._paged_layers(
+            ctx, params, x, state, lambda p, h, pk, pv, window: paged_attention_decode(
+                ctx, p, h, self.cfg, lengths=lengths, pool_k=pk, pool_v=pv,
+                tables=tables, window=window, cache_spec=cache_spec))
+        return self._logits(ctx, params, x), state
+
     def mixed_step(self, ctx: TPContext, params, tokens, state, slot_ids, positions,
                    valid, is_decode, slot_starts, tables, sample_idx,
                    cache_spec=None) -> Tuple[torch.Tensor, Any]:
@@ -96,25 +179,13 @@ class Model:
         tables (n_slots, max_blocks); sample_idx (n_slots,) — the flat index
         each slot samples from. Appends every real token's K/V to the pools
         of ``state`` (in place) and returns (logits (n_slots, V), state)."""
-        cfg = self.cfg
-        x = embed(ctx, params["embed"]["w"], tokens)
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
-        pools_k, pools_v = list(state["pools_k"]), list(state["pools_v"])
-        for i, spec in enumerate(cfg.layers):
-            lp = params["layers"][i]
-            h = rms_norm(x, lp["ln1"]["w"])
-            out, pools_k[i], pools_v[i] = paged_attention_mixed(
-                ctx, lp["core"], h, cfg, positions=positions, slot_ids=slot_ids,
+        x = self._embed(ctx, params, tokens)
+        x, state = self._paged_layers(
+            ctx, params, x, state, lambda p, h, pk, pv, window: paged_attention_mixed(
+                ctx, p, h, self.cfg, positions=positions, slot_ids=slot_ids,
                 slot_starts=slot_starts, valid=valid, is_decode=is_decode,
-                tables=tables, pool_k=pools_k[i], pool_v=pools_v[i],
-                window=spec.window, cache_spec=cache_spec)
-            x = x + out
-            h = rms_norm(x, lp["ln2"]["w"])
-            x = x + mlp(ctx, lp["mlp"], h, cfg)
+                tables=tables, pool_k=pk, pool_v=pv, window=window,
+                cache_spec=cache_spec))
         # logits only at each slot's sampled token (norm + unembed stay
         # O(n_slots), not O(token_budget))
-        x = x[0][sample_idx.long()][:, None]
-        x = rms_norm(x, params["final_norm"]["w"])
-        head = params.get("lm_head", params["embed"])["w"]
-        logits = unembed(ctx, x, head)[:, 0]
-        return logits, {**state, "pools_k": pools_k, "pools_v": pools_v}
+        return self._logits(ctx, params, x[0][sample_idx.long()][:, None]), state

@@ -1,0 +1,45 @@
+"""Decoder stack of dense attention + SwiGLU layers (the reference's
+``models/transformer.py`` ``apply_layer`` / ``apply_stack`` for the one layer
+kind the port serves). Mamba, xLSTM and MoE layers raise."""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.core.tp import TPContext
+from repro_torch.models.attention import KVCache, attention
+from repro_torch.models.common import rms_norm
+from repro_torch.models.mlp import mlp
+
+__all__ = ["apply_layer", "apply_stack"]
+
+
+def apply_layer(ctx: TPContext, cfg: ModelConfig, spec: LayerSpec, params,
+                x: torch.Tensor, *, pos: int, cache: Optional[KVCache] = None
+                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """One pre-norm layer: x + attention(norm(x)), then + mlp(norm(x)).
+    Returns (x, cache). (The reference also returns MoE aux losses; with no
+    MoE layer they are always empty here.)"""
+    if spec.kind != "attn" or spec.moe:
+        raise NotImplementedError(f"layer kind {spec.kind!r}{' (MoE)' if spec.moe else ''} "
+                                  f"is not ported yet")
+    h = rms_norm(x, params["ln1"]["w"])
+    out, cache = attention(ctx, params["core"], h, cfg, pos=pos, cache=cache,
+                           window=spec.window)
+    x = x + out
+    h = rms_norm(x, params["ln2"]["w"])
+    return x + mlp(ctx, params["mlp"], h, cfg), cache
+
+
+def apply_stack(ctx: TPContext, cfg: ModelConfig, params_list, x: torch.Tensor, *,
+                pos: int, caches: Optional[List[KVCache]] = None
+                ) -> Tuple[torch.Tensor, Optional[List[KVCache]]]:
+    """Every layer of ``cfg`` in order; returns (x, new caches or None)."""
+    new_caches = []
+    for i, spec in enumerate(cfg.layers):
+        x, c = apply_layer(ctx, cfg, spec, params_list[i], x, pos=pos,
+                           cache=caches[i] if caches is not None else None)
+        new_caches.append(c)
+    return x, (new_caches if caches is not None else None)

@@ -1,26 +1,39 @@
 """Continuous-batching serving engine over a paged KV cache — the port of the
-reference engine's unified mixed token-budget scheduler.
+reference engine's schedulers.
 
-Every engine step flattens up to ``token_budget`` tokens — several
-PREFILLING slots' prompt chunks plus one token per DECODING slot — into a
-single mixed batch and runs one ``Model.mixed_step``. Under an active
+By default every engine step flattens up to ``token_budget`` tokens —
+several PREFILLING slots' prompt chunks plus one token per DECODING slot —
+into a single mixed batch and runs one ``Model.mixed_step``. Under an active
 compression policy the engine holds two gate variants of the step (the
 compressed context and ``ctx.without_compression()``) and picks one per step
 with ``CompressionPolicy.active_for_step`` on the batch's REAL prefill and
-decode token counts: prefill-dominated steps take the compressed reduction,
-decode-dominated steps stay dense.
+decode token counts.
 
-Not ported yet (the constructor raises on each): the split scheduler
-(``token_budget=0``), whole-prompt prefill (``prefill_chunk=0``), prefix
-caching, fault injection, deadlines and bounded admission. Sequence-sharded
-pools cannot be asked for: ``TPContext`` has no kv axis yet. There is no
-preemption either: under the default full provisioning
-an allocation never fails, and when a smaller ``n_blocks`` runs dry the
-engine raises ``PoolExhausted``.
+``token_budget=0`` selects the split scheduler: at most one
+``Model.prefill_chunk`` of the earliest-arrival PREFILLING slot, then one
+batched ``Model.decode_step_paged`` over every slot (two dispatches per
+step). ``prefill_chunk=0`` prefills each prompt whole at admission
+(``Model.prefill`` over a dense cache, right-padded to a power-of-two length
+bucket) and inserts it into the slot's blocks, then decodes with the split
+scheduler's batched decode.
+
+With ``prefix_cache=True`` full prompt blocks are published in a hash-chain
+index as their chunks land; admission maps matching blocks into the new
+slot's table by reference and prefill resumes at the first non-cached token.
+Under block pressure the engine preempts the latest-arrival request (LIFO,
+evict-and-recompute: its generated tokens fold into its prompt and it
+requeues), with the reference's eviction-storm guard.
+
+Not ported yet (the constructor raises on each): fault injection, deadlines,
+bounded admission and the step watchdog. Sequence-sharded pools cannot be
+asked for: ``TPContext`` has no kv axis yet.
 """
 from __future__ import annotations
 
+import bisect
+import collections
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional
 
@@ -28,14 +41,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.formats import KVCacheSpec, MXSpec
+from repro_torch.core.policy import NO_COMPRESSION
 from repro_torch.core.tp import TPContext
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.attention import pool_rows, write_pool_rows
+from repro_torch.models.model import Model, torch_dtype
 from repro_torch.serving.errors import (
     OUTCOME_OK, InvalidRequest, PoolExhausted, SlotExhausted,
 )
 from repro_torch.serving.kv_cache import (
-    BlockAllocator, build_mixed_batch, check_cache_spec, init_paged_state,
+    BlockAllocator, PrefixIndex, build_mixed_batch, check_cache_spec, init_paged_state,
     paged_cache_bytes,
 )
 from repro_torch.serving.ttft import RequestTiming, ServeStats
@@ -69,18 +84,24 @@ class Request:
 
 @dataclasses.dataclass
 class _Work:
-    """Scheduler-internal request state."""
+    """Scheduler-internal request state (survives preemptions)."""
 
     req: Request
-    prompt: np.ndarray
+    prompt: np.ndarray            # effective prompt: original + generated on
+                                  # readmission after a preemption (recompute)
     arrival: float
     tokens: List[int] = dataclasses.field(default_factory=list)
     blocks: List[int] = dataclasses.field(default_factory=list)
     admitted_t: Optional[float] = None
     first_token_t: Optional[float] = None
+    preemptions: int = 0
     prefilling: bool = False      # prompt still streaming in chunk by chunk
     pos: int = 0                  # prompt tokens already written to the pools
     token_times: List[float] = dataclasses.field(default_factory=list)
+    # prefix cache: block hashes of the effective prompt (per admission) and
+    # the prompt tokens served from shared blocks so far
+    hashes: Optional[List[int]] = None
+    cached_tokens: int = 0
 
     @property
     def done(self) -> bool:
@@ -89,8 +110,23 @@ class _Work:
 
 class Engine:
     """Continuous-batching engine: FIFO admission by arrival time into
-    ``max_slots`` slots, chunked prefill packed with the decode batch into one
-    mixed token-budget step per engine step, per-step compression gate.
+    ``max_slots`` slots; chunked prefill packed with the decode batch into
+    one mixed step (default), the split chunk-then-decode scheduler
+    (``token_budget=0``) or whole-prompt prefill (``prefill_chunk=0``); LIFO
+    preemption under block pressure; optional prefix caching.
+
+    The constructor takes the reference's arguments for these options and
+    validates them with the same errors: ``prefill_chunk`` (default
+    ``2*block_size``; 0 = whole prompt), ``token_budget`` (default
+    ``prefill_chunk + max_slots``; 0 = split steps), ``prefix_cache`` (needs
+    chunked prefill), ``persistent_cache`` (pools, allocator and prefix index
+    stay warm across ``run()`` calls; needs ``prefix_cache``),
+    ``compress_decode`` (the split decode and the mixed gate compress too),
+    ``max_preempts_per_step`` / ``thrash_window`` / ``thrash_limit`` (the
+    eviction-storm guard: chunk allocation stops choosing victims once a
+    step has preempted that many slots, and a window of steps with at least
+    ``thrash_limit`` preemptions degrades the engine to one chunk per step
+    and no admissions until a request retires).
 
     ``run(requests)`` serves a list of ``Request``s, fills their ``output`` /
     ``ttft_s`` / ``latency_s`` / ``timing`` and leaves per-run aggregates in
@@ -103,27 +139,32 @@ class Engine:
                  n_blocks: Optional[int] = None,
                  cache_dtype: Optional[torch.dtype] = None,
                  cache_spec: "KVCacheSpec | MXSpec | str | None" = None,
+                 compress_decode: bool = False,
                  prefill_chunk: Optional[int] = None,
                  token_budget: Optional[int] = None,
                  prefix_cache: bool = False,
+                 persistent_cache: bool = False,
                  max_queue: Optional[int] = None,
                  deadline_ttft_s: Optional[float] = None,
                  deadline_s: Optional[float] = None,
                  fault_plan=None,
+                 step_timeout_s: Optional[float] = None,
+                 stall_limit: Optional[int] = None,
+                 max_preempts_per_step: Optional[int] = None,
+                 thrash_window: int = 8,
+                 thrash_limit: Optional[int] = None,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         unported = {
-            "prefix_cache": prefix_cache, "max_queue": max_queue is not None,
-            "deadline_ttft_s": deadline_ttft_s is not None,
-            "deadline_s": deadline_s is not None, "fault_plan": fault_plan is not None,
-            "token_budget=0 (split scheduler)": token_budget == 0,
-            "prefill_chunk=0 (whole-prompt prefill)": prefill_chunk == 0,
+            "max_queue": max_queue, "deadline_ttft_s": deadline_ttft_s,
+            "deadline_s": deadline_s, "fault_plan": fault_plan,
+            "step_timeout_s": step_timeout_s, "stall_limit": stall_limit,
         }
-        asked = [k for k, v in unported.items() if v]
+        asked = [k for k, v in unported.items() if v is not None]
         if asked:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(asked)} (the port serves the mixed "
-                f"token-budget scheduler only)")
+                f"not ported yet: {', '.join(asked)} (faults, deadlines, bounded "
+                f"admission and the step watchdog come in a later slice)")
         self.model = model
         self.cfg = model.cfg
         self.ctx = ctx
@@ -140,16 +181,29 @@ class Engine:
         self.cache_spec = check_cache_spec(self.cfg, cache_spec)
         self.stats = ServeStats()
 
+        # eviction-storm guard (see the class docstring)
+        self.max_preempts_per_step = (max_preempts_per_step
+                                      if max_preempts_per_step is not None
+                                      else 2 * self.n_slots)
+        self.thrash_window = int(thrash_window)
+        self.thrash_limit = thrash_limit if thrash_limit is not None else 4 * self.n_slots
+
+        # every served model is a pure-attention text decoder (Model raises
+        # otherwise), so chunked prefill is always available
         if prefill_chunk is None:
             prefill_chunk = 2 * block_size
         elif prefill_chunk < 0:
-            raise ValueError("prefill_chunk must be >= 1")
+            raise ValueError("prefill_chunk must be >= 0 (0 = whole-prompt)")
         self.prefill_chunk = int(prefill_chunk)
         if token_budget is None:
-            token_budget = self.prefill_chunk + self.n_slots
+            token_budget = self.prefill_chunk + self.n_slots if self.prefill_chunk else 0
         elif token_budget < 0:
-            raise ValueError("token_budget must be >= 1")
-        elif token_budget < self.n_slots + self.prefill_chunk:
+            raise ValueError("token_budget must be >= 0 (0 = split steps)")
+        elif token_budget and not self.prefill_chunk:
+            raise ValueError(
+                "token_budget (the unified mixed-batch step) rides on chunked "
+                "prefill; this engine is whole-prompt (prefill_chunk=0)")
+        elif token_budget and token_budget < self.n_slots + self.prefill_chunk:
             # one decode token per slot plus one full chunk, so packing only
             # ever places full chunks (chunk boundaries, and therefore which
             # tokens attend each other at compute vs pool precision, never
@@ -157,32 +211,70 @@ class Engine:
             raise ValueError(
                 f"token_budget ({token_budget}) must cover one decode token per "
                 f"slot plus one full prefill chunk (max_slots={self.n_slots} + "
-                f"prefill_chunk={self.prefill_chunk})")
+                f"prefill_chunk={self.prefill_chunk}); shrink prefill_chunk for a "
+                f"smaller step")
         self.token_budget = int(token_budget)
 
-        # per-step gate on the batch's REAL composition
-        self._gate_ctxs: Dict[bool, TPContext] = {False: ctx.without_compression()}
-        if ctx.policy.enabled and ctx.policy.compress_tp_reduce:
-            self._gate_ctxs[True] = ctx
+        self.prefix_cache = bool(prefix_cache)
+        if self.prefix_cache and not self.prefill_chunk:
+            raise ValueError(
+                "prefix_cache rides on chunked prefill (matches resume at the first "
+                "non-cached token); this engine is whole-prompt (prefill_chunk=0)")
+        self.persistent_cache = bool(persistent_cache)
+        if self.persistent_cache and not self.prefix_cache:
+            raise ValueError(
+                "persistent_cache keeps the prefix index warm across runs; it "
+                "requires prefix_cache=True (warm pool bytes are only reachable "
+                "through the index)")
+        # pools hold exactly what prefill computed only when dense at the
+        # compute dtype; on lossy pools a full-prompt match resumes at a
+        # chunk-aligned boundary instead of forking the tail block
+        self._exact_pools = (not self.cache_spec.quantized
+                             and self.cache_dtype == torch_dtype(self.cfg.dtype))
+
+        # paper §5.2 gating: the split decode reduces uncompressed unless
+        # compress_decode; the mixed gate drops its prefill-fraction floor then
+        self.ctx_decode = ctx if compress_decode else dataclasses.replace(
+            ctx, policy=NO_COMPRESSION)
+        self._gate_policy = (dataclasses.replace(ctx.policy, min_prefill_fraction=0.0)
+                             if compress_decode else ctx.policy)
+        self._gate_ctxs: Dict[bool, TPContext] = {}
+        if self.token_budget:
+            self._gate_ctxs[False] = ctx.without_compression()
+            if ctx.policy.enabled and ctx.policy.compress_tp_reduce:
+                self._gate_ctxs[True] = ctx
         self.gate_counts = {"compressed": 0, "dense": 0}
+        self._ran = False
         self._reset()
 
     # ------------------------------------------------------------- state mgmt
 
     def _reset(self) -> None:
-        self.allocator = BlockAllocator(self.n_blocks)
+        self.prefix_index = PrefixIndex(self.block_size) if self.prefix_cache else None
+        self.allocator = BlockAllocator(self.n_blocks, prefix_index=self.prefix_index)
         self._state = init_paged_state(self.cfg, self.n_slots, self.n_blocks,
                                        self.block_size, self.cache_dtype,
                                        cache_spec=self.cache_spec, device=self.device)
+        self._soft_reset()
+
+    def _soft_reset(self) -> None:
+        """Per-run scheduling state only: with ``persistent_cache`` the pools,
+        allocator and index survive between runs (a clean run leaves every
+        block free or parked in the index LRU)."""
         self._tables = np.zeros((self.n_slots, self.max_blocks), np.int32)
         self._lengths = np.zeros((self.n_slots,), np.int32)
         self._cur = np.zeros((self.n_slots,), np.int32)
         self._running: Dict[int, _Work] = {}
         self._waiting: List[_Work] = []
         self._finite = torch.ones((), dtype=torch.bool, device=self.device)
+        self._step_preempts = 0
+        self._preempt_window: collections.deque = collections.deque(
+            maxlen=max(1, self.thrash_window))
+        self._degraded = False
 
     def gate_variants(self) -> List[str]:
-        """Names of the step variants this engine dispatches between."""
+        """Names of the mixed-step variants this engine dispatches between
+        (empty for split-scheduler and whole-prompt engines)."""
         return [("compressed" if g else "dense") for g in sorted(self._gate_ctxs)]
 
     def kv_pool_bytes(self) -> int:
@@ -195,6 +287,61 @@ class Engine:
         """Whether every step of the last run produced finite logits."""
         return bool(self._finite)
 
+    def _t(self, a: np.ndarray) -> torch.Tensor:
+        """A device copy of a host array (the host arrays mutate later)."""
+        return torch.tensor(a, device=self.device)
+
+    # ------------------------------------------------------- shape bucketing
+
+    def _shapes_for(self, prompt_len: int):
+        """(length bucket, blocks it fills) of a whole prompt: the smallest
+        power-of-two multiple of the block size that holds it, capped at
+        the slot's capacity."""
+        cap = self.max_blocks * self.block_size
+        bucket = self.block_size
+        while bucket < prompt_len:
+            bucket *= 2
+        bucket = min(bucket, cap)
+        if bucket < prompt_len:
+            raise ValueError(f"prompt ({prompt_len} tokens) exceeds cache capacity ({cap})")
+        return bucket, bucket // self.block_size
+
+    def _prefill_for(self, prompt_len: int):
+        """(bucket, prefill, nb) for a whole prompt of this length:
+        ``prefill(tokens (1, bucket))`` runs ``Model.prefill`` over a fresh
+        dense cache of the bucket's length and returns (logits (1, V) at the
+        last real token, cache). Eager PyTorch compiles nothing, so there is
+        no LRU of per-bucket programs as in the reference."""
+        bucket, nb = self._shapes_for(prompt_len)
+
+        def prefill(tokens: torch.Tensor):
+            cache = self.model.init_cache(1, bucket, self.cache_dtype, self.device)
+            return self.model.prefill(self.ctx, self.params, {"tokens": tokens}, cache,
+                                      last_index=prompt_len - 1)
+
+        return bucket, prefill, nb
+
+    def _insert(self, layer_caches, block_ids: List[int]) -> None:
+        """Scatter a one-request dense prefill cache into the slot's blocks
+        in every layer's pools (in place), through the same row codec and
+        writer as the step appends (MX-quantized per position on wire
+        pools)."""
+        pos = torch.arange(len(block_ids) * self.block_size, device=self.device)
+        blk = torch.tensor(block_ids, dtype=torch.long, device=self.device)[
+            pos // self.block_size]
+        for i, c in enumerate(layer_caches):
+            pk, pv = self._state["pools_k"][i], self._state["pools_v"][i]
+            k_rows, v_rows = pool_rows(c.k[0], c.v[0], pk, self.cache_spec)
+            write_pool_rows(pk, pv, k_rows, v_rows, blk, pos % self.block_size)
+
+    def _cow(self, src: int, dst: int) -> None:
+        """Copy block ``src`` to block ``dst`` in every layer's K/V pools (in
+        place; payload and scales of wire pools): the private copy a slot
+        writes into instead of a shared tail block."""
+        for pool in self._state["pools_k"] + self._state["pools_v"]:
+            for a in (pool.payload, pool.scales) if self.cache_spec.quantized else (pool,):
+                a[dst] = a[src]
+
     # ------------------------------------------------------------- sampling
 
     def _sample(self, logits: torch.Tensor, temps: np.ndarray) -> np.ndarray:
@@ -206,6 +353,10 @@ class Engine:
             toks = torch.where(torch.as_tensor(temps > 0, device=logits.device), drawn, toks)
         return toks.cpu().numpy().astype(np.int32)
 
+    def _sample_one(self, logits: torch.Tensor, w: _Work) -> int:
+        self._finite &= torch.isfinite(logits).all()
+        return int(self._sample(logits, np.array([w.req.temperature], np.float32))[0])
+
     # ------------------------------------------------------------ scheduling
 
     def _free_slot(self) -> Optional[int]:
@@ -215,33 +366,115 @@ class Engine:
         return None
 
     def _admit_ready(self, now: float) -> None:
-        """FIFO admission of arrived requests into free slots, PREFILLING:
-        blocks arrive chunk by chunk as the prompt streams in."""
+        if self._degraded and self._running:
+            return  # thrash degradation: no admissions until a retire
         while self._waiting and self._waiting[0].arrival <= now:
             slot = self._free_slot()
             if slot is None:
                 return
-            w = self._waiting.pop(0)
-            w.blocks, w.pos, w.prefilling = [], 0, True
-            self._clear_slot(slot)
-            if w.admitted_t is None:
-                w.admitted_t = now
-            self._running[slot] = w
+            w = self._waiting[0]
+            if self.prefill_chunk:
+                # chunked admission takes just a slot: blocks arrive as chunks land
+                self._waiting.pop(0)
+                self._admit_chunked(w, slot, now)
+                continue
+            _, nb = self._shapes_for(len(w.prompt))
+            ids = self.allocator.alloc(nb)
+            if ids is None:
+                if not self._running and not self.allocator.n_held:
+                    raise PoolExhausted(
+                        f"prefill needs {nb} KV blocks; only {self.allocator.n_free} "
+                        f"free and nothing to evict — pool too small for this request")
+                return  # decode will retire or evict slots and free blocks
+            self._waiting.pop(0)
+            self._admit(w, slot, ids)
 
-    def _alloc_for_chunk(self, slot: int, w: _Work, n_valid: int) -> None:
-        """Allocate the blocks covering ``n_valid`` more prompt tokens."""
+    def _admit_chunked(self, w: _Work, slot: int, now: float) -> None:
+        """Move a request into a slot, PREFILLING; with the prefix cache on,
+        cached prompt blocks are mapped into its table first."""
+        w.blocks, w.pos, w.prefilling = [], 0, True
+        self._clear_slot(slot)
+        if self.prefix_index is not None:
+            self._match_prefix(w, slot)
+        if w.admitted_t is None:
+            w.admitted_t = now
+        self._running[slot] = w
+
+    def _match_prefix(self, w: _Work, slot: int) -> None:
+        """Map the longest indexed prefix of ``w.prompt`` into the slot.
+
+        Matches are cut to multiples of ``lcm(block_size, prefill_chunk)`` so
+        the warm suffix recomputes with the writer's chunk boundaries. A
+        full-prompt match must still recompute the last token's logits: on
+        exact pools the tail shared block is forked (copy on write) and only
+        token L-1 is recomputed; on lossy pools (or with no block for the
+        fork) prefill resumes at the last aligned boundary before L."""
+        L = len(w.prompt)
+        bs = self.block_size
+        w.hashes = PrefixIndex.chain(w.prompt, bs)
+        ids = self.prefix_index.match(w.hashes)
+        grain = math.lcm(bs, self.prefill_chunk)
+        if ids and len(ids) * bs < L:
+            ids = ids[:(len(ids) * bs // grain) * grain // bs]
+        if not ids:
+            return
+        self.allocator.share(ids)
+        w.blocks = list(ids)
+        m_tok = len(w.blocks) * bs
+        if m_tok >= L:  # full-prompt hit: recompute the last token's logits
+            fork = self.allocator.alloc(1) if self._exact_pools else None
+            if fork is not None:
+                self._cow(w.blocks[-1], fork[0])
+                self.stats.record_dispatch(1)  # the COW block fork
+                self.allocator.release([w.blocks[-1]])
+                w.blocks[-1] = fork[0]
+                m_tok = L - 1
+            else:
+                keep = ((L - 1) // grain) * grain // bs
+                self.allocator.release(w.blocks[keep:])
+                del w.blocks[keep:]
+                m_tok = keep * bs
+                if not w.blocks:
+                    return
+        w.pos = m_tok
+        w.cached_tokens += m_tok
+        self.prefix_index.hit_blocks += len(w.blocks)
+        self._tables[slot, :len(w.blocks)] = w.blocks
+        self._lengths[slot] = w.pos
+
+    def _alloc_for_chunk(self, slot: int, w: _Work, n_valid: int) -> bool:
+        """Allocate the blocks covering ``n_valid`` more prompt tokens,
+        evicting the latest-arrival request under pressure (LIFO). False when
+        the slot is itself the victim (it defers in place, keeping its
+        written chunks) or the step's preemption budget is spent."""
         need = -(-(w.pos + n_valid) // self.block_size)
-        got = self.allocator.alloc_to(w.blocks, need)
-        if got is None:
-            raise PoolExhausted(
-                f"prefill chunk needs {need - len(w.blocks)} KV blocks; only "
-                f"{self.allocator.n_free} free (the port has no preemption: size "
-                f"n_blocks for the traffic or leave it at full provisioning)")
-        self._tables[slot, need - len(got):need] = got
+        while True:
+            got = self.allocator.alloc_to(w.blocks, need)
+            if got is not None:
+                self._tables[slot, need - len(got):need] = got
+                return True
+            victim = max(self._running, key=lambda s: (self._running[s].arrival, s))
+            if victim == slot:
+                if len(self._running) == 1 and not self.allocator.n_held:
+                    raise PoolExhausted(
+                        f"prefill chunk needs {need - len(w.blocks)} KV blocks; only "
+                        f"{self.allocator.n_available} available and nothing to "
+                        f"evict — pool too small for this request")
+                return False
+            if self._step_preempts >= self.max_preempts_per_step:
+                return False  # storm guard: defer instead of another victim
+            self._preempt(victim)
 
     def _advance_prefill(self, slot: int, w: _Work, n_valid: int) -> None:
+        """Account ``n_valid`` freshly written prompt tokens and publish every
+        prompt block they completed."""
+        old_pos = w.pos
         w.pos += n_valid
         self._lengths[slot] = w.pos
+        if self.prefix_index is not None:
+            for j in range(old_pos // self.block_size,
+                           min(w.pos // self.block_size, len(w.hashes))):
+                self.prefix_index.register(w.hashes[j], w.blocks[j])
 
     def _first_token(self, slot: int, w: _Work, tok: int, now: float) -> None:
         """The sampled token ends PREFILLING and is the TTFT endpoint."""
@@ -254,55 +487,70 @@ class Engine:
         if w.done:
             self._retire(slot, now)
 
+    def _prefill_step(self) -> int:
+        """Split scheduler: ONE chunk of the earliest-arrival PREFILLING slot.
+        Returns the prompt tokens processed (0 if no chunk ran)."""
+        pref = [s for s, w in self._running.items() if w.prefilling]
+        if not pref:
+            return 0
+        slot = min(pref, key=lambda s: (self._running[s].arrival, s))
+        w = self._running[slot]
+        L = len(w.prompt)
+        n_valid = min(self.prefill_chunk, L - w.pos)
+        if not self._alloc_for_chunk(slot, w, n_valid):
+            return 0
+        tokens = np.zeros((1, self.prefill_chunk), np.int32)
+        tokens[0, :n_valid] = w.prompt[w.pos:w.pos + n_valid]
+        logits, self._state = self.model.prefill_chunk(
+            self.ctx, self.params, self._t(tokens), self._state, self._t(self._tables[slot]),
+            w.pos, n_valid, cache_spec=self.cache_spec)
+        self._advance_prefill(slot, w, n_valid)
+        if w.pos >= L:  # final chunk: its logits give the first token
+            tok = self._sample_one(logits, w)
+            self._first_token(slot, w, tok, time.perf_counter() - self._t0)
+        return n_valid
+
     def _pack_prefill(self, budget: int) -> List:
         """Place PREFILLING slots' chunks, earliest arrival first, into the
         remaining budget: only full split-schedule chunks (``min(chunk,
-        remaining prompt)``); a chunk that does not fit waits a step."""
+        remaining prompt)``); a chunk that does not fit waits a step, and a
+        slot that cannot get blocks defers without blocking the rest."""
         segs = []
         pref = sorted((s for s, w in self._running.items() if w.prefilling),
                       key=lambda s: (self._running[s].arrival, s))
         for slot in pref:
             if budget <= 0:
                 break
+            if slot not in self._running:   # evicted packing an earlier slot
+                continue
             w = self._running[slot]
             n = min(self.prefill_chunk, len(w.prompt) - w.pos)
-            if n > budget or n <= 0:
+            if n > budget:
                 continue
-            self._alloc_for_chunk(slot, w, n)
+            if n <= 0 or not self._alloc_for_chunk(slot, w, n):
+                continue
             segs.append((slot, w.prompt[w.pos:w.pos + n], w.pos))
             budget -= n
+            if self._degraded:
+                break  # thrash degradation: one chunk per step
         return segs
-
-    def _grow(self) -> None:
-        """Give every DECODING slot a block covering its next write position."""
-        for slot in sorted((s for s, w in self._running.items() if not w.prefilling),
-                           key=lambda s: self._running[s].arrival):
-            w = self._running[slot]
-            while len(w.blocks) * self.block_size <= self._lengths[slot]:
-                got = self.allocator.alloc(1)
-                if got is None:
-                    raise PoolExhausted(
-                        "KV pool exhausted growing a decode slot (the port has no "
-                        "preemption: size n_blocks for the traffic)")
-                w.blocks += got
-                self._tables[slot, len(w.blocks) - 1] = got[0]
 
     def _step_mixed(self) -> int:
         """One engine step: pack prefill chunks + the decode batch into one
         mixed step, run the gate variant the step's real composition picks,
         sample every slot that produced a token. Returns real tokens run."""
-        self._grow()
+        self._grow_or_evict()
         decoding = sorted(s for s, w in self._running.items() if not w.prefilling)
         segs = self._pack_prefill(self.token_budget - len(decoding))
+        decoding = [s for s in decoding if s in self._running]  # packing may evict
         if not segs and not decoding:
             return 0
         batch = build_mixed_batch(
             segs, [(s, int(self._cur[s]), int(self._lengths[s])) for s in decoding],
             self.token_budget, self.n_slots)
         gate = (True in self._gate_ctxs
-                and self.ctx.policy.active_for_step(batch.n_prefill, batch.n_decode))
-        dev = self.device
-        t = lambda a: torch.tensor(a, device=dev)  # a copy: host arrays mutate later
+                and self._gate_policy.active_for_step(batch.n_prefill, batch.n_decode))
+        t = self._t
         logits, self._state = self.model.mixed_step(
             self._gate_ctxs[gate], self.params, t(batch.tokens), self._state,
             t(batch.slot_ids), t(batch.positions), t(batch.valid), t(batch.is_decode),
@@ -327,7 +575,12 @@ class Engine:
             self._advance_prefill(slot, w, len(chunk))
             if w.pos >= len(w.prompt):
                 self._first_token(slot, w, int(toks[slot]), now)
-        for slot in decoding:
+        self._take_tokens(decoding, toks, now)
+        return batch.n_prefill + batch.n_decode
+
+    def _take_tokens(self, slots: List[int], toks: np.ndarray, now: float) -> None:
+        """Append each decoding slot's sampled token; retire finished ones."""
+        for slot in slots:
             w = self._running[slot]
             tok = int(toks[slot])
             w.tokens.append(tok)
@@ -335,7 +588,88 @@ class Engine:
             self._cur[slot] = tok
             if w.done:
                 self._retire(slot, now)
-        return batch.n_prefill + batch.n_decode
+
+    def _admit(self, w: _Work, slot: int, ids: List[int]) -> None:
+        """Whole-prompt admission: prefill the prompt right-padded to its
+        bucket, sample its first token, insert its cache into ``ids``."""
+        L = len(w.prompt)
+        bucket, prefill, nb = self._prefill_for(L)
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :L] = w.prompt
+        logits, cache = prefill(self._t(tokens))
+        self.stats.record_dispatch(2, prefill_tokens=L)  # prefill + insert
+        tok = self._sample_one(logits, w)
+        self._insert(cache["layers"], ids)
+        now = time.perf_counter() - self._t0
+        w.blocks = ids
+        self._tables[slot, :] = 0
+        self._tables[slot, :nb] = ids
+        self._lengths[slot] = L
+        if w.admitted_t is None:
+            w.admitted_t = now
+        self._running[slot] = w
+        self._first_token(slot, w, tok, now)
+
+    def _grow_or_evict(self) -> None:
+        """Give every DECODING slot a block covering its next write position,
+        preempting the latest-arrival request when the pool runs dry."""
+        decoding = [s for s in self._running if not self._running[s].prefilling]
+        for slot in sorted(decoding, key=lambda s: self._running[s].arrival):
+            if slot not in self._running:  # preempted by an earlier iteration
+                continue
+            w = self._running[slot]
+            while len(w.blocks) * self.block_size <= self._lengths[slot]:
+                got = self.allocator.alloc(1)
+                if got is None:
+                    victim = max(self._running,
+                                 key=lambda s: (self._running[s].arrival, s))
+                    if (victim == slot and len(self._running) == 1
+                            and not self.allocator.n_held):
+                        raise PoolExhausted(
+                            "KV pool exhausted with a single request in flight — "
+                            "n_blocks too small for prompt+decode")
+                    # a decode slot cannot defer in place (its next write needs
+                    # a real block), so growth ignores the per-step budget
+                    self._preempt(victim)
+                    if victim == slot:
+                        break
+                    continue
+                w.blocks += got
+                self._tables[slot, len(w.blocks) - 1] = got[0]
+
+    def _preempt(self, slot: int) -> None:
+        """Evict-and-recompute: free the slot, fold the generated tokens into
+        the prompt and requeue by arrival; readmission rebuilds the KV."""
+        w = self._running.pop(slot)
+        self.allocator.release(w.blocks)  # shared blocks survive in the index
+        w.blocks = []
+        w.prefilling = False
+        w.pos = 0
+        w.hashes = None
+        self._clear_slot(slot)
+        w.prompt = np.concatenate([np.asarray(w.req.prompt, np.int32),
+                                   np.asarray(w.tokens, np.int32)])
+        w.preemptions += 1
+        self._step_preempts += 1
+        bisect.insort(self._waiting, w, key=lambda x: x.arrival)
+
+    def _decode_once(self) -> int:
+        """One batched decode over every slot; PREFILLING and empty slots ride
+        along (their writes land where the next chunk overwrites them or in
+        the null block) and their tokens are discarded. Returns the decode
+        tokens sampled."""
+        logits, self._state = self.model.decode_step_paged(
+            self.ctx_decode, self.params, self._t(self._cur[:, None]), self._state,
+            self._t(self._tables), self._t(self._lengths), cache_spec=self.cache_spec)
+        self._finite &= torch.isfinite(logits).all()
+        active = [s for s, w in self._running.items() if not w.prefilling]
+        temps = np.zeros((self.n_slots,), np.float32)
+        for slot in active:
+            self._lengths[slot] += 1
+            temps[slot] = self._running[slot].req.temperature
+        toks = self._sample(logits, temps)
+        self._take_tokens(active, toks, time.perf_counter() - self._t0)
+        return len(active)
 
     def _clear_slot(self, slot: int) -> None:
         self._tables[slot, :] = 0
@@ -343,30 +677,46 @@ class Engine:
         self._cur[slot] = 0
 
     def _retire(self, slot: int, now: float) -> None:
-        """Terminal exit of a finished slot: release its blocks, clear its
-        table row, record the request's timing."""
+        """Terminal exit of a finished slot: release its blocks (shared ones
+        stay in the index), clear its table row, record the timing. A retire
+        ends thrash degradation."""
         w = self._running.pop(slot)
         self.allocator.release(w.blocks)
         w.blocks = []
         self._clear_slot(slot)
+        self._degraded = False
         r = w.req
         gen = w.tokens[: r.max_new_tokens]
         r.output = np.asarray(gen, np.int32)
         r.timing = RequestTiming(
             arrival_s=w.arrival, admitted_s=w.admitted_t, first_token_s=w.first_token_t,
             finished_s=now, n_prompt=len(np.asarray(r.prompt)), n_generated=len(gen),
+            n_preemptions=w.preemptions, n_cached_prompt=w.cached_tokens,
             inter_token_s=[b - a for a, b in zip(w.token_times, w.token_times[1:])],
             outcome=OUTCOME_OK)
         r.ttft_s = r.timing.ttft_s
         r.latency_s = r.timing.latency_s
         self.stats.record(r.timing)
 
+    def _guard_step(self) -> None:
+        """The thrash detector: preemptions over the rolling window at or past
+        ``thrash_limit`` set degraded mode."""
+        self._preempt_window.append(self._step_preempts)
+        if not self._degraded and sum(self._preempt_window) >= self.thrash_limit:
+            self._degraded = True
+
     # ------------------------------------------------------------------ API
 
     def run(self, requests: List[Request], *, seed: int = 0) -> List[Request]:
         """Serve ``requests`` (``arrival_s`` honoured against the run's wall
-        clock); returns them with output/ttft/latency/timing filled."""
-        self._reset()
+        clock); returns them with output/ttft/latency/timing filled. With
+        ``persistent_cache`` the pools, allocator and prefix index carry over
+        from the previous run."""
+        if self.persistent_cache and self._ran:
+            self._soft_reset()
+        else:
+            self._reset()
+        self._ran = True
         self.stats = ServeStats()
         self.gate_counts = {"compressed": 0, "dense": 0}
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -386,7 +736,47 @@ class Engine:
             now = time.perf_counter() - self._t0
             self._admit_ready(now)
             if not self._running:
-                time.sleep(min(max(self._waiting[0].arrival - now, 0.0), 0.005))
+                if self._waiting:
+                    time.sleep(min(max(self._waiting[0].arrival - now, 0.0), 0.005))
                 continue
-            self._step_mixed()
+            self._step_preempts = 0
+            if self.token_budget:
+                self._step_mixed()
+            else:
+                # split scheduler: at most one prefill chunk, then a batched
+                # decode of every DECODING slot
+                n_pref = self._prefill_step() if self.prefill_chunk else 0
+                self._grow_or_evict()
+                n_dec = 0
+                if any(not w.prefilling for w in self._running.values()):
+                    n_dec = self._decode_once()
+                self.stats.record_step(n_pref, n_dec,
+                                       n_dispatches=(1 if n_pref else 0) + (1 if n_dec else 0))
+            self._guard_step()
         return requests
+
+    def measure_ttft(self, prompt_len: int, *, iters: int = 8) -> Dict[str, float]:
+        """Median whole-prompt prefill time at a given prompt length (the
+        paper's Table 3 metric), through the bucketed prefill the engine
+        serves; the first iteration is dropped as warm-up when there are
+        more than one. Times on the host clock around work that ends in a
+        device synchronize."""
+        prompt = np.random.default_rng(0).integers(
+            0, self.cfg.vocab_size, (prompt_len,), dtype=np.int64).astype(np.int32)
+        bucket, prefill, _ = self._prefill_for(prompt_len)
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :prompt_len] = prompt
+        tokens = self._t(tokens)
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            logits, _cache = prefill(tokens)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            times.append(time.perf_counter() - t0)
+            del logits, _cache
+        if len(times) > 1:
+            times = times[1:]
+        arr = np.array(times)
+        return {"median_s": float(np.median(arr)), "std_s": float(np.std(arr)),
+                "iters": len(times)}

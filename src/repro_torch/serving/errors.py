@@ -14,8 +14,8 @@ class ServingError(RuntimeError):
 
 
 class PoolExhausted(ServingError):
-    """The KV block pool cannot cover a request's next allocation. The port
-    has no preemption yet, so any allocation failure raises this."""
+    """The KV block pool cannot cover a request's next allocation and there
+    is nothing to preempt (a single request in flight)."""
 
 
 class SlotExhausted(ServingError):

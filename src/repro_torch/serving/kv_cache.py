@@ -1,11 +1,16 @@
-"""Paged KV cache of the port: host-side block allocator, mixed-step batch
-geometry, device pool state and sizing (the reference's
-``serving/kv_cache.py`` without the prefix index and sharded pools).
+"""Paged KV cache of the port: host-side block allocator and prefix index,
+mixed-step batch geometry, device pool state and sizing (the reference's
+``serving/kv_cache.py`` without sequence-sharded pools).
 
 Every attention layer owns a block pool ``(n_blocks, block_size, kv_dim)``
 for K and V (dense, or MX wire payload + scales); a slot's logical sequence
 is the concatenation of the blocks its block-table row names. Block 0 is the
 reserved null block that pads and unallocated table entries point at.
+
+Block ownership is refcounted (``BlockAllocator``) so automatic prefix
+caching (``PrefixIndex``) can map one block into many block tables: full
+prompt blocks are published under rolling token-chain hashes, matched at
+admission, and kept in an LRU at refcount 0 for later hits.
 """
 from __future__ import annotations
 
@@ -20,44 +25,163 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import KVCacheSpec, MXSpec
 from repro_torch.core.mx import MXCompressed, wire_arrays_shape
 
-__all__ = ["BlockAllocator", "NULL_BLOCK", "MixedBatch", "build_mixed_batch",
-           "init_paged_state", "check_cache_spec", "paged_cache_bytes",
-           "attn_layer_count"]
+__all__ = ["BlockAllocator", "PrefixIndex", "NULL_BLOCK", "MixedBatch",
+           "build_mixed_batch", "init_paged_state", "check_cache_spec",
+           "paged_cache_bytes", "attn_layer_count"]
 
 NULL_BLOCK = 0
+
+
+class PrefixIndex:
+    """Hash-chain index over FULL prompt blocks -> resident block ids (the
+    reference's ``PrefixIndex``).
+
+    Block ``j`` of a prompt is keyed by the rolling hash of tokens ``[0,
+    (j+1)*block_size)`` (``chain``), so a hit on block ``j`` certifies the
+    whole token prefix up to it. Block content is deterministic given the
+    chain (dense pools hold the computed values, wire pools deterministic
+    post-quantization bytes), so sharing by reference is sound in both modes.
+
+    A registered block is ACTIVE while some slot holds a reference, and
+    CACHED at refcount 0: it keeps its pool bytes and sits in an LRU
+    (``n_cached``) that the allocator reclaims lazily, coldest first, only
+    when its free list runs dry (``pop_lru``).
+    """
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+        self._by_hash: Dict[int, int] = {}     # chain hash -> block id
+        self._by_block: Dict[int, int] = {}    # block id -> chain hash
+        # refcount-0 registered blocks, insertion order = cold .. hot
+        self._lru: "collections.OrderedDict[int, None]" = collections.OrderedDict()
+        self.hit_blocks = 0      # blocks mapped into slot tables (engine-kept)
+        self.evicted_blocks = 0  # cached blocks recycled under pressure
+
+    def __len__(self) -> int:
+        return len(self._by_hash)
+
+    @property
+    def n_cached(self) -> int:
+        """Registered blocks at refcount 0 (lazily reclaimable)."""
+        return len(self._lru)
+
+    @staticmethod
+    def chain(tokens, block_size: int) -> List[int]:
+        """Rolling hashes of every FULL token block: entry ``j`` keys tokens
+        ``[0, (j+1)*block_size)``; a trailing partial block is not hashed."""
+        toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+        h = hash(("kv-prefix-chain", block_size))
+        out = []
+        for j in range(len(toks) // block_size):
+            h = hash((h, toks[j * block_size:(j + 1) * block_size].tobytes()))
+            out.append(h)
+        return out
+
+    def match(self, hashes: Sequence[int]) -> List[int]:
+        """Longest indexed prefix of ``hashes`` -> block ids (a pure lookup:
+        the caller shares what it keeps)."""
+        ids = []
+        for h in hashes:
+            b = self._by_hash.get(h)
+            if b is None:
+                break
+            ids.append(b)
+        return ids
+
+    def register(self, h: int, block: int) -> bool:
+        """Publish a fully written prompt block. False (no change) when the
+        hash is already served by another block or the block is registered."""
+        if h in self._by_hash or block in self._by_block:
+            return False
+        self._by_hash[h] = block
+        self._by_block[block] = h
+        return True
+
+    def contains_block(self, block: int) -> bool:
+        return block in self._by_block
+
+    def is_cached(self, block: int) -> bool:
+        return block in self._lru
+
+    def deactivate(self, block: int) -> None:
+        """Refcount reached 0: park the block in the LRU instead of freeing."""
+        self._lru[block] = None
+        self._lru.move_to_end(block)
+
+    def activate(self, block: int) -> None:
+        """A cached block was matched again: take it out of the LRU."""
+        del self._lru[block]
+
+    def pop_lru(self, n: int) -> List[int]:
+        """Recycle up to ``n`` coldest cached blocks (their index entries go)."""
+        out = []
+        while self._lru and len(out) < n:
+            b, _ = self._lru.popitem(last=False)
+            del self._by_hash[self._by_block.pop(b)]
+            out.append(b)
+        self.evicted_blocks += len(out)
+        return out
 
 
 class BlockAllocator:
     """Host-side refcounted free list over the KV block pool.
 
     Allocation and release never touch device memory; a block id is an index
-    into the pools' leading dim. Block 0 is never handed out. Every
-    transition validates its ids, so a scheduler bug that over-releases
-    raises instead of handing one block to two requests.
+    into the pools' leading dim. Block 0 is never handed out. ``alloc`` hands
+    out blocks at refcount 1, ``share`` adds a holder, ``release`` drops one.
+    With a ``PrefixIndex`` attached, a registered block that reaches
+    refcount 0 parks in the index's LRU with its bytes kept, and ``alloc``
+    reclaims such blocks only after the free list runs dry. Every transition
+    validates its ids, so a scheduler bug that over-releases raises instead
+    of handing one block to two requests. (The reference's fault holds and
+    sequence-sharded free lists come with their slices: ``n_held`` is 0.)
     """
 
-    def __init__(self, n_blocks: int):
+    def __init__(self, n_blocks: int, prefix_index: Optional[PrefixIndex] = None):
         assert n_blocks >= 2, "need at least one allocatable block"
         self.n_blocks = n_blocks
+        self.index = prefix_index
         self._free: collections.deque = collections.deque(range(1, n_blocks))
         self._ref: Dict[int, int] = {}
         self.high_water = 0  # max blocks referenced at once
 
     @property
     def n_free(self) -> int:
+        """Immediately allocatable blocks (the free list only)."""
         return len(self._free)
 
     @property
+    def n_cached(self) -> int:
+        """Refcount-0 blocks kept by the prefix index (lazily reclaimable)."""
+        return self.index.n_cached if self.index is not None else 0
+
+    @property
+    def n_available(self) -> int:
+        """The most ``alloc`` can hand out: free + cached."""
+        return self.n_free + self.n_cached
+
+    @property
     def n_allocated(self) -> int:
-        return (self.n_blocks - 1) - self.n_free
+        """Blocks with at least one live reference."""
+        return (self.n_blocks - 1) - self.n_free - self.n_cached
+
+    @property
+    def n_held(self) -> int:
+        """Blocks held back by fault injection: none until faults are ported
+        (the schedulers keep the reference's ``n_held`` conditions)."""
+        return 0
 
     def refcount(self, block: int) -> int:
         return self._ref.get(int(block), 0)
 
     def alloc(self, n: int) -> Optional[List[int]]:
-        """Pop ``n`` ids at refcount 1, or None (and no change) if short."""
-        if n > self.n_free:
+        """Pop ``n`` ids at refcount 1, or None (and no change) if short. The
+        free list goes first; cached blocks are reclaimed, coldest first,
+        only to cover a shortfall."""
+        if n > self.n_available:
             return None
+        if n > self.n_free:
+            self._free.extend(self.index.pop_lru(n - self.n_free))
         ids = [self._free.popleft() for _ in range(n)]
         for b in ids:
             self._ref[b] = 1
@@ -83,18 +207,25 @@ class BlockAllocator:
         return b
 
     def share(self, ids: Sequence[int]) -> None:
-        """Add one reference per id (ids must be allocated)."""
+        """Add one reference per id: to an ACTIVE block, or to a CACHED one,
+        which leaves the index LRU at refcount 1. A free or unknown id
+        raises before any change."""
         counts = collections.Counter(self._check_id(b, "share") for b in ids)
         for b in counts:
-            if b not in self._ref:
+            if b not in self._ref and not (self.index is not None
+                                           and self.index.is_cached(b)):
                 raise ValueError(f"share of unallocated block {b}")
         for b, c in counts.items():
+            if b not in self._ref:     # CACHED -> ACTIVE
+                self.index.activate(b)
+                self._ref[b] = 0
             self._ref[b] += c
         self.high_water = max(self.high_water, self.n_allocated)
 
     def release(self, ids: Sequence[int]) -> None:
-        """Drop one reference per id; at refcount 0 the block is free again.
-        Over-release, the null block and garbage ids raise before any change."""
+        """Drop one reference per id; at refcount 0 the block is free again,
+        or parks in the index LRU if it is registered there. Over-release,
+        the null block and garbage ids raise before any change."""
         counts = collections.Counter(self._check_id(b, "release") for b in ids)
         for b, c in counts.items():
             if c > self._ref.get(b, 0):
@@ -104,7 +235,10 @@ class BlockAllocator:
             self._ref[b] -= c
             if self._ref[b] == 0:
                 del self._ref[b]
-                self._free.append(b)
+                if self.index is not None and self.index.contains_block(b):
+                    self.index.deactivate(b)   # bytes kept for later hits
+                else:
+                    self._free.append(b)
 
 
 def attn_layer_count(cfg: ModelConfig) -> int:

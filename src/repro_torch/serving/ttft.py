@@ -20,8 +20,11 @@ class RequestTiming:
     admitted_s: Optional[float]
     first_token_s: Optional[float]
     finished_s: float
-    n_prompt: int
+    n_prompt: int                    # tokens in the ORIGINAL prompt
     n_generated: int
+    n_preemptions: int = 0           # evict-and-recompute round trips
+    n_cached_prompt: int = 0         # prompt tokens served from shared prefix
+                                     # blocks (summed over readmissions)
     inter_token_s: Optional[List[float]] = None  # gaps between sampled tokens
     outcome: str = OUTCOME_OK
 
@@ -66,6 +69,9 @@ class ServeStats:
         self.n_dispatches = 0
         self.step_tokens: List[tuple] = []  # (n_prefill, n_decode) per step
         self.n_compressed_steps = 0
+        # prompt tokens processed outside budgeted steps (whole-prompt
+        # prefill at admission)
+        self.off_step_prefill_tokens = 0
 
     def record(self, t: RequestTiming) -> None:
         self.timings.append(t)
@@ -78,6 +84,12 @@ class ServeStats:
         if compressed:
             self.n_compressed_steps += 1
 
+    def record_dispatch(self, n: int = 1, prefill_tokens: int = 0) -> None:
+        """Off-step dispatches (whole-prompt prefill + insert at admission, a
+        prefix-cache COW fork) and the prompt tokens they processed."""
+        self.n_dispatches += n
+        self.off_step_prefill_tokens += prefill_tokens
+
     def summary(self) -> Dict[str, float]:
         ts = self.timings
         if not ts:
@@ -87,6 +99,8 @@ class ServeStats:
         gaps = [g for t in ts for g in (t.inter_token_s or [])]
         generated = sum(t.n_generated for t in ts)
         makespan = max(t.finished_s for t in ts) - min(t.arrival_s for t in ts)
+        prompt_tokens = sum(t.n_prompt for t in ts)
+        cached = sum(t.n_cached_prompt for t in ts)
         step_total = sum(p + d for p, d in self.step_tokens)
         good = sum(t.n_generated for t in ts if t.outcome == OUTCOME_OK)
         return {
@@ -103,11 +117,15 @@ class ServeStats:
             "n_dispatches": self.n_dispatches,
             "n_compressed_steps": self.n_compressed_steps,
             "tokens_per_step_mean": step_total / self.n_steps if self.n_steps else 0.0,
-            "prefill_tokens": sum(p for p, _ in self.step_tokens),
+            "prefill_tokens": (sum(p for p, _ in self.step_tokens)
+                               + self.off_step_prefill_tokens),
             "decode_tokens": sum(d for _, d in self.step_tokens),
             "n_generated": generated,
             "makespan_s": makespan,
             "tokens_per_s": generated / makespan if makespan > 0 else float("nan"),
+            "n_preemptions": sum(t.n_preemptions for t in ts),
+            "prefill_tokens_skipped": cached,
+            "prefix_hit_rate": cached / prompt_tokens if prompt_tokens else 0.0,
             "n_ok": sum(1 for t in ts if t.outcome == OUTCOME_OK),
             "goodput_tokens_per_s": good / makespan if makespan > 0 else float("nan"),
         }

@@ -12,9 +12,13 @@ and compression gate, then depend on no clock, so both engines pack the
 same steps. The reference engine runs with its host arrays copied at each
 step (see ``reference_copies_host_arrays``): without that its own tokens
 vary from run to run. Gate counts equal the reference's and the free list
-is conserved after ``run()``. Also: the block allocator's invariants, the
-batch geometry, entry points that default to the card, and the options the
-engine refuses because they are not ported. TF32 is off for torch matmuls.
+is conserved after ``run()``; ``serve_both`` holds one traffic to all of
+that, and the split-scheduler, prefix-cache and eviction test files use it.
+Also: the block allocator's invariants, the batch geometry, PoolExhausted
+for a request the whole pool cannot hold (on every scheduler, as the
+reference), entry points that default to the card, ``launch/serve.py`` in
+each mode, and the options the engine refuses because they are not ported.
+TF32 is off for torch matmuls.
 """
 import dataclasses
 
@@ -28,6 +32,7 @@ from repro.core.policy import PAPER_DEFAULT as J_PAPER_DEFAULT
 from repro.core.tp import TPContext as JTPContext
 from repro.models.model import Model as JModel
 from repro.serving import Engine as JEngine
+from repro.serving import PoolExhausted as JPoolExhausted
 from repro.serving import Request as JRequest
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.policy import PAPER_DEFAULT
@@ -47,14 +52,19 @@ ENGINE_KW = dict(max_slots=2, max_len=64, block_size=16, prefill_chunk=16, token
 
 
 class _CopyingJnp:
-    """``jnp`` with an ``asarray`` that copies host arrays (``jnp.array``)."""
+    """``jnp`` with an ``asarray`` that hands JAX a fresh host copy of a
+    numpy array, which nothing mutates afterwards. (``jnp.array`` alone is
+    not enough: on the CPU it may read its numpy input only when the
+    asynchronously dispatched copy runs.)"""
 
     def __getattr__(self, name):
         return getattr(jnp, name)
 
     @staticmethod
     def asarray(a, *args, **kw):
-        return jnp.array(a, *args, **kw)
+        if isinstance(a, np.ndarray):
+            a = a.copy()
+        return jnp.asarray(a, *args, **kw)
 
 
 @pytest.fixture
@@ -86,39 +96,67 @@ def _prompts(vocab):
             for i in range(4)]
 
 
+def parity_traffic(vocab):
+    """(prompt, max_new_tokens) of the parity traffic: 4..7 new tokens."""
+    return [(p, 4 + i) for i, p in enumerate(_prompts(vocab))]
+
+
+def contexts(gated: bool):
+    """(reference, port) contexts: dense, or PAPER_DEFAULT over simulate_tp=2."""
+    if gated:
+        return (JTPContext(mesh=None, policy=J_PAPER_DEFAULT, simulate_tp=2),
+                TPContext(policy=PAPER_DEFAULT, simulate_tp=2))
+    return JTPContext(mesh=None), TPContext()
+
+
+SUMMARY_KEYS = ("n_steps", "n_dispatches", "prefill_tokens", "decode_tokens", "n_generated",
+                "n_compressed_steps", "n_preemptions", "prefill_tokens_skipped")
+
+
+def serve_both(models, traffic, *, gated=False, runs=1, cache_dtype="float32", **kw):
+    """Serve ``traffic`` (``(prompt, max_new_tokens)`` pairs, all arriving
+    at t=0) on the reference Engine and on the port's with the same options,
+    ``runs`` times each on one engine. Asserts, run by run: greedy tokens
+    identical, every request ``ok``, gate counts and the summary's
+    ``SUMMARY_KEYS`` equal, finite logits, and the free list conserved (every
+    block free or parked in the prefix index, none referenced). Returns the
+    two engines and the port's outputs by run."""
+    cfg, model_j, params_j, model_t, params_t = models
+    ctx_j, ctx_t = contexts(gated)
+    eng_j = JEngine(model_j, params_j, ctx_j, cache_dtype=getattr(jnp, cache_dtype), **kw)
+    eng_t = Engine(model_t, params_t, ctx_t, cache_dtype=getattr(torch, cache_dtype),
+                   device="cpu", **kw)
+    outs = []
+    for _ in range(runs):
+        reqs_j = eng_j.run([JRequest(prompt=p.copy(), max_new_tokens=n, arrival_s=0.0)
+                            for p, n in traffic])
+        reqs_t = eng_t.run([Request(prompt=p.copy(), max_new_tokens=n, arrival_s=0.0)
+                            for p, n in traffic])
+        out = [r.output.tolist() for r in reqs_t]
+        assert out == [r.output.tolist() for r in reqs_j]
+        assert all(r.outcome == "ok" and len(r.output) == n for r, (_, n) in zip(reqs_t, traffic))
+        assert eng_t.gate_counts == eng_j.gate_counts
+        assert eng_t.gate_variants() == eng_j.gate_variants()
+        s_t, s_j = eng_t.stats.summary(), eng_j.stats.summary()
+        for key in SUMMARY_KEYS:
+            assert s_t[key] == s_j[key], key
+        a = eng_t.allocator
+        assert a.n_free + a.n_cached == eng_t.n_blocks - 1 and a.n_allocated == 0
+        assert a.n_cached == eng_j.allocator.n_cached
+        assert eng_t.logits_finite()
+        outs.append(out)
+    return eng_j, eng_t, outs
+
+
 @pytest.mark.parametrize("gated", [False, True], ids=["dense-ctx", "gated-simulate_tp2"])
 @pytest.mark.parametrize("cache", ["bf16", "fp4_e2m1"])
 def test_greedy_tokens_identical_to_reference_engine(models, cache, gated,
                                                     reference_copies_host_arrays):
-    cfg, model_j, params_j, model_t, params_t = models
-    ctx_j = (JTPContext(mesh=None, policy=J_PAPER_DEFAULT, simulate_tp=2) if gated
-             else JTPContext(mesh=None))
-    ctx_t = TPContext(policy=PAPER_DEFAULT, simulate_tp=2) if gated else TPContext()
-    prompts = _prompts(cfg.vocab_size)
-
-    eng_j = JEngine(model_j, params_j, ctx_j, cache_dtype=jnp.float32, cache_spec=cache,
-                    **ENGINE_KW)
-    reqs_j = eng_j.run([JRequest(prompt=p, max_new_tokens=4 + i, arrival_s=0.0)
-                        for i, p in enumerate(prompts)])
-    eng_t = Engine(model_t, params_t, ctx_t, cache_dtype=torch.float32, cache_spec=cache,
-                   device="cpu", **ENGINE_KW)
-    reqs_t = eng_t.run([Request(prompt=p, max_new_tokens=4 + i, arrival_s=0.0)
-                        for i, p in enumerate(prompts)])
-
-    assert [r.output.tolist() for r in reqs_t] == [r.output.tolist() for r in reqs_j]
-    assert all(r.outcome == "ok" for r in reqs_t)
-    assert eng_t.gate_counts == eng_j.gate_counts
-    assert eng_t.gate_variants() == eng_j.gate_variants()
+    eng_j, eng_t, _ = serve_both(models, parity_traffic(models[0].vocab_size), gated=gated,
+                                 cache_spec=cache, **ENGINE_KW)
     if gated:
         assert eng_t.gate_counts["compressed"] > 0 and eng_t.gate_counts["dense"] > 0
-    s_t, s_j = eng_t.stats.summary(), eng_j.stats.summary()
-    for key in ("n_steps", "prefill_tokens", "decode_tokens", "n_generated",
-                "n_compressed_steps"):
-        assert s_t[key] == s_j[key], key
-    # free list conserved: every block back, nothing referenced
     assert eng_t.allocator.n_free == eng_t.n_blocks - 1
-    assert eng_t.allocator.n_allocated == 0
-    assert eng_t.logits_finite()
 
 
 def test_block_allocator_invariants():
@@ -154,12 +192,30 @@ def test_mixed_batch_geometry():
         build_mixed_batch([(0, np.arange(2, dtype=np.int32), 0)], [(0, 0, 0)], 6, 2)
 
 
+def _exhaust(models, **kw):
+    cfg, model_j, params_j, model_t, params_t = models
+    base = dict(max_slots=2, max_len=64, block_size=8, n_blocks=4, **kw)
+    prompt = (np.arange(30, dtype=np.int32) * 7) % cfg.vocab_size
+    with pytest.raises(JPoolExhausted, match="pool"):
+        JEngine(model_j, params_j, JTPContext(mesh=None), **base).run(
+            [JRequest(prompt=prompt, max_new_tokens=8)])
+    eng = Engine(model_t, params_t, TPContext(), device="cpu", **base)
+    with pytest.raises(PoolExhausted, match="pool"):
+        eng.run([Request(prompt=prompt, max_new_tokens=8)])
+
+
 def test_pool_exhaustion_raises_without_preemption(models):
-    cfg, _, _, model_t, params_t = models
-    eng = Engine(model_t, params_t, TPContext(), n_blocks=3, device="cpu", **ENGINE_KW)
-    with pytest.raises(PoolExhausted):
-        eng.run([Request(prompt=np.arange(40, dtype=np.int32) % cfg.vocab_size,
-                         max_new_tokens=4)])
+    """A single request that the whole pool cannot hold: with nothing to
+    preempt the engine raises PoolExhausted, as the reference does (its
+    ``test_pool_exhausted_and_slot_exhausted_typed``: a 30-token prompt and
+    8 new tokens need 5 blocks of 8, the pool has 3)."""
+    _exhaust(models)
+
+
+@pytest.mark.parametrize("kw", [dict(token_budget=0), dict(prefill_chunk=0)],
+                         ids=["split", "whole-prompt"])
+def test_pool_exhaustion_raises_on_the_other_schedulers(models, kw):
+    _exhaust(models, **kw)
 
 
 def test_request_validation(models):
@@ -174,9 +230,9 @@ def test_request_validation(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(token_budget=0), dict(prefill_chunk=0), dict(prefix_cache=True),
     dict(fault_plan=object()), dict(deadline_s=1.0), dict(deadline_ttft_s=1.0),
-    dict(max_queue=4)], ids=lambda kw: next(iter(kw)))
+    dict(max_queue=4), dict(step_timeout_s=1.0), dict(stall_limit=256)],
+    ids=lambda kw: next(iter(kw)))
 def test_engine_refuses_unported_options(models, kw):
     _, _, _, model_t, params_t = models
     base = {**ENGINE_KW, **kw}
@@ -195,6 +251,23 @@ def test_entry_points_default_to_the_card(models, monkeypatch):
         Engine(model_t, params_t, TPContext(), **ENGINE_KW)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--reduced", "--requests", "1"])
+
+
+@pytest.mark.parametrize("flags,banner", [
+    (["--token-budget", "0"], "step: split, chunked 32 tokens/step"),
+    (["--prefill-chunk", "0"], "step: split, whole-prompt"),
+    (["--prefix-cache", "1", "--slots", "1"], "prefix cache: on")],
+    ids=["split", "whole-prompt", "prefix-cache"])
+def test_serve_cli_runs_new_modes_on_cpu(capsys, flags, banner):
+    engine, out = serve.main(["--reduced", "--device", "cpu", "--slots", "2", "--requests", "3",
+                              "--prompt-len", "64", "--new-tokens", "3",
+                              "--cache-spec", "fp4_e2m1", *flags])
+    text = capsys.readouterr().out
+    assert banner in text and "3 requests, 9 tokens" in text and "preemptions: 0" in text
+    assert all(r.outcome == "ok" and len(r.output) == 3 for r in out)
+    if engine.prefix_cache:
+        assert engine.stats.summary()["prefill_tokens_skipped"] > 0
+        assert "prompt tokens skipped" in text
 
 
 def test_serve_driver_runs_on_cpu(capsys):
