@@ -20,23 +20,33 @@ Phases (any failure exits non-zero):
               dequantize and dequantize+reduce exact on every such case;
               the codec also exact and timed at the split chunk's and the
               whole-prompt prefill's TP partials (4 x 256 and 4 x 512 rows),
-              the 512-row whole-prompt insert and the 4-row decode append;
+              the split chunk's 256-row append, the 512-row whole-prompt
+              insert and the 4-row decode append; dequantize and
+              dequantize+reduce over a block of scale byte 255 (a poisoned
+              pool block): inf and NaN where the plain version has them;
               paged attention within one bf16 rounding of each element
               over bf16 and fp4 pools in the geometries the served steps run
               (mixed, decode-only with 256 budget pads, the same pads of an
               empty slot, the split scheduler's decode, R = 4, and its chunk,
               R = 1, Sq = 256 over 256 history positions with the chunk as
-              256 extras), plus a sweep of small shapes through every path of
-              the paged kernel. Prints each kernel's device time (CUDA events
-              around back-to-back launches) at every shape the served steps
-              launch it, bytes moved and bound, and the launch floor (an add
-              on one element).
+              256 extras), the same geometries over a pool with one poisoned
+              block (scale bytes 255 in fp4 pools, NaN in bf16 pools): the
+              non-finite query rows are the plain version's and exactly those
+              whose history reaches the block, plus a sweep of small shapes
+              through every path of the paged kernel. Prints each kernel's
+              device time (CUDA events around back-to-back launches) at every
+              shape the served steps launch it, bytes moved and bound, and
+              the launch floor (an add on one element).
 4. reference— reduced llama2 on the card vs the same engine on the CPU (plain
               versions), dense fp32 pools: greedy tokens, steps, dispatches,
               preemptions and skipped prompt tokens identical on the mixed
               and split schedulers, whole-prompt prefill, a prefix-cache COW
-              fork and eviction under a 7-block pool; one compressed mixed
-              step on fp4 pools within a stated tolerance.
+              fork and eviction under a 7-block pool; supervised runs under
+              die@3, corrupt@3 (fp4 and fp32 pools), exhaust@2:6x3 and stuck@4
+              on a persistent prefix cache (warm recovery), max_queue and
+              eos_id: tokens, outcomes, recovery events, the corruption
+              watch's step and merged steps and dispatches identical; one
+              compressed mixed step on fp4 pools within a stated tolerance.
 5. serve    — llama2-7b at full width and depth, random bf16 weights from a
               seed, TPContext(PAPER_DEFAULT, simulate_tp=4), 8 requests x 512
               prompt tokens x 32 new tokens: the mixed-step engine on fp4 and
@@ -47,10 +57,16 @@ Phases (any failure exits non-zero):
               run forks tail blocks on bf16 and resumes at the aligned
               boundary on fp4); (d) the mixed engine on fp4 pools of 102
               blocks, so that it preempts; (e) measure_ttft at 512 and 2048
-              prompt tokens, compressed vs uncompressed reductions. Every run
-              checks that each request finished ok, finite logits, a conserved
-              free list, and each kernel's launch count against the count the
-              run's own stats give (launch counts reset just before each run).
+              prompt tokens, compressed vs uncompressed reductions; (f) the
+              mixed engine supervised under exhaust@5:64x4;corrupt@9;die@20
+              (fp4 pools) and corrupt@9 (bf16 pools); (g) max_queue=2, then a
+              deadline of 3/4 of the fault-free makespan with a cancel from a
+              timer; (h) an eos_id stop. Every run checks that each request
+              reached its outcome (ok with 32 tokens, except in (g) and (h)),
+              finite logits, a conserved free list with nothing held, the
+              planned recoveries, and each kernel's launch count against the
+              count the run's own stats give (a supervisor's merged over its
+              attempts; launch counts reset just before each run).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Details go to
@@ -268,12 +284,14 @@ def phase_codec(torch, dev="cuda"):
         shapes.append(timed(lambda: mx_quant.mx_quantize_2d(xm, fp4),
                             lambda: mx_quant.quantize_plain(xm, fp4), nbytes, xm.numel() * 20,
                             f"({m}, {D}) bf16 -> fp4_e2m1_b32"))
-    # the other served call sites: the split chunk's and the whole-prompt
-    # prefill's TP partials, the whole-prompt insert and the split decode's
-    # pool append (K or V), each bytes exact and timed
+    # the other served call sites: the split chunk's TP partials and pool
+    # append (K or V), the whole-prompt prefill's TP partials, the
+    # whole-prompt insert and the split decode's pool append, each bytes
+    # exact and timed
     xb, _ = codec_partials(torch, TP * PROMPT, D, g, dev)
-    for m, site in ((TP * CHUNK, "chunk TP partials"), (TP * PROMPT, "whole-prompt TP partials"),
-                    (PROMPT, "whole-prompt insert"), (SLOTS, "split decode append")):
+    for m, site in ((TP * CHUNK, "chunk TP partials"), (CHUNK, "split chunk append"),
+                    (TP * PROMPT, "whole-prompt TP partials"), (PROMPT, "whole-prompt insert"),
+                    (SLOTS, "split decode append")):
         xm = xb[:m]
         k, pl = mx_quant.mx_quantize_2d(xm, fp4), mx_quant.quantize_plain(xm, fp4)
         check(torch.equal(k.payload, pl.payload) and torch.equal(k.scales, pl.scales),
@@ -303,6 +321,15 @@ def phase_codec(torch, dev="cuda"):
                 n_d += 1
     check(not bad, f"mx_dequant differs from the plain version: {bad}")
     c = mx_quant.mx_quantize_2d(x[:T], fp4)   # the step's K/V round trip, (T, D) -> bf16
+    # a poisoned pool block: scale bytes 255 decode as 2^128 = +inf, so its
+    # values come out inf (code != 0) or NaN (0 * inf), as in the reference
+    bad_scales = c.scales.clone()
+    bad_scales[POISON_ROWS, POISON_BLOCK] = 255
+    for dt in (torch.bfloat16, torch.float32):
+        k = mx_dequant.mx_dequantize_2d(c.payload, bad_scales, fp4, dt)
+        p = mx_dequant.dequantize_plain(MXCompressed(c.payload, bad_scales), fp4, dt)
+        check_poisoned(torch, k, p, POISON_ROWS, POISON_BLOCK * 32, f"mx_dequant ({dt})")
+        n_d += 1
     nbytes = c.payload.numel() + c.scales.numel() + T * D * 2
     info["mx_dequant"] = dict(
         timed(lambda: mx_dequant.mx_dequantize_2d(c.payload, c.scales, fp4, torch.bfloat16),
@@ -310,7 +337,8 @@ def phase_codec(torch, dev="cuda"):
               f"({T}, {D}) fp4_e2m1_b32 -> bf16"),
         max_abs_err=d_err, launch_floor_ms=floor_ms, cases=n_d)
     r = info["mx_dequant"]
-    log(f"kernel mx_dequant: exact in {n_d} cases (every quantize case -> bf16, fp32); "
+    log(f"kernel mx_dequant: exact in {n_d} cases (every quantize case -> bf16, fp32, and "
+        f"a block of scale byte 255 in rows {POISON_ROWS}: inf/NaN where the plain version's); "
         f"({T},{D}) -> bf16 {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms), "
         f"{nbytes / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms")
 
@@ -326,6 +354,14 @@ def phase_codec(torch, dev="cuda"):
                               f"({spec.name}, {dt})")
             r_err = max(r_err, max_err(k, p))
             n_r += 1
+            if spec == fp4:   # one shard's block poisoned: the sum is inf/NaN there
+                bad_scales = w.scales.clone()
+                bad_scales[1, POISON_ROWS, POISON_BLOCK] = 255
+                k = mx_dequant.dequant_reduce(w.payload, bad_scales, spec, dt)
+                p = mx_dequant.dequant_reduce_plain(MXCompressed(w.payload, bad_scales), spec, dt)
+                check_poisoned(torch, k, p, POISON_ROWS, POISON_BLOCK * 32,
+                               f"mx_dequant_reduce ({dt})")
+                n_r += 1
     red_shapes = []
     for rows, site, src in ((T, "mixed step", x), (CHUNK, "split chunk", xb),
                             (PROMPT, "whole-prompt prefill", xb)):
@@ -344,11 +380,27 @@ def phase_codec(torch, dev="cuda"):
     info["mx_dequant_reduce"] = dict(red_shapes[0], max_abs_err=r_err, launch_floor_ms=floor_ms,
                                      cases=n_r, shapes=red_shapes[1:])
     r = info["mx_dequant_reduce"]
-    log(f"kernel mx_dequant_reduce: exact in {n_r} cases ({len(specs)} specs x (bf16, fp32) "
-        f"and the chunk and whole-prompt shapes); " + "; ".join(
+    log(f"kernel mx_dequant_reduce: exact in {n_r} cases ({len(specs)} specs x (bf16, fp32), "
+        f"a poisoned block of shard 1, and the chunk and whole-prompt shapes); " + "; ".join(
             f"{r['shape']} {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms), "
             f"{r['bytes'] / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms" for r in red_shapes))
     return info
+
+
+POISON_ROWS, POISON_BLOCK = [7, 100, 259], 5   # a pool block of scale byte 255, in codec rows
+
+
+def check_poisoned(torch, out, ref, rows, col, what):
+    """A codec output with a poisoned block: the kernel's inf and NaN
+    positions equal the plain version's, the poisoned block's 32 values are
+    all non-finite, and every other value equals the plain version's."""
+    for flag in (torch.isnan, torch.isinf):
+        check(torch.equal(flag(out), flag(ref)), f"{what}: {flag.__name__} positions differ "
+              f"from the plain version's")
+    check(bool((~torch.isfinite(out[rows, col:col + 32])).all()),
+          f"{what}: a poisoned block decoded to finite values")
+    fin = torch.isfinite(ref)
+    check(torch.equal(out[fin], ref[fin]), f"{what}: finite values differ")
 
 
 # ------------------------------------------------------------- paged attention
@@ -525,6 +577,37 @@ def phase_paged(torch, dev="cuda"):
                         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             res[f"{geo}/{name}"] = r
             log(msg)
+    # poisoned pools: one block of scale bytes 255 (fp4) or NaN values (bf16)
+    # in every served geometry; the rows whose history reaches it must come
+    # out non-finite in the kernel and in the plain version, and no other
+    poison = {"mixed": (0, 3, 2, 5), "decode_only": (0, 0, 1, 5), "empty_pads": (1, 5),
+              "decode": (3, 5), "chunk": (0, 2)}   # (slot, block of its table) pairs
+    n_poison = 0
+    for geo, pairs in poison.items():
+        qq, (tables, hist, qpos, t_extra), _ = geometries[geo]
+        E = t_extra.shape[1] if t_extra is not None else 0
+        extras = (ke[:E], ve[:E], t_extra) if E else ()
+        for slot, j in zip(pairs[::2], pairs[1::2]):
+            blk = int(slot_tables[slot, j])
+            reach = reaching_rows(torch, tables, hist, qpos, blk, BS)
+            for name, (pk, pv, spec) in pools.items():
+                bk, bv = poisoned_pool(torch, pk, blk), poisoned_pool(torch, pv, blk)
+                args = (qq, bk, bv, tables, hist, qpos, *extras)
+                out = pa.paged_attention(*args, spec=spec, **kw)
+                ref = pa.paged_attention_plain(*args, spec=spec, **kw)
+                bad_k, bad_p = ~torch.isfinite(out).all(-1), ~torch.isfinite(ref).all(-1)
+                what = f"poisoned block {blk} (slot {slot}), {name} pools, {geo}"
+                check(torch.equal(bad_k, bad_p), f"paged_attention ({what}): the kernel's "
+                      f"non-finite rows {int(bad_k.sum())} differ from the plain version's "
+                      f"{int(bad_p.sum())}")
+                check(torch.equal(bad_k, reach), f"paged_attention ({what}): non-finite rows "
+                      f"{int(bad_k.sum())} are not the {int(reach.sum())} rows that reach it")
+                if not bad_k.all():
+                    check_paged(torch, out[~bad_k], ref[~bad_k], what)
+                n_poison += 1
+                log(f"kernel paged_attention ({what}): non-finite in the {int(reach.sum())} of "
+                    f"{reach.numel()} query rows that reach the block, as the plain version"
+                    + ("" if bad_k.all() else "; the other rows within the check"))
     n_sweep = paged_sweep(torch, dev)
     log(f"kernel paged_attention: {n_sweep} small-shape cases through every path match "
         f"the plain version (fp32 / bf16 q; fp32, bf16, fp4, fp6, int8 pools; hd 32-128; "
@@ -532,7 +615,32 @@ def phase_paged(torch, dev="cuda"):
     main = dict(res["mixed/fp4"])
     main["geometries"] = [res[k] for k in res if k != "mixed/fp4"]
     main["sweep_cases"] = n_sweep
+    main["poisoned_cases"] = n_poison
     return main
+
+
+def poisoned_pool(torch, pool, blk):
+    """A copy of ``pool`` with block ``blk`` poisoned as the engine's
+    corrupt fault does: scale bytes 255 in an MX pool, NaN in a dense one."""
+    from repro_torch.core.mx import MXCompressed
+
+    if isinstance(pool, MXCompressed):
+        scales = pool.scales.clone()
+        scales[blk] = 255
+        return MXCompressed(pool.payload, scales)
+    out = pool.clone()
+    out[blk] = float("nan")
+    return out
+
+
+def reaching_rows(torch, tables, hist, qpos, blk, bs):
+    """(R, Sq) bool: the queries whose history reaches pool block ``blk``
+    (a position of it in the row's table below ``hist`` and at or before
+    the query's position)."""
+    t = torch.arange(tables.shape[1] * bs, device=tables.device)
+    seen = (tables[:, t // bs] == blk) & (t[None] < hist[:, None])
+    first = torch.where(seen, t[None], 2**30).min(1).values
+    return qpos >= first[:, None]
 
 
 def paged_sweep(torch, dev):
@@ -663,6 +771,8 @@ def phase_reference(torch, dev="cuda"):
             f"({sum(map(len, outs['cpu']))} tokens); steps, dispatches, preemptions, "
             f"skipped tokens {stats['card']} on both")
 
+    reference_faults(torch, model, cpu, gpu, parity, base)
+
     # one compressed mixed step on fp4 pools, card vs CPU
     ctx = TPContext(policy=PAPER_DEFAULT, simulate_tp=4)
     batch = build_mixed_batch([(0, np.arange(20, dtype=np.int32) % cfg.vocab_size, 0)],
@@ -686,6 +796,81 @@ def phase_reference(torch, dev="cuda"):
         f"rel-L2 {rel:.3g} <= 1e-3")
 
 
+def reference_faults(torch, model, cpu, gpu, parity, base):
+    """The reduced model under faults, supervised, on the card and on the CPU
+    (mixed step, chunk 16): engine death, pool corruption on fp4 and on dense
+    fp32 pools, 6 of the 8 blocks held for 3 steps, a stuck step on a
+    persistent prefix cache (warm recovery), bounded admission and an
+    ``eos_id`` stop. Tokens, outcomes, recovery events (error, mode,
+    replayed), the step the corruption watch fires at, and the merged steps
+    and dispatches must be identical."""
+    import re
+
+    from repro_torch.core.tp import TPContext
+    from repro_torch.serving import Engine, EngineSupervisor, FaultPlan, Request
+
+    mixed = dict(base, prefill_chunk=16, token_budget=18)
+    cases = {  # name -> (engine options, fault plan, per-request options)
+        "die@3": (mixed, "die@3", None),
+        "corrupt@3 fp4": (dict(mixed, cache_spec="fp4_e2m1"), "corrupt@3", None),
+        "corrupt@3 fp32": (mixed, "corrupt@3", None),
+        "exhaust@2:6x3": (mixed, "exhaust@2:6x3", None),
+        "stuck@4 warm": (dict(mixed, prefix_cache=True, persistent_cache=True,
+                              step_timeout_s=2.0), "stuck@4", None),
+        "max_queue=1": (dict(mixed, max_queue=1), None, None),
+        "eos_id": (mixed, None, "eos"),
+    }
+    eos = None
+    for case, (opts, plan, req_kw) in cases.items():
+        seen = {}
+        for name, params in (("cpu", cpu), ("card", gpu)):
+            eng = Engine(model, params, TPContext(), device=params["embed"]["w"].device,
+                         fault_plan=FaultPlan.parse(plan) if plan else None, **opts)
+            # one run with the plan and the watchdog off first: first launches
+            # (and cuBLAS set-up on the card) stay out of the measured run
+            held = eng.fault_plan, eng.step_timeout_s
+            eng.fault_plan = eng.step_timeout_s = None
+            eng.run([Request(prompt=parity[0][0][:4].copy(), max_new_tokens=2)])
+            eng.fault_plan, eng.step_timeout_s = held
+            kw = [dict(eos_id=eos)] + [{}] * (len(parity) - 1) if req_kw else [{}] * len(parity)
+            reqs = [Request(prompt=p.copy(), max_new_tokens=n, **k)
+                    for (p, n), k in zip(parity, kw)]
+            sup = EngineSupervisor(eng, backoff_s=0.0)
+            sup.run(reqs)
+            a = eng.allocator
+            check(a.n_held == 0 and a.n_allocated == 0
+                  and a.n_free + a.n_cached == eng.n_blocks - 1,
+                  f"reference[{case}] on the {name}: free list not conserved")
+            steps = [re.search(r"\(step (\d+)\)", e.detail) for e in sup.events]
+            seen[name] = dict(
+                outputs=[r.output.tolist() for r in reqs], outcomes=[r.outcome for r in reqs],
+                events=[(e.error, e.mode, e.n_replayed) for e in sup.events],
+                watch_steps=[int(m.group(1)) for m in steps if m],
+                counts=(sup.stats.n_steps, sup.stats.n_dispatches))
+        check(seen["cpu"] == seen["card"],
+              f"reference[{case}]: card and CPU differ: {seen['card']} vs {seen['cpu']}")
+        got = seen["card"]
+        planned = {"die@3": ["EngineDead"], "corrupt@3 fp4": ["WireCorruption"],
+                   "corrupt@3 fp32": ["WireCorruption"], "stuck@4 warm": ["StepStuck"]}
+        check([e[0] for e in got["events"]] == planned.get(case, []),
+              f"reference[{case}]: recovery events {got['events']}")
+        check(case != "stuck@4 warm" or got["events"][0][1] == "warm",
+              f"reference[{case}]: recovery not warm")
+        want = {"max_queue=1": ["ok"] * 3 + ["rejected"]}.get(case, ["ok"] * 4)
+        check(sorted(got["outcomes"]) == want, f"reference[{case}]: outcomes {got['outcomes']}")
+        if case == "die@3":   # replayed, so the fault-free tokens: eos_id = request 0's 3rd
+            free0 = got["outputs"][0]
+            eos = free0[2]
+        if case == "eos_id":
+            stop = free0.index(eos) + 1
+            check(got["outputs"][0] == free0[:stop],
+                  f"reference[eos_id]: request 0 gave {got['outputs'][0]}, not {free0[:stop]}")
+        log(f"reference[{case}]: reduced llama2 fp32, supervised, identical card vs CPU: "
+            f"outcomes {got['outcomes']}, recoveries {got['events']}, watch fired at step(s) "
+            f"{got['watch_steps']}, {got['counts'][0]} steps / {got['counts'][1]} dispatches "
+            f"merged over the attempts")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -705,9 +890,13 @@ def _tree_to(tree, device):
 # ----------------------------------------------------------------------- serve
 
 
-def expected_launches(eng, n_layers: int) -> dict:
-    """Kernel launches of one ``Engine.run``, derived from the run's own
-    stats. Per layer: a compressed row-parallel reduction (``wo``, ``down``)
+def expected_launches(eng, stats, n_layers: int) -> dict:
+    """Kernel launches of one served run, derived from its ``ServeStats``
+    (``eng.stats`` of one ``Engine.run``; a supervisor's merged ``stats``
+    over its attempts: a ``die`` fault raises before its step dispatches,
+    and the corruption watch raises after the mixed step has launched and
+    recorded it, so an aborted attempt's stats cover exactly its launches).
+    Per layer: a compressed row-parallel reduction (``wo``, ``down``)
     is one ``mx_quant`` + one ``mx_dequant_reduce``; a paged step (mixed,
     chunk or decode) is one ``paged_attention``; fp4 pools add one
     ``mx_quant`` each for K and V per write (step append, whole-prompt
@@ -715,14 +904,13 @@ def expected_launches(eng, n_layers: int) -> dict:
     decode round trip. The mixed step compresses under its compressed gate;
     the split chunk and the whole-prompt prefill under the engine's context,
     the split decode under ``ctx_decode``. A COW fork launches nothing."""
-    L, q = n_layers, eng.cache_spec.quantized
+    L, q, s = n_layers, eng.cache_spec.quantized, stats
     if eng.token_budget:
-        n_c, n_d = eng.gate_counts["compressed"], eng.gate_counts["dense"]
+        n_c, n_d = s.n_compressed_steps, s.n_steps - s.n_compressed_steps
         return {"mx_quant": L * 2 * n_c + (L * 2 * (n_c + n_d) if q else 0),
                 "mx_dequant_reduce": L * 2 * n_c,
                 "mx_dequant": L * 2 * (n_c + n_d) if q else 0,
                 "paged_attention": L * (n_c + n_d)}
-    s = eng.stats
     n_chunk = sum(1 for p, _ in s.step_tokens if p)
     n_dec = sum(1 for _, d in s.step_tokens if d)
     n_whole = (s.n_dispatches - n_chunk - n_dec) // 2   # prefill + insert each
@@ -764,60 +952,78 @@ def phase_serve(torch, dev="cuda", cfg=None):
                                       .astype(np.int32)]) for _ in range(8)]
     runs, totals = {}, {k: 0 for k in KERNELS}
 
-    def serve(name, eng, traffic, warm=True):
-        """One measured run of ``eng`` on ``traffic``, with its checks."""
+    def serve(name, eng, traffic, warm=True, sup=None, req_kw=None, all_new=True, during=None):
+        """One measured run of ``eng`` (under ``sup`` when given) on
+        ``traffic``, with its checks: every request at a terminal outcome
+        (``ok`` with NEW tokens when ``all_new``), a conserved free list with
+        nothing held, finite logits in the last attempt, launches equal to
+        the stats'. ``during(reqs)`` starts what acts on the run from
+        outside (a timer). Returns (summary, requests)."""
         if warm:   # cuBLAS handles and first launches, outside the count
+            plan, eng.fault_plan = eng.fault_plan, None
             eng.run([Request(prompt=traffic[0].copy(), max_new_tokens=2)])
+            eng.fault_plan = plan
             sync()
-        reqs = [Request(prompt=p.copy(), max_new_tokens=NEW) for p in traffic]
+        reqs = [Request(prompt=p.copy(), max_new_tokens=NEW, **k)
+                for p, k in zip(traffic, req_kw or [{}] * len(traffic))]
+        stop = during(reqs) if during else None
         reset_launch_counts()
         t0 = time.perf_counter()
-        eng.run(reqs, seed=0)
+        (sup or eng).run(reqs, seed=0)
         sync()
         wall = time.perf_counter() - t0
         got = launch_counts()
-        s = eng.stats.summary()
-        expect = expected_launches(eng, L)
+        if stop:
+            stop()
+        stats = (sup or eng).stats
+        s = stats.summary()
+        expect = expected_launches(eng, stats, L)
         a = eng.allocator
-        check(all(r.outcome == "ok" and len(r.output) == NEW for r in reqs),
+        check(all(r.outcome is not None for r in reqs), f"{name}: a request has no outcome")
+        check(not all_new or all(r.outcome == "ok" and len(r.output) == NEW for r in reqs),
               f"{name}: not every request finished ok with {NEW} tokens")
         check(eng.logits_finite(), f"{name}: non-finite logits")
-        check(a.n_free + a.n_cached == eng.n_blocks - 1 and a.n_allocated == 0,
+        check(a.n_free + a.n_cached == eng.n_blocks - 1 and a.n_allocated == 0
+              and a.n_held == 0,
               f"{name}: free list not conserved ({a.n_free} free, {a.n_cached} cached, "
-              f"{a.n_allocated} referenced of {eng.n_blocks - 1})")
+              f"{a.n_allocated} referenced, {a.n_held} held of {eng.n_blocks - 1})")
         if dev == "cuda":  # kernels launch only on the card
             check(got == expect, f"{name}: launches {got} != expected {expect}")
         for k in totals:
             totals[k] += got[k]
         runs[name] = dict(summary=s, launches=got, gate=dict(eng.gate_counts), wall_s=wall,
                           pool_mb=eng.kv_pool_bytes() / 1e6,
-                          outputs=[r.output.tolist() for r in reqs])
-        log(f"serve[{name}]: {len(reqs)} requests ok, {s['n_generated']} tokens in "
+                          outputs=[r.output.tolist() for r in reqs],
+                          outcomes=[r.outcome for r in reqs])
+        outcomes = ", ".join(f"{s[k]} {k[2:].replace('_', ' ')}" for k in
+                             ("n_ok", "n_rejected", "n_timed_out", "n_cancelled") if s[k])
+        log(f"serve[{name}]: {len(reqs)} requests ({outcomes}), {s['n_generated']} tokens in "
             f"{wall:.2f} s; TTFT p50 {s['ttft_p50_s'] * 1e3:.1f} ms p90 "
             f"{s['ttft_p90_s'] * 1e3:.1f} ms; TPOT p50 {s['tpot_p50_s'] * 1e3:.2f} ms; "
-            f"{s['tokens_per_s']:.1f} tokens/s; {s['n_steps']} steps, {s['n_dispatches']} "
+            f"{s['tokens_per_s']:.1f} tokens/s, goodput {s['goodput_tokens_per_s']:.1f}; "
+            f"{s['n_steps']} steps, {s['n_dispatches']} "
             f"dispatches (gate {eng.gate_counts}); {s['n_preemptions']} preemptions; "
             f"{s['prefill_tokens_skipped']} prompt tokens skipped; pool "
             f"{runs[name]['pool_mb']:.1f} MB; launches {got}")
-        return s
+        return s, reqs
 
     kw = dict(max_slots=SLOTS, max_len=MAX_LEN, block_size=BS, device=dev)
     # the mixed token-budget step
     for spec in ("fp4_e2m1", "bf16"):
         eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=T, cache_spec=spec,
                      **kw)
-        serve(f"mixed/{spec}", eng, prompts)
+        serve(f"mixed/{spec}", eng, prompts)[0]
         check(eng.gate_counts["compressed"] > 0 and eng.gate_counts["dense"] > 0,
               f"mixed/{spec}: gate counts {eng.gate_counts}")
     # (a) the split scheduler: one 256-token chunk, then the batched decode
     for spec in ("fp4_e2m1", "bf16"):
         eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=0, cache_spec=spec,
                      **kw)
-        s = serve(f"split/{spec}", eng, prompts)
+        s = serve(f"split/{spec}", eng, prompts)[0]
         check(s["n_dispatches"] > s["n_steps"], f"split/{spec}: one dispatch per step")
     # (b) whole-prompt prefill + insert, then the batched decode
     eng = Engine(model, params, ctx, prefill_chunk=0, cache_spec="fp4_e2m1", **kw)
-    s = serve("whole/fp4_e2m1", eng, prompts)
+    s = serve("whole/fp4_e2m1", eng, prompts)[0]
     check(s["prefill_tokens"] == 8 * PROMPT and s["n_dispatches"] > s["n_steps"],
           "whole/fp4_e2m1: prompts not prefilled whole")
     # (c) prefix cache kept warm across runs: a shared 256-token prefix, then
@@ -827,8 +1033,8 @@ def phase_serve(torch, dev="cuda", cfg=None):
         eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=T, cache_spec=spec,
                      prefix_cache=True, persistent_cache=True,
                      n_blocks=8 * (MAX_LEN // BS) + 1, **kw)
-        first = serve(f"prefix/{spec}/run1", eng, shared_prompts, warm=False)
-        second = serve(f"prefix/{spec}/run2", eng, shared_prompts, warm=False)
+        first = serve(f"prefix/{spec}/run1", eng, shared_prompts, warm=False)[0]
+        second = serve(f"prefix/{spec}/run2", eng, shared_prompts, warm=False)[0]
         check(first["prefill_tokens_skipped"] > 0 and second["prefill_tokens_skipped"] > 0,
               f"prefix/{spec}: no prompt tokens skipped")
         # the warm run reads through other kernel geometries and GEMM shapes,
@@ -851,8 +1057,9 @@ def phase_serve(torch, dev="cuda", cfg=None):
     # the three decodes fit exactly, so nothing is preempted.)
     eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=T, cache_spec="fp4_e2m1",
                  n_blocks=3 * (MAX_LEN // BS), **kw)
-    s = serve("evict/fp4_e2m1", eng, prompts)
+    s = serve("evict/fp4_e2m1", eng, prompts)[0]
     check(s["n_preemptions"] >= 1, "evict/fp4_e2m1: no preemption")
+    serve_faults(torch, dev, serve, runs, model, params, ctx, prompts, kw)
 
     # (e) whole-prompt TTFT (Table 3's metric), compressed vs uncompressed
     # reductions on the one card: the simulated codec's cost, not a TP saving
@@ -879,6 +1086,140 @@ def phase_serve(torch, dev="cuda", cfg=None):
     check(dev != "cuda" or all(totals[k] > 0 for k in KERNELS),
           f"a kernel never launched: {totals}")
     return runs, totals
+
+
+FAULT_RUNS = {  # pools -> (fault plan, the recoveries it must cause, in order)
+    "fp4_e2m1": ("exhaust@5:64x4;corrupt@9;die@20", ["WireCorruption", "EngineDead"]),
+    "bf16": ("corrupt@9", ["WireCorruption"]),
+}
+
+
+def serve_faults(torch, dev, serve, runs, model, params, ctx, prompts, kw):
+    """The robustness paths at llama2-7b width, mixed step, the fault-free
+    runs' weights and prompts: (f) supervised runs under ``FAULT_RUNS``
+    (every request ok, the planned recoveries, each replaying all 8
+    requests: none can finish in 20 steps); (g) ``max_queue=2`` (exactly 2
+    of 8 rejected), then an engine deadline of 3/4 of the fault-free run's
+    makespan with request 0 cancelled from a timer at a fifth of it; (h)
+    ``eos_id`` set to the fault-free run's 5th token of the first request
+    that did not produce it earlier. Tokens of (f) are counted against the
+    fault-free run, not held (near ties at full width, section 6 of
+    PERF.md); the reference phase holds them on the reduced model. Last,
+    the corruption watch's cost per step (``watch_cost``)."""
+    import dataclasses
+    import re
+    import threading
+
+    from repro_torch.serving import Engine, EngineSupervisor, FaultPlan
+
+    mixed = lambda spec, **o: Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=T,
+                                     cache_spec=spec, **o, **kw)
+    for spec, (plan, planned) in FAULT_RUNS.items():
+        name = f"faults/{spec}"
+        eng = mixed(spec, fault_plan=FaultPlan.parse(plan))
+        sup = EngineSupervisor(eng)
+        s, reqs = serve(name, eng, prompts, sup=sup)
+        events = [(e.error, e.mode, e.n_replayed) for e in sup.events]
+        check(events == [(e, "hard", len(prompts)) for e in planned],
+              f"{name}: recoveries {events}, planned {planned}")
+        watch = [int(m.group(1)) for e in sup.events
+                 for m in [re.search(r"\(step (\d+)\)", e.detail)] if m]
+        free = runs[f"mixed/{spec}"]["outputs"]
+        same = sum(r.output.tolist() == f for r, f in zip(reqs, free))
+        report = sup.report()
+        report.pop("serve")
+        # the merged summary's makespan is the last attempt's clock (replays
+        # arrive at 0 on it); over the whole supervised run's wall:
+        wall_goodput = s["n_generated"] / runs[name]["wall_s"]
+        runs[name].update(events=[dataclasses.asdict(e) for e in sup.events], plan=plan,
+                          watch_steps=watch, same_tokens_as_fault_free=same, report=report,
+                          goodput_wall_tokens_per_s=wall_goodput)
+        log(f"faults[{spec}]: plan {plan}: recoveries " + "; ".join(
+            f"{e.error} ({e.mode}, {e.n_replayed} replayed) recovery_s {e.recovery_s:.4f} "
+            f"backoff_s {e.backoff_s:.3f}" for e in sup.events) +
+            f"; corruption watch fired at step(s) {watch}; goodput "
+            f"{s['goodput_tokens_per_s']:.1f} tokens/s over the last attempt, {wall_goodput:.1f} "
+            f"over the supervised run's {runs[name]['wall_s']:.2f} s; outcomes {s['n_ok']} ok; "
+            f"{same} of {len(prompts)} requests decoded the fault-free run's tokens")
+
+    # (g) bounded admission, then deadlines and a cancel from another thread
+    name = "max_queue/fp4_e2m1"
+    s, reqs = serve(name, mixed("fp4_e2m1", max_queue=2), prompts, all_new=False)
+    check(s["n_rejected"] == 2 and s["n_ok"] == len(prompts) - 2
+          and all(len(r.output) == 0 and r.timing.admitted_s is None
+                  for r in reqs if r.outcome == "rejected"),
+          f"{name}: outcomes {[r.outcome for r in reqs]}")
+    makespan = runs["mixed/fp4_e2m1"]["summary"]["makespan_s"]
+
+    def cancel_first(reqs):
+        timer = threading.Timer(0.2 * makespan, reqs[0].cancel)
+        timer.start()
+        return timer.cancel
+
+    name = "deadline/fp4_e2m1"
+    s, reqs = serve(name, mixed("fp4_e2m1", deadline_s=0.75 * makespan), prompts,
+                    all_new=False, during=cancel_first)
+    check(reqs[0].outcome == "cancelled" and 0 < len(reqs[0].output) < NEW,
+          f"{name}: request 0 {reqs[0].outcome} with {len(reqs[0].output)} tokens")
+    check(s["n_timed_out"] >= 1 and all(len(r.output) < NEW for r in reqs
+                                        if r.outcome == "timed_out"),
+          f"{name}: outcomes {[r.outcome for r in reqs]}")
+    for name in ("max_queue/fp4_e2m1", "deadline/fp4_e2m1"):
+        s = runs[name]["summary"]
+        log(f"{name}: outcomes {s['n_ok']} ok, {s['n_rejected']} rejected, {s['n_timed_out']} "
+            f"timed out, {s['n_cancelled']} cancelled; goodput {s['goodput_tokens_per_s']:.1f} "
+            f"tokens/s of {s['tokens_per_s']:.1f}")
+
+    # (h) eos_id
+    free = runs["mixed/fp4_e2m1"]["outputs"]
+    k = next((i for i, o in enumerate(free) if o[4] not in o[:4]), 0)
+    eos, stop = free[k][4], free[k].index(free[k][4]) + 1
+    name = "eos/fp4_e2m1"
+    s, reqs = serve(name, mixed("fp4_e2m1"), prompts, all_new=False,
+                    req_kw=[dict(eos_id=eos) if i == k else {} for i in range(len(prompts))])
+    check(all(r.outcome == "ok" for r in reqs) and reqs[k].output.tolist() == free[k][:stop]
+          and all(len(r.output) == NEW for i, r in enumerate(reqs) if i != k),
+          f"{name}: request {k} gave {reqs[k].output.tolist()}, not {free[k][:stop]}")
+    runs[name].update(request=k, eos_id=eos, stopped_at=stop)
+    log(f"{name}: request {k} (eos_id {eos}, its fault-free 5th token) stopped ok after {stop} "
+        f"tokens")
+    runs["watch_cost"] = watch_cost(torch, dev, eng, model.cfg.vocab_size)
+
+
+def watch_cost(torch, dev, eng, vocab, n=200):
+    """What the corruption watch adds to a served step: the engine's sampler
+    over (slots, vocab) fp32 logits with the watch off and on, host ms per
+    call (each call ends in the device-to-host copy of the tokens, which
+    the watch's flags share), in turns off, on, on, off; and on the card the
+    device ms of the watch's own ops (finite flags, the masked logits, the
+    stack the copy takes)."""
+    import numpy as np
+
+    logits = torch.randn(eng.n_slots, vocab, device=dev)
+    temps, rows = np.zeros(eng.n_slots, np.float32), list(range(eng.n_slots))
+    host = {False: [], True: []}
+    for on in (False, True, True, False):
+        eng._nan_watch = on
+        eng._sample(logits, temps, rows)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng._sample(logits, temps, rows)
+        host[on].append((time.perf_counter() - t0) / n * 1e3)
+    eng._nan_watch = False
+
+    toks = logits.argmax(-1)
+
+    def watch_ops():
+        fin = torch.isfinite(logits).all(dim=-1)
+        return torch.where(fin[:, None], logits, 0.0), torch.stack([toks, fin.to(toks.dtype)])
+
+    out = dict(host_ms_off=host[False], host_ms_on=host[True],
+               device_ms_watch=device_ms(torch, watch_ops) if dev == "cuda" else None)
+    log(f"corruption watch: sampler {min(host[False]):.4f} ms per step off, "
+        f"{min(host[True]):.4f} ms on (host clock, {n} calls, best of two in turns); the "
+        f"watch's own device ops " + (f"{out['device_ms_watch']:.4f} ms" if dev == "cuda"
+                                      else "not measured (no card)"))
+    return out
 
 
 # ------------------------------------------------------------------------ main

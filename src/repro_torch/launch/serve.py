@@ -10,7 +10,11 @@ through the Engine with MX-compressed row-parallel reductions simulated over
 ``--prefill-chunk 0`` whole-prompt prefill, and ``--prefix-cache 1`` prefix
 caching (the prompts then share their first half, so there is something to
 share; the report prints the prompt tokens skipped). The banner names the
-step mode. Runs on the GPU by default; ``--device cpu`` runs the plain
+step mode. ``--deadline-ms`` / ``--ttft-deadline-ms`` set per-request
+deadlines, ``--max-queue`` bounds admission, and ``--fault-plan`` (e.g.
+``'exhaust@2x2;die@5'``, grammar in ``serving/faults.py``) injects faults
+and wraps the run in an ``EngineSupervisor``; the report counts outcomes
+and recoveries. Runs on the GPU by default; ``--device cpu`` runs the plain
 PyTorch path on the CPU (use ``--reduced`` there). Weights are random, drawn
 from ``--seed``.
 """
@@ -28,7 +32,7 @@ from repro_torch.core.policy import CompressionPolicy, NO_COMPRESSION
 from repro_torch.core.tp import TPContext
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.serving import Engine, Request
+from repro_torch.serving import Engine, EngineSupervisor, FaultPlan, Request
 
 
 def main(argv=None):
@@ -62,8 +66,21 @@ def main(argv=None):
                     help="share KV blocks of a common prompt prefix across requests")
     ap.add_argument("--stagger", type=float, default=0.0,
                     help="inter-arrival gap in seconds (simulated traffic)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request total-latency deadline in ms (0 = none): a request "
+                         "still running past it leaves timed_out with its partial output")
+    ap.add_argument("--ttft-deadline-ms", type=float, default=0.0,
+                    help="per-request TTFT deadline in ms (0 = none)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded admission: arrived requests never admitted beyond this "
+                         "many leave rejected")
+    ap.add_argument("--fault-plan", default="",
+                    help="fault schedule, e.g. 'exhaust@6x4;corrupt@9;die@12' "
+                         "(serving/faults.py); the run is supervised: recoverable faults "
+                         "restart the engine and replay unfinished requests")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed for the random weights and the synthetic prompts")
+                    help="seed for the random weights, the synthetic prompts and the "
+                         "fault plan")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -80,11 +97,17 @@ def main(argv=None):
     print(f"device={name} policy={policy.describe()} simulate_tp={args.simulate_tp}")
 
     params = model.init_params(device=device, seed=args.seed)
+    fault_plan = FaultPlan.parse(args.fault_plan, seed=args.seed)
     engine = Engine(model, params, ctx, max_slots=args.slots,
                     max_len=args.prompt_len + args.new_tokens,
                     block_size=args.block_size, cache_spec=args.cache_spec,
                     prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
-                    prefix_cache=bool(args.prefix_cache), device=device)
+                    prefix_cache=bool(args.prefix_cache), max_queue=args.max_queue,
+                    deadline_s=args.deadline_ms / 1e3 or None,
+                    deadline_ttft_s=args.ttft_deadline_ms / 1e3 or None,
+                    fault_plan=fault_plan if len(fault_plan) else None, device=device)
+    if len(fault_plan):
+        print(f"fault plan: {fault_plan.describe()}")
     step = (f"mixed, {engine.token_budget}-token budget ({engine.prefill_chunk} "
             f"tokens/chunk)" if engine.token_budget
             else (f"split, chunked {engine.prefill_chunk} tokens/step"
@@ -103,14 +126,18 @@ def main(argv=None):
                     max_new_tokens=args.new_tokens, temperature=args.temperature,
                     arrival_s=i * args.stagger)
             for i in range(n_req)]
-    # warm-up run, so the report measures serving rather than first-launch set-up
+    # warm-up run, so the report measures serving rather than first-launch
+    # set-up, with the fault plan disarmed so that it fires in the measured run
+    plan, engine.fault_plan = engine.fault_plan, None
     engine.run([Request(prompt=reqs[0].prompt.copy(), max_new_tokens=2)])
+    engine.fault_plan = plan
+    sup = EngineSupervisor(engine) if len(fault_plan) else None
     t0 = time.time()
-    out = engine.run(reqs, seed=args.seed)
+    out = (sup or engine).run(reqs, seed=args.seed)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.time() - t0
-    s = engine.stats.summary()
+    s = (sup or engine).stats.summary()
     print(f"{s['n_requests']} requests, {s['n_generated']} tokens in {wall:.2f}s wall; "
           f"steady tokens/s={s['tokens_per_s']:.1f}")
     print(f"dispatch: {s['n_steps']} steps, {s['n_dispatches']} program dispatches, "
@@ -126,7 +153,13 @@ def main(argv=None):
     print(f"TTFT p50 {s['ttft_p50_s']*1e3:.1f} ms, p90 {s['ttft_p90_s']*1e3:.1f} ms; "
           f"TPOT p50 {s['tpot_p50_s']*1e3:.2f} ms, p95 {s['tpot_p95_s']*1e3:.2f} ms; "
           f"latency p50 {s['latency_p50_s']*1e3:.1f} ms")
-    print(f"outcomes: {s['n_ok']} ok; goodput={s['goodput_tokens_per_s']:.1f} tok/s")
+    print(f"outcomes: {s['n_ok']} ok, {s['n_rejected']} rejected, {s['n_timed_out']} timed "
+          f"out, {s['n_cancelled']} cancelled; goodput={s['goodput_tokens_per_s']:.1f} tok/s")
+    if sup is not None:
+        r = sup.report()
+        print(f"recoveries: {r['n_recoveries']} ({r['n_hard']} hard, {r['n_warm']} warm) "
+              f"recovery {r['recovery_s_total'] * 1e3:.1f} ms + backoff "
+              f"{r['backoff_s_total'] * 1e3:.1f} ms; errors={r['errors']}")
     print("first request tokens:", out[0].output.tolist())
     return engine, out
 

@@ -24,9 +24,18 @@ Under block pressure the engine preempts the latest-arrival request (LIFO,
 evict-and-recompute: its generated tokens fold into its prompt and it
 requeues), with the reference's eviction-storm guard.
 
-Not ported yet (the constructor raises on each): fault injection, deadlines,
-bounded admission and the step watchdog. Sequence-sharded pools cannot be
-asked for: ``TPContext`` has no kv axis yet.
+Every request ends in a terminal outcome (``ok``, ``rejected``,
+``timed_out``, ``cancelled``): deadlines (``deadline_ttft_s`` /
+``deadline_s``, measured from arrival), ``Request.cancel()`` and bounded
+admission (``max_queue``) free a request's blocks and keep its partial
+output; ``eos_id`` ends a request early. A ``FaultPlan`` injects pool
+exhaustion, pool corruption, slow or stuck steps and engine death at chosen
+steps; the step watchdog (``step_timeout_s``), the stall guard
+(``stall_limit``, 256 by default) and the non-finite logits watch turn them
+into ``StepStuck`` / ``WireCorruption`` / ``EngineDead``, from which
+``recover()`` (or ``EngineSupervisor``) restores a runnable engine.
+Sequence-sharded pools cannot be asked for: ``TPContext`` has no kv axis
+yet.
 """
 from __future__ import annotations
 
@@ -47,8 +56,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import pool_rows, write_pool_rows
 from repro_torch.models.model import Model, torch_dtype
 from repro_torch.serving.errors import (
-    OUTCOME_OK, InvalidRequest, PoolExhausted, SlotExhausted,
+    OUTCOME_CANCELLED, OUTCOME_OK, OUTCOME_REJECTED, OUTCOME_TIMED_OUT, EngineDead,
+    InvalidRequest, PoolExhausted, SlotExhausted, StepStuck, WireCorruption,
 )
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.kv_cache import (
     BlockAllocator, PrefixIndex, build_mixed_batch, check_cache_spec, init_paged_state,
     paged_cache_bytes,
@@ -64,6 +75,12 @@ class Request:
     max_new_tokens: int = 16
     temperature: float = 0.0
     arrival_s: float = 0.0        # offset from run() start (staggered traffic)
+    eos_id: Optional[int] = None  # stop early on this token
+    # deadlines measured from arrival (None = the engine's default; its None =
+    # no deadline); expiry is the terminal outcome "timed_out", never an error
+    deadline_ttft_s: Optional[float] = None   # first token must land by this
+    deadline_s: Optional[float] = None        # last token must land by this
+    cancelled: bool = False       # set by cancel(); swept at the next step
     # filled by the engine:
     output: Optional[np.ndarray] = None
     ttft_s: Optional[float] = None
@@ -76,6 +93,18 @@ class Request:
                                  "least one prompt token")
         if self.max_new_tokens <= 0:
             raise InvalidRequest(f"max_new_tokens must be >= 1, got {self.max_new_tokens}")
+        for name in ("deadline_ttft_s", "deadline_s"):
+            d = getattr(self, name)
+            if d is not None and d <= 0:
+                raise InvalidRequest(f"{name} must be > 0 seconds (measured from "
+                                     f"arrival), got {d}")
+
+    def cancel(self) -> None:
+        """Mark for cancellation: the engine sweeps the flag at its next step
+        boundary, frees the request's blocks and records ``"cancelled"`` with
+        the tokens generated so far. Safe from another thread (the flag only
+        ever flips one way)."""
+        self.cancelled = True
 
     @property
     def outcome(self) -> Optional[str]:
@@ -105,7 +134,10 @@ class _Work:
 
     @property
     def done(self) -> bool:
-        return len(self.tokens) >= self.req.max_new_tokens
+        if len(self.tokens) >= self.req.max_new_tokens:
+            return True
+        return (self.req.eos_id is not None and bool(self.tokens)
+                and self.tokens[-1] == self.req.eos_id)
 
 
 class Engine:
@@ -126,12 +158,20 @@ class Engine:
     eviction-storm guard: chunk allocation stops choosing victims once a
     step has preempted that many slots, and a window of steps with at least
     ``thrash_limit`` preemptions degrades the engine to one chunk per step
-    and no admissions until a request retires).
+    and no admissions until a request retires), and the robustness options:
+    ``max_queue`` (arrived requests never admitted beyond this many leave
+    ``rejected``), ``deadline_ttft_s`` / ``deadline_s`` (engine defaults of
+    the request deadlines), ``fault_plan`` (``serving/faults.py``),
+    ``step_timeout_s`` (a step slower than this raises ``StepStuck``) and
+    ``stall_limit`` (that many steps in a row without a token, with requests
+    in flight and no fault hold, raise ``StepStuck``; 0 = off).
 
     ``run(requests)`` serves a list of ``Request``s, fills their ``output`` /
     ``ttft_s`` / ``latency_s`` / ``timing`` and leaves per-run aggregates in
-    ``self.stats`` and per-gate step counts in ``self.gate_counts``. Runs on
-    the card unless ``device="cpu"``; params must live on that device.
+    ``self.stats`` and per-gate step counts in ``self.gate_counts``. A run
+    aborted by ``EngineDead`` / ``StepStuck`` / ``WireCorruption`` resumes
+    after ``recover()``. Runs on the card unless ``device="cpu"``; params
+    must live on that device.
     """
 
     def __init__(self, model: Model, params, ctx: TPContext, *,
@@ -147,24 +187,14 @@ class Engine:
                  max_queue: Optional[int] = None,
                  deadline_ttft_s: Optional[float] = None,
                  deadline_s: Optional[float] = None,
-                 fault_plan=None,
+                 fault_plan: Optional[FaultPlan] = None,
                  step_timeout_s: Optional[float] = None,
-                 stall_limit: Optional[int] = None,
+                 stall_limit: int = 256,
                  max_preempts_per_step: Optional[int] = None,
                  thrash_window: int = 8,
                  thrash_limit: Optional[int] = None,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        unported = {
-            "max_queue": max_queue, "deadline_ttft_s": deadline_ttft_s,
-            "deadline_s": deadline_s, "fault_plan": fault_plan,
-            "step_timeout_s": step_timeout_s, "stall_limit": stall_limit,
-        }
-        asked = [k for k, v in unported.items() if v is not None]
-        if asked:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(asked)} (faults, deadlines, bounded "
-                f"admission and the step watchdog come in a later slice)")
         self.model = model
         self.cfg = model.cfg
         self.ctx = ctx
@@ -187,6 +217,20 @@ class Engine:
                                       else 2 * self.n_slots)
         self.thrash_window = int(thrash_window)
         self.thrash_limit = thrash_limit if thrash_limit is not None else 4 * self.n_slots
+
+        # robustness options (see the class docstring); all host-side
+        if max_queue is not None and max_queue < 0:
+            raise ValueError("max_queue must be >= 0 (None = unbounded)")
+        self.max_queue = max_queue
+        self.deadline_ttft_s = deadline_ttft_s
+        self.deadline_s = deadline_s
+        self.fault_plan = fault_plan
+        self.step_timeout_s = step_timeout_s
+        self.stall_limit = int(stall_limit)
+        # the non-finite logits watch (WireCorruption) is on only under a plan
+        # that can corrupt a pool block
+        self._nan_watch = fault_plan is not None and any(
+            f.kind == "corrupt" for f in fault_plan.faults)
 
         # every served model is a pure-attention text decoder (Model raises
         # otherwise), so chunked prefill is always available
@@ -245,6 +289,7 @@ class Engine:
                 self._gate_ctxs[True] = ctx
         self.gate_counts = {"compressed": 0, "dense": 0}
         self._ran = False
+        self._fresh = False   # pools rebuilt by recover(): the next run keeps them
         self._reset()
 
     # ------------------------------------------------------------- state mgmt
@@ -267,6 +312,11 @@ class Engine:
         self._running: Dict[int, _Work] = {}
         self._waiting: List[_Work] = []
         self._finite = torch.ones((), dtype=torch.bool, device=self.device)
+        self._step_i = 0             # steps of this run (fault plans count them)
+        self._stall = 0              # consecutive steps without a token
+        self._hold_until = 0         # step at which fault-held blocks return
+        self.max_resident_ctx = 0    # peak slot length over the run's steps
+        self.max_resident_blocks = 0  # peak pool blocks out of the free list
         self._step_preempts = 0
         self._preempt_window: collections.deque = collections.deque(
             maxlen=max(1, self.thrash_window))
@@ -284,7 +334,9 @@ class Engine:
                                  cache_spec=self.cache_spec)
 
     def logits_finite(self) -> bool:
-        """Whether every step of the last run produced finite logits."""
+        """Whether every step of the last run produced finite logits in every
+        row, pad and prefilling rows included (a record, not the corruption
+        watch: that checks sampled rows only and raises)."""
         return bool(self._finite)
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
@@ -344,18 +396,43 @@ class Engine:
 
     # ------------------------------------------------------------- sampling
 
-    def _sample(self, logits: torch.Tensor, temps: np.ndarray) -> np.ndarray:
+    def _sample(self, logits: torch.Tensor, temps: np.ndarray,
+                rows: List[int]) -> np.ndarray:
+        """One token per logits row. Under the corruption watch each row's
+        finite flag rides in the same device-to-host copy as the tokens, and
+        the ``rows`` that sample a token are checked before any host state
+        takes them (``_check_finite``); without it the step does no extra
+        device work."""
+        fin = None
+        if self._nan_watch:
+            fin = torch.isfinite(logits).all(dim=-1)
+            logits = torch.where(fin[:, None], logits, 0.0)  # keep NaN from multinomial
         toks = torch.argmax(logits, dim=-1)
         if (temps > 0).any():
             t = torch.as_tensor(np.maximum(temps, 1e-6), device=logits.device)[:, None]
             probs = torch.softmax(logits.float() / t, dim=-1)
             drawn = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
             toks = torch.where(torch.as_tensor(temps > 0, device=logits.device), drawn, toks)
-        return toks.cpu().numpy().astype(np.int32)
+        if fin is None:
+            return toks.cpu().numpy().astype(np.int32)
+        host = torch.stack([toks, fin.to(toks.dtype)]).cpu().numpy()
+        self._check_finite(host[1], rows)
+        return host[0].astype(np.int32)
+
+    def _check_finite(self, finite: np.ndarray, rows: List[int]) -> None:
+        """The WireCorruption watch: raise if a row about to contribute a
+        sampled token holds non-finite logits (a poisoned pool block reached
+        the sampling boundary)."""
+        bad = [r for r in rows if not finite[r]]
+        if bad:
+            raise WireCorruption(
+                f"non-finite logits at sampling row(s) {bad} (step {self._step_i}) — a "
+                f"corrupted KV pool block reached the sampling boundary; pools must be "
+                f"rebuilt (hard recovery)")
 
     def _sample_one(self, logits: torch.Tensor, w: _Work) -> int:
         self._finite &= torch.isfinite(logits).all()
-        return int(self._sample(logits, np.array([w.req.temperature], np.float32))[0])
+        return int(self._sample(logits, np.array([w.req.temperature], np.float32), [0])[0])
 
     # ------------------------------------------------------------ scheduling
 
@@ -567,7 +644,9 @@ class Engine:
         for slot in decoding:
             self._lengths[slot] += 1
             temps[slot] = self._running[slot].req.temperature
-        toks = self._sample(logits, temps)
+        toks = self._sample(logits, temps, decoding + [
+            slot for slot, chunk, _ in segs
+            if self._running[slot].pos + len(chunk) >= len(self._running[slot].prompt)])
         now = time.perf_counter() - self._t0
 
         for slot, chunk, _ in segs:
@@ -667,7 +746,7 @@ class Engine:
         for slot in active:
             self._lengths[slot] += 1
             temps[slot] = self._running[slot].req.temperature
-        toks = self._sample(logits, temps)
+        toks = self._sample(logits, temps, active)
         self._take_tokens(active, toks, time.perf_counter() - self._t0)
         return len(active)
 
@@ -677,14 +756,23 @@ class Engine:
         self._cur[slot] = 0
 
     def _retire(self, slot: int, now: float) -> None:
-        """Terminal exit of a finished slot: release its blocks (shared ones
-        stay in the index), clear its table row, record the timing. A retire
-        ends thrash degradation."""
+        self._finish(slot, OUTCOME_OK, now)
+
+    def _finish(self, slot: int, outcome: str, now: float) -> None:
+        """Terminal exit of a running slot, for any outcome: release its
+        blocks (shared ones stay in the index), clear its table row, record
+        the timing. An ``ok`` retire ends thrash degradation."""
         w = self._running.pop(slot)
         self.allocator.release(w.blocks)
         w.blocks = []
         self._clear_slot(slot)
-        self._degraded = False
+        self._record_terminal(w, outcome, now)
+        if outcome == OUTCOME_OK:
+            self._degraded = False
+
+    def _record_terminal(self, w: _Work, outcome: str, now: float) -> None:
+        """Fill the request's output and timing at its terminal outcome, with
+        the tokens generated so far (the caller has released its blocks)."""
         r = w.req
         gen = w.tokens[: r.max_new_tokens]
         r.output = np.asarray(gen, np.int32)
@@ -693,14 +781,145 @@ class Engine:
             finished_s=now, n_prompt=len(np.asarray(r.prompt)), n_generated=len(gen),
             n_preemptions=w.preemptions, n_cached_prompt=w.cached_tokens,
             inter_token_s=[b - a for a, b in zip(w.token_times, w.token_times[1:])],
-            outcome=OUTCOME_OK)
-        r.ttft_s = r.timing.ttft_s
+            outcome=outcome)
+        r.ttft_s = r.timing.ttft_s if w.first_token_t is not None else None
         r.latency_s = r.timing.latency_s
         self.stats.record(r.timing)
 
-    def _guard_step(self) -> None:
-        """The thrash detector: preemptions over the rolling window at or past
-        ``thrash_limit`` set degraded mode."""
+    def _expired(self, w: _Work, now: float) -> Optional[str]:
+        """The terminal outcome ``w`` should leave with now, or None.
+        Cancellation wins over deadlines; deadlines measure from arrival, and
+        the TTFT deadline stops applying once a first token exists."""
+        if w.req.cancelled:
+            return OUTCOME_CANCELLED
+        if w.arrival > now:
+            return None  # not in the system yet
+        d = w.req.deadline_s if w.req.deadline_s is not None else self.deadline_s
+        if d is not None and now - w.arrival >= d and not w.done:
+            return OUTCOME_TIMED_OUT
+        dt = (w.req.deadline_ttft_s if w.req.deadline_ttft_s is not None
+              else self.deadline_ttft_s)
+        if dt is not None and w.first_token_t is None and now - w.arrival >= dt:
+            return OUTCOME_TIMED_OUT
+        return None
+
+    def _sweep_terminal(self, now: float) -> None:
+        """Before admission: move every cancelled or expired request, waiting
+        or running, to its terminal outcome."""
+        kept: List[_Work] = []
+        for w in self._waiting:  # filtering keeps arrival order
+            oc = self._expired(w, now)
+            if oc is None:
+                kept.append(w)
+            else:
+                self._record_terminal(w, oc, now)
+        self._waiting = kept
+        for slot in list(self._running):
+            oc = self._expired(self._running[slot], now)
+            if oc is not None:
+                self._finish(slot, oc, now)
+
+    def _bound_queue(self, now: float) -> None:
+        """After admission has filled every free slot: arrived requests never
+        admitted, beyond the first ``max_queue``, leave ``rejected``.
+        Preempted requeues were accepted already and are exempt."""
+        if self.max_queue is None:
+            return
+        arrived = [w for w in self._waiting if w.arrival <= now and w.admitted_t is None]
+        drop = arrived[self.max_queue:]
+        if drop:
+            ids = {id(w) for w in drop}
+            self._waiting = [w for w in self._waiting if id(w) not in ids]
+            for w in drop:
+                self._record_terminal(w, OUTCOME_REJECTED, now)
+
+    # ------------------------------------------------------ faults & recovery
+
+    def _apply_faults(self) -> None:
+        """Fire the fault plan's events due at this step and expire earlier
+        holds (``serving/faults.py`` names the kinds)."""
+        if self._hold_until and self._step_i >= self._hold_until:
+            self.allocator.unhold()
+            self._hold_until = 0
+        for f in self.fault_plan.take(self._step_i):
+            if f.kind == "exhaust":
+                self.allocator.hold(f.n_blocks)
+                self._hold_until = max(self._hold_until, self._step_i + f.duration)
+            elif f.kind == "corrupt":
+                self._corrupt_block(f.block)
+            elif f.kind == "slow":
+                time.sleep(f.sleep_s)
+            elif f.kind == "stuck":
+                time.sleep(max(f.sleep_s, 2.0 * (self.step_timeout_s or 0.05)))
+            elif f.kind == "die":
+                raise EngineDead(
+                    f"fault injection: engine died at step {self._step_i} with "
+                    f"{len(self._running)} in-flight and {len(self._waiting)} queued "
+                    f"request(s)")
+
+    def _corrupt_block(self, block: int) -> None:
+        """Poison one pool block in every attention layer's K and V pool, in
+        place: scale bytes 255 (2^128, so the block decodes to inf and NaN)
+        in MX pools, NaN in dense pools; payload bytes stay. ``block`` -1
+        picks the lowest live block (nothing happens when none is live)."""
+        if block < 0:
+            live = sorted(b for w in self._running.values() for b in w.blocks)
+            if not live:
+                return
+            block = live[0]
+        for pool in self._state["pools_k"] + self._state["pools_v"]:
+            if self.cache_spec.quantized:
+                pool.scales[block] = 255
+            else:
+                pool[block] = float("nan")
+
+    def recover(self, *, hard: bool = True) -> None:
+        """Make the engine runnable again after ``run`` aborted with
+        ``EngineDead`` / ``StepStuck`` / ``WireCorruption`` (the
+        ``EngineSupervisor`` calls this between attempts).
+
+        ``hard=True`` (pools lost or poisoned): pools, allocator and prefix
+        index are rebuilt here, so the recovery's time includes the rebuild
+        (the reference rebuilds at the next ``run()``; the next run keeps
+        these). ``hard=False`` on a ``persistent_cache`` engine (StepStuck:
+        pools healthy): the in-flight requests' blocks are released and the
+        pools and index stay warm for the replay."""
+        if hard or not self.persistent_cache:
+            self._state = None
+            self._reset()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._fresh = True
+            return
+        for slot in list(self._running):
+            w = self._running.pop(slot)
+            self.allocator.release(w.blocks)
+            w.blocks = []
+        self.allocator.unhold()      # expire fault holds mid-flight
+        self._soft_reset()
+
+    def _guard_step(self, n_tok: int, elapsed_s: float) -> None:
+        """After each step: the capacity peaks, the step watchdog (a step
+        slower than ``step_timeout_s``: the step ends in the device-to-host
+        copy of its sampled tokens, so its wall time holds the device's), the
+        stall guard (``stall_limit`` steps in a row without a token, unless
+        blocks are fault-held, which expire on schedule) and the thrash
+        detector."""
+        self.max_resident_ctx = max(self.max_resident_ctx, int(self._lengths.max(initial=0)))
+        self.max_resident_blocks = max(self.max_resident_blocks,
+                                       self.n_blocks - 1 - self.allocator.n_free)
+        if self.step_timeout_s is not None and elapsed_s > self.step_timeout_s:
+            raise StepStuck(
+                f"engine step {self._step_i} took {elapsed_s:.3f}s (step_timeout_s="
+                f"{self.step_timeout_s}); treating the step loop as wedged")
+        if n_tok > 0:
+            self._stall = 0
+        elif not self.allocator.n_held:
+            self._stall += 1
+            if self.stall_limit and self._stall >= self.stall_limit:
+                raise StepStuck(
+                    f"no token progress for {self._stall} consecutive steps with "
+                    f"{len(self._running)} slot(s) in flight — scheduler livelock")
         self._preempt_window.append(self._step_preempts)
         if not self._degraded and sum(self._preempt_window) >= self.thrash_limit:
             self._degraded = True
@@ -712,7 +931,9 @@ class Engine:
         clock); returns them with output/ttft/latency/timing filled. With
         ``persistent_cache`` the pools, allocator and prefix index carry over
         from the previous run."""
-        if self.persistent_cache and self._ran:
+        if self._fresh:
+            self._fresh = False          # recover() rebuilt the pools already
+        elif self.persistent_cache and self._ran:
             self._soft_reset()
         else:
             self._reset()
@@ -732,27 +953,40 @@ class Engine:
             works.append(_Work(req=r, prompt=np.asarray(r.prompt, np.int32),
                                arrival=float(r.arrival_s)))
         self._waiting = sorted(works, key=lambda w: w.arrival)
-        while self._waiting or self._running:
-            now = time.perf_counter() - self._t0
-            self._admit_ready(now)
-            if not self._running:
-                if self._waiting:
-                    time.sleep(min(max(self._waiting[0].arrival - now, 0.0), 0.005))
-                continue
-            self._step_preempts = 0
-            if self.token_budget:
-                self._step_mixed()
-            else:
-                # split scheduler: at most one prefill chunk, then a batched
-                # decode of every DECODING slot
-                n_pref = self._prefill_step() if self.prefill_chunk else 0
-                self._grow_or_evict()
-                n_dec = 0
-                if any(not w.prefilling for w in self._running.values()):
-                    n_dec = self._decode_once()
-                self.stats.record_step(n_pref, n_dec,
-                                       n_dispatches=(1 if n_pref else 0) + (1 if n_dec else 0))
-            self._guard_step()
+        try:
+            while self._waiting or self._running:
+                now = time.perf_counter() - self._t0
+                self._sweep_terminal(now)
+                self._admit_ready(now)
+                self._bound_queue(now)
+                if not self._running:
+                    if self._waiting:
+                        time.sleep(min(max(self._waiting[0].arrival - now, 0.0), 0.005))
+                    continue
+                self._step_i += 1
+                self._step_preempts = 0
+                t_step = time.perf_counter()
+                if self.fault_plan is not None:
+                    self._apply_faults()
+                if self.token_budget:
+                    n_tok = self._step_mixed()
+                else:
+                    # split scheduler: at most one prefill chunk, then a
+                    # batched decode of every DECODING slot
+                    n_pref = self._prefill_step() if self.prefill_chunk else 0
+                    self._grow_or_evict()
+                    n_dec = 0
+                    if any(not w.prefilling for w in self._running.values()):
+                        n_dec = self._decode_once()
+                    self.stats.record_step(n_pref, n_dec,
+                                           n_dispatches=(1 if n_pref else 0) + (1 if n_dec else 0))
+                    n_tok = n_pref + n_dec
+                self._guard_step(n_tok, time.perf_counter() - t_step)
+        finally:
+            # fault holds never outlive a run, whether it ended or aborted
+            if self.allocator.n_held:
+                self.allocator.unhold()
+                self._hold_until = 0
         return requests
 
     def measure_ttft(self, prompt_len: int, *, iters: int = 8) -> Dict[str, float]:

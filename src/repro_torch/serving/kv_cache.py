@@ -133,8 +133,9 @@ class BlockAllocator:
     refcount 0 parks in the index's LRU with its bytes kept, and ``alloc``
     reclaims such blocks only after the free list runs dry. Every transition
     validates its ids, so a scheduler bug that over-releases raises instead
-    of handing one block to two requests. (The reference's fault holds and
-    sequence-sharded free lists come with their slices: ``n_held`` is 0.)
+    of handing one block to two requests. Fault injection may ``hold``
+    free blocks out of circulation (``n_held``) until ``unhold``. (The
+    reference's sequence-sharded free lists are not ported.)
     """
 
     def __init__(self, n_blocks: int, prefix_index: Optional[PrefixIndex] = None):
@@ -143,6 +144,7 @@ class BlockAllocator:
         self.index = prefix_index
         self._free: collections.deque = collections.deque(range(1, n_blocks))
         self._ref: Dict[int, int] = {}
+        self._held: List[int] = []         # fault-injection holds (see hold())
         self.high_water = 0  # max blocks referenced at once
 
     @property
@@ -163,13 +165,30 @@ class BlockAllocator:
     @property
     def n_allocated(self) -> int:
         """Blocks with at least one live reference."""
-        return (self.n_blocks - 1) - self.n_free - self.n_cached
+        return (self.n_blocks - 1) - self.n_free - self.n_cached - len(self._held)
 
     @property
     def n_held(self) -> int:
-        """Blocks held back by fault injection: none until faults are ported
-        (the schedulers keep the reference's ``n_held`` conditions)."""
-        return 0
+        """Blocks held out of the free list by fault injection (``hold``):
+        unallocatable and referenced by no request. Nonzero means the pool
+        pressure is synthetic, so exhaustion sites defer instead of raising."""
+        return len(self._held)
+
+    def hold(self, n: int = 0) -> int:
+        """Fault injection: take up to ``n`` free blocks (every free block
+        when ``n <= 0``) out of the free list; returns how many. Held blocks
+        move only between the free list and the hold, never through
+        refcounts or the prefix index, so ``unhold`` conserves the pool."""
+        take = self.n_free if n <= 0 else min(n, self.n_free)
+        self._held.extend(self._free.popleft() for _ in range(take))
+        return take
+
+    def unhold(self) -> int:
+        """Return every held block to the free list; returns how many."""
+        n = len(self._held)
+        self._free.extend(self._held)
+        self._held.clear()
+        return n
 
     def refcount(self, block: int) -> int:
         return self._ref.get(int(block), 0)

@@ -6,7 +6,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
-from repro_torch.serving.errors import OUTCOME_OK, TERMINAL_OUTCOMES
+from repro_torch.serving.errors import (
+    OUTCOME_CANCELLED, OUTCOME_OK, OUTCOME_REJECTED, OUTCOME_TIMED_OUT, TERMINAL_OUTCOMES,
+)
 
 __all__ = ["RequestTiming", "ServeStats"]
 
@@ -14,7 +16,9 @@ __all__ = ["RequestTiming", "ServeStats"]
 @dataclasses.dataclass
 class RequestTiming:
     """Wall-clock milestones (seconds from the run's start) and token counts
-    of one request, filled at its terminal outcome."""
+    of one request, filled at its terminal outcome. A request that never
+    produced a token (rejected, timed out or cancelled first) has no
+    ``first_token_s``: its ``ttft_s`` is NaN."""
 
     arrival_s: float
     admitted_s: Optional[float]
@@ -61,7 +65,10 @@ def _percentile(xs: List[float], p: float) -> float:
 class ServeStats:
     """Aggregates ``RequestTiming`` records and per-step dispatch accounting
     across one serving run; ``summary()`` gives the reported distributions
-    (same keys as the reference)."""
+    (same keys as the reference). ``n_{ok,rejected,timed_out,cancelled}``
+    count terminal outcomes; ``goodput_tokens_per_s`` counts the tokens of
+    ``ok`` requests only; TTFT percentiles cover the requests that produced
+    a first token."""
 
     def __init__(self):
         self.timings: List[RequestTiming] = []
@@ -75,6 +82,17 @@ class ServeStats:
 
     def record(self, t: RequestTiming) -> None:
         self.timings.append(t)
+
+    def merge(self, other: "ServeStats") -> None:
+        """Fold another run's records into this one (the supervisor sums its
+        attempts this way). Timings are appended as they are; the supervisor
+        drops a replayed request's superseded records itself."""
+        self.timings.extend(other.timings)
+        self.n_steps += other.n_steps
+        self.n_dispatches += other.n_dispatches
+        self.step_tokens.extend(other.step_tokens)
+        self.n_compressed_steps += other.n_compressed_steps
+        self.off_step_prefill_tokens += other.off_step_prefill_tokens
 
     def record_step(self, n_prefill: int, n_decode: int, n_dispatches: int = 1,
                     compressed: bool = False) -> None:
@@ -102,6 +120,7 @@ class ServeStats:
         prompt_tokens = sum(t.n_prompt for t in ts)
         cached = sum(t.n_cached_prompt for t in ts)
         step_total = sum(p + d for p, d in self.step_tokens)
+        outcomes = {o: sum(1 for t in ts if t.outcome == o) for o in TERMINAL_OUTCOMES}
         good = sum(t.n_generated for t in ts if t.outcome == OUTCOME_OK)
         return {
             "n_requests": len(ts),
@@ -126,6 +145,9 @@ class ServeStats:
             "n_preemptions": sum(t.n_preemptions for t in ts),
             "prefill_tokens_skipped": cached,
             "prefix_hit_rate": cached / prompt_tokens if prompt_tokens else 0.0,
-            "n_ok": sum(1 for t in ts if t.outcome == OUTCOME_OK),
+            "n_ok": outcomes[OUTCOME_OK],
+            "n_rejected": outcomes[OUTCOME_REJECTED],
+            "n_timed_out": outcomes[OUTCOME_TIMED_OUT],
+            "n_cancelled": outcomes[OUTCOME_CANCELLED],
             "goodput_tokens_per_s": good / makespan if makespan > 0 else float("nan"),
         }

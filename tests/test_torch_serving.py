@@ -17,7 +17,8 @@ that, and the split-scheduler, prefix-cache and eviction test files use it.
 Also: the block allocator's invariants, the batch geometry, PoolExhausted
 for a request the whole pool cannot hold (on every scheduler, as the
 reference), entry points that default to the card, ``launch/serve.py`` in
-each mode, and the options the engine refuses because they are not ported.
+each mode and with its robustness flags, and each robustness option of the
+engine against the reference's.
 TF32 is off for torch matmuls.
 """
 import dataclasses
@@ -32,6 +33,7 @@ from repro.core.policy import PAPER_DEFAULT as J_PAPER_DEFAULT
 from repro.core.tp import TPContext as JTPContext
 from repro.models.model import Model as JModel
 from repro.serving import Engine as JEngine
+from repro.serving import FaultPlan as JFaultPlan
 from repro.serving import PoolExhausted as JPoolExhausted
 from repro.serving import Request as JRequest
 from repro_torch.configs import get_config, reduced_config
@@ -41,7 +43,8 @@ from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import Model
 from repro_torch.serving import (
-    BlockAllocator, Engine, InvalidRequest, PoolExhausted, Request, build_mixed_batch,
+    BlockAllocator, Engine, FaultPlan, InvalidRequest, PoolExhausted, Request,
+    build_mixed_batch,
 )
 from tests.conftest import fp32_reduced
 
@@ -229,15 +232,39 @@ def test_request_validation(models):
         eng.run([Request(prompt=np.ones(60, np.int32), max_new_tokens=10)])
 
 
-@pytest.mark.parametrize("kw", [
-    dict(fault_plan=object()), dict(deadline_s=1.0), dict(deadline_ttft_s=1.0),
-    dict(max_queue=4), dict(step_timeout_s=1.0), dict(stall_limit=256)],
-    ids=lambda kw: next(iter(kw)))
-def test_engine_refuses_unported_options(models, kw):
-    _, _, _, model_t, params_t = models
-    base = {**ENGINE_KW, **kw}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Engine(model_t, params_t, TPContext(), device="cpu", **base)
+ROBUSTNESS_OPTIONS = {  # option -> (reference value, port value)
+    "fault_plan": (lambda: JFaultPlan.parse("exhaust@2x3"), lambda: FaultPlan.parse("exhaust@2x3")),
+    "deadline_s": (lambda: 60.0,) * 2, "deadline_ttft_s": (lambda: 60.0,) * 2,
+    "max_queue": (lambda: 1,) * 2, "step_timeout_s": (lambda: 60.0,) * 2,
+    "stall_limit": (lambda: 3,) * 2,
+}
+
+
+@pytest.mark.parametrize("option", list(ROBUSTNESS_OPTIONS))
+def test_engine_takes_robustness_options_like_reference(models, option,
+                                                       reference_copies_host_arrays):
+    """Each robustness option, built and run on the parity traffic: the
+    port's outcomes, tokens and step counts equal the reference's (a hold of
+    every free block from step 2 for 3 steps; deadlines and a watchdog no
+    step reaches; one of four requests rejected past ``max_queue=1``; a
+    stall guard of 3 steps that never trips)."""
+    cfg, model_j, params_j, model_t, params_t = models
+    make_j, make_t = ROBUSTNESS_OPTIONS[option]
+    eng_j = JEngine(model_j, params_j, JTPContext(mesh=None), cache_dtype=jnp.float32,
+                    **ENGINE_KW, **{option: make_j()})
+    eng_t = Engine(model_t, params_t, TPContext(), cache_dtype=torch.float32, device="cpu",
+                   **ENGINE_KW, **{option: make_t()})
+    traffic = parity_traffic(cfg.vocab_size)
+    reqs_j = eng_j.run([JRequest(prompt=p.copy(), max_new_tokens=n) for p, n in traffic])
+    reqs_t = eng_t.run([Request(prompt=p.copy(), max_new_tokens=n) for p, n in traffic])
+    assert [r.output.tolist() for r in reqs_t] == [r.output.tolist() for r in reqs_j]
+    assert [r.outcome for r in reqs_t] == [r.outcome for r in reqs_j]
+    expect = ["ok"] * 4 if option != "max_queue" else ["ok"] * 3 + ["rejected"]
+    assert sorted(r.outcome for r in reqs_t) == expect
+    s_t, s_j = eng_t.stats.summary(), eng_j.stats.summary()
+    for key in SUMMARY_KEYS + ("n_rejected",):
+        assert s_t[key] == s_j[key], key
+    assert eng_t.allocator.n_allocated == 0 and eng_t.allocator.n_held == 0
 
 
 def test_entry_points_default_to_the_card(models, monkeypatch):
@@ -251,6 +278,28 @@ def test_entry_points_default_to_the_card(models, monkeypatch):
         Engine(model_t, params_t, TPContext(), **ENGINE_KW)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--reduced", "--requests", "1"])
+
+
+@pytest.mark.parametrize("flags,expect", [
+    (["--fault-plan", "die@3"], ["fault plan: die@3 (seed 0)", "4 ok, 0 rejected",
+                                 "recoveries: 1 (1 hard, 0 warm)", "errors=['EngineDead']"]),
+    (["--fault-plan", "exhaust@2x2;corrupt@3", "--cache-spec", "fp4_e2m1"],
+     ["4 ok, 0 rejected", "recoveries: 1 (1 hard, 0 warm)", "errors=['WireCorruption']"]),
+    (["--max-queue", "1"], ["3 ok, 1 rejected, 0 timed out, 0 cancelled"]),
+    (["--deadline-ms", "60000", "--ttft-deadline-ms", "60000"], ["4 ok, 0 rejected"])],
+    ids=["die", "exhaust-corrupt", "max-queue", "deadlines"])
+def test_serve_cli_robustness_flags_on_cpu(capsys, flags, expect):
+    """The serving CLI's robustness flags on the CPU: a fault plan wraps the run in
+    a supervisor and reports its recoveries; the outcome line counts every
+    terminal outcome."""
+    engine, out = serve.main(["--reduced", "--device", "cpu", "--slots", "2", "--requests", "4",
+                              "--prompt-len", "20", "--new-tokens", "3", "--policy", "none",
+                              *flags])
+    text = capsys.readouterr().out
+    for line in expect:
+        assert line in text, line
+    assert all(r.outcome is not None for r in out)
+    assert engine.allocator.n_allocated == 0 and engine.allocator.n_held == 0
 
 
 @pytest.mark.parametrize("flags,banner", [
