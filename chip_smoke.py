@@ -32,8 +32,16 @@ Phases (any failure exits non-zero):
               256 extras), the same geometries over a pool with one poisoned
               block (scale bytes 255 in fp4 pools, NaN in bf16 pools): the
               non-finite query rows are the plain version's and exactly those
-              whose history reaches the block, plus a sweep of small shapes
-              through every path of the paged kernel. Prints each kernel's
+              whose history reaches the block; the new families' served
+              reads (qwen2-7b G 7, qwen3-32b G 8 at hd 128; gemma3-4b G 2 at
+              hd 256 over a 1536-token history, with its 1024 window and
+              without) in every one of those geometries on fp4 and bf16
+              pools, the mixed and split-decode ones timed; the
+              codec at the families' widths (d_model 3584, 5120, 2560;
+              kv_dim 512, 1024) at their served shapes; plus a sweep of
+              small shapes through every path of the paged kernel (hd 32 to
+              256, GQA groups 1, 2, 7, 8, with and without a window). Prints
+              each kernel's
               device time (CUDA events around back-to-back launches) at every
               shape the served steps launch it, bytes moved and bound, and
               the launch floor (an add on one element).
@@ -45,8 +53,12 @@ Phases (any failure exits non-zero):
               die@3, corrupt@3 (fp4 and fp32 pools), exhaust@2:6x3 and stuck@4
               on a persistent prefix cache (warm recovery), max_queue and
               eos_id: tokens, outcomes, recovery events, the corruption
-              watch's step and merged steps and dispatches identical; one
-              compressed mixed step on fp4 pools within a stated tolerance.
+              watch's step and merged steps and dispatches identical; the
+              new families' reduced configs with their GQA group and
+              head_dim kept (G 7, 8; G 2 at hd 256 with a window) on the
+              mixed step (fp32 and fp4 pools) and the split scheduler,
+              tokens identical; one compressed mixed step on fp4 pools
+              within a stated tolerance.
 5. serve    — llama2-7b at full width and depth, random bf16 weights from a
               seed, TPContext(PAPER_DEFAULT, simulate_tp=4), 8 requests x 512
               prompt tokens x 32 new tokens: the mixed-step engine on fp4 and
@@ -59,14 +71,26 @@ Phases (any failure exits non-zero):
               blocks, so that it preempts; (e) measure_ttft at 512 and 2048
               prompt tokens, compressed vs uncompressed reductions; (f) the
               mixed engine supervised under exhaust@5:64x4;corrupt@9;die@20
-              (fp4 pools) and corrupt@9 (bf16 pools); (g) max_queue=2, then a
-              deadline of 3/4 of the fault-free makespan with a cancel from a
-              timer; (h) an eos_id stop. Every run checks that each request
-              reached its outcome (ok with 32 tokens, except in (g) and (h)),
-              finite logits, a conserved free list with nothing held, the
-              planned recoveries, and each kernel's launch count against the
-              count the run's own stats give (a supervisor's merged over its
-              attempts; launch counts reset just before each run).
+              (fp4 pools) and corrupt@9 (bf16 pools); (h) an eos_id stop;
+              (g) max_queue=2, then a deadline of 3/4 of the eos run's
+              makespan with a cancel from a timer. Every run checks that
+              each request reached its outcome (ok with 32 tokens, except in
+              (g) and (h)), finite logits, a conserved free list with nothing
+              held, the planned recoveries, and each kernel's launch count
+              against the count the run's own stats give (a supervisor's
+              merged over its attempts; launch counts reset just before each
+              run).
+6. families — qwen2-7b, gemma3-4b and qwen3-32b at full width on random
+              bf16 weights from a seed (``FAMILIES``): qwen2-7b at full
+              depth, mixed on fp4 pools, split on bf16 pools, mixed under the
+              two_phase variant (one more quantize and dequantize per
+              compressed reduction) and measure_ttft at 512 tokens;
+              gemma3-4b at full depth, 4 requests of 1536 tokens (past its
+              1024 window), mixed fp4 and split bf16, measure_ttft at 2048;
+              qwen3-32b mixed fp4 at full depth when its weights and pools
+              fit the card once the earlier models are freed, else at the
+              depth that fits (printed). Each run held as in phase 5, with
+              its weight GB and peak device memory printed.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Details go to
@@ -74,6 +98,8 @@ line is ``{"ok": true, "device": {...}}``. Details go to
 """
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import math
 import os
@@ -102,6 +128,18 @@ KERNELS = {  # name -> (source in the repo, the TPU kernel it replaces)
 T, TP, D, SLOTS, BS, CHUNK, PROMPT, NEW = 260, 4, 4096, 4, 16, 256, 512, 32
 MAX_LEN = PROMPT + NEW
 TTFT_LENS, TTFT_ITERS = (512, 2048), 6   # measure_ttft prompt lengths, prefills each
+
+# The new families' serve phase (``phase_family``), in the order they run:
+# requests, prompt tokens per request, runs (scheduler/pools; "two_phase"
+# is the mixed step under the two_phase variant) and measure_ttft lengths.
+# The paged and codec phases time each family at the shapes these runs give.
+FAMILIES = {
+    "qwen2-7b": dict(requests=8, prompt=PROMPT, ttft=(512,),
+                     runs=("mixed/fp4_e2m1", "split/bf16", "two_phase/fp4_e2m1")),
+    "gemma3-4b": dict(requests=4, prompt=1536, ttft=(2048,),
+                      runs=("mixed/fp4_e2m1", "split/bf16")),
+    "qwen3-32b": dict(requests=4, prompt=PROMPT, ttft=(), runs=("mixed/fp4_e2m1",)),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -223,8 +261,8 @@ def codec_inputs(torch, x, xf, spec, t):
 def phase_kernels(torch, dev="cuda"):
     """The codec kernels (``phase_codec``), then paged attention."""
     info = phase_codec(torch, dev)
-    info["paged_attention"] = dict(phase_paged(torch, dev),
-                                   launch_floor_ms=info["mx_quant"]["launch_floor_ms"])
+    info.update(phase_paged(torch, dev))
+    info["paged_attention"]["launch_floor_ms"] = info["mx_quant"]["launch_floor_ms"]
     return info
 
 
@@ -384,7 +422,88 @@ def phase_codec(torch, dev="cuda"):
         f"a poisoned block of shard 1, and the chunk and whole-prompt shapes); " + "; ".join(
             f"{r['shape']} {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms), "
             f"{r['bytes'] / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms" for r in red_shapes))
+
+    # the new families' widths at the shapes their serve runs launch the codec
+    info["mx_dequant"]["shapes"] = []
+    for arch, plan in FAMILIES.items():
+        for name, rows in codec_family(torch, dev, g, fp4, arch, plan, same, timed).items():
+            info[name]["shapes"] += rows
+            log(f"kernel {name} ({arch}): bytes exact; " + "; ".join(
+                f"{r['shape']} {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms), "
+                f"{r['bytes'] / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms" for r in rows))
     return info
+
+
+def codec_sites(cfg, plan):
+    """The codec's call sites in a family's serve runs (``FAMILIES``): (rows,
+    width, site) of each quantize, dequantize and S = TP dequantize+reduce.
+    The row-parallel reductions are d_model wide, the pool writes and the
+    mixed step's K/V round trip kv_dim wide."""
+    d, kv = cfg.d_model, cfg.kv_dim
+    kinds = {r.split("/")[0] for r in plan["runs"]}
+    quant = [(TP * T, d, "mixed TP partials"), (T, kv, "mixed pool append, K or V")]
+    deq = [(T, kv, "mixed K/V round trip")]
+    red = [(T, d, "mixed step")]
+    if "split" in kinds:
+        quant.append((TP * CHUNK, d, "split chunk TP partials"))
+        red.append((CHUNK, d, "split chunk"))
+    for n in plan["ttft"]:
+        quant.append((TP * n, d, f"whole-prompt TP partials, {n} tokens"))
+        red.append((n, d, f"whole-prompt prefill, {n} tokens"))
+    if "two_phase" in kinds:
+        quant.append((T, d, "two_phase re-quantize of the reduced result"))
+        deq.append((T, d, "two_phase second pass"))
+    return {"mx_quant": quant, "mx_dequant": deq, "mx_dequant_reduce": red}
+
+
+def codec_family(torch, dev, g, fp4, arch, plan, same, timed):
+    """Each codec kernel at ``codec_sites``: bytes (or values) equal to the
+    plain version's, device time, the plain version's, the bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mx import MXCompressed
+    from repro_torch.kernels import mx_dequant, mx_quant
+
+    out = {}
+    for name, sites in codec_sites(get_config(arch), plan).items():
+        rows = []
+        for m, width, site in sites:
+            shape = f"{arch}: ({m}, {width})"
+            if name == "mx_quant":
+                x, _ = codec_partials(torch, m, width, g, dev)
+                k, pl = mx_quant.mx_quantize_2d(x, fp4), mx_quant.quantize_plain(x, fp4)
+                check(torch.equal(k.payload, pl.payload) and torch.equal(k.scales, pl.scales),
+                      f"mx_quant bytes differ from the plain version at {shape}, {site}")
+                nbytes = x.numel() * 2 + k.payload.numel() + k.scales.numel()
+                rows.append(timed(lambda x=x: mx_quant.mx_quantize_2d(x, fp4),
+                                  lambda x=x: mx_quant.quantize_plain(x, fp4), nbytes,
+                                  x.numel() * 20, f"{shape} bf16 -> fp4_e2m1_b32, {site}"))
+            elif name == "mx_dequant":
+                x, _ = codec_partials(torch, m, width, g, dev)
+                c = mx_quant.mx_quantize_2d(x, fp4)
+                check(same(mx_dequant.mx_dequantize_2d(c.payload, c.scales, fp4, torch.bfloat16),
+                           mx_dequant.dequantize_plain(c, fp4, torch.bfloat16)),
+                      f"mx_dequant differs from the plain version at {shape}, {site}")
+                nbytes = c.payload.numel() + c.scales.numel() + m * width * 2
+                rows.append(timed(
+                    lambda c=c: mx_dequant.mx_dequantize_2d(c.payload, c.scales, fp4,
+                                                            torch.bfloat16),
+                    lambda c=c: mx_dequant.dequantize_plain(c, fp4, torch.bfloat16), nbytes,
+                    m * width * 2, f"{shape} fp4_e2m1_b32 -> bf16, {site}"))
+            else:
+                x, _ = codec_partials(torch, TP * m, width, g, dev)
+                c = mx_quant.mx_quantize_2d(x, fp4)
+                w = MXCompressed(c.payload.reshape(TP, m, -1), c.scales.reshape(TP, m, -1))
+                check(same(mx_dequant.dequant_reduce(w.payload, w.scales, fp4, torch.bfloat16),
+                           mx_dequant.dequant_reduce_plain(w, fp4, torch.bfloat16)),
+                      f"mx_dequant_reduce differs from the plain version at S={TP} x {shape}")
+                nbytes = w.payload.numel() + w.scales.numel() + m * width * 2
+                rows.append(timed(
+                    lambda w=w: mx_dequant.dequant_reduce(w.payload, w.scales, fp4,
+                                                          torch.bfloat16),
+                    lambda w=w: mx_dequant.dequant_reduce_plain(w, fp4, torch.bfloat16), nbytes,
+                    TP * m * width * 2, f"S={TP} x {shape} fp4_e2m1_b32 -> bf16, {site}"))
+        out[name] = rows
+    return out
 
 
 POISON_ROWS, POISON_BLOCK = [7, 100, 259], 5   # a pool block of scale byte 255, in codec rows
@@ -455,22 +574,32 @@ def slot_rows(torch, dev, slot_tables, starts, segs=(), decodes=(), pads=()):
     return tables, hist, pos[:, None].contiguous(), t_extra
 
 
-def paged_bound(torch, q, spec, kv_dim, tables, hist, qpos, t_extra, H, hd):
+def paged_bound(torch, q, spec, kv_dim, tables, hist, qpos, t_extra, H, hd, window=None):
     """(bound ms, bound by, bytes) of one paged read on these inputs: each
-    pool position some row may see, once (rows that share a table share
-    it), the extras some row may see, q, out, t_extra and the tables; the
-    operations are 4*hd per valid (query head, key) pair at the bf16 rate."""
+    pool position some row may see (inside its window), once (rows that
+    share a table share it), the extras some row may see, q, out, t_extra
+    and the tables; the operations are 4*hd per valid (query head, key) pair
+    at the bf16 rate."""
     per_pos = (kv_dim * 2 if spec is None
                else kv_dim * spec.elem.bits // 8 + kv_dim // spec.block_size)
-    need = torch.minimum(hist, qpos.max(1).values + 1).clamp(min=0)
+    hi = torch.minimum(hist, qpos.max(1).values + 1).clamp(min=0)
+    lo = ((qpos.min(1).values - window + 1).clamp(min=0) if window
+          else torch.zeros_like(hi))
     seen = {}
-    for tb, n in zip(tables.tolist(), need.tolist()):
-        seen[tuple(tb)] = max(seen.get(tuple(tb), 0), n)
-    n_pairs = float(torch.minimum(hist[:, None], qpos + 1).clamp(min=0).sum())
-    nbytes = (2 * sum(seen.values()) * per_pos + 2 * q.numel() * q.element_size()
+    for tb, a, b in zip(tables.tolist(), lo.tolist(), hi.tolist()):
+        if b > a:
+            s0, s1 = seen.get(tuple(tb), (a, b))
+            seen[tuple(tb)] = (min(s0, a), max(s1, b))
+    t_hi = torch.minimum(hist[:, None], qpos + 1)
+    t_lo = (qpos - window + 1).clamp(min=0) if window else torch.zeros_like(qpos)
+    n_pairs = float((t_hi - t_lo).clamp(min=0).sum())
+    nbytes = (2 * sum(b - a for a, b in seen.values()) * per_pos
+              + 2 * q.numel() * q.element_size()
               + (tables.numel() + hist.numel() + qpos.numel()) * 4)
     if t_extra is not None:
         vis = t_extra[:, None, :] <= qpos[:, :, None]
+        if window:
+            vis &= t_extra[:, None, :] > qpos[:, :, None] - window
         n_pairs += float(vis.sum())
         nbytes += (2 * int(vis.any(1).any(0).sum()) * kv_dim * q.element_size()
                    + t_extra.numel() * 4)
@@ -478,41 +607,42 @@ def paged_bound(torch, q, spec, kv_dim, tables, hist, qpos, t_extra, H, hd):
     return b_ms, b_by, nbytes
 
 
-def phase_paged(torch, dev="cuda"):
-    """Paged attention at llama2-7b width (H = KV = 32, hd = 128) in the
-    geometries the served steps run, over bf16 and fp4 pools, plus a sweep
-    of small shapes through every path of the kernel."""
+def paged_geometries(torch, dev, g, kv_dim, q_dim, prompt):
+    """Pools of 4 slots of ``prompt + NEW`` positions at a family's width
+    (bf16 and fp4_e2m1 from one set of random bf16 values) and the paged
+    reads its served steps make over them: (geometries, pools, slot
+    tables). ``prompt`` P: the mixed step holds slot 0's last 256-token
+    chunk at P - 256 .. P - 1 over its history below P - 256, decode rows
+    of slots 1-3 at P + 8, P + 18 and P + 28 and a pad of an empty slot;
+    the split scheduler's decode one row per slot at histories P - 212 .. P
+    + 28; its chunk slot 0's last chunk with the chunk as 256 extras."""
     from repro_torch.core.formats import MXSpec
     from repro_torch.core.mx import MXCompressed
     from repro_torch.kernels import mx_quant
-    from repro_torch.kernels import paged_attention as pa
 
-    dev = torch.device(dev)
-    g = torch.Generator(device=dev).manual_seed(0)
     fp4 = MXSpec.make("fp4_e2m1", 32, "e8m0")
-    H = KV = 32
-    hd = D // H
-    max_blocks = MAX_LEN // BS
+    P = prompt
+    max_blocks = (P + NEW) // BS
     n_blocks = SLOTS * max_blocks + 1
     slot_tables = torch.arange(1, n_blocks, device=dev, dtype=torch.int32).reshape(SLOTS, -1)
     randn = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
-    dense_k, dense_v = randn(n_blocks, BS, D), randn(n_blocks, BS, D)
-    wire = lambda p: MXCompressed(*(a.reshape(n_blocks, BS, -1) for a in
-                                    mx_quant.mx_quantize_2d(p.reshape(-1, D), fp4)))
+    dense_k, dense_v = randn(n_blocks, BS, kv_dim), randn(n_blocks, BS, kv_dim)
+    wire = lambda x: MXCompressed(*(a.reshape(n_blocks, BS, -1) for a in
+                                    mx_quant.mx_quantize_2d(x.reshape(-1, kv_dim), fp4)))
     pools = {"fp4": (wire(dense_k), wire(dense_v), fp4), "bf16": (dense_k, dense_v, None)}
-    q, ke, ve = randn(T, 1, D), randn(T, D), randn(T, D)
-    kw = dict(kv_heads=KV, scale=hd**-0.5)
-    decoding = [(0, 520), (1, 527), (2, 533), (3, 540)]
-    mixed_starts = torch.tensor([CHUNK, 520, 530, 540], device=dev, dtype=torch.int32)
-    dec_starts = torch.tensor([p for _, p in decoding], device=dev, dtype=torch.int32)
-    lengths = torch.tensor([300, 520, 530, 540], device=dev, dtype=torch.int32)
-    chunk_pos = torch.arange(CHUNK, 2 * CHUNK, device=dev, dtype=torch.int32)[None].contiguous()
-    geometries = {
-        # 16 of the 72 served steps: a 256-token chunk + 3 decode rows, and a
-        # pad of an empty slot (no valid key: the mean of every key it addresses)
-        "mixed": (q, slot_rows(torch, dev, slot_tables, mixed_starts, [(0, CHUNK, CHUNK)],
-                               [(1, 520), (2, 530), (3, 540)], [(SLOTS, 1)]), True),
-        # 56 of 72: 4 decode rows, then 256 budget pads owned by slot 0
+    q, ke, ve = randn(T, 1, q_dim), randn(T, kv_dim), randn(T, kv_dim)
+    i32 = lambda v: torch.tensor(v, device=dev, dtype=torch.int32)
+    decoding = [(0, P + 8), (1, P + 15), (2, P + 21), (3, P + 28)]
+    mixed_starts = i32([P - CHUNK, P + 8, P + 18, P + 28])
+    dec_starts = i32([p for _, p in decoding])
+    lengths = i32([P - 212, P + 8, P + 18, P + 28])
+    chunk_pos = torch.arange(P - CHUNK, P, device=dev, dtype=torch.int32)[None].contiguous()
+    geometries = {  # name -> (q, (tables, hist, q_pos, t_extra), timed)
+        # the compressed steps: a 256-token chunk + 3 decode rows, and a pad
+        # of an empty slot (no valid key: the mean of every key it addresses)
+        "mixed": (q, slot_rows(torch, dev, slot_tables, mixed_starts, [(0, P - CHUNK, CHUNK)],
+                               [(1, P + 8), (2, P + 18), (3, P + 28)], [(SLOTS, 1)]), True),
+        # the dense steps: 4 decode rows, then 256 budget pads owned by slot 0
         "decode_only": (q, slot_rows(torch, dev, slot_tables, dec_starts, (), decoding,
                                      [(0, T - SLOTS)]), True),
         # the same with the pads owned by an empty slot: a 256-row run over
@@ -522,35 +652,48 @@ def phase_paged(torch, dev="cuda"):
         # the split scheduler's decode: one row per slot, its token in the pool
         "decode": (q[:SLOTS].contiguous(), (slot_tables, (lengths + 1).contiguous(),
                                             lengths[:, None].contiguous(), None), True),
-        # the split scheduler's chunk: slot 0's second 256-token chunk, history
-        # 0..255 in its blocks, the chunk's own K/V as extras at 256..511
-        "chunk": (randn(1, CHUNK, D), (slot_tables[:1].contiguous(),
-                                       torch.tensor([CHUNK], device=dev, dtype=torch.int32),
-                                       chunk_pos, chunk_pos), True),
+        # the split scheduler's chunk: slot 0's last 256-token chunk, its
+        # history in its blocks, the chunk's own K/V as extras
+        "chunk": (randn(1, CHUNK, q_dim), (slot_tables[:1].contiguous(), i32([P - CHUNK]),
+                                           chunk_pos, chunk_pos), True),
     }
+    return geometries, pools, slot_tables, (ke, ve)
+
+
+def time_paged(torch, dev, res, label, geometries, pools, extras, H, KV, hd, window,
+               timed_only=None):
+    """Each geometry on each pool format: the kernel against its plain
+    version, and for a timed geometry (of those in ``timed_only``, if given)
+    its device time, the plain version's, SDPA's on the K/V
+    gathered to dense bf16 (GQA by ``enable_gqa``; the gather not timed; the
+    port never calls it) and its bound. Results go to ``res[label + geo /
+    pools]``."""
+    from repro_torch.kernels import paged_attention as pa
+
+    ke, ve = extras
+    kw = dict(kv_heads=KV, scale=hd**-0.5, window=window)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    res = {}
     for geo, (qq, (tables, hist, qpos, t_extra), timed) in geometries.items():
+        timed = timed and (timed_only is None or geo in timed_only)
         R, Sq = qpos.shape
         E = t_extra.shape[1] if t_extra is not None else 0
-        extras = (ke[:E], ve[:E], t_extra) if E else ()
+        ex = (ke[:E], ve[:E], t_extra) if E else ()
         for name, (pk, pv, spec) in pools.items():
-            args = (qq, pk, pv, tables, hist, qpos, *extras)
+            args = (qq, pk, pv, tables, hist, qpos, *ex)
             run = lambda: pa.paged_attention(*args, spec=spec, **kw)
             out = run()
             ref = pa.paged_attention_plain(*args, spec=spec, **kw)
-            err, n_diff, rel = check_paged(torch, out, ref, f"{name} pools, {geo}")
-            r = dict(geometry=geo, pools=name, max_abs_err=err, rel_l2=rel,
-                     elements_differing=n_diff,
-                     shape=f"{geo} R={R} Sq={Sq} H={H} hd={hd} E={E}, {name} pools")
-            msg = (f"kernel paged_attention ({name} pools, {geo} R={R} Sq={Sq}): max|err| "
-                   f"{err:.3g}, rel-L2 {rel:.3g}, {n_diff} of {out.numel()} elements differ")
+            where = f"{label}{geo} R={R} Sq={Sq} H={H} KV={KV} hd={hd} E={E}" + (
+                f" window={window}" if window else "")
+            err, n_diff, rel = check_paged(torch, out, ref, f"{name} pools, {where}")
+            r = dict(geometry=label + geo, pools=name, max_abs_err=err, rel_l2=rel,
+                     elements_differing=n_diff, shape=f"{where}, {name} pools")
+            msg = (f"kernel paged_attention ({name} pools, {where}): max|err| {err:.3g}, "
+                   f"rel-L2 {rel:.3g}, {n_diff} of {out.numel()} elements differ")
             if timed:
                 r["ms"] = device_ms(torch, run)
                 r["plain_ms"] = device_ms(torch, lambda: pa.paged_attention_plain(
                     *args, spec=spec, **kw), n=3)
-                # library yardstick: one SDPA call over the K/V gathered to
-                # dense bf16 (the gather is not timed; the port never calls it)
                 kg = pa._gather_pool(pk, tables, spec).to(torch.bfloat16)
                 vg = pa._gather_pool(pv, tables, spec).to(torch.bfloat16)
                 cap = kg.shape[1]
@@ -561,22 +704,44 @@ def phase_paged(torch, dev="cuda"):
                     vg = torch.cat([vg, ve[:E][None].expand(R, -1, -1)], 1)
                     tpos = torch.cat([tpos, t_extra], 1)
                 mask = tpos[:, None, :] <= qpos[:, :, None]             # (R, Sq, keys)
+                if window:
+                    mask &= tpos[:, None, :] > qpos[:, :, None] - window
                 mask[~mask.any(-1)] = True           # SDPA gives NaN on a row with no key
-                kk = kg.reshape(R, -1, H, hd).transpose(1, 2)
-                vv = vg.reshape(R, -1, H, hd).transpose(1, 2)
+                kk = kg.reshape(R, -1, KV, hd).transpose(1, 2)
+                vv = vg.reshape(R, -1, KV, hd).transpose(1, 2)
                 qh = qq.reshape(R, Sq, H, hd).transpose(1, 2)
                 m4 = mask[:, None]
-                r["library_ms"] = device_ms(torch, lambda: sdpa(qh, kk, vv, attn_mask=m4,
-                                                                scale=hd**-0.5), n=10)
+                r["library_ms"] = device_ms(torch, lambda: sdpa(
+                    qh, kk, vv, attn_mask=m4, scale=hd**-0.5, enable_gqa=KV != H), n=10)
                 del kg, vg, kk, vv
                 r["bound_ms"], r["bound_by"], r["bytes"] = paged_bound(
-                    torch, qq, spec, D, tables, hist, qpos, t_extra, H, hd)
+                    torch, qq, spec, KV * hd, tables, hist, qpos, t_extra, H, hd, window)
                 msg += (f"; {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms, "
                         f"SDPA on gathered K/V "
                         f"{r['library_ms']:.4f} ms), {r['bytes'] / 1e6:.2f} MB, bound "
                         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-            res[f"{geo}/{name}"] = r
+            res[f"{label}{geo}/{name}"] = r
             log(msg)
+
+
+def phase_paged(torch, dev="cuda"):
+    """Paged attention at llama2-7b width (H = KV = 32, hd = 128) in the
+    geometries the served steps run, over bf16 and fp4 pools, also over a
+    poisoned block; every served geometry of the new families (``FAMILIES``:
+    G = 7 and 8 at hd 128, G = 2 at hd 256 with the 1024 window and
+    without), their mixed step and split decode timed; and a sweep of small
+    shapes through every path of the kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as pa
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    H = KV = 32
+    hd = D // H
+    geometries, pools, slot_tables, (ke, ve) = paged_geometries(torch, dev, g, D, D, PROMPT)
+    kw = dict(kv_heads=KV, scale=hd**-0.5)
+    res = {}
+    time_paged(torch, dev, res, "", geometries, pools, (ke, ve), H, KV, hd, None)
     # poisoned pools: one block of scale bytes 255 (fp4) or NaN values (bf16)
     # in every served geometry; the rows whose history reaches it must come
     # out non-finite in the kernel and in the plain version, and no other
@@ -608,15 +773,31 @@ def phase_paged(torch, dev="cuda"):
                 log(f"kernel paged_attention ({what}): non-finite in the {int(reach.sum())} of "
                     f"{reach.numel()} query rows that reach the block, as the plain version"
                     + ("" if bad_k.all() else "; the other rows within the check"))
+    del geometries, pools
+    # the new families' served reads at their prompt lengths, each geometry
+    # under every window their layers run (gemma3: 1024 and global); the
+    # mixed step and the split decode timed
+    for arch, plan in FAMILIES.items():
+        cfg = get_config(arch)
+        geos, fpools, _, fextras = paged_geometries(torch, dev, g, cfg.kv_dim, cfg.q_dim,
+                                                    plan["prompt"])
+        windows = sorted({sp.window for sp in cfg.layers}, key=lambda w: w is None)
+        for window in windows:
+            label = f"{arch} " if window == windows[0] else f"{arch} global "
+            time_paged(torch, dev, res, label, geos, fpools, fextras, cfg.n_heads,
+                       cfg.n_kv_heads, cfg.head_dim, window,
+                       timed_only=("mixed", "decode") if window == windows[0] else ())
+        del geos, fpools
     n_sweep = paged_sweep(torch, dev)
     log(f"kernel paged_attention: {n_sweep} small-shape cases through every path match "
-        f"the plain version (fp32 / bf16 q; fp32, bf16, fp4, fp6, int8 pools; hd 32-128; "
-        f"G 1-2; window; chunk, decode and multi-run mixed geometries)")
+        f"the plain version (fp32 / bf16 q; fp32, bf16, fp4, fp6, int8 pools; hd 32-128 at "
+        f"G 1-2, hd 128 at G 7-8, hd 192 and 256 at G 1-2; windows; chunk, decode and "
+        f"multi-run mixed geometries)")
     main = dict(res["mixed/fp4"])
     main["geometries"] = [res[k] for k in res if k != "mixed/fp4"]
     main["sweep_cases"] = n_sweep
     main["poisoned_cases"] = n_poison
-    return main
+    return {"paged_attention": main}
 
 
 def poisoned_pool(torch, pool, blk):
@@ -643,15 +824,23 @@ def reaching_rows(torch, tables, hist, qpos, blk, bs):
     return qpos >= first[:, None]
 
 
+# The sweep's head geometries: (head dims, GQA groups, windows of the chunk
+# and decode geometries); the mixed geometry runs without and with a window
+SWEEP = (((32, 64, 96, 128), (1, 2), (None,)),
+         ((128,), (7, 8), (None, 24)),
+         ((192, 256), (1, 2), (None, 24)))
+
+
 def paged_sweep(torch, dev):
     """Small shapes through every path of the paged kernel, each against its
     plain version: fp32 q (CUDA-core block and vector paths) and bf16 q
     (tensor-core block path, vector path; CUDA cores over fp32 pools), dense
-    and MX pools (fp4 and fp6 at block 32, int8 at block 16), hd 32..128,
-    G = 1 and 2, with and without a window, in a mixed geometry whose runs
-    cross 64-row tiles (two prefill segments, decode rows, pads of an empty
-    slot and of a live one), a chunk geometry (Sq = 40) and a decode
-    geometry. Returns the number of cases."""
+    and MX pools (fp4 and fp6 at block 32, int8 at block 16), at the head
+    geometries of ``SWEEP`` (hd 32..256 and G 1, 2, 7, 8: at G = 7 a row's
+    query vectors straddle the kernel's 64-vector tiles), with and without a
+    window, in a mixed geometry whose runs cross 64-row tiles (two prefill
+    segments, decode rows, pads of an empty slot and of a live one), a chunk
+    geometry (Sq = 40) and a decode geometry. Returns the number of cases."""
     from repro_torch.core.formats import MXSpec
     from repro_torch.core.mx import MXCompressed
     from repro_torch.kernels import mx_quant
@@ -676,39 +865,41 @@ def paged_sweep(torch, dev):
               (torch.bfloat16, "bf16"), (torch.bfloat16, "f32"), (torch.bfloat16, "fp4"),
               (torch.bfloat16, "fp6"), (torch.bfloat16, "int8")]
     n = 0
-    for hd in (32, 64, 96, 128):
-        kv_dim = KV * hd
-        raw_k = torch.randn(n_blocks, bs, kv_dim, generator=g, device=dev)
-        raw_v = torch.randn(n_blocks, bs, kv_dim, generator=g, device=dev)
-        for dt, fmt in combos:
-            spec = pool_fmts[fmt]
-            if spec is not None:
-                pk, pv = (MXCompressed(*(a.reshape(n_blocks, bs, -1) for a in
-                                         mx_quant.mx_quantize_2d(p.reshape(-1, kv_dim), spec)))
-                          for p in (raw_k, raw_v))
-            else:
-                cast = torch.float32 if fmt == "f32" else torch.bfloat16
-                pk, pv = raw_k.to(cast), raw_v.to(cast)
-            for G in (1, 2):
-                for geo, (tables, hist, qpos, t_extra), windows in (
-                        ("mixed", mixed, (None, 24)), ("chunk", chunk, (None,)),
-                        ("decode", decode, (None,))):
-                    R, Sq = qpos.shape
-                    q = torch.randn(R, Sq, KV * G * hd, generator=g, device=dev).to(dt)
-                    extras = ()
-                    if t_extra is not None:
-                        E = t_extra.shape[1]
-                        extras = (torch.randn(E, kv_dim, generator=g, device=dev).to(dt),
-                                  torch.randn(E, kv_dim, generator=g, device=dev).to(dt),
-                                  t_extra)
-                    for window in windows:
-                        args = (q, pk, pv, tables, hist, qpos, *extras)
-                        kw = dict(spec=spec, kv_heads=KV, scale=hd**-0.5, window=window)
-                        check_paged(torch, pa.paged_attention(*args, **kw),
-                                    pa.paged_attention_plain(*args, **kw),
-                                    f"sweep {geo} q {dt} {fmt} pools hd {hd} G {G} "
-                                    f"window {window}")
-                        n += 1
+    for hds, groups, windows in SWEEP:
+        for hd in hds:
+            kv_dim = KV * hd
+            raw_k = torch.randn(n_blocks, bs, kv_dim, generator=g, device=dev)
+            raw_v = torch.randn(n_blocks, bs, kv_dim, generator=g, device=dev)
+            for dt, fmt in combos:
+                spec = pool_fmts[fmt]
+                if spec is not None:
+                    pk, pv = (MXCompressed(*(a.reshape(n_blocks, bs, -1) for a in
+                                             mx_quant.mx_quantize_2d(p.reshape(-1, kv_dim),
+                                                                     spec)))
+                              for p in (raw_k, raw_v))
+                else:
+                    cast = torch.float32 if fmt == "f32" else torch.bfloat16
+                    pk, pv = raw_k.to(cast), raw_v.to(cast)
+                for G in groups:
+                    for geo, (tables, hist, qpos, t_extra), wins in (
+                            ("mixed", mixed, (None, 24)), ("chunk", chunk, windows),
+                            ("decode", decode, windows)):
+                        R, Sq = qpos.shape
+                        q = torch.randn(R, Sq, KV * G * hd, generator=g, device=dev).to(dt)
+                        extras = ()
+                        if t_extra is not None:
+                            E = t_extra.shape[1]
+                            extras = (torch.randn(E, kv_dim, generator=g, device=dev).to(dt),
+                                      torch.randn(E, kv_dim, generator=g, device=dev).to(dt),
+                                      t_extra)
+                        for window in wins:
+                            args = (q, pk, pv, tables, hist, qpos, *extras)
+                            kw = dict(spec=spec, kv_heads=KV, scale=hd**-0.5, window=window)
+                            check_paged(torch, pa.paged_attention(*args, **kw),
+                                        pa.paged_attention_plain(*args, **kw),
+                                        f"sweep {geo} q {dt} {fmt} pools hd {hd} G {G} "
+                                        f"window {window}")
+                            n += 1
     return n
 
 
@@ -772,6 +963,7 @@ def phase_reference(torch, dev="cuda"):
             f"skipped tokens {stats['card']} on both")
 
     reference_faults(torch, model, cpu, gpu, parity, base)
+    reference_families(torch, dev, base)
 
     # one compressed mixed step on fp4 pools, card vs CPU
     ctx = TPContext(policy=PAPER_DEFAULT, simulate_tp=4)
@@ -794,6 +986,55 @@ def phase_reference(torch, dev="cuda"):
           f"compressed mixed-step logits card vs CPU rel-L2 {rel} > 1e-3")
     log(f"reference: compressed (simulate_tp=4, fp4 pools) mixed-step logits card vs CPU "
         f"rel-L2 {rel:.3g} <= 1e-3")
+
+
+# reduced_config caps heads at 4 and head_dim at 32; these keep each new
+# family's GQA group and head_dim in its reduced config
+FAMILY_REDUCED = {"qwen2-7b": dict(n_heads=7, n_kv_heads=1),
+                  "qwen3-32b": dict(n_heads=8, n_kv_heads=1),
+                  "gemma3-4b": dict(n_heads=2, n_kv_heads=1, head_dim=256)}
+
+
+def reference_families(torch, dev, base):
+    """Each new family's reduced config (its group and head_dim kept: G 7,
+    8 at hd 32, G 2 at hd 256 with a 32-token window; fp32) on the card vs
+    on the CPU: the mixed step on dense fp32 and fp4 pools, and the split
+    scheduler, over prompts of 5 to 48 tokens (two longer than the window):
+    greedy tokens, steps and dispatches identical."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.tp import TPContext
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Engine, Request
+
+    for arch, over in FAMILY_REDUCED.items():
+        cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32", **over)
+        model = Model(cfg)
+        cpu = model.init_params(device="cpu", seed=1)
+        gpu = _tree_to(cpu, torch.device(dev))
+        traffic = [(((np.arange(n) * 11 + i) % cfg.vocab_size).astype(np.int32), 4 + i)
+                   for i, n in enumerate((5, 14, 40, 48))]
+        for case, opts in (("mixed", dict(prefill_chunk=16, token_budget=18)),
+                           ("mixed fp4", dict(prefill_chunk=16, token_budget=18,
+                                              cache_spec="fp4_e2m1")),
+                           ("split", dict(prefill_chunk=16, token_budget=0))):
+            seen = {}
+            for name, params in (("cpu", cpu), ("card", gpu)):
+                eng = Engine(model, params, TPContext(), device=params["embed"]["w"].device,
+                             **{**base, **opts})
+                reqs = eng.run([Request(prompt=p.copy(), max_new_tokens=n) for p, n in traffic])
+                s = eng.stats.summary()
+                seen[name] = ([r.output.tolist() for r in reqs], s["n_steps"], s["n_dispatches"])
+            check(seen["cpu"] == seen["card"],
+                  f"reference[{arch} {case}]: card and CPU differ: {seen['card']} vs "
+                  f"{seen['cpu']}")
+            log(f"reference[{arch} {case}]: reduced {arch} (G {cfg.n_heads // cfg.n_kv_heads}, "
+                f"hd {cfg.head_dim}, windows {[sp.window for sp in cfg.layers]}) fp32 greedy "
+                f"tokens identical card vs CPU ({sum(map(len, seen['cpu'][0]))} tokens); "
+                f"{seen['card'][1]} steps, {seen['card'][2]} dispatches on both")
 
 
 def reference_faults(torch, model, cpu, gpu, parity, base):
@@ -901,23 +1142,90 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     chunk or decode) is one ``paged_attention``; fp4 pools add one
     ``mx_quant`` each for K and V per write (step append, whole-prompt
     insert) and, in the mixed step only, one ``mx_dequant`` each for the
-    decode round trip. The mixed step compresses under its compressed gate;
-    the split chunk and the whole-prompt prefill under the engine's context,
-    the split decode under ``ctx_decode``. A COW fork launches nothing."""
+    decode round trip. Under the ``two_phase`` variant each compressed
+    reduction adds one ``mx_quant`` and one ``mx_dequant`` (the second
+    quantize of the reduced result). The mixed step compresses under its
+    compressed gate; the split chunk and the whole-prompt prefill under the
+    engine's context, the split decode under ``ctx_decode``. A COW fork
+    launches nothing, and a layer's window changes no count."""
     L, q, s = n_layers, eng.cache_spec.quantized, stats
+    two = eng.ctx.policy.variant == "two_phase"
     if eng.token_budget:
         n_c, n_d = s.n_compressed_steps, s.n_steps - s.n_compressed_steps
-        return {"mx_quant": L * 2 * n_c + (L * 2 * (n_c + n_d) if q else 0),
-                "mx_dequant_reduce": L * 2 * n_c,
-                "mx_dequant": L * 2 * (n_c + n_d) if q else 0,
+        red = L * 2 * n_c
+        return {"mx_quant": red * (1 + two) + (L * 2 * (n_c + n_d) if q else 0),
+                "mx_dequant_reduce": red,
+                "mx_dequant": red * two + (L * 2 * (n_c + n_d) if q else 0),
                 "paged_attention": L * (n_c + n_d)}
     n_chunk = sum(1 for p, _ in s.step_tokens if p)
     n_dec = sum(1 for _, d in s.step_tokens if d)
     n_whole = (s.n_dispatches - n_chunk - n_dec) // 2   # prefill + insert each
     comp = (n_chunk + n_whole) * eng.ctx.policy.enabled + n_dec * eng.ctx_decode.policy.enabled
-    return {"mx_quant": L * 2 * comp + (L * 2 * (n_chunk + n_dec + n_whole) if q else 0),
-            "mx_dequant_reduce": L * 2 * comp, "mx_dequant": 0,
+    red = L * 2 * comp
+    return {"mx_quant": red * (1 + two) + (L * 2 * (n_chunk + n_dec + n_whole) if q else 0),
+            "mx_dequant_reduce": red, "mx_dequant": red * two,
             "paged_attention": L * (n_chunk + n_dec)}
+
+
+def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=None,
+              req_kw=None, all_new=True, during=None):
+    """One measured run of ``eng`` (under ``sup`` when given) on
+    ``traffic``, with its checks: every request at a terminal outcome
+    (``ok`` with NEW tokens when ``all_new``), a conserved free list with
+    nothing held, finite logits in the last attempt, launches equal to
+    the stats'. ``during(reqs)`` starts what acts on the run from
+    outside (a timer). Returns (summary, requests)."""
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.serving import Request
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    if warm:   # cuBLAS handles and first launches, outside the count
+        plan, eng.fault_plan = eng.fault_plan, None
+        eng.run([Request(prompt=traffic[0].copy(), max_new_tokens=2)])
+        eng.fault_plan = plan
+        sync()
+    reqs = [Request(prompt=p.copy(), max_new_tokens=NEW, **k)
+            for p, k in zip(traffic, req_kw or [{}] * len(traffic))]
+    stop = during(reqs) if during else None
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    (sup or eng).run(reqs, seed=0)
+    sync()
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    if stop:
+        stop()
+    stats = (sup or eng).stats
+    s = stats.summary()
+    expect = expected_launches(eng, stats, L)
+    a = eng.allocator
+    check(all(r.outcome is not None for r in reqs), f"{name}: a request has no outcome")
+    check(not all_new or all(r.outcome == "ok" and len(r.output) == NEW for r in reqs),
+          f"{name}: not every request finished ok with {NEW} tokens")
+    check(eng.logits_finite(), f"{name}: non-finite logits")
+    check(a.n_free + a.n_cached == eng.n_blocks - 1 and a.n_allocated == 0
+          and a.n_held == 0,
+          f"{name}: free list not conserved ({a.n_free} free, {a.n_cached} cached, "
+          f"{a.n_allocated} referenced, {a.n_held} held of {eng.n_blocks - 1})")
+    if dev == "cuda":  # kernels launch only on the card
+        check(got == expect, f"{name}: launches {got} != expected {expect}")
+    for k in totals:
+        totals[k] += got[k]
+    runs[name] = dict(summary=s, launches=got, gate=dict(eng.gate_counts), wall_s=wall,
+                      pool_mb=eng.kv_pool_bytes() / 1e6,
+                      outputs=[r.output.tolist() for r in reqs],
+                      outcomes=[r.outcome for r in reqs])
+    outcomes = ", ".join(f"{s[k]} {k[2:].replace('_', ' ')}" for k in
+                         ("n_ok", "n_rejected", "n_timed_out", "n_cancelled") if s[k])
+    log(f"serve[{name}]: {len(reqs)} requests ({outcomes}), {s['n_generated']} tokens in "
+        f"{wall:.2f} s; TTFT p50 {s['ttft_p50_s'] * 1e3:.1f} ms p90 "
+        f"{s['ttft_p90_s'] * 1e3:.1f} ms; TPOT p50 {s['tpot_p50_s'] * 1e3:.2f} ms; "
+        f"{s['tokens_per_s']:.1f} tokens/s, goodput {s['goodput_tokens_per_s']:.1f}; "
+        f"{s['n_steps']} steps, {s['n_dispatches']} "
+        f"dispatches (gate {eng.gate_counts}); {s['n_preemptions']} preemptions; "
+        f"{s['prefill_tokens_skipped']} prompt tokens skipped; pool "
+        f"{runs[name]['pool_mb']:.1f} MB; launches {got}")
+    return s, reqs
 
 
 def phase_serve(torch, dev="cuda", cfg=None):
@@ -928,11 +1236,10 @@ def phase_serve(torch, dev="cuda", cfg=None):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
+    from repro_torch.core.policy import PAPER_DEFAULT
     from repro_torch.core.tp import TPContext
-    from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.models.model import Model
-    from repro_torch.serving import Engine, Request
+    from repro_torch.serving import Engine
 
     cfg = cfg or get_config("llama2-7b")
     L = cfg.n_layers
@@ -951,62 +1258,7 @@ def phase_serve(torch, dev="cuda", cfg=None):
     shared_prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, PROMPT - CHUNK)
                                       .astype(np.int32)]) for _ in range(8)]
     runs, totals = {}, {k: 0 for k in KERNELS}
-
-    def serve(name, eng, traffic, warm=True, sup=None, req_kw=None, all_new=True, during=None):
-        """One measured run of ``eng`` (under ``sup`` when given) on
-        ``traffic``, with its checks: every request at a terminal outcome
-        (``ok`` with NEW tokens when ``all_new``), a conserved free list with
-        nothing held, finite logits in the last attempt, launches equal to
-        the stats'. ``during(reqs)`` starts what acts on the run from
-        outside (a timer). Returns (summary, requests)."""
-        if warm:   # cuBLAS handles and first launches, outside the count
-            plan, eng.fault_plan = eng.fault_plan, None
-            eng.run([Request(prompt=traffic[0].copy(), max_new_tokens=2)])
-            eng.fault_plan = plan
-            sync()
-        reqs = [Request(prompt=p.copy(), max_new_tokens=NEW, **k)
-                for p, k in zip(traffic, req_kw or [{}] * len(traffic))]
-        stop = during(reqs) if during else None
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        (sup or eng).run(reqs, seed=0)
-        sync()
-        wall = time.perf_counter() - t0
-        got = launch_counts()
-        if stop:
-            stop()
-        stats = (sup or eng).stats
-        s = stats.summary()
-        expect = expected_launches(eng, stats, L)
-        a = eng.allocator
-        check(all(r.outcome is not None for r in reqs), f"{name}: a request has no outcome")
-        check(not all_new or all(r.outcome == "ok" and len(r.output) == NEW for r in reqs),
-              f"{name}: not every request finished ok with {NEW} tokens")
-        check(eng.logits_finite(), f"{name}: non-finite logits")
-        check(a.n_free + a.n_cached == eng.n_blocks - 1 and a.n_allocated == 0
-              and a.n_held == 0,
-              f"{name}: free list not conserved ({a.n_free} free, {a.n_cached} cached, "
-              f"{a.n_allocated} referenced, {a.n_held} held of {eng.n_blocks - 1})")
-        if dev == "cuda":  # kernels launch only on the card
-            check(got == expect, f"{name}: launches {got} != expected {expect}")
-        for k in totals:
-            totals[k] += got[k]
-        runs[name] = dict(summary=s, launches=got, gate=dict(eng.gate_counts), wall_s=wall,
-                          pool_mb=eng.kv_pool_bytes() / 1e6,
-                          outputs=[r.output.tolist() for r in reqs],
-                          outcomes=[r.outcome for r in reqs])
-        outcomes = ", ".join(f"{s[k]} {k[2:].replace('_', ' ')}" for k in
-                             ("n_ok", "n_rejected", "n_timed_out", "n_cancelled") if s[k])
-        log(f"serve[{name}]: {len(reqs)} requests ({outcomes}), {s['n_generated']} tokens in "
-            f"{wall:.2f} s; TTFT p50 {s['ttft_p50_s'] * 1e3:.1f} ms p90 "
-            f"{s['ttft_p90_s'] * 1e3:.1f} ms; TPOT p50 {s['tpot_p50_s'] * 1e3:.2f} ms; "
-            f"{s['tokens_per_s']:.1f} tokens/s, goodput {s['goodput_tokens_per_s']:.1f}; "
-            f"{s['n_steps']} steps, {s['n_dispatches']} "
-            f"dispatches (gate {eng.gate_counts}); {s['n_preemptions']} preemptions; "
-            f"{s['prefill_tokens_skipped']} prompt tokens skipped; pool "
-            f"{runs[name]['pool_mb']:.1f} MB; launches {got}")
-        return s, reqs
-
+    serve = functools.partial(serve_run, torch, dev, runs, totals, L)
     kw = dict(max_slots=SLOTS, max_len=MAX_LEN, block_size=BS, device=dev)
     # the mixed token-budget step
     for spec in ("fp4_e2m1", "bf16"):
@@ -1063,11 +1315,28 @@ def phase_serve(torch, dev="cuda", cfg=None):
 
     # (e) whole-prompt TTFT (Table 3's metric), compressed vs uncompressed
     # reductions on the one card: the simulated codec's cost, not a TP saving
+    runs["ttft"] = ttft_runs(torch, dev, model, params, TTFT_LENS, totals)
+    check(dev != "cuda" or all(totals[k] > 0 for k in KERNELS),
+          f"a kernel never launched: {totals}")
+    return runs, totals
+
+
+def ttft_runs(torch, dev, model, params, lens, totals, label=""):
+    """``measure_ttft`` at each prompt length of ``lens``, compressed
+    (PAPER_DEFAULT over simulate_tp = TP) and uncompressed, launches held to
+    one compressed reduction per row-parallel layer and prefill. Returns
+    {"compressed/n" | "uncompressed/n": result}."""
+    from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
+    from repro_torch.core.tp import TPContext
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine
+
+    L = model.cfg.n_layers
     ttft = {}
-    for label, policy in (("compressed", PAPER_DEFAULT), ("uncompressed", NO_COMPRESSION)):
+    for kind, policy in (("compressed", PAPER_DEFAULT), ("uncompressed", NO_COMPRESSION)):
         eng = Engine(model, params, TPContext(policy=policy, simulate_tp=TP), max_slots=1,
-                     max_len=max(TTFT_LENS), block_size=BS, prefill_chunk=0, device=dev)
-        for n in TTFT_LENS:
+                     max_len=max(lens), block_size=BS, prefill_chunk=0, device=dev)
+        for n in lens:
             reset_launch_counts()
             r = eng.measure_ttft(n, iters=TTFT_ITERS)
             got = launch_counts()
@@ -1075,16 +1344,119 @@ def phase_serve(torch, dev="cuda", cfg=None):
             expect = {"mx_quant": TTFT_ITERS * L * 2 * comp, "mx_dequant": 0,
                       "mx_dequant_reduce": TTFT_ITERS * L * 2 * comp, "paged_attention": 0}
             if dev == "cuda":
-                check(got == expect, f"ttft/{label}/{n}: launches {got} != {expect}")
+                check(got == expect, f"{label}ttft/{kind}/{n}: launches {got} != {expect}")
             for k in totals:
                 totals[k] += got[k]
-            ttft[f"{label}/{n}"] = dict(r, launches=got)
-            log(f"ttft[{n} tokens, {label}]: median {r['median_s'] * 1e3:.2f} ms, std "
+            ttft[f"{kind}/{n}"] = dict(r, launches=got)
+            log(f"{label}ttft[{n} tokens, {kind}]: median {r['median_s'] * 1e3:.2f} ms, std "
                 f"{r['std_s'] * 1e3:.2f} ms over {r['iters']} prefills")
         del eng
-    runs["ttft"] = ttft
-    check(dev != "cuda" or all(totals[k] > 0 for k in KERNELS),
-          f"a kernel never launched: {totals}")
+    return ttft
+
+
+def fit_depth(torch, dev, cfg, n_blocks, margin_gb=6.0):
+    """``cfg`` at full depth if its bf16 weights (``param_count``), the K/V
+    pools of ``n_blocks`` blocks (bf16, the larger format) and ``margin_gb``
+    fit in the card's free memory, else at the most layers that fit (the
+    schedule's first layers). Returns (config, free bytes, needed bytes)."""
+    import dataclasses
+
+    if dev != "cuda":
+        return cfg, None, None
+    free = torch.cuda.mem_get_info()[0]
+    per_layer = (dataclasses.replace(cfg, n_layers=2, layers=cfg.layers[:2]).param_count()
+                 - dataclasses.replace(cfg, n_layers=1, layers=cfg.layers[:1]).param_count()) * 2
+    per_layer += 2 * n_blocks * BS * cfg.kv_dim * 2
+    need = cfg.param_count() * 2 + 2 * n_blocks * BS * cfg.kv_dim * 2 * cfg.n_layers
+    need += margin_gb * 1e9
+    if need <= free:
+        return cfg, free, need
+    fixed = need - per_layer * cfg.n_layers
+    n = max(1, int((free - fixed) // per_layer))
+    return dataclasses.replace(cfg, n_layers=n, layers=cfg.layers[:n]), free, need
+
+
+def phase_family(torch, arch, dev="cuda"):
+    """One new family (``FAMILIES[arch]``) at full width on random seed-0
+    bf16 weights, its runs under TPContext(PAPER_DEFAULT, simulate_tp=4)
+    (``two_phase`` runs under the two_phase variant) and its measure_ttft
+    lengths; every run held as ``serve_run`` holds it (ok with its token
+    count, finite logits, the free list conserved, exact launch counts).
+    At full depth when it fits the card (``fit_depth``), else at the depth
+    that fits, printed. Prints the weight GB and each run's peak device
+    memory."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import PAPER_DEFAULT
+    from repro_torch.core.tp import TPContext
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Engine
+
+    plan = FAMILIES[arch]
+    full = get_config(arch)
+    max_len = plan["prompt"] + NEW
+    n_blocks = SLOTS * (max_len // BS) + 1
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    cfg, free, need = fit_depth(torch, dev, full, n_blocks)
+    if free is not None:
+        log(f"{arch}: {free / 1e9:.2f} GB free on the card, {need / 1e9:.2f} GB needed at full "
+            f"depth ({full.param_count() / 1e9:.2f} B parameters); serving "
+            + (f"all {cfg.n_layers} layers" if cfg is full else
+               f"{cfg.n_layers} of {full.n_layers} layers (depth cut to fit one card; full "
+               f"width)"))
+    L = cfg.n_layers
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(device=dev, seed=0)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    weights_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    log(f"{arch}: {L} layers d_model {cfg.d_model} H {cfg.n_heads} KV {cfg.n_kv_heads} hd "
+        f"{cfg.head_dim} vocab {cfg.vocab_size}, windows "
+        f"{sorted({sp.window for sp in cfg.layers}, key=str)}, random {cfg.dtype} weights "
+        f"(seed 0) in {time.perf_counter() - t0:.1f} s; {weights_gb:.2f} GB")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, plan["prompt"]).astype(np.int32)
+               for _ in range(plan["requests"])]
+    runs, totals = {}, {k: 0 for k in KERNELS}
+    serve = functools.partial(serve_run, torch, dev, runs, totals, L)
+    kw = dict(max_slots=SLOTS, max_len=max_len, block_size=BS, device=dev)
+    for run in plan["runs"]:
+        kind, spec = run.split("/")
+        policy = (dataclasses.replace(PAPER_DEFAULT, variant="two_phase") if kind == "two_phase"
+                  else PAPER_DEFAULT)
+        eng = Engine(model, params, TPContext(policy=policy, simulate_tp=TP),
+                     prefill_chunk=CHUNK, token_budget=0 if kind == "split" else T,
+                     cache_spec=spec, **kw)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        s = serve(f"{arch} {run}", eng, prompts)[0]
+        peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else None
+        runs[f"{arch} {run}"]["peak_gb"] = peak
+        if kind == "split":
+            check(s["n_dispatches"] > s["n_steps"], f"{arch} {run}: one dispatch per step")
+        else:
+            check(eng.gate_counts["compressed"] > 0 and eng.gate_counts["dense"] > 0,
+                  f"{arch} {run}: gate counts {eng.gate_counts}")
+        log(f"{arch} {run}: peak device memory " + (f"{peak:.2f} GB" if peak is not None
+                                                    else "not measured (no card)"))
+        del eng
+    if plan["ttft"]:
+        runs["ttft"] = ttft_runs(torch, dev, model, params, plan["ttft"], totals, f"{arch} ")
+    if "two_phase/fp4_e2m1" in plan["runs"]:
+        two, one = runs[f"{arch} two_phase/fp4_e2m1"], runs[f"{arch} mixed/fp4_e2m1"]
+        extra = {k: two["launches"][k] - one["launches"][k] for k in ("mx_quant", "mx_dequant")}
+        log(f"{arch}: two_phase adds {extra} launches over the gather run "
+            f"({two['summary']['n_compressed_steps']} compressed steps x {L} layers x 2 "
+            f"reductions each)")
+    runs["config"] = dict(n_layers=L, full_layers=full.n_layers, weights_gb=weights_gb,
+                          free_gb=free and free / 1e9, need_gb=need and need / 1e9)
     return runs, totals
 
 
@@ -1098,11 +1470,12 @@ def serve_faults(torch, dev, serve, runs, model, params, ctx, prompts, kw):
     """The robustness paths at llama2-7b width, mixed step, the fault-free
     runs' weights and prompts: (f) supervised runs under ``FAULT_RUNS``
     (every request ok, the planned recoveries, each replaying all 8
-    requests: none can finish in 20 steps); (g) ``max_queue=2`` (exactly 2
-    of 8 rejected), then an engine deadline of 3/4 of the fault-free run's
-    makespan with request 0 cancelled from a timer at a fifth of it; (h)
-    ``eos_id`` set to the fault-free run's 5th token of the first request
-    that did not produce it earlier. Tokens of (f) are counted against the
+    requests: none can finish in 20 steps); (h) ``eos_id`` set to the
+    fault-free run's 5th token of the first request that did not produce it
+    earlier; (g) ``max_queue=2`` (exactly 2 of 8 rejected), then an engine
+    deadline of 3/4 of the eos run's makespan (the run just before, so at
+    the same host pace) with request 0 cancelled from a timer at a fifth of
+    it. Tokens of (f) are counted against the
     fault-free run, not held (near ties at full width, section 6 of
     PERF.md); the reference phase holds them on the reduced model. Last,
     the corruption watch's cost per step (``watch_cost``)."""
@@ -1142,14 +1515,32 @@ def serve_faults(torch, dev, serve, runs, model, params, ctx, prompts, kw):
             f"over the supervised run's {runs[name]['wall_s']:.2f} s; outcomes {s['n_ok']} ok; "
             f"{same} of {len(prompts)} requests decoded the fault-free run's tokens")
 
-    # (g) bounded admission, then deadlines and a cancel from another thread
+    # (h) eos_id
+    free = runs["mixed/fp4_e2m1"]["outputs"]
+    k = next((i for i, o in enumerate(free) if o[4] not in o[:4]), 0)
+    eos, stop = free[k][4], free[k].index(free[k][4]) + 1
+    name = "eos/fp4_e2m1"
+    s, reqs = serve(name, mixed("fp4_e2m1"), prompts, all_new=False,
+                    req_kw=[dict(eos_id=eos) if i == k else {} for i in range(len(prompts))])
+    check(all(r.outcome == "ok" for r in reqs) and reqs[k].output.tolist() == free[k][:stop]
+          and all(len(r.output) == NEW for i, r in enumerate(reqs) if i != k),
+          f"{name}: request {k} gave {reqs[k].output.tolist()}, not {free[k][:stop]}")
+    runs[name].update(request=k, eos_id=eos, stopped_at=stop)
+    log(f"{name}: request {k} (eos_id {eos}, its fault-free 5th token) stopped ok after {stop} "
+        f"tokens")
+
+    # (g) bounded admission, then deadlines and a cancel from another thread.
+    # The deadline is set from the makespan of the run just before it (the
+    # eos run: the same 8 prompts, its last wave of requests decodes all
+    # 32 tokens), so that the host's pace, which varies within a call, is
+    # the same for both
     name = "max_queue/fp4_e2m1"
     s, reqs = serve(name, mixed("fp4_e2m1", max_queue=2), prompts, all_new=False)
     check(s["n_rejected"] == 2 and s["n_ok"] == len(prompts) - 2
           and all(len(r.output) == 0 and r.timing.admitted_s is None
                   for r in reqs if r.outcome == "rejected"),
           f"{name}: outcomes {[r.outcome for r in reqs]}")
-    makespan = runs["mixed/fp4_e2m1"]["summary"]["makespan_s"]
+    makespan = runs["eos/fp4_e2m1"]["summary"]["makespan_s"]
 
     def cancel_first(reqs):
         timer = threading.Timer(0.2 * makespan, reqs[0].cancel)
@@ -1164,25 +1555,12 @@ def serve_faults(torch, dev, serve, runs, model, params, ctx, prompts, kw):
     check(s["n_timed_out"] >= 1 and all(len(r.output) < NEW for r in reqs
                                         if r.outcome == "timed_out"),
           f"{name}: outcomes {[r.outcome for r in reqs]}")
+    runs[name]["deadline_s"] = 0.75 * makespan
     for name in ("max_queue/fp4_e2m1", "deadline/fp4_e2m1"):
         s = runs[name]["summary"]
         log(f"{name}: outcomes {s['n_ok']} ok, {s['n_rejected']} rejected, {s['n_timed_out']} "
             f"timed out, {s['n_cancelled']} cancelled; goodput {s['goodput_tokens_per_s']:.1f} "
             f"tokens/s of {s['tokens_per_s']:.1f}")
-
-    # (h) eos_id
-    free = runs["mixed/fp4_e2m1"]["outputs"]
-    k = next((i for i, o in enumerate(free) if o[4] not in o[:4]), 0)
-    eos, stop = free[k][4], free[k].index(free[k][4]) + 1
-    name = "eos/fp4_e2m1"
-    s, reqs = serve(name, mixed("fp4_e2m1"), prompts, all_new=False,
-                    req_kw=[dict(eos_id=eos) if i == k else {} for i in range(len(prompts))])
-    check(all(r.outcome == "ok" for r in reqs) and reqs[k].output.tolist() == free[k][:stop]
-          and all(len(r.output) == NEW for i, r in enumerate(reqs) if i != k),
-          f"{name}: request {k} gave {reqs[k].output.tolist()}, not {free[k][:stop]}")
-    runs[name].update(request=k, eos_id=eos, stopped_at=stop)
-    log(f"{name}: request {k} (eos_id {eos}, its fault-free 5th token) stopped ok after {stop} "
-        f"tokens")
     runs["watch_cost"] = watch_cost(torch, dev, eng, model.cfg.vocab_size)
 
 
@@ -1261,6 +1639,11 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     phase_reference(torch)
     runs, totals = phase_serve(torch)
+    families = {}
+    for arch in FAMILIES:
+        families[arch], fam_totals = phase_family(torch, arch)
+        for k in totals:
+            totals[k] += fam_totals[k]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=totals[n],
@@ -1279,7 +1662,7 @@ def main() -> int:
         for r in info["paged_attention"]["geometries"]]
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_seconds(), "builder": builder(), "kernels": info, "serve": runs,
-         "launches": totals}, indent=1, default=str))
+         "families": families, "launches": totals}, indent=1, default=str))
     log("kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g} "
         f"ms={k['ms']:.4f}" for k in kernels))

@@ -5,11 +5,14 @@
 
 A tree is a directory holding ``src/repro_torch`` (this checkout, or an
 older commit unpacked with ``git archive``). For each tree, ``nvcc -Xptxas
--v`` on its codec sources reads every kernel's registers, spills and stack.
+-v`` on the sources of the phase's kernels (the codec's for ``--phase
+phase_codec``, every source otherwise) reads every kernel's registers,
+spills and stack.
 Then, in the order given (indices into ``--trees``), one process per run
 with that tree's ``src`` first on ``PYTHONPATH`` calls ``phase_kernels`` of
 this checkout's ``chip_smoke.py`` (``--phase phase_codec`` for the codec
-kernels alone): the same checks and timed shapes on each tree's kernels,
+kernels alone, ``--phase phase_paged`` for paged attention alone): the same
+checks and timed shapes on each tree's kernels,
 each tree built into its own ``_build``. ``--profile-order`` runs
 ``repro_torch.launch.profile_serve`` per tree the same way, on both cells
 (fp4 and bf16 pools) in turns: device ms by layer of the served step. The
@@ -29,7 +32,7 @@ import shutil
 import subprocess
 import sys
 
-from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
+from repro_torch.kernels.build import NVCC_FLAGS, SOURCES, _nvcc
 
 ROOT = pathlib.Path(__file__).resolve().parent
 CODEC_SOURCES = ("mx_quant.cu", "mx_dequant.cu", "mx_dequant_reduce.cu")
@@ -44,9 +47,9 @@ open({out!r}, "w").write(json.dumps(info, default=str))
 """
 
 
-def ptxas_report(tree: pathlib.Path):
+def ptxas_report(tree: pathlib.Path, sources):
     """Registers, spill bytes and stack frame of every kernel in the tree's
-    codec sources, compiled as the build compiles them (objects into the
+    ``sources``, compiled as the build compiles them (objects into the
     tree's ``_build``)."""
     nvcc = _nvcc()
     csrc = tree / "src" / "repro_torch" / "kernels" / "csrc"
@@ -55,7 +58,7 @@ def ptxas_report(tree: pathlib.Path):
     procs = [(src, subprocess.Popen(
         [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(csrc / src),
          "-o", str(out_dir / f"{src}.o")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for src in CODEC_SOURCES]
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for src in sources]
     entries = []
     for src, p in procs:
         text, _ = p.communicate()
@@ -111,11 +114,12 @@ def run_profile(tree: pathlib.Path, out: pathlib.Path):
 def kernel_times(info):
     """(label, device ms) of every timed kernel shape in one phase_kernels run."""
     rows = []
-    q = info["mx_quant"]
-    for r in [q] + q.get("shapes", []):
+    q = info.get("mx_quant", {})
+    for r in ([q] + q.get("shapes", [])) if q else []:
         rows.append((f"mx_quant {r['shape']}", r["ms"]))
     for name in ("mx_dequant", "mx_dequant_reduce"):
-        rows.append((f"{name} {info[name]['shape']}", info[name]["ms"]))
+        if name in info:
+            rows.append((f"{name} {info[name]['shape']}", info[name]["ms"]))
     pa = info.get("paged_attention", {})
     for r in ([pa] if pa else []) + pa.get("geometries", []):
         if "ms" in r:
@@ -129,8 +133,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--trees", nargs="+", required=True)
     ap.add_argument("--order", default="", help="comma-separated tree indices for --phase")
-    ap.add_argument("--phase", default="phase_kernels", choices=("phase_kernels", "phase_codec"),
-                    help="chip_smoke phase to run: every kernel, or the codec kernels only")
+    ap.add_argument("--phase", default="phase_kernels",
+                    choices=("phase_kernels", "phase_codec", "phase_paged"),
+                    help="chip_smoke phase to run: every kernel, the codec kernels only, or "
+                         "paged attention only")
     ap.add_argument("--profile-order", default="",
                     help="comma-separated tree indices for profile_serve")
     ap.add_argument("--out", default="chiprun_out/kernel_ab.json")
@@ -145,15 +151,17 @@ def main(argv=None):
     print(card, flush=True)
     result = {"card": card, "trees": [str(t) for t in trees], "ptxas": {}, "kernels": [],
               "profile": []}
+    sources = CODEC_SOURCES if args.phase == "phase_codec" else SOURCES
     for i, tree in enumerate(trees):
-        entries = result["ptxas"][str(i)] = ptxas_report(tree)
-        for e in entries:   # the instances the served step launches (bf16, 4-bit codes)
-            name = e.get("name", e["symbol"])
-            if "bfloat16" in name and ("reduce" in name or re.search(r"<__nv_bfloat16(, 4\b|>)", name)):
+        entries = result["ptxas"][str(i)] = ptxas_report(tree, sources)
+        for e in entries:   # the instances the served step launches (bf16, 4-bit codes),
+            name = e.get("name", e["symbol"])   # and every paged instance
+            if "paged" in name or ("bfloat16" in name and (
+                    "reduce" in name or re.search(r"<__nv_bfloat16(, 4\b|>)", name))):
                 print(f"ptxas tree {i}: {name[:90]}: {e.get('registers')} registers, "
                       f"{e.get('spill_stores')}/{e.get('spill_loads')} bytes spilled "
                       f"(stores/loads), {e.get('stack')} bytes stack", flush=True)
-        print(f"ptxas tree {i}: all {len(entries)} codec kernels: at most "
+        print(f"ptxas tree {i}: all {len(entries)} kernels of {', '.join(sources)}: at most "
               f"{max(e.get('registers', 0) for e in entries)} registers, "
               f"{sum(e.get('spill_stores', 0) + e.get('spill_loads', 0) for e in entries)} "
               f"bytes spilled, {max(e.get('stack', 0) for e in entries)} bytes stack", flush=True)

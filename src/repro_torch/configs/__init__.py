@@ -1,16 +1,23 @@
 """Architecture registry of the port: the dense pure-attention archs ported so
-far. ``get_config(arch_id)`` / ``ARCHS`` mirror the reference's API."""
+far (llama2, internlm2, qwen2, qwen3, gemma3). ``get_config(arch_id)`` /
+``ARCHS`` mirror the reference's API."""
 from __future__ import annotations
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, reduced_config
+from repro_torch.configs.gemma3_4b import CONFIG as gemma3_4b
 from repro_torch.configs.internlm2_1_8b import CONFIG as internlm2_1_8b
 from repro_torch.configs.llama2 import LLAMA2_7B, LLAMA2_13B, LLAMA2_70B
+from repro_torch.configs.qwen2_7b import CONFIG as qwen2_7b
+from repro_torch.configs.qwen3_32b import CONFIG as qwen3_32b
 
 ARCHS = {
     "internlm2-1.8b": internlm2_1_8b,
     "llama2-7b": LLAMA2_7B,
     "llama2-13b": LLAMA2_13B,
     "llama2-70b": LLAMA2_70B,
+    "qwen2-7b": qwen2_7b,
+    "qwen3-32b": qwen3_32b,
+    "gemma3-4b": gemma3_4b,
 }
 
 

@@ -87,6 +87,28 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), as the
+        reference counts it, for the dense attention families the port
+        serves; other layer kinds, MoE and encoder-decoder raise."""
+        if self.encoder_decoder or any(sp.kind != "attn" or sp.moe for sp in self.layers):
+            raise NotImplementedError(f"{self.name}: param_count covers dense attention "
+                                      "layers only")
+        d, ff = self.d_model, self.d_ff
+        n = self.vocab_size * d  # embedding
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        per_layer = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d + 2 * d  # + norms
+        if self.qkv_bias:
+            per_layer += self.q_dim + 2 * self.kv_dim
+        if ff > 0:
+            per_layer += (3 if self.activation == "silu" else 2) * d * ff
+        return n + self.n_layers * per_layer
+
+    def active_param_count(self) -> int:
+        """Params touched per token: every parameter of a dense model."""
+        return self.param_count()
+
 
 def reduced_config(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
                    max_experts: int = 4, vocab: int = 512) -> ModelConfig:

@@ -9,12 +9,16 @@ stacked on one device, so the gather step is the identity; a multi-GPU slice
 replaces it with ``torch.distributed.all_gather_into_tensor`` of the two
 uint8 tensors and nothing else changes. The codec runs through
 ``kernels/ops.py``: the hand-written kernels on the card, their plain
-versions on the CPU.
+versions on the CPU. ``tp.row_linear`` adds the ``two_phase`` variant's
+second quantize of the reduced result itself, as the reference's simulated
+path does.
 
-Not ported yet (see ROADMAP.md): the straight-through-estimator gradient,
-the ``two_phase`` variant, ``keep_local_fp`` and ``overlap_chunks`` (a
-policy that asks for any of them raises, see ``check_ported``),
-``compressed_all_to_all`` and ``masked_owner_psum``.
+Not ported yet (see ROADMAP.md): the rank collectives of the ``two_phase``
+variant (reduce-scatter + all-gather), ``keep_local_fp``, ``overlap_chunks``
+and a non-fp32 accumulator, which change what ranks exchange or sum (a call
+here that asks for any of them raises, see ``check_ported``); the
+straight-through-estimator gradient, ``compressed_all_to_all`` and
+``masked_owner_psum``.
 """
 from __future__ import annotations
 
@@ -32,9 +36,11 @@ __all__ = ["compressed_psum", "psum", "psum_maybe_compressed", "check_ported"]
 
 
 def check_ported(policy: CompressionPolicy) -> None:
-    """Raise on a policy option whose reduction is not ported yet, so that a
-    request for it is refused and never silently served by the plain gather
-    variant."""
+    """Raise on a policy option whose rank collective is not ported yet, so
+    that a request for it is refused and never silently served by the plain
+    gather variant. (On the simulated path, ``tp.row_linear``, these options
+    need no collective: it serves ``two_phase`` and ignores the rest, as the
+    reference does.)"""
     unported = [name for name, asked in (
         (f"variant={policy.variant!r}", policy.variant != "gather"),
         ("keep_local_fp", policy.keep_local_fp),
@@ -43,7 +49,7 @@ def check_ported(policy: CompressionPolicy) -> None:
     ) if asked]
     if unported:
         raise NotImplementedError(
-            f"compressed reduction option(s) not ported yet: {', '.join(unported)}; "
+            f"compressed collective option(s) not ported yet: {', '.join(unported)}; "
             f"only the paper's 'gather' variant with an fp32 accumulator runs")
 
 

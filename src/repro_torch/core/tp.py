@@ -7,6 +7,13 @@ contraction into N partial sums exactly as N tensor-parallel ranks would
 and reduces them through the paper's compressed reduction
 (``collectives.compressed_psum``), so the codec runs on the served path of
 one card. The partial products stay ``torch.matmul``.
+
+On this simulated path the policy's ``variant="two_phase"`` re-quantizes
+the reduced result once more (one more ``mx_quantize`` and
+``mx_dequantize``), and ``keep_local_fp``, ``overlap_chunks`` and
+``accum_dtype`` have no effect, as in the reference's simulated
+``row_linear`` (``overlap_chunks`` is bit-identical either way there; the
+other two change only what ranks exchange).
 """
 from __future__ import annotations
 
@@ -15,8 +22,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.collectives import check_ported, compressed_psum
+from repro_torch.core.collectives import compressed_psum
 from repro_torch.core.policy import CompressionPolicy, NO_COMPRESSION
+from repro_torch.kernels import ops
 
 __all__ = ["TPContext", "column_linear", "row_linear"]
 
@@ -57,12 +65,15 @@ def row_linear(ctx: TPContext, x: torch.Tensor, w: torch.Tensor,
     if (n > 1 and policy.enabled and policy.compress_tp_reduce
             and x.shape[-1] % n == 0
             and w.shape[-1] % policy.spec.block_size == 0):
-        check_ported(policy)
         fin, fout = x.shape[-1], w.shape[-1]
         xs = x.reshape(-1, n, fin // n).transpose(0, 1)            # (n, M, c)
         ws = w.reshape(n, fin // n, fout).to(x.dtype)              # (n, c, o)
         parts = torch.matmul(xs, ws)                                # (n, M, o)
-        y = compressed_psum(parts, policy.spec, variant=policy.variant)
+        y = compressed_psum(parts, policy.spec)
+        if policy.variant == "two_phase":
+            # two-phase re-quantizes the reduced result once more
+            y = ops.mx_dequantize(ops.mx_quantize(y, policy.spec), policy.spec,
+                                  out_dtype=x.dtype)
         y = y.reshape(*x.shape[:-1], fout)
     else:
         y = torch.matmul(x, w.to(x.dtype))

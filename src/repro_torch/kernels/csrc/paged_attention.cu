@@ -56,6 +56,14 @@
 //   * a run with a query vector that sees no key computes the mean once (per
 //     run and tile), from key tiles staged the same way.
 //
+// Head dims. Every buffer and register array is sized by the head-dim class
+// HD (128: hd 32..128; 256: hd 160..256), a template parameter chosen per
+// launch. At HD = 256 the fp32 compute path's vector chunks hold 16 keys per
+// warp, not 32 (4 warps x 2 x 32 fp32 rows of 260 would need 266 KB of the
+// 227 KB a CTA may have); every variant stays under 205 KB. Any GQA group G
+// works: the query vectors of a row straddle 64-vector tiles when 64 is not
+// a multiple of G, and each tile's part of a row is a run of its own.
+//
 // Bound. In the mixed geometry the function's bytes are few (the rows of a
 // slot share its history) and its operations are tensor-core work; in the
 // decode geometry each slot's history is read once, so bytes bound it (bf16
@@ -75,11 +83,8 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 64;      // query vectors per tile; keys per block-path key tile
-constexpr int kChunk = 32;     // keys per warp chunk on the vector path
 constexpr int kVecQ = 8;       // runs of at most this many query vectors: vector path
 constexpr int kBlkQ = 16;      // query vectors per warp on the block paths
-constexpr int kMaxHd = 128;
-constexpr int kMaxHpl = kMaxHd / 32;
 constexpr int kRunCtas = 4;    // CTAs that share one tile's runs (gridDim.z)
 constexpr float kNegInf = -1e30f;  // the reference's finite mask value
 
@@ -102,9 +107,10 @@ struct PagedArgs {
 };
 
 // Shared-memory header; the query region and the key/value region follow.
+template <int HD>
 struct Smem {
   float vals[mxk::kMaxCodes];
-  float mean[kMaxHd];
+  float mean[HD];
   long long qoff[kTile];   // element offset of each query vector in q / out
   int qpos[kTile];
   int qrow[kTile];
@@ -113,19 +119,35 @@ struct Smem {
   unsigned bits[2];
   int n_runs;
 };
-constexpr int kHeaderBytes = (static_cast<int>(sizeof(Smem)) + 15) / 16 * 16;
-constexpr int kQBytes = kTile * kMaxHd * 4;  // fp32 [64][hd], or bf16 [64][hd + 8]
+template <int HD>
+__host__ __device__ constexpr int header_bytes() {
+  return (static_cast<int>(sizeof(Smem<HD>)) + 15) / 16 * 16;
+}
+template <int HD>
+__host__ __device__ constexpr int q_bytes() {  // fp32 [64][hd], or bf16 [64][hd + 8]
+  return kTile * HD * 4;
+}
 
 template <typename CT>
 __host__ __device__ constexpr int row_pad() { return 16 / static_cast<int>(sizeof(CT)); }
 
-// Key/value region: 4 warps x (32 K rows + 32 V rows) on the vector path,
-// 64 K rows + 64 V rows on the block paths. Rows are padded by 16 bytes, so
-// 16-byte accesses to 8 consecutive rows (and ldmatrix) hit distinct banks.
-template <typename CT>
-constexpr int kv_bytes() { return 4 * kTile * (kMaxHd + row_pad<CT>()) * static_cast<int>(sizeof(CT)); }
-template <typename CT>
-constexpr int smem_bytes() { return kHeaderBytes + kQBytes + kv_bytes<CT>(); }
+// Keys per warp chunk on the vector path: 32 (a key per lane), or 16 for
+// fp32 compute at HD = 256, where 32 would not fit in shared memory.
+template <typename CT, int HD>
+__host__ __device__ constexpr int vec_chunk() { return sizeof(CT) == 4 && HD > 128 ? 16 : 32; }
+
+// Key/value region: 4 warps x (chunk K rows + chunk V rows) on the vector
+// path, 64 K rows + 64 V rows on the block paths. Rows are padded by 16
+// bytes, so 16-byte accesses to 8 consecutive rows (and ldmatrix) hit
+// distinct banks.
+template <typename CT, int HD>
+constexpr int kv_bytes() {
+  const int rows = 2 * kTile > 2 * kWarps * vec_chunk<CT, HD>() ? 2 * kTile
+                                                               : 2 * kWarps * vec_chunk<CT, HD>();
+  return rows * (HD + row_pad<CT>()) * static_cast<int>(sizeof(CT));
+}
+template <typename CT, int HD>
+constexpr int smem_bytes() { return header_bytes<HD>() + q_bytes<HD>() + kv_bytes<CT, HD>(); }
 
 __device__ __forceinline__ float neg_inf() { return __uint_as_float(0xff800000u); }
 
@@ -364,7 +386,8 @@ __device__ __forceinline__ void stage(const PagedArgs& a, const int* tbl, int kv
 
 // -------------------------------------------------- lanes over keys (CUDA cores)
 
-// Fold up to 32 staged keys (lane j's key is row j of Kc / Vc, n of them)
+// Fold up to 32 staged keys (lane j's key is row j of Kc / Vc, n of them;
+// a lane past n reads row n - 1 and its key is masked by ``bits``)
 // into the online softmax of NQ query vectors (fp32, rows of sq; vectors
 // past the caller's count have no valid key and are ignored). Bit i of
 // ``bits`` says whether this lane's key is valid for vector i. l is kept per
@@ -372,15 +395,16 @@ __device__ __forceinline__ void stage(const PagedArgs& a, const int* tbl, int kv
 // head dims [lane*hpl, lane*hpl + hpl) of acc. No warp-collective operation
 // sits under a condition: a guarded shuffle costs a convergence barrier per
 // key. A vector with no valid key here keeps its state (alpha = 1, p = 0).
-template <int NQ, typename CT>
+template <int NQ, int HD, typename CT>
 __device__ __forceinline__ void vec_update(const CT* Kc, const CT* Vc, int ld, int n,
                                            uint32_t bits, const float* sq, int hd, float scale,
-                                           float m[NQ], float l[NQ], float acc[NQ][kMaxHpl]) {
+                                           float m[NQ], float l[NQ], float acc[NQ][HD / 32]) {
+  constexpr int kMaxHpl = HD / 32;
   const int lane = threadIdx.x & 31, hpl = hd >> 5;
   float s[NQ];
 #pragma unroll
   for (int i = 0; i < NQ; ++i) s[i] = 0.f;
-  const CT* kr = Kc + lane * ld;
+  const CT* kr = Kc + min(lane, n - 1) * ld;
   for (int d = 0; d < hd; d += 8) {
     float k8[8];
     load8(kr + d, k8);
@@ -411,8 +435,10 @@ __device__ __forceinline__ void vec_update(const CT* Kc, const CT* Vc, int ld, i
   for (int j = 0; j < n; ++j) {
     float v[kMaxHpl];
     const CT* vr = Vc + j * ld + lane * hpl;
-    if (hpl == kMaxHpl) {  // hd = 128: one 8- or 16-byte read
-      if constexpr (sizeof(CT) == 2) {
+    if (hpl == kMaxHpl) {  // hd = HD: one 8- or 16-byte read, or (hd 256) 8 values
+      if constexpr (kMaxHpl == 8) {
+        load8(vr, v);
+      } else if constexpr (sizeof(CT) == 2) {
         const uint2 u = *reinterpret_cast<const uint2*>(vr);
         const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
         const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
@@ -479,12 +505,13 @@ struct Run {
   int t_lo, t_hi; // pool positions that any of them may see
 };
 
-// Runs of at most NQ <= kVecQ query vectors: warps take 32-key chunks in
-// turn. NQ is fixed at compile time (1 for a decode row, else kVecQ), so no
+// Runs of at most NQ <= kVecQ query vectors: warps take chunks of
+// vec_chunk keys in turn. NQ is fixed at compile time (1 for a decode row, else kVecQ), so no
 // loop over vectors carries a guard.
-template <int NQ, typename T, typename P, bool MX, typename CT>
-__device__ void vector_run(const PagedArgs& a, Smem& sm, float* sq, CT* kv, const Run& run,
+template <int NQ, int HD, typename T, typename P, bool MX, typename CT>
+__device__ void vector_run(const PagedArgs& a, Smem<HD>& sm, float* sq, CT* kv, const Run& run,
                            int kvh) {
+  constexpr int kMaxHpl = HD / 32, kChunk = vec_chunk<CT, HD>();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hd = a.hd, hpl = hd >> 5, ld = hd + row_pad<CT>(), M = run.M;
   const T* q = static_cast<const T*>(a.q);
@@ -525,7 +552,7 @@ __device__ void vector_run(const PagedArgs& a, Smem& sm, float* sq, CT* kv, cons
     stage<T, P, MX, CT>(a, run.tbl, kvh, first, n, kChunk, pool ? INT_MAX : INT_MIN, 0, wK, wV,
                         true, sm.vals, lane, 32);
     __syncwarp();
-    vec_update<NQ, CT>(wK, wV, ld, n, bits, sq, hd, a.scale, m, l, acc);
+    vec_update<NQ, HD, CT>(wK, wV, ld, n, bits, sq, hd, a.scale, m, l, acc);
   }
 #pragma unroll
   for (int i = 0; i < NQ; ++i) l[i] = warp_sum(l[i]);
@@ -545,7 +572,7 @@ __device__ void vector_run(const PagedArgs& a, Smem& sm, float* sq, CT* kv, cons
   for (int i = 0; i < NQ; ++i)
 #pragma unroll
     for (int dd = 0; dd < kMaxHpl; ++dd)
-      if (i < M && dd < hpl) s_acc[(warp * kVecQ + i) * kMaxHd + lane * hpl + dd] = acc[i][dd];
+      if (i < M && dd < hpl) s_acc[(warp * kVecQ + i) * HD + lane * hpl + dd] = acc[i][dd];
   __syncthreads();
   T* out = static_cast<T*>(a.out);
   for (int idx = tid; idx < M * hd; idx += kThreads) {
@@ -556,7 +583,7 @@ __device__ void vector_run(const PagedArgs& a, Smem& sm, float* sq, CT* kv, cons
     for (int w = 0; w < kWarps; ++w) {
       const float c = expf(s_m[w * kVecQ + i] - mx);
       L += s_l[w * kVecQ + i] * c;
-      A += s_acc[(w * kVecQ + i) * kMaxHd + d] * c;
+      A += s_acc[(w * kVecQ + i) * HD + d] * c;
     }
     if (L > 0.f)
       out[sm.qoff[i] + d] = mxk::from_float<T>(A / L);
@@ -568,10 +595,11 @@ __device__ void vector_run(const PagedArgs& a, Smem& sm, float* sq, CT* kv, cons
 // Runs of more than kVecQ query vectors: 64-key tiles staged by the whole
 // CTA, shared by every vector of the run. bf16: tensor cores, warp w owns
 // vectors [16w, 16w + 16). fp32: CUDA cores, the same split.
-template <typename T, typename P, bool MX, typename CT>
-__device__ void block_run(const PagedArgs& a, Smem& sm, unsigned char* qreg, CT* kv,
+template <int HD, typename T, typename P, bool MX, typename CT>
+__device__ void block_run(const PagedArgs& a, Smem<HD>& sm, unsigned char* qreg, CT* kv,
                           const Run& run, int kvh) {
   constexpr bool kMma = sizeof(CT) == 2;
+  constexpr int kMaxHpl = HD / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hd = a.hd, hpl = hd >> 5, ld = hd + row_pad<CT>(), M = run.M;
   const int g = lane >> 2, tq = lane & 3;   // mma fragment row group / column pair
@@ -604,11 +632,11 @@ __device__ void block_run(const PagedArgs& a, Smem& sm, unsigned char* qreg, CT*
   // softmax state. mma: rows g and g + 8 of the warp's 16, head dims in
   // 8-wide n-tiles. fp32: vectors m0 + i, lane dims.
   float mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f};
-  float oacc[kMaxHd / 8][4];
+  float oacc[HD / 8][4];
   float m[kBlkQ], l[kBlkQ], acc[kBlkQ][kMaxHpl];
   if constexpr (kMma) {
 #pragma unroll
-    for (int j = 0; j < kMaxHd / 8; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+    for (int j = 0; j < HD / 8; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
   } else {
 #pragma unroll
     for (int i = 0; i < kBlkQ; ++i) {
@@ -679,7 +707,7 @@ __device__ void block_run(const PagedArgs& a, Smem& sm, unsigned char* qreg, CT*
 #pragma unroll
       for (int j = 0; j < 8; ++j) sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kMaxHd / 16; ++kk) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
         if (kk * 16 >= hd) break;
         uint32_t af[4];
         ldsm_x4(af, sQ + (m0 + (lane & 15)) * ldq + kk * 16 + (lane >> 4) * 8);
@@ -722,7 +750,7 @@ __device__ void block_run(const PagedArgs& a, Smem& sm, unsigned char* qreg, CT*
           }
         lrow[h] = lrow[h] * alpha + ps;
 #pragma unroll
-        for (int j = 0; j < kMaxHd / 8; ++j) {
+        for (int j = 0; j < HD / 8; ++j) {
           oacc[j][2 * h] *= alpha;
           oacc[j][2 * h + 1] *= alpha;
         }
@@ -738,7 +766,7 @@ __device__ void block_run(const PagedArgs& a, Smem& sm, unsigned char* qreg, CT*
         split2(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1], ah[2], al[2]);
         split2(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3], ah[3], al[3]);
 #pragma unroll
-        for (int dp = 0; dp < kMaxHd / 16; ++dp) {
+        for (int dp = 0; dp < HD / 16; ++dp) {
           if (dp * 16 >= hd) break;
           uint32_t bf[4];
           ldsm_x4_t(bf, sV + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + dp * 16 +
@@ -754,7 +782,7 @@ __device__ void block_run(const PagedArgs& a, Smem& sm, unsigned char* qreg, CT*
       for (int h = 0; h < 2; ++h) {
         const int nh = min(32, n - 32 * h);
         if (nh <= 0 || nq == 0) continue;
-        vec_update<kBlkQ, CT>(sK + 32 * h * ld, sV + 32 * h * ld, ld, nh,
+        vec_update<kBlkQ, HD, CT>(sK + 32 * h * ld, sV + 32 * h * ld, ld, nh,
                               (bits >> (16 * h)) & 0xffffu, sq + m0 * hd, hd, a.scale, m, l, acc);
       }
     }
@@ -773,7 +801,7 @@ __device__ void block_run(const PagedArgs& a, Smem& sm, unsigned char* qreg, CT*
         const float inv = 1.f / L;
         T* orow = out + sm.qoff[qi];
 #pragma unroll
-        for (int j = 0; j < kMaxHd / 8; ++j) {
+        for (int j = 0; j < HD / 8; ++j) {
           if (j * 8 >= hd) break;
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tq) =
               __floats2bfloat162_rn(oacc[j][2 * h] * inv, oacc[j][2 * h + 1] * inv);
@@ -799,13 +827,13 @@ __device__ void block_run(const PagedArgs& a, Smem& sm, unsigned char* qreg, CT*
   }
 }
 
-template <typename T, typename P, bool MX, typename CT>
+template <int HD, typename T, typename P, bool MX, typename CT>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(PagedArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  unsigned char* qreg = smem_raw + kHeaderBytes;
-  CT* kv = reinterpret_cast<CT*>(qreg + kQBytes);
+  Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(smem_raw);
+  unsigned char* qreg = smem_raw + header_bytes<HD>();
+  CT* kv = reinterpret_cast<CT*>(qreg + q_bytes<HD>());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int kvh = blockIdx.y;
   const int G = a.H / a.KV, SqG = a.Sq * G;
@@ -888,11 +916,11 @@ paged_attention_kernel(PagedArgs a) {
     run.t_lo = a.window > 0 ? max(0, minq - a.window + 1) : 0;
 
     if (M == 1)
-      vector_run<1, T, P, MX, CT>(a, sm, reinterpret_cast<float*>(qreg), kv, run, kvh);
+      vector_run<1, HD, T, P, MX, CT>(a, sm, reinterpret_cast<float*>(qreg), kv, run, kvh);
     else if (M <= kVecQ)
-      vector_run<kVecQ, T, P, MX, CT>(a, sm, reinterpret_cast<float*>(qreg), kv, run, kvh);
+      vector_run<kVecQ, HD, T, P, MX, CT>(a, sm, reinterpret_cast<float*>(qreg), kv, run, kvh);
     else
-      block_run<T, P, MX, CT>(a, sm, qreg, kv, run, kvh);
+      block_run<HD, T, P, MX, CT>(a, sm, qreg, kv, run, kvh);
     __syncthreads();
 
     // vectors with no valid key: the mean of every key the run's rows address
@@ -900,17 +928,28 @@ paged_attention_kernel(PagedArgs a) {
     if (__syncthreads_or(need)) {
       CT* sV = kv + kTile * (a.hd + row_pad<CT>());
       const int ld = a.hd + row_pad<CT>();
-      float sum = 0.f;
+      constexpr int kDims = (HD + kThreads - 1) / kThreads;  // head dims per thread
+      float sum[kDims];
+#pragma unroll
+      for (int j = 0; j < kDims; ++j) sum[j] = 0.f;
       for (int kb = 0; kb < cap + a.E; kb += kTile) {
         const int n = min(kTile, cap + a.E - kb);
         stage<T, P, MX, CT>(a, run.tbl, kvh, kb, n, kTile, cap, cap, kv, sV, false, sm.vals, tid,
                             kThreads);
         __syncthreads();
-        if (tid < a.hd)
-          for (int i = 0; i < n; ++i) sum += mxk::to_float(sV[i * ld + tid]);
+#pragma unroll
+        for (int j = 0; j < kDims; ++j) {
+          const int d = tid + j * kThreads;
+          if (d < a.hd)
+            for (int i = 0; i < n; ++i) sum[j] += mxk::to_float(sV[i * ld + d]);
+        }
         __syncthreads();
       }
-      if (tid < a.hd) sm.mean[tid] = sum / static_cast<float>(cap + a.E);
+#pragma unroll
+      for (int j = 0; j < kDims; ++j) {
+        const int d = tid + j * kThreads;
+        if (d < a.hd) sm.mean[d] = sum[j] / static_cast<float>(cap + a.E);
+      }
       __syncthreads();
       T* out = static_cast<T*>(a.out);
       for (int idx = tid; idx < M * a.hd; idx += kThreads) {
@@ -921,16 +960,24 @@ paged_attention_kernel(PagedArgs a) {
   }
 }
 
-template <typename T, typename P, bool MX, typename CT>
-cudaError_t launch(const PagedArgs& a, cudaStream_t s) {
-  constexpr int smem = smem_bytes<CT>();
-  auto kern = paged_attention_kernel<T, P, MX, CT>;
+template <int HD, typename T, typename P, bool MX, typename CT>
+cudaError_t launch_hd(const PagedArgs& a, cudaStream_t s) {
+  constexpr int smem = smem_bytes<CT, HD>();
+  static_assert(smem <= 232448, "over the 227 KB of shared memory a CTA may have");
+  auto kern = paged_attention_kernel<HD, T, P, MX, CT>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long U = static_cast<long long>(a.R) * a.Sq * (a.H / a.KV);
   const dim3 grid(static_cast<unsigned>((U + kTile - 1) / kTile), a.KV, kRunCtas);
   kern<<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+// The head-dim class: hd 32..128 (multiples of 32) or 160..256.
+template <typename T, typename P, bool MX, typename CT>
+cudaError_t launch(const PagedArgs& a, cudaStream_t s) {
+  if (a.hd <= 0 || a.hd % 32 != 0 || a.hd > 256) return cudaErrorInvalidValue;
+  return a.hd <= 128 ? launch_hd<128, T, P, MX, CT>(a, s) : launch_hd<256, T, P, MX, CT>(a, s);
 }
 
 }  // namespace

@@ -12,7 +12,8 @@ key averages every key it addresses, as in the reference.
 
 For a CUDA tensor ``paged_attention`` launches ``csrc/paged_attention.cu``
 (which walks the block tables itself and stages each key tile once for all
-consecutive rows that share a table) or raises; the plain version, which
+consecutive rows that share a table; any GQA group, head_dim a multiple of
+32 up to 256) or raises; the plain version, which
 gathers ``pool[tables]`` at full capacity, runs only for CPU tensors and as
 the kernel's reference.
 """
@@ -160,7 +161,8 @@ def paged_attention(q, pool_k, pool_v, tables, hist_len, q_pos, k_extra=None,
              "pools must be contiguous and on q's device")
     _require(kv_dim % kv_heads == 0, "kv_dim must split into kv_heads")
     hd = kv_dim // kv_heads
-    _require(hd % 32 == 0 and hd <= 128, f"head_dim {hd}: the kernel takes 32, 64, 96 or 128")
+    _require(hd % 32 == 0 and 0 < hd <= 256,
+             f"head_dim {hd}: the kernel takes multiples of 32 up to 256")
     _require(q_dim % hd == 0 and (q_dim // hd) % kv_heads == 0, "query heads must group over kv heads")
     H = q_dim // hd
     nb = tables.shape[1]

@@ -1,5 +1,6 @@
 """Where the time of a serving run goes on the card: the llama2-7b serve of
-``chip_smoke.py`` under ``torch.profiler``, device kernel time
+``chip_smoke.py`` (or another ported family, ``--arch``, e.g. qwen2-7b)
+under ``torch.profiler``, device kernel time
 summed by layer of the stack (paged attention, MX codec, GEMMs, the rest),
 against the run's wall time (the rest is the device's idle share: host-side
 dispatch and scheduling). The profiler slows the host, so the same run is

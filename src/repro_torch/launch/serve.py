@@ -14,9 +14,13 @@ step mode. ``--deadline-ms`` / ``--ttft-deadline-ms`` set per-request
 deadlines, ``--max-queue`` bounds admission, and ``--fault-plan`` (e.g.
 ``'exhaust@2x2;die@5'``, grammar in ``serving/faults.py``) injects faults
 and wraps the run in an ``EngineSupervisor``; the report counts outcomes
-and recoveries. Runs on the GPU by default; ``--device cpu`` runs the plain
-PyTorch path on the CPU (use ``--reduced`` there). Weights are random, drawn
-from ``--seed``.
+and recoveries. ``--variant two_phase`` re-quantizes each compressed
+reduction's result once more, as the reference's simulated path does;
+``--overlap-chunks`` is accepted as in the reference's launcher and ignored
+(this simulated path has no rank collective to chunk; the banner says so). ``--arch`` takes every ported family
+(llama2, internlm2, qwen2-7b, qwen3-32b, gemma3-4b). Runs on the GPU by
+default; ``--device cpu`` runs the plain PyTorch path on the CPU (use
+``--reduced`` there). Weights are random, drawn from ``--seed``.
 """
 from __future__ import annotations
 
@@ -45,6 +49,11 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--policy", default="mx", choices=["mx", "none"])
+    ap.add_argument("--variant", default="gather", choices=["gather", "two_phase"])
+    ap.add_argument("--overlap-chunks", type=int, default=1,
+                    help="accepted as in the reference's launcher and IGNORED: it chunks "
+                         "the rank collectives' payload (bit-identical results either way), "
+                         "which the simulated path does not run; the banner says so")
     ap.add_argument("--simulate-tp", type=int, default=4,
                     help="row-parallel reductions split into this many MX-compressed "
                          "partial sums on the one device (TPContext.simulate_tp)")
@@ -90,11 +99,16 @@ def main(argv=None):
         cfg = reduced_config(cfg)
     model = Model(cfg)
     policy = NO_COMPRESSION if args.policy == "none" else CompressionPolicy(
-        spec=MXSpec.make("fp4_e2m1", 32, "e8m0"),
-        min_prefill_fraction=args.min_prefill_fraction)
+        spec=MXSpec.make("fp4_e2m1", 32, "e8m0"), variant=args.variant,
+        min_prefill_fraction=args.min_prefill_fraction,
+        overlap_chunks=args.overlap_chunks)
     ctx = TPContext(policy=policy, simulate_tp=args.simulate_tp)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"device={name} policy={policy.describe()} simulate_tp={args.simulate_tp}")
+    variant = policy.variant if policy.enabled else "none"
+    ignored = (f" overlap_chunks={args.overlap_chunks} (ignored: no effect under simulate_tp)"
+               if args.overlap_chunks != 1 else "")
+    print(f"device={name} arch={cfg.name} policy={policy.describe()} variant={variant} "
+          f"simulate_tp={args.simulate_tp}{ignored}")
 
     params = model.init_params(device=device, seed=args.seed)
     fault_plan = FaultPlan.parse(args.fault_plan, seed=args.seed)

@@ -68,7 +68,7 @@ class Initializer:
         s = scale if scale is not None else fan_in**-0.5
         w = torch.randn(*shape, generator=self.generator, dtype=torch.float32,
                         device=self.device)
-        return (w * s).to(self.dtype)
+        return w.mul_(s).to(self.dtype)   # in place: one fp32 transient, not two
 
     def ones(self, shape) -> torch.Tensor:
         return torch.ones(*shape, dtype=self.dtype, device=self.device)

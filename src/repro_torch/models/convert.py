@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import check_supported, torch_dtype
+from repro_torch.models.model import check_supported, param_shapes, torch_dtype
 
 __all__ = ["params_from_numpy"]
 
@@ -28,20 +28,33 @@ def _convert(node: Any, dtype: torch.dtype, device: torch.device, path: str):
     return torch.from_numpy(arr.astype(np.float32)).to(device=device, dtype=dtype)
 
 
+def _check_tree(got, want, path: str) -> None:
+    """``got`` (tensors) has exactly the keys, list lengths and leaf shapes
+    of ``want`` (``param_shapes``)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            have = sorted(got) if isinstance(got, dict) else type(got).__name__
+            raise ValueError(f"{path or '/'}: keys {have}, expected {sorted(want)}")
+        for k in want:
+            _check_tree(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            n = len(got) if isinstance(got, list) else type(got).__name__
+            raise ValueError(f"{path}: {n} entries, expected {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _check_tree(g, w, f"{path}[{i}]")
+    elif tuple(got.shape) != tuple(want):
+        raise ValueError(f"{path}: shape {tuple(got.shape)}, expected {tuple(want)}")
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device: str | torch.device = "cuda"):
     """Numpy parameter tree (reference names and layouts) -> torch tensors on
-    ``device`` in the config's dtype. Checks the tree's layer count and the
-    linear weights' shapes against ``cfg``."""
+    ``device`` in the config's dtype. Checks the tree against ``cfg``'s
+    (``model.param_shapes``): the layer count, every leaf's shape, biases
+    and q/k norms where the config has them, no ``gate`` for a non-gated
+    MLP and no ``lm_head`` for tied embeddings."""
     check_supported(cfg)
     dev = resolve_device(device)
-    if len(tree["layers"]) != cfg.n_layers:
-        raise ValueError(f"tree has {len(tree['layers'])} layers, config {cfg.n_layers}")
     params = _convert(tree, torch_dtype(cfg.dtype), dev, "")
-    expect = {"wq": (cfg.d_model, cfg.q_dim), "wk": (cfg.d_model, cfg.kv_dim),
-              "wv": (cfg.d_model, cfg.kv_dim), "wo": (cfg.q_dim, cfg.d_model)}
-    for i, lp in enumerate(params["layers"]):
-        for name, shape in expect.items():
-            got = tuple(lp["core"][name]["w"].shape)
-            if got != shape:
-                raise ValueError(f"layers[{i}].core.{name}: shape {got}, expected {shape}")
+    _check_tree(params, param_shapes(cfg), "")
     return params

@@ -1,5 +1,6 @@
-"""Dense SwiGLU MLP with the paper's compressed reduction on the down
-projection (column-parallel gate/up, row-parallel down)."""
+"""Dense MLP with the paper's compressed reduction on the down projection
+(column-parallel gate/up, row-parallel down): SwiGLU (``silu``, gated) or
+the non-gated ``gelu`` MLP, ``act(up(x))`` then ``down``."""
 from __future__ import annotations
 
 import math
@@ -13,9 +14,20 @@ from repro_torch.core.tp import TPContext, column_linear, row_linear
 __all__ = ["mlp"]
 
 
+def _gelu(h: torch.Tensor) -> torch.Tensor:
+    # the reference's jax.nn.gelu defaults to the tanh approximation;
+    # torch's default is the exact erf form
+    return F.gelu(h, approximate="tanh")
+
+
+_ACT = {"silu": F.silu, "gelu": _gelu}
+
+
 def mlp(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.activation != "silu" or "gate" not in params:
-        raise NotImplementedError("the port's MLP is the gated SwiGLU path only")
+    act = _ACT[cfg.activation]
     h = column_linear(ctx, x, params["up"]["w"])
-    h = F.silu(column_linear(ctx, x, params["gate"]["w"])) * h
+    if "gate" in params:
+        h = act(column_linear(ctx, x, params["gate"]["w"])) * h
+    else:
+        h = act(h)
     return row_linear(ctx, h, params["down"]["w"], n_tokens=math.prod(x.shape[:-1]))

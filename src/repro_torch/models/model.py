@@ -5,9 +5,13 @@ whole-prompt prefill over a dense cache, and the three paged serving steps
 raise ``NotImplementedError``.
 
 Parameters are a plain nested dict with the reference's tree and names
-(``embed``, ``layers[i].{ln1, core.{wq, wk, wv, wo}, ln2, mlp.{up, down,
-gate}}``, ``final_norm``, ``lm_head``) and its layouts (linear weights
-``(Fin, Fout)`` applied as ``x @ w``; ``embed``/``lm_head`` ``(V, d)``).
+(``embed``, ``layers[i].{ln1, core.{wq, wk, wv, wo, q_norm, k_norm}, ln2,
+mlp.{up, down, gate}}``, ``final_norm``, ``lm_head``) and its layouts
+(linear weights ``(Fin, Fout)`` applied as ``x @ w``, biases ``b``;
+``embed``/``lm_head`` ``(V, d)``). ``param_shapes`` gives the tree a config
+has: q/k/v biases with ``qkv_bias``, ``q_norm``/``k_norm`` with
+``qk_norm``, ``gate`` only for the gated (silu) MLP, and no ``lm_head``
+with ``tie_embeddings`` (the logits then read ``embed``).
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from repro_torch.models.common import Initializer, embed, rms_norm, unembed
 from repro_torch.models.mlp import mlp
 from repro_torch.models.transformer import apply_stack
 
-__all__ = ["Model", "torch_dtype"]
+__all__ = ["Model", "torch_dtype", "param_shapes"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -35,14 +39,47 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise on anything but a dense pure-attention text decoder."""
+    """Raise on anything but a dense pure-attention text decoder with an
+    RMSNorm and a SwiGLU or gelu MLP."""
     bad = [s for s in cfg.layers if s.kind != "attn" or s.moe]
     if (bad or cfg.encoder_decoder or cfg.frontend is not None or cfg.norm != "rmsnorm"
-            or cfg.activation != "silu" or cfg.d_ff <= 0):
+            or cfg.activation not in ("silu", "gelu") or cfg.d_ff <= 0):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense pure-attention SwiGLU decoders "
-            f"only (MoE, SSM/xLSTM, encoder-decoder and vision frontends are not "
-            f"ported yet)")
+            f"{cfg.name}: the port serves dense pure-attention decoders with an "
+            f"RMSNorm and a SwiGLU or gelu MLP only (MoE, SSM/xLSTM, "
+            f"encoder-decoder and vision frontends are not ported yet)")
+
+
+_NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree of ``cfg``, with each leaf's shape (what
+    ``Model.init_params`` draws and ``convert.params_from_numpy`` checks)."""
+    d, ff = cfg.d_model, cfg.d_ff
+
+    def linear(fin, fout, bias=False):
+        return {"w": (fin, fout), **({"b": (fout,)} if bias else {})}
+
+    def layer():
+        core = {"wq": linear(d, cfg.q_dim, cfg.qkv_bias),
+                "wk": linear(d, cfg.kv_dim, cfg.qkv_bias),
+                "wv": linear(d, cfg.kv_dim, cfg.qkv_bias),
+                "wo": linear(cfg.q_dim, d)}
+        if cfg.qk_norm:
+            core["q_norm"] = {"w": (cfg.head_dim,)}
+            core["k_norm"] = {"w": (cfg.head_dim,)}
+        mlp_p = {"up": linear(d, ff), "down": linear(ff, d)}
+        if cfg.activation == "silu":  # gated
+            mlp_p["gate"] = linear(d, ff)
+        return {"ln1": {"w": (d,)}, "core": core, "ln2": {"w": (d,)}, "mlp": mlp_p}
+
+    tree: Dict[str, Any] = {"embed": {"w": (cfg.vocab_size, d)},
+                            "layers": [layer() for _ in cfg.layers],
+                            "final_norm": {"w": (d,)}}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"w": (cfg.vocab_size, d)}
+    return tree
 
 
 class Model:
@@ -60,37 +97,21 @@ class Model:
             generator = torch.Generator(device=dev).manual_seed(seed)
         cfg = self.cfg
         init = Initializer(generator, torch_dtype(cfg.dtype), dev)
-        d, ff = cfg.d_model, cfg.d_ff
 
-        def linear(fin, fout, bias=False):
-            p = {"w": init.linear((fin, fout))}
-            if bias:
-                p["b"] = init.zeros((fout,))
-            return p
+        def draw(node, key, parent):
+            # linear weights (the embedding scaled by d_model**-0.5), zero
+            # biases and unit norms, drawn in the tree's order
+            if isinstance(node, dict):
+                return {k: draw(v, k, key) for k, v in node.items()}
+            if isinstance(node, list):
+                return [draw(v, key, parent) for v in node]
+            if key == "b":
+                return init.zeros(node)
+            if parent in _NORMS:
+                return init.ones(node)
+            return init.linear(node, scale=cfg.d_model**-0.5 if parent == "embed" else None)
 
-        p: Dict[str, Any] = {
-            "embed": {"w": init.linear((cfg.vocab_size, d), scale=d**-0.5)}}
-        layers = []
-        for _ in cfg.layers:
-            core = {"wq": linear(d, cfg.q_dim, cfg.qkv_bias),
-                    "wk": linear(d, cfg.kv_dim, cfg.qkv_bias),
-                    "wv": linear(d, cfg.kv_dim, cfg.qkv_bias),
-                    "wo": linear(cfg.q_dim, d)}
-            if cfg.qk_norm:
-                core["q_norm"] = {"w": init.ones((cfg.head_dim,))}
-                core["k_norm"] = {"w": init.ones((cfg.head_dim,))}
-            layers.append({
-                "ln1": {"w": init.ones((d,))},
-                "core": core,
-                "ln2": {"w": init.ones((d,))},
-                "mlp": {"up": linear(d, ff), "down": linear(ff, d),
-                        "gate": linear(d, ff)},
-            })
-        p["layers"] = layers
-        p["final_norm"] = {"w": init.ones((d,))}
-        if not cfg.tie_embeddings:
-            p["lm_head"] = {"w": init.linear((cfg.vocab_size, d))}
-        return p
+        return draw(param_shapes(cfg), "", "")
 
     # ----------------------------------------------------------------- serve
 
@@ -107,9 +128,10 @@ class Model:
     def _paged_layers(self, ctx: TPContext, params, x: torch.Tensor, state,
                       attend: Callable) -> Tuple[torch.Tensor, Any]:
         """Every layer over the paged pools of ``state``: ``attend(core
-        params, h, pool_k, pool_v, window)`` is the step's paged attention and
-        returns (out, pool_k, pool_v); then the SwiGLU MLP. Pools update in
-        place. Returns (x, state)."""
+        params, h, pool_k, pool_v, window)`` is the step's paged attention
+        (``window`` the layer's own ``LayerSpec.window``) and returns (out,
+        pool_k, pool_v); then the MLP. Pools update in place. Returns (x,
+        state)."""
         pools_k, pools_v = list(state["pools_k"]), list(state["pools_v"])
         for i, spec in enumerate(self.cfg.layers):
             lp = params["layers"][i]

@@ -1,6 +1,7 @@
-"""Decoder stack of dense attention + SwiGLU layers (the reference's
+"""Decoder stack of dense attention + MLP layers (the reference's
 ``models/transformer.py`` ``apply_layer`` / ``apply_stack`` for the one layer
-kind the port serves). Mamba, xLSTM and MoE layers raise."""
+kind the port serves; each layer attends within its ``LayerSpec.window``).
+Mamba, xLSTM and MoE layers raise."""
 from __future__ import annotations
 
 from typing import List, Optional, Tuple

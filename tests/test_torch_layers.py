@@ -8,9 +8,15 @@ that lands within rounding of a quantization midpoint can take the
 neighbouring code in one of them. Tolerance: every output within one code
 step (the format's largest gap between neighbouring codes) times its block's
 scale per shard, rel-L2 <= 1e-4, and at most 0.1% of codes flipped; the test
-prints the flip count. A dense policy equals a plain matmul. TF32 is off for
-torch matmuls in this file.
+prints the flip count. A dense policy equals a plain matmul. The reduction
+options ``two_phase``, ``keep_local_fp``, ``overlap_chunks`` and a bf16
+``accum_dtype`` are served on the simulated path as the reference serves them
+(the same tolerance), and the rank collectives still refuse them. TF32 is
+off for torch matmuls in this file.
 """
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +30,7 @@ from repro_torch.core import mx as tmx
 from repro_torch.core.collectives import compressed_psum, psum, psum_maybe_compressed
 from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT, CompressionPolicy
 from repro_torch.core.tp import TPContext, column_linear, row_linear
+from repro_torch.kernels import ops
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -112,23 +119,105 @@ def test_psum_maybe_compressed_gate():
     assert not NO_COMPRESSION.active_for(1024)
 
 
+def _reference_row_linear(x, w, n, **option):
+    policy = dataclasses.replace(J_PAPER_DEFAULT, **option)
+    return np.asarray(j_row_linear(JTPContext(mesh=None, policy=policy, simulate_tp=n),
+                                   jnp.asarray(x), jnp.asarray(w)))
+
+
 @pytest.mark.parametrize("option, match", [
     (dict(variant="two_phase"), "two_phase"), (dict(keep_local_fp=True), "keep_local_fp"),
     (dict(overlap_chunks=2), "overlap_chunks"), (dict(accum_dtype="bfloat16"), "accum_dtype")])
 def test_two_phase_raises_instead_of_downgrading(option, match):
-    """Unported reduction options (two_phase and the rest) raise; none is
-    silently served by the gather variant."""
+    """On the simulated path each option is served as the reference serves
+    it: ``two_phase`` re-quantizes the reduced result once more (exactly the
+    codec's quantize + dequantize of the gather variant's result), the other
+    three change nothing; against the reference's ``row_linear`` under
+    ``simulate_tp=2`` within the tolerance of the gather variant's test. The
+    rank collectives that would give the options their meaning are not
+    ported: they raise, and none is silently served by the gather variant."""
     x, w = _inputs(9)
-    ctx = TPContext(policy=CompressionPolicy(spec=PAPER_DEFAULT.spec, **option),
-                    simulate_tp=2)
-    with pytest.raises(NotImplementedError, match=match):
-        row_linear(ctx, torch.from_numpy(x), torch.from_numpy(w))
+    policy = CompressionPolicy(spec=PAPER_DEFAULT.spec, **option)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got = row_linear(TPContext(policy=policy, simulate_tp=2), xt, wt)
+    gather = row_linear(TPContext(policy=PAPER_DEFAULT, simulate_tp=2), xt, wt)
+    if option.get("variant") == "two_phase":
+        spec = PAPER_DEFAULT.spec
+        want = ops.mx_dequantize(ops.mx_quantize(gather, spec), spec, out_dtype=gather.dtype)
+        assert not torch.equal(want, gather)
+    else:
+        want = gather
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    ref = _reference_row_linear(x, w, 2, **option)
+    assert got.shape == ref.shape
+    assert np.linalg.norm(got.numpy() - ref) / np.linalg.norm(ref) <= 1e-4
+
     parts = torch.from_numpy(_partials_np(x, w, 2))
     with pytest.raises(NotImplementedError, match=match):
-        psum_maybe_compressed(parts, ctx.policy)
+        psum_maybe_compressed(parts, policy)
     if "variant" in option:
         with pytest.raises(NotImplementedError, match=match):
             compressed_psum(parts, PAPER_DEFAULT.spec, variant="two_phase")
+
+
+def test_two_phase_second_quantize_is_byte_exact_on_reference_y():
+    """The port's second quantize of the reference's own reduced result
+    (its gather variant's ``y``) gives the reference's codes and scales on
+    every block where the reference's ``jnp.exp2`` of the scale is exact
+    (ROADMAP Queue 3 item 2), and decodes there to the reference's
+    two_phase output."""
+    x, w = _inputs(10)
+    spec = PAPER_DEFAULT.spec
+    y = _reference_row_linear(x, w, 2).copy()                   # gather: the reduced y
+    codes_t, e_t = tmx.quantize_codes(torch.from_numpy(y), spec)
+    codes_j, e_j = jmx.quantize_codes(jnp.asarray(y), J_PAPER_DEFAULT.spec)
+    e_j = np.asarray(e_j)
+    np.testing.assert_array_equal(e_t.numpy(), e_j)
+    exact = np.asarray(jnp.exp2(jnp.asarray(e_j, jnp.float32))) == np.exp2(e_j.astype(np.float64))
+    assert exact.mean() > 0.5
+    blocks = lambda c: np.asarray(c).reshape(*e_j.shape, spec.block_size)
+    np.testing.assert_array_equal(blocks(codes_t.numpy())[exact], blocks(codes_j)[exact])
+    comp = ops.mx_quantize(torch.from_numpy(y), spec)
+    jcomp = jmx.quantize(jnp.asarray(y), J_PAPER_DEFAULT.spec)
+    np.testing.assert_array_equal(comp.scales.numpy(), np.asarray(jcomp.scales))
+    two_phase = _reference_row_linear(x, w, 2, variant="two_phase")
+    got = ops.mx_dequantize(comp, spec, out_dtype=torch.float32).numpy()
+    np.testing.assert_array_equal(blocks(got)[exact], blocks(two_phase)[exact])
+
+
+def test_two_phase_logits_of_reduced_llama2_match_reference():
+    """Whole-prompt prefill of reduced llama2 (fp32, the reference's weights)
+    with ``variant="two_phase"`` under ``simulate_tp=2``: logits within the
+    module tolerance of the compressed path, rel-L2 5e-2 (a code flip in one
+    framework propagates through later layers, ``tests/test_torch_prefill.py``),
+    and the second quantize moves them from the gather variant's."""
+    from repro.models.model import Model as JModel
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.model import Model
+    from tests.conftest import fp32_reduced
+
+    cfg_j = fp32_reduced("llama2-7b")
+    cfg_t = dataclasses.replace(reduced_config(get_config("llama2-7b")), dtype="float32")
+    model_j, model_t = JModel(cfg_j), Model(cfg_t)
+    params_j = model_j.init_params(jax.random.PRNGKey(0))
+    params_t = params_from_numpy(jax.tree.map(np.asarray, params_j), cfg_t, "cpu")
+    tokens = np.random.default_rng(3).integers(0, cfg_t.vocab_size, (1, 24)).astype(np.int32)
+    logits = {}
+    for variant in ("gather", "two_phase"):
+        ctx_j = JTPContext(mesh=None, simulate_tp=2,
+                           policy=dataclasses.replace(J_PAPER_DEFAULT, variant=variant))
+        ctx_t = TPContext(policy=CompressionPolicy(spec=PAPER_DEFAULT.spec, variant=variant),
+                          simulate_tp=2)
+        lj, _ = model_j.prefill(ctx_j, params_j, {"tokens": jnp.asarray(tokens)},
+                                model_j.init_cache(1, 24, jnp.float32))
+        lt, _ = model_t.prefill(ctx_t, params_t, {"tokens": torch.from_numpy(tokens)},
+                                model_t.init_cache(1, 24, torch.float32, "cpu"))
+        lj, lt = np.asarray(lj), lt.numpy()
+        assert np.isfinite(lt).all() and lt.shape == lj.shape
+        assert np.linalg.norm(lt - lj) / np.linalg.norm(lj) <= 5e-2, variant
+        logits[variant] = lt
+    assert not np.array_equal(logits["gather"], logits["two_phase"])
 
 
 def test_gate_policy_matches_reference():

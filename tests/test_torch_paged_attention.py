@@ -3,12 +3,15 @@ reference's Pallas kernel (``repro.kernels.paged_attention``, interpret mode
 on the CPU), on the same pools, tables and queries: the mixed geometry (with
 budget pads, and a row that has no valid key at all), the decode geometry,
 a chunk geometry (Sq > 1), dense and fp4 wire pools, GQA groups G = 1 and 2,
-and one sliding-window case. fp32 throughout; tolerance 1e-5 (summation
-order only). TF32 is switched off for torch matmuls in this file.
+and one sliding-window case; the multi-segment mixed geometry also at the
+new families' groups G = 7 and 8 and at head_dim 256 (G = 2), with and
+without a window. fp32 throughout; tolerance 1e-5 (summation order only).
+TF32 is switched off for torch matmuls in this file.
 
 The CUDA kernel cuts the query vectors into 64-vector tiles and those into
 runs of rows that share a block table; a multi-segment mixed geometry whose
-runs cross tile boundaries is held against Pallas here, and a torch
+runs cross tile boundaries (at G = 7 a row's 7 query vectors straddle them
+too) is held against Pallas here, and a torch
 emulation of the kernel's tiled online softmax (bf16 tensor-core operands,
 P split into bf16 hi + lo parts) is held against the plain version within
 ``chip_smoke.py``'s per-element tolerance, so a precision fault of that
@@ -65,7 +68,8 @@ def _mixed_geometry():
     return (tables[slot_ids], starts[slot_ids], positions[:, None], t_extra)
 
 
-def _run_both(q, pools_j, pools_t, specs, tables, hist, q_pos, extras, kv_heads, window):
+def _run_both(q, pools_j, pools_t, specs, tables, hist, q_pos, extras, kv_heads, window,
+              hd=HD):
     (pk_j, pv_j), (pk_t, pv_t) = pools_j, pools_t
     jspec, tspec = specs if specs else (None, None)
     e_j = e_t = (None, None, None)
@@ -75,16 +79,16 @@ def _run_both(q, pools_j, pools_t, specs, tables, hist, q_pos, extras, kv_heads,
         e_t = (torch.from_numpy(ke), torch.from_numpy(ve), torch.from_numpy(te))
     ref = pallas_paged_attention(
         jnp.asarray(q), pk_j, pv_j, jnp.asarray(tables), jnp.asarray(hist),
-        jnp.asarray(q_pos), *e_j, spec=jspec, kv_heads=kv_heads, scale=HD**-0.5,
+        jnp.asarray(q_pos), *e_j, spec=jspec, kv_heads=kv_heads, scale=hd**-0.5,
         window=window, out_dtype=jnp.float32, interpret=True)
     args = (torch.from_numpy(q), pk_t, pv_t, torch.from_numpy(tables),
             torch.from_numpy(hist), torch.from_numpy(q_pos), *e_t)
-    got = paged_attention(*args, spec=tspec, kv_heads=kv_heads, scale=HD**-0.5,
+    got = paged_attention(*args, spec=tspec, kv_heads=kv_heads, scale=hd**-0.5,
                           window=window)
     # the CPU dispatch IS the plain version
     np.testing.assert_array_equal(
         got.numpy(), paged_attention_plain(*args, spec=tspec, kv_heads=kv_heads,
-                                           scale=HD**-0.5, window=window).numpy())
+                                           scale=hd**-0.5, window=window).numpy())
     return got.numpy(), np.asarray(ref)
 
 
@@ -197,20 +201,29 @@ def _multi_segment_geometry():
                       [(4, 40), (0, 12)])
 
 
+# (GQA group, head_dim): the served groups of llama2 / internlm2 (1, 2),
+# qwen2-7b (7), qwen3-32b (8), and gemma3-4b's head_dim 256
+HEADS = [pytest.param((1, HD), id="1"), pytest.param((2, HD), id="2"),
+         pytest.param((7, HD), id="7"), pytest.param((8, HD), id="8"),
+         pytest.param((2, 256), id="2-hd256")]
+
+
 @pytest.mark.parametrize("window", [None, 24])
-@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("groups", HEADS)
 @pytest.mark.parametrize("fmt", ["dense", "fp4_e2m1"])
 def test_multi_segment_mixed_matches_pallas(fmt, groups, window):
-    kv_heads, n_heads = 4 // groups, 4
-    pools_j, pools_t, specs = _pools(kv_heads * HD, fmt, seed=8, n_blocks=33)
+    groups, hd = groups
+    kv_heads = max(1, 4 // groups)
+    n_heads = kv_heads * groups
+    pools_j, pools_t, specs = _pools(kv_heads * hd, fmt, seed=8, n_blocks=33)
     tables, hist, q_pos, t_extra = _multi_segment_geometry()
     rng = np.random.default_rng(9)
     R = len(tables)
-    q = rng.normal(size=(R, 1, n_heads * HD)).astype(np.float32)
-    ke = rng.normal(size=(R, kv_heads * HD)).astype(np.float32)
-    ve = rng.normal(size=(R, kv_heads * HD)).astype(np.float32)
+    q = rng.normal(size=(R, 1, n_heads * hd)).astype(np.float32)
+    ke = rng.normal(size=(R, kv_heads * hd)).astype(np.float32)
+    ve = rng.normal(size=(R, kv_heads * hd)).astype(np.float32)
     got, ref = _run_both(q, pools_j, pools_t, specs, tables, hist, q_pos,
-                         (ke, ve, t_extra), kv_heads, window)
+                         (ke, ve, t_extra), kv_heads, window, hd)
     np.testing.assert_allclose(got, ref, **TOL)
 
 
@@ -320,27 +333,39 @@ def _llama2_mixed_one_head(fmt):
     return bf(R, 1, hd), pk, pv, rows, bf(R, hd), bf(R, hd), spec
 
 
-def _small_bf16_case(fmt):
+def _small_bf16_case(fmt, kv_heads=2, groups=2, hd=HD):
     tables, hist, q_pos, t_extra = _multi_segment_geometry()
-    _, (pk, pv), specs = _pools(2 * HD, fmt, seed=11, n_blocks=33)
+    _, (pk, pv), specs = _pools(kv_heads * hd, fmt, seed=11, n_blocks=33)
     spec = specs[1] if specs else None
     if spec is None:
         pk, pv = pk.to(torch.bfloat16), pv.to(torch.bfloat16)
     rng = np.random.default_rng(12)
     bf = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
     R = len(tables)
-    return bf(R, 1, 4 * HD), pk, pv, (tables, hist, q_pos, t_extra), bf(R, 2 * HD), \
-        bf(R, 2 * HD), spec
+    return bf(R, 1, kv_heads * groups * hd), pk, pv, (tables, hist, q_pos, t_extra), \
+        bf(R, kv_heads * hd), bf(R, kv_heads * hd), spec
 
 
 @pytest.mark.parametrize("fmt", ["dense", "fp4_e2m1"])
-@pytest.mark.parametrize("case", ["multi_segment_G2_window", "llama2_mixed"])
+@pytest.mark.parametrize("case", ["multi_segment_G2_window", "llama2_mixed",
+                                  "multi_segment_G7_window", "multi_segment_G2_hd256_window"])
 def test_tiled_kernel_emulation_within_chip_tolerance(case, fmt):
     """The kernel's tiling, run split and hi/lo probabilities keep its bf16
-    output within chip_smoke's per-element tolerance of the plain version."""
+    output within chip_smoke's per-element tolerance of the plain version;
+    at G = 7 (one kv head, so the 144 rows' 1008 query vectors) a row's
+    vectors straddle the 64-vector tiles, and each tile's part of a row is
+    a run of its own."""
     if case == "llama2_mixed":
         q, pk, pv, rows, ke, ve, spec = _llama2_mixed_one_head(fmt)
         kw = dict(spec=spec, kv_heads=1, scale=128**-0.5, window=None)
+    elif case == "multi_segment_G7_window":
+        q, pk, pv, rows, ke, ve, spec = _small_bf16_case(fmt, kv_heads=1, groups=7)
+        kw = dict(spec=spec, kv_heads=1, scale=HD**-0.5, window=24)
+        runs = _kernel_runs(torch.from_numpy(rows[0]), torch.from_numpy(rows[1]), 7 * 144, 7)
+        assert any(b % 64 == 0 and b % 7 for _, b in runs)   # a row cut by a tile's end
+    elif case == "multi_segment_G2_hd256_window":
+        q, pk, pv, rows, ke, ve, spec = _small_bf16_case(fmt, hd=256)
+        kw = dict(spec=spec, kv_heads=2, scale=256**-0.5, window=24)
     else:
         q, pk, pv, rows, ke, ve, spec = _small_bf16_case(fmt)
         kw = dict(spec=spec, kv_heads=2, scale=HD**-0.5, window=24)

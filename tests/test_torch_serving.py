@@ -17,8 +17,9 @@ that, and the split-scheduler, prefix-cache and eviction test files use it.
 Also: the block allocator's invariants, the batch geometry, PoolExhausted
 for a request the whole pool cannot hold (on every scheduler, as the
 reference), entry points that default to the card, ``launch/serve.py`` in
-each mode and with its robustness flags, and each robustness option of the
-engine against the reference's.
+each mode, with its robustness flags and on the new families under the
+two_phase variant, and each robustness option of the engine against the
+reference's.
 TF32 is off for torch matmuls.
 """
 import dataclasses
@@ -300,6 +301,25 @@ def test_serve_cli_robustness_flags_on_cpu(capsys, flags, expect):
         assert line in text, line
     assert all(r.outcome is not None for r in out)
     assert engine.allocator.n_allocated == 0 and engine.allocator.n_held == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma3-4b"])
+def test_serve_cli_families_two_phase_on_cpu(capsys, arch):
+    """The serving CLI on a new family's reduced config under the two_phase
+    variant (and the reference launcher's ``--overlap-chunks``): the banner
+    names the arch and the variant and says the overlap chunks are ignored,
+    the compressed steps run, and every request finishes."""
+    engine, out = serve.main(["--reduced", "--device", "cpu", "--arch", arch, "--slots", "2",
+                              "--requests", "3", "--prompt-len", "40", "--new-tokens", "3",
+                              "--cache-spec", "fp4_e2m1", "--variant", "two_phase",
+                              "--overlap-chunks", "2"])
+    text = capsys.readouterr().out
+    assert f"arch={arch}" in text and "variant=two_phase" in text
+    assert "overlap_chunks=2 (ignored: no effect under simulate_tp)" in text
+    assert "3 requests, 9 tokens" in text and "compression gate:" in text
+    assert engine.ctx.policy.variant == "two_phase" and engine.ctx.policy.overlap_chunks == 2
+    assert engine.gate_counts["compressed"] > 0
+    assert all(r.outcome == "ok" and len(r.output) == 3 for r in out)
 
 
 @pytest.mark.parametrize("flags,banner", [
