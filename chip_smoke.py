@@ -40,7 +40,13 @@ Phases (any failure exits non-zero):
               codec at the families' widths (d_model 3584, 5120, 2560;
               kv_dim 512, 1024) at their served shapes; plus a sweep of
               small shapes through every path of the paged kernel (hd 32 to
-              256, GQA groups 1, 2, 7, 8, with and without a window). Prints
+              256, GQA groups 1, 2, 7, 8, with and without a window); the
+              sequence-sharded read (``row_map``, the TPU kernel's
+              has_row_map) in every one of those served geometries of
+              llama2-7b and the families, on fp4 and bf16 pools, over the
+              virtual pool of each geometry's regions: bit-identical to the
+              table walk over the original pool and within the check of
+              the plain version, mixed and split decode timed. Prints
               each kernel's
               device time (CUDA events around back-to-back launches) at every
               shape the served steps launch it, bytes moved and bound, and
@@ -91,6 +97,24 @@ Phases (any failure exits non-zero):
               fit the card once the earlier models are freed, else at the
               depth that fits (printed). Each run held as in phase 5, with
               its weight GB and peak device memory printed.
+7. sharded  — llama2-7b at full width and depth on 2 kv ranks (processes
+              over gloo, ``file://`` rendezvous) sharing the one card, the
+              paged pools sequence-sharded between them (each rank holds half
+              of every pool; the blocks a step reads are exchanged through
+              host memory): (a) mixed on fp4 pools under PAPER_DEFAULT over
+              simulate_tp = 4 and on bf16 pools uncompressed, (b) split on
+              fp4 pools of 12 blocks (it preempts), (c) the prefix cache on
+              bf16 pools run twice (copy-on-write forks), (d) corrupt@3 on
+              fp4 pools supervised, (e) capacity: one prompt that 2 x 17
+              blocks hold and 17 do not. 4 requests of 64 + 8 tokens. Each
+              run's tokens identical on both ranks and to the replicated
+              engine's in this process, half the pool bytes per rank, the
+              launch counts and the exchange's all-reduces (layers x pool
+              planes per paged read and COW fork) exact; the replicated
+              engine at the per-rank budget must refuse the long prompt.
+              Prints the exchange's MB and ms per step and TPOT p50 sharded
+              against replicated (one card, gloo, host-staged: not NVLink)
+              and each rank's peak device memory.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Details go to
@@ -151,8 +175,12 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_QUIET = [False]   # set in a kv rank other than 0: only rank 0 prints
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    if not _QUIET[0]:
+        print(msg, flush=True)
 
 
 def device_ms(torch, fn, n: int = 50, reps: int = 3) -> float:
@@ -660,14 +688,37 @@ def paged_geometries(torch, dev, g, kv_dim, q_dim, prompt):
     return geometries, pools, slot_tables, (ke, ve)
 
 
+def row_regions(torch, tables):
+    """Sequence-sharded addressing of a geometry: (regions, row_map), the
+    distinct table rows (one per slot: the blocks ``pool_exchange`` gathers
+    into a virtual pool) and each row's region. Rows with equal tables share
+    a region, so the kernel's runs are those of its table walk."""
+    regions, inverse = torch.unique(tables, dim=0, return_inverse=True)
+    return regions, inverse.to(torch.int32).contiguous()
+
+
+def virtual_pool(pool, regions):
+    """``pool[regions.reshape(-1)]``: what ``pool_exchange`` gives every kv
+    rank (payload and scales of an MX pool)."""
+    from repro_torch.core.mx import MXCompressed
+
+    idx = regions.reshape(-1).long()
+    if isinstance(pool, MXCompressed):
+        return MXCompressed(pool.payload[idx].contiguous(), pool.scales[idx].contiguous())
+    return pool[idx].contiguous()
+
+
 def time_paged(torch, dev, res, label, geometries, pools, extras, H, KV, hd, window,
-               timed_only=None):
+               timed_only=None, row_map=False):
     """Each geometry on each pool format: the kernel against its plain
     version, and for a timed geometry (of those in ``timed_only``, if given)
     its device time, the plain version's, SDPA's on the K/V
     gathered to dense bf16 (GQA by ``enable_gqa``; the gather not timed; the
-    port never calls it) and its bound. Results go to ``res[label + geo /
-    pools]``."""
+    port never calls it) and its bound. ``row_map``: the sequence-sharded
+    read (the TPU kernel's ``has_row_map``), over the virtual pool of the
+    geometry's regions (``row_regions``), held bit for bit to the table
+    walk over the original pool as well. Results go to ``res[label + geo /
+    pools (/row_map)]``."""
     from repro_torch.kernels import paged_attention as pa
 
     ke, ve = extras
@@ -679,23 +730,36 @@ def time_paged(torch, dev, res, label, geometries, pools, extras, H, KV, hd, win
         E = t_extra.shape[1] if t_extra is not None else 0
         ex = (ke[:E], ve[:E], t_extra) if E else ()
         for name, (pk, pv, spec) in pools.items():
+            rkw, rows = {}, tables
+            if row_map:
+                walk = pa.paged_attention(qq, pk, pv, tables, hist, qpos, *ex, spec=spec, **kw)
+                regions, rm = row_regions(torch, tables)
+                pk, pv = virtual_pool(pk, regions), virtual_pool(pv, regions)
+                rkw, rows = dict(row_map=rm), pa.block_rows(tables, rm)
             args = (qq, pk, pv, tables, hist, qpos, *ex)
-            run = lambda: pa.paged_attention(*args, spec=spec, **kw)
+            run = lambda: pa.paged_attention(*args, spec=spec, **kw, **rkw)
             out = run()
-            ref = pa.paged_attention_plain(*args, spec=spec, **kw)
+            ref = pa.paged_attention_plain(*args, spec=spec, **kw, **rkw)
             where = f"{label}{geo} R={R} Sq={Sq} H={H} KV={KV} hd={hd} E={E}" + (
-                f" window={window}" if window else "")
+                f" window={window}" if window else "") + (" row_map" if row_map else "")
             err, n_diff, rel = check_paged(torch, out, ref, f"{name} pools, {where}")
             r = dict(geometry=label + geo, pools=name, max_abs_err=err, rel_l2=rel,
                      elements_differing=n_diff, shape=f"{where}, {name} pools")
             msg = (f"kernel paged_attention ({name} pools, {where}): max|err| {err:.3g}, "
                    f"rel-L2 {rel:.3g}, {n_diff} of {out.numel()} elements differ")
+            if row_map:
+                check(torch.equal(out, walk), f"paged_attention ({name} pools, {where}): the "
+                      f"row_map read differs from the table walk in "
+                      f"{int((out != walk).sum())} elements")
+                r["row_map"] = True
+                r["geometry"] += " row_map"
+                msg += f"; bit-identical to the table walk over {regions.shape[0]} regions"
             if timed:
                 r["ms"] = device_ms(torch, run)
                 r["plain_ms"] = device_ms(torch, lambda: pa.paged_attention_plain(
-                    *args, spec=spec, **kw), n=3)
-                kg = pa._gather_pool(pk, tables, spec).to(torch.bfloat16)
-                vg = pa._gather_pool(pv, tables, spec).to(torch.bfloat16)
+                    *args, spec=spec, **kw, **rkw), n=3)
+                kg = pa._gather_pool(pk, rows, spec).to(torch.bfloat16)
+                vg = pa._gather_pool(pv, rows, spec).to(torch.bfloat16)
                 cap = kg.shape[1]
                 t = torch.arange(cap, device=dev)[None]
                 tpos = torch.where(t < hist[:, None], t, pa.T_INVALID)
@@ -715,12 +779,12 @@ def time_paged(torch, dev, res, label, geometries, pools, extras, H, KV, hd, win
                     qh, kk, vv, attn_mask=m4, scale=hd**-0.5, enable_gqa=KV != H), n=10)
                 del kg, vg, kk, vv
                 r["bound_ms"], r["bound_by"], r["bytes"] = paged_bound(
-                    torch, qq, spec, KV * hd, tables, hist, qpos, t_extra, H, hd, window)
+                    torch, qq, spec, KV * hd, rows, hist, qpos, t_extra, H, hd, window)
                 msg += (f"; {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms, "
                         f"SDPA on gathered K/V "
                         f"{r['library_ms']:.4f} ms), {r['bytes'] / 1e6:.2f} MB, bound "
                         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-            res[f"{label}{geo}/{name}"] = r
+            res[f"{label}{geo}/{name}" + ("/row_map" if row_map else "")] = r
             log(msg)
 
 
@@ -742,6 +806,9 @@ def phase_paged(torch, dev="cuda"):
     kw = dict(kv_heads=KV, scale=hd**-0.5)
     res = {}
     time_paged(torch, dev, res, "", geometries, pools, (ke, ve), H, KV, hd, None)
+    # the sequence-sharded read (row_map) in every served geometry
+    time_paged(torch, dev, res, "", geometries, pools, (ke, ve), H, KV, hd, None,
+               timed_only=("mixed", "decode"), row_map=True)
     # poisoned pools: one block of scale bytes 255 (fp4) or NaN values (bf16)
     # in every served geometry; the rows whose history reaches it must come
     # out non-finite in the kernel and in the plain version, and no other
@@ -784,15 +851,21 @@ def phase_paged(torch, dev="cuda"):
         windows = sorted({sp.window for sp in cfg.layers}, key=lambda w: w is None)
         for window in windows:
             label = f"{arch} " if window == windows[0] else f"{arch} global "
-            time_paged(torch, dev, res, label, geos, fpools, fextras, cfg.n_heads,
-                       cfg.n_kv_heads, cfg.head_dim, window,
-                       timed_only=("mixed", "decode") if window == windows[0] else ())
+            for rm in (False, True):
+                time_paged(torch, dev, res, label, geos, fpools, fextras, cfg.n_heads,
+                           cfg.n_kv_heads, cfg.head_dim, window,
+                           timed_only=("mixed", "decode") if window == windows[0] else (),
+                           row_map=rm)
         del geos, fpools
     n_sweep = paged_sweep(torch, dev)
     log(f"kernel paged_attention: {n_sweep} small-shape cases through every path match "
         f"the plain version (fp32 / bf16 q; fp32, bf16, fp4, fp6, int8 pools; hd 32-128 at "
         f"G 1-2, hd 128 at G 7-8, hd 192 and 256 at G 1-2; windows; chunk, decode and "
         f"multi-run mixed geometries)")
+    n_rm = sum(1 for r in res.values() if r.get("row_map"))
+    log(f"kernel paged_attention (row_map): {n_rm} served cases (llama2-7b and the families, "
+        f"every geometry and window, fp4 and bf16 pools) bit-identical to the table walk and "
+        f"within the check of the plain version")
     main = dict(res["mixed/fp4"])
     main["geometries"] = [res[k] for k in res if k != "mixed/fp4"]
     main["sweep_cases"] = n_sweep
@@ -1147,34 +1220,50 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     quantize of the reduced result). The mixed step compresses under its
     compressed gate; the split chunk and the whole-prompt prefill under the
     engine's context, the split decode under ``ctx_decode``. A COW fork
-    launches nothing, and a layer's window changes no count."""
+    launches nothing, and a layer's window changes no count. On
+    sequence-sharded pools (``eng.kv_shards > 1``) the count also holds
+    ``all_reduce``, the exchange's: per paged read and per COW fork one for
+    each pool plane of each layer (K and V; payload and scales of each on
+    fp4 pools)."""
     L, q, s = n_layers, eng.cache_spec.quantized, stats
     two = eng.ctx.policy.variant == "two_phase"
+    planes = 4 if q else 2
     if eng.token_budget:
         n_c, n_d = s.n_compressed_steps, s.n_steps - s.n_compressed_steps
         red = L * 2 * n_c
-        return {"mx_quant": red * (1 + two) + (L * 2 * (n_c + n_d) if q else 0),
-                "mx_dequant_reduce": red,
-                "mx_dequant": red * two + (L * 2 * (n_c + n_d) if q else 0),
-                "paged_attention": L * (n_c + n_d)}
-    n_chunk = sum(1 for p, _ in s.step_tokens if p)
-    n_dec = sum(1 for _, d in s.step_tokens if d)
-    n_whole = (s.n_dispatches - n_chunk - n_dec) // 2   # prefill + insert each
-    comp = (n_chunk + n_whole) * eng.ctx.policy.enabled + n_dec * eng.ctx_decode.policy.enabled
-    red = L * 2 * comp
-    return {"mx_quant": red * (1 + two) + (L * 2 * (n_chunk + n_dec + n_whole) if q else 0),
-            "mx_dequant_reduce": red, "mx_dequant": red * two,
-            "paged_attention": L * (n_chunk + n_dec)}
+        out = {"mx_quant": red * (1 + two) + (L * 2 * (n_c + n_d) if q else 0),
+               "mx_dequant_reduce": red,
+               "mx_dequant": red * two + (L * 2 * (n_c + n_d) if q else 0),
+               "paged_attention": L * (n_c + n_d)}
+        reads, forks = s.n_steps, s.n_dispatches - s.n_steps
+    else:
+        n_chunk = sum(1 for p, _ in s.step_tokens if p)
+        n_dec = sum(1 for _, d in s.step_tokens if d)
+        # whole-prompt: prefill + insert each; chunked: the rest are COW forks
+        n_whole = 0 if eng.prefill_chunk else (s.n_dispatches - n_chunk - n_dec) // 2
+        comp = ((n_chunk + n_whole) * eng.ctx.policy.enabled
+                + n_dec * eng.ctx_decode.policy.enabled)
+        red = L * 2 * comp
+        out = {"mx_quant": red * (1 + two) + (L * 2 * (n_chunk + n_dec + n_whole) if q else 0),
+               "mx_dequant_reduce": red, "mx_dequant": red * two,
+               "paged_attention": L * (n_chunk + n_dec)}
+        reads = n_chunk + n_dec
+        forks = s.n_dispatches - reads - 2 * n_whole
+    if eng.kv_shards > 1:
+        out["all_reduce"] = L * planes * (reads + forks)
+    return out
 
 
 def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=None,
-              req_kw=None, all_new=True, during=None):
+              req_kw=None, all_new=True, during=None, new=NEW):
     """One measured run of ``eng`` (under ``sup`` when given) on
-    ``traffic``, with its checks: every request at a terminal outcome
-    (``ok`` with NEW tokens when ``all_new``), a conserved free list with
-    nothing held, finite logits in the last attempt, launches equal to
-    the stats'. ``during(reqs)`` starts what acts on the run from
+    ``traffic``, ``new`` tokens a request, with its checks: every request
+    at a terminal outcome (``ok`` with ``new`` tokens when ``all_new``), a
+    conserved free list with nothing held, finite logits in the last
+    attempt, launches equal to the stats' (on sharded pools the exchange's
+    all-reduces too). ``during(reqs)`` starts what acts on the run from
     outside (a timer). Returns (summary, requests)."""
+    from repro_torch.core.collectives import exchange_counts, reset_exchange_counts
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.serving import Request
 
@@ -1184,15 +1273,19 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
         eng.run([Request(prompt=traffic[0].copy(), max_new_tokens=2)])
         eng.fault_plan = plan
         sync()
-    reqs = [Request(prompt=p.copy(), max_new_tokens=NEW, **k)
+    reqs = [Request(prompt=p.copy(), max_new_tokens=new, **k)
             for p, k in zip(traffic, req_kw or [{}] * len(traffic))]
     stop = during(reqs) if during else None
     reset_launch_counts()
+    reset_exchange_counts()
     t0 = time.perf_counter()
     (sup or eng).run(reqs, seed=0)
     sync()
     wall = time.perf_counter() - t0
     got = launch_counts()
+    exchange = exchange_counts()
+    if eng.kv_shards > 1:
+        got["all_reduce"] = exchange["all_reduce"]
     if stop:
         stop()
     stats = (sup or eng).stats
@@ -1200,8 +1293,8 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
     expect = expected_launches(eng, stats, L)
     a = eng.allocator
     check(all(r.outcome is not None for r in reqs), f"{name}: a request has no outcome")
-    check(not all_new or all(r.outcome == "ok" and len(r.output) == NEW for r in reqs),
-          f"{name}: not every request finished ok with {NEW} tokens")
+    check(not all_new or all(r.outcome == "ok" and len(r.output) == new for r in reqs),
+          f"{name}: not every request finished ok with {new} tokens")
     check(eng.logits_finite(), f"{name}: non-finite logits")
     check(a.n_free + a.n_cached == eng.n_blocks - 1 and a.n_allocated == 0
           and a.n_held == 0,
@@ -1209,12 +1302,15 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
           f"{a.n_allocated} referenced, {a.n_held} held of {eng.n_blocks - 1})")
     if dev == "cuda":  # kernels launch only on the card
         check(got == expect, f"{name}: launches {got} != expected {expect}")
+    elif eng.kv_shards > 1:   # the exchange runs on the CPU too
+        check(got["all_reduce"] == expect["all_reduce"],
+              f"{name}: {got['all_reduce']} all-reduces != expected {expect['all_reduce']}")
     for k in totals:
         totals[k] += got[k]
     runs[name] = dict(summary=s, launches=got, gate=dict(eng.gate_counts), wall_s=wall,
-                      pool_mb=eng.kv_pool_bytes() / 1e6,
+                      pool_mb=eng.kv_pool_bytes() / 1e6, pool_bytes=eng.kv_pool_bytes(),
                       outputs=[r.output.tolist() for r in reqs],
-                      outcomes=[r.outcome for r in reqs])
+                      outcomes=[r.outcome for r in reqs], exchange=exchange, expected=expect)
     outcomes = ", ".join(f"{s[k]} {k[2:].replace('_', ' ')}" for k in
                          ("n_ok", "n_rejected", "n_timed_out", "n_cancelled") if s[k])
     log(f"serve[{name}]: {len(reqs)} requests ({outcomes}), {s['n_generated']} tokens in "
@@ -1460,6 +1556,218 @@ def phase_family(torch, arch, dev="cuda"):
     return runs, totals
 
 
+# ---------------------------------------------------------------------- sharded
+
+KV_RANKS = 2                      # the sharded phase's kv ranks, on the one card
+SHARD_PROMPT, SHARD_NEW = 64, 8   # its traffic: SLOTS requests of 64 + 8 tokens
+SHARD_CAP_BLOCKS = 17             # the capacity case's pool budget per rank (blocks)
+
+
+def pool_bytes_held(eng) -> int:
+    """Bytes of the pool tensors this process holds for ``eng``."""
+    from repro_torch.models.attention import pool_planes
+
+    return sum(p.numel() * p.element_size()
+               for pk, pv in zip(eng._state["pools_k"], eng._state["pools_v"])
+               for p in pool_planes(pk, pv))
+
+
+def sharded_serve(torch, dev, group, model, params, label):
+    """The sequence-sharded phase's runs of ``model`` on this kv rank of
+    ``group`` (None: the replicated engine they are held to), each held as
+    ``serve_run`` holds it, the exchange's all-reduces counted with the
+    launches: (a) the mixed step on fp4 pools under PAPER_DEFAULT over
+    simulate_tp = 4, and on bf16 pools uncompressed; (b) the split
+    scheduler on fp4 pools of 12 blocks (5 a request), so that it preempts;
+    (c) the prefix cache on bf16 pools run twice, the warm run forking every
+    request's tail block (copy on write); (d) ``corrupt@3`` on fp4 pools,
+    supervised; (e) one prompt as long as 2 x SHARD_CAP_BLOCKS blocks hold.
+    Every engine's pools held in this process are ``kv_pool_bytes
+    (per_device=True)``. Returns (runs, totals)."""
+    import numpy as np
+
+    from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
+    from repro_torch.core.tp import TPContext
+    from repro_torch.serving import Engine, EngineSupervisor, FaultPlan
+
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, SHARD_PROMPT).astype(np.int32)
+               for _ in range(SLOTS)]
+    long_s = (2 * SHARD_CAP_BLOCKS - 1) * BS - 4 + 1
+    long_prompt = [rng.integers(0, cfg.vocab_size, long_s).astype(np.int32)]
+    runs, totals = {}, {k: 0 for k in KERNELS}
+    serve = functools.partial(serve_run, torch, dev, runs, totals, cfg.n_layers, new=SHARD_NEW)
+    ctx = lambda policy: TPContext(policy=policy, simulate_tp=TP, kv_group=group)
+    comp = ctx(PAPER_DEFAULT)
+    max_len = SHARD_PROMPT + SHARD_NEW
+    kw = dict(max_slots=SLOTS, max_len=max_len, block_size=BS, prefill_chunk=CHUNK, device=dev)
+
+    def held(name, eng):
+        b = pool_bytes_held(eng)
+        check(b == eng.kv_pool_bytes(per_device=True) == eng.kv_pool_bytes() // eng.kv_shards,
+              f"{label}{name}: this rank holds {b} pool bytes, not "
+              f"{eng.kv_pool_bytes(per_device=True)} of {eng.kv_pool_bytes()}")
+        runs[label + name]["pool_bytes_held"] = b
+
+    for name, spec, c in (("mixed/fp4_e2m1", "fp4_e2m1", comp),
+                          ("mixed/bf16", "bf16", ctx(NO_COMPRESSION))):
+        eng = Engine(model, params, c, token_budget=T, cache_spec=spec, **kw)
+        serve(label + name, eng, prompts)
+        held(name, eng)
+    check(runs[label + "mixed/fp4_e2m1"]["gate"]["compressed"] > 0,
+          f"{label}mixed/fp4_e2m1: no compressed step")
+    eng = Engine(model, params, comp, token_budget=0, cache_spec="fp4_e2m1", n_blocks=12, **kw)
+    s = serve(label + "split-evict/fp4_e2m1", eng, prompts)[0]
+    held("split-evict/fp4_e2m1", eng)
+    check(s["n_preemptions"] >= 1, f"{label}split-evict/fp4_e2m1: no preemption")
+    eng = Engine(model, params, comp, token_budget=T, cache_spec="bf16", prefix_cache=True,
+                 persistent_cache=True, n_blocks=2 * SLOTS * (-(-max_len // BS)) + 2, **kw)
+    serve(label + "prefix/bf16/run1", eng, prompts, warm=False)
+    held("prefix/bf16/run1", eng)
+    s = serve(label + "prefix/bf16/run2", eng, prompts, warm=False)[0]
+    held("prefix/bf16/run2", eng)
+    check(s["n_dispatches"] - s["n_steps"] == SLOTS,
+          f"{label}prefix/bf16: {s['n_dispatches'] - s['n_steps']} COW forks, not {SLOTS}")
+    eng = Engine(model, params, comp, token_budget=T, cache_spec="fp4_e2m1",
+                 fault_plan=FaultPlan.parse("corrupt@3"), **kw)
+    sup = EngineSupervisor(eng, backoff_s=0.0)
+    serve(label + "corrupt@3/fp4_e2m1", eng, prompts, sup=sup)
+    events = [(e.error, e.mode) for e in sup.events]
+    check(events == [("WireCorruption", "hard")], f"{label}corrupt@3: recoveries {events}")
+    runs[label + "corrupt@3/fp4_e2m1"]["events"] = [(e.error, e.mode, e.n_replayed, e.detail)
+                                                    for e in sup.events]
+    held("corrupt@3/fp4_e2m1", eng)
+    eng = Engine(model, params, comp, max_slots=1, max_len=(2 * SHARD_CAP_BLOCKS - 1) * BS,
+                 block_size=BS, prefill_chunk=CHUNK, n_blocks=2 * SHARD_CAP_BLOCKS,
+                 cache_spec="fp4_e2m1", device=dev)
+    serve(label + "capacity/fp4_e2m1", eng, long_prompt, new=4)
+    held("capacity/fp4_e2m1", eng)
+    runs[label + "capacity/fp4_e2m1"]["prompt_tokens"] = long_s
+    return runs, totals
+
+
+def _sharded_rank(group, rank, dev, cfg):
+    """One kv rank of ``phase_sharded``: open the kernels the parent built,
+    draw ``cfg``'s seed-0 weights, serve ``sharded_serve``'s runs. Only
+    rank 0 prints."""
+    import torch
+
+    from repro_torch.kernels.build import load_kernels
+    from repro_torch.models.model import Model
+
+    _QUIET[0] = rank != 0
+    cuda = dev.type == "cuda"
+    if cuda:
+        load_kernels(build=False)
+    model = Model(cfg)
+    params = model.init_params(device=dev, seed=0)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    runs, totals = sharded_serve(torch, dev.type, group, model, params, "sharded ")
+    return dict(runs=runs, totals=totals, device=str(dev),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+
+
+def phase_sharded(torch, card, dev="cuda", cfg=None):
+    """llama2-7b at full width and depth on KV_RANKS kv ranks sharing the one
+    card (processes over gloo; the exchange is staged through the host), its
+    runs held to the replicated engine's in this process on the same weights
+    and prompts: tokens identical on every rank and to the replicated run's,
+    each rank holding half the pool bytes, exact launch and all-reduce
+    counts; and at a fixed per-rank pool budget (SHARD_CAP_BLOCKS blocks)
+    the sharded engine serves a prompt at least 1.9x longer than the
+    replicated engine admits, which must refuse it. Prints the exchange's
+    bytes and ms per step, TPOT p50 sharded against replicated, and each
+    rank's peak device memory. (``dev="cpu"`` and a reduced ``cfg``
+    rehearse it on the CPU.)"""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import PAPER_DEFAULT
+    from repro_torch.core.tp import TPContext
+    from repro_torch.launch.mesh import spawn_kv_ranks
+    from repro_torch.models.model import Model
+    from repro_torch.serving import Engine, PoolExhausted, Request
+
+    cuda = dev == "cuda"
+    cfg = cfg or get_config("llama2-7b")
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    model = Model(cfg)
+    params = model.init_params(device=dev, seed=0)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rep, totals = sharded_serve(torch, dev, None, model, params, "replicated ")
+    rep_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    # the replicated engine at the per-rank budget refuses the long prompt
+    eng = Engine(model, params, TPContext(policy=PAPER_DEFAULT, simulate_tp=TP), max_slots=1,
+                 max_len=(2 * SHARD_CAP_BLOCKS - 1) * BS, block_size=BS, prefill_chunk=CHUNK,
+                 n_blocks=SHARD_CAP_BLOCKS, cache_spec="fp4_e2m1", device=dev)
+    cap = rep["replicated capacity/fp4_e2m1"]
+    long_s, long_r = cap["prompt_tokens"], (SHARD_CAP_BLOCKS - 1) * BS - 4 + 1
+    try:
+        eng.run([Request(prompt=np.zeros(long_s, np.int32), max_new_tokens=4)])
+        refused = False
+    except PoolExhausted:
+        refused = True
+    check(refused, f"sharded: the replicated engine of {SHARD_CAP_BLOCKS} blocks admitted a "
+          f"{long_s}-token prompt")
+    budget = eng.kv_pool_bytes(per_device=True)
+    del eng, params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn_kv_ranks(_sharded_rank, KV_RANKS, cfg, device=dev, timeout_s=900,
+                           threads=0 if cuda else 2)
+    wall = time.perf_counter() - t0
+    log(f"sharded: {KV_RANKS} kv ranks on {card} over gloo (exchange staged through host "
+        f"memory: one card, not NVLink), {wall:.1f} s with start-up")
+    for r in ranks:
+        for k in totals:
+            totals[k] += r["totals"][k]
+    for name, rr in rep.items():
+        case = name.split(" ", 1)[1]
+        sh = [r["runs"]["sharded " + case] for r in ranks]
+        for i, x in enumerate(sh):
+            check(x["outputs"] == rr["outputs"], f"sharded {case}: rank {i}'s tokens differ "
+                  f"from the replicated run's")
+            check(x["pool_bytes_held"] * KV_RANKS == x["pool_bytes"],
+                  f"sharded {case}: rank {i} holds {x['pool_bytes_held']} of "
+                  f"{x['pool_bytes']} pool bytes, not 1/{KV_RANKS}")
+            check(x.get("events") == rr.get("events"),
+                  f"sharded {case}: rank {i}'s recoveries {x.get('events')} differ from "
+                  f"{rr.get('events')}")
+        ex, s = sh[0]["exchange"], sh[0]["summary"]
+        log(f"sharded {case}: tokens identical on {KV_RANKS} ranks and to the replicated run; "
+            f"{sh[0]['pool_bytes_held'] / 1e6:.2f} MB of pools per rank of "
+            f"{sh[0]['pool_mb']:.2f} MB; exchange {ex['all_reduce']} all-reduces "
+            f"({sh[0]['expected']['all_reduce']} expected), "
+            f"{ex['bytes'] / s['n_steps'] / 1e6:.2f} MB and {ex['seconds'] / s['n_steps'] * 1e3:.2f}"
+            f" ms per step (one card, gloo, host-staged exchange); TPOT p50 "
+            f"{s['tpot_p50_s'] * 1e3:.2f} ms sharded vs {rr['summary']['tpot_p50_s'] * 1e3:.2f} "
+            f"ms replicated (one card, gloo, host-staged exchange)")
+    shc = ranks[0]["runs"]["sharded capacity/fp4_e2m1"]
+    check(shc["pool_bytes_held"] == budget and long_s / long_r >= 1.9,
+          f"sharded capacity: {shc['pool_bytes_held']} pool bytes per rank against a budget of "
+          f"{budget}; {long_s} / {long_r} tokens")
+    log(f"sharded capacity: at {budget / 1e6:.2f} MB of fp4 pools per rank the {KV_RANKS}-rank "
+        f"engine served a {long_s}-token prompt; the replicated engine admits {long_r} at most "
+        f"({long_s / long_r:.2f}x) and refused it")
+    for i, r in enumerate(ranks):
+        log(f"sharded: rank {i} ({r['device']}) peak device memory "
+            + (f"{r['peak_gb']:.2f} GB (replicated in one process: {rep_peak:.2f} GB)" if cuda
+               else "not measured (no card)"))
+    log(f"sharded: card {card}")
+    return dict(replicated=rep, ranks=ranks, wall_s=wall, budget_bytes=budget,
+                long_prompt=long_s, long_replicated=long_r), totals
+
+
 FAULT_RUNS = {  # pools -> (fault plan, the recoveries it must cause, in order)
     "fp4_e2m1": ("exhaust@5:64x4;corrupt@9;die@20", ["WireCorruption", "EngineDead"]),
     "bf16": ("corrupt@9", ["WireCorruption"]),
@@ -1644,6 +1952,9 @@ def main() -> int:
         families[arch], fam_totals = phase_family(torch, arch)
         for k in totals:
             totals[k] += fam_totals[k]
+    sharded, sh_totals = phase_sharded(torch, card)
+    for k in totals:
+        totals[k] += sh_totals[k]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=totals[n],
@@ -1658,11 +1969,12 @@ def main() -> int:
         k["launch_floor_ms"] = info[k["name"]]["launch_floor_ms"]
     # paged attention's other geometries and pool formats, each with its bound
     kernels[-1]["geometries"] = [
-        {k: v for k, v in r.items() if k in keys + ("geometry", "pools", "rel_l2")}
+        {k: v for k, v in r.items() if k in keys + ("geometry", "pools", "rel_l2", "row_map")}
         for r in info["paged_attention"]["geometries"]]
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_s": build_seconds(), "builder": builder(), "kernels": info, "serve": runs,
-         "families": families, "launches": totals}, indent=1, default=str))
+        {"card": card, "build_s": build_seconds(), "builder": builder(), "kernels": info,
+         "serve": runs, "families": families, "sharded": sharded, "launches": totals},
+        indent=1, default=str))
     log("kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g} "
         f"ms={k['ms']:.4f}" for k in kernels))

@@ -13,26 +13,78 @@ versions on the CPU. ``tp.row_linear`` adds the ``two_phase`` variant's
 second quantize of the reduced result itself, as the reference's simulated
 path does.
 
+``masked_owner_psum`` is the bit-exact ownership select of the
+sequence-sharded pools (``core/tp.py``): a ``torch.distributed`` all-reduce
+over the kv group in which exactly one rank contributes each byte.
+
 Not ported yet (see ROADMAP.md): the rank collectives of the ``two_phase``
 variant (reduce-scatter + all-gather), ``keep_local_fp``, ``overlap_chunks``
 and a non-fp32 accumulator, which change what ranks exchange or sum (a call
 here that asks for any of them raises, see ``check_ported``); the
-straight-through-estimator gradient, ``compressed_all_to_all`` and
-``masked_owner_psum``.
+straight-through-estimator gradient and ``compressed_all_to_all``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+import time
+from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.formats import MXSpec
 from repro_torch.core.mx import MXCompressed
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.kernels import ops
 
-__all__ = ["compressed_psum", "psum", "psum_maybe_compressed", "check_ported"]
+__all__ = ["compressed_psum", "psum", "psum_maybe_compressed", "check_ported",
+           "masked_owner_psum", "exchange_counts", "reset_exchange_counts"]
+
+# masked_owner_psum calls since the last reset: all-reduces, bytes each rank
+# contributes, and host seconds spent in them (device-to-host copy, the
+# all-reduce, host-to-device copy; each call ends synchronized)
+_EXCHANGE: Dict[str, float] = {"all_reduce": 0, "bytes": 0, "seconds": 0.0}
+
+
+def exchange_counts() -> Dict[str, float]:
+    """``masked_owner_psum`` all-reduces, bytes and seconds since the last
+    reset (the sharded pools' exchange; counted like a kernel launch)."""
+    return dict(_EXCHANGE)
+
+
+def reset_exchange_counts() -> None:
+    _EXCHANGE.update(all_reduce=0, bytes=0, seconds=0.0)
+
+
+def masked_owner_psum(x: torch.Tensor, own: torch.Tensor, group) -> torch.Tensor:
+    """Bit-exact ownership select across the ranks of ``group``.
+
+    Every rank contributes the elements of ``x`` it owns (``own``, a bool
+    tensor broadcastable to ``x``, True on exactly one rank per element) and
+    zeros elsewhere; the sum over the group rebuilds the whole tensor on
+    every rank. The select and the sum run on the tensor's BYTES (a uint8
+    view): with one nonzero contributor per byte the sum is exact, so bf16
+    and fp32 pool values (``-0.0`` and NaN payloads included) and uint8 wire
+    bytes all arrive bit for bit. (A float sum would turn ``-0.0`` into
+    ``+0.0``, and gloo has no 16- or 32-bit unsigned sum.)
+
+    Transport: gloo on the host. A tensor on the card is staged through
+    host memory (device-to-host copy, the all-reduce, host-to-device copy),
+    so each call ends synchronized; the pools and every kernel stay on the
+    card. ``x`` has at least one dimension. Returns a new tensor like
+    ``x``."""
+    t0 = time.perf_counter()
+    x = x.contiguous()
+    u = x.view(torch.uint8).reshape(*x.shape, x.element_size())   # (..., bytes)
+    own = torch.as_tensor(own, dtype=torch.bool, device=x.device)
+    buf = torch.where(own[..., None], u, torch.zeros((), dtype=torch.uint8, device=x.device))
+    host = buf.cpu() if buf.device.type != "cpu" else buf.contiguous()
+    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+    out = host.to(x.device).reshape(-1).view(x.dtype).reshape(x.shape)
+    _EXCHANGE["all_reduce"] += 1
+    _EXCHANGE["bytes"] += host.numel()
+    _EXCHANGE["seconds"] += time.perf_counter() - t0
+    return out
 
 
 def check_ported(policy: CompressionPolicy) -> None:

@@ -1,5 +1,5 @@
-"""Tensor-parallel linear layers on one device — the port's ``core/tp.py``
-without meshes or pool ops.
+"""Tensor-parallel linear layers on one device, and the sequence-sharded
+paged pools over a kv group of ranks — the port's ``core/tp.py``.
 
 ``TPContext`` carries the compression policy and ``simulate_tp``: with
 ``simulate_tp = N > 1`` and an active policy, ``row_linear`` splits its
@@ -14,29 +14,57 @@ the reduced result once more (one more ``mx_quantize`` and
 ``accum_dtype`` have no effect, as in the reference's simulated
 ``row_linear`` (``overlap_chunks`` is bit-identical either way there; the
 other two change only what ranks exchange).
+
+Sequence-sharded pools (the reference's kv mesh axis): ``TPContext.kv_group``
+is a ``torch.distributed`` process group of ``kv_shards`` ranks, each of
+which runs the whole model and holds a contiguous slab of ``per_shard =
+n_blocks // kv_shards`` blocks of every pool. Global block id ``g`` lives on
+rank ``g // per_shard`` at local row ``g % per_shard``. Writes are
+communication-free (a rank drops the rows it does not own); the read side
+exchanges exactly the blocks a step's tables name (``pool_exchange``, one
+``masked_owner_psum`` per pool plane). Pool ops update the local slabs in
+place and return them, so call sites read like the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.collectives import compressed_psum
+from repro_torch.core.collectives import compressed_psum, masked_owner_psum
 from repro_torch.core.policy import CompressionPolicy, NO_COMPRESSION
 from repro_torch.kernels import ops
 
-__all__ = ["TPContext", "column_linear", "row_linear"]
+__all__ = ["TPContext", "column_linear", "row_linear", "pool_exchange", "pool_scatter",
+           "pool_block_write", "pool_block_fill", "pool_block_copy"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TPContext:
-    """Everything model code needs to know about distribution (one device:
-    no mesh yet)."""
+    """Everything model code needs to know about distribution: the
+    compression policy, simulated TP on one device, and the kv group of
+    sequence-sharded pools (None: replicated pools)."""
 
     policy: CompressionPolicy = NO_COMPRESSION
     simulate_tp: int = 0     # single-device TP emulation: split row-parallel
                              # contractions into N quantized partial sums
+    kv_group: Any = None     # torch.distributed ProcessGroup of the kv ranks
+
+    @property
+    def kv_shards(self) -> int:
+        """Number of shards the paged pools' block dim is split into."""
+        return dist.get_world_size(self.kv_group) if self.kv_group is not None else 1
+
+    @property
+    def kv_rank(self) -> int:
+        """This process's shard: its rank in ``kv_group`` (0 when replicated)."""
+        return dist.get_rank(self.kv_group) if self.kv_group is not None else 0
+
+    @property
+    def kv_sharded(self) -> bool:
+        return self.kv_shards > 1
 
     def without_compression(self) -> "TPContext":
         """The dense gate variant of this context (uncompressed reductions)."""
@@ -78,3 +106,88 @@ def row_linear(ctx: TPContext, x: torch.Tensor, w: torch.Tensor,
     else:
         y = torch.matmul(x, w.to(x.dtype))
     return y if bias is None else y + bias.to(y.dtype)
+
+
+# --------------------------------------------------------------------------
+# Sequence-sharded paged pools (the reference's core/tp.py:329-505). A pool
+# plane is one (per_shard, bs, width) tensor of this rank: a dense K or V
+# pool, or the payload or scales of a wire pool.
+# --------------------------------------------------------------------------
+
+
+def _kv_geometry(ctx: TPContext, slab: torch.Tensor) -> Tuple[Any, int]:
+    """(kv group, per-shard block count) of a sharded pool plane."""
+    assert ctx.kv_sharded, "pool ops need a kv-sharded context"
+    return ctx.kv_group, slab.shape[0]
+
+
+def _owned(ctx: TPContext, per_shard: int, blk: torch.Tensor):
+    """(positions in ``blk`` of the global ids this rank owns, their local
+    rows). One device-to-host sync: the scatters then drop the rest."""
+    blk = blk.long()
+    keep = torch.nonzero((blk // per_shard) == ctx.kv_rank)[:, 0]
+    return keep, blk[keep] % per_shard
+
+
+def pool_exchange(ctx: TPContext, pools: Sequence[torch.Tensor],
+                  tables: torch.Tensor) -> List[torch.Tensor]:
+    """The blocks ``tables`` (R, nb) names, from every plane in ``pools``,
+    on every rank: returns (R*nb, bs, width) "virtual pools" in table order,
+    ``out[r*nb + j] == pool[tables[r, j]]`` bit for bit (the global pool,
+    which no rank holds). Each plane moves R*nb blocks (one all-reduce),
+    never the whole pool."""
+    group, per_shard = _kv_geometry(ctx, pools[0])
+    flat = tables.reshape(-1).long()
+    own = ((flat // per_shard) == ctx.kv_rank)[:, None, None]
+    local = flat % per_shard
+    return [masked_owner_psum(p[local], own, group) for p in pools]
+
+
+def pool_scatter(ctx: TPContext, pools_vals, blk: torch.Tensor,
+                 offs: torch.Tensor) -> List[torch.Tensor]:
+    """Per-position append: each (plane, vals) pair writes ``vals[i]``
+    ((N, width)) at (``blk[i]``, ``offs[i]``), in place. Communication-free:
+    a rank writes only the rows it owns."""
+    _, per_shard = _kv_geometry(ctx, pools_vals[0][0])
+    keep, local = _owned(ctx, per_shard, blk)
+    o = offs.long()[keep]
+    for pool, vals in pools_vals:
+        pool.index_put_((local, o), vals[keep])
+    return [p for p, _ in pools_vals]
+
+
+def pool_block_write(ctx: TPContext, pools_vals, block_ids) -> List[torch.Tensor]:
+    """Whole-block write: each (plane, vals) pair writes ``vals`` ((n, bs,
+    width)) at global blocks ``block_ids``, in place; communication-free."""
+    ref = pools_vals[0][0]
+    _, per_shard = _kv_geometry(ctx, ref)
+    ids = torch.as_tensor(block_ids, dtype=torch.long, device=ref.device)
+    keep, local = _owned(ctx, per_shard, ids)
+    for pool, vals in pools_vals:
+        pool[local] = vals[keep]
+    return [p for p, _ in pools_vals]
+
+
+def pool_block_fill(ctx: TPContext, pools_fills, block: int) -> List[torch.Tensor]:
+    """Fill global block ``block`` of each (plane, scalar) pair with the
+    scalar (fault injection), in place, on its owner only."""
+    _, per_shard = _kv_geometry(ctx, pools_fills[0][0])
+    if int(block) // per_shard == ctx.kv_rank:
+        for pool, fill in pools_fills:
+            pool[int(block) % per_shard] = fill
+    return [p for p, _ in pools_fills]
+
+
+def pool_block_copy(ctx: TPContext, pools: Sequence[torch.Tensor], src: int,
+                    dst: int) -> List[torch.Tensor]:
+    """Copy global block ``src`` to block ``dst`` in every plane (the
+    copy-on-write fork): the owner of ``src`` contributes it to one
+    ``masked_owner_psum`` per plane, the owner of ``dst`` writes it."""
+    group, per_shard = _kv_geometry(ctx, pools[0])
+    src, dst = int(src), int(dst)
+    own = torch.tensor(src // per_shard == ctx.kv_rank)
+    for p in pools:
+        data = masked_owner_psum(p[src % per_shard], own.to(p.device), group)
+        if dst // per_shard == ctx.kv_rank:
+            p[dst % per_shard] = data
+    return list(pools)

@@ -15,7 +15,9 @@ flush-to-zero would break the codec's byte-exactness):
 
 Either way the library is opened with ``ctypes`` and the wrappers call the
 same launchers. Nothing here runs at import time: the CPU tests import every
-module of the port on a machine with no ``nvcc``.
+module of the port on a machine with no ``nvcc``. Processes that share one
+build directory (the kv ranks of sequence-sharded pools) build it once in
+the parent and open it with ``load_kernels(build=False)``.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ _SIGNATURES = {
     "mxk_quant": [_P, _I, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _I, _I, _P],
     "mxk_dequant": [_P, _P, _P, _I, _P, _I, _LL, _I, _I, _I, _P],
     "mxk_dequant_reduce": [_P, _P, _P, _I, _P, _I, _LL, _I, _I, _I, _I, _P],
-    "mxk_paged_attention": [_P] * 13 + [_I] * 14 + [_F, _I, _I, _P],
+    "mxk_paged_attention": [_P] * 14 + [_I] * 14 + [_F, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -127,8 +129,10 @@ def _build_with_nvcc() -> pathlib.Path:
     return lib
 
 
-def load_kernels() -> ctypes.CDLL:
-    """Build (first call only) and open the kernel library."""
+def load_kernels(build: bool = True) -> ctypes.CDLL:
+    """Build (first call only) and open the kernel library; with
+    ``build=False`` open the library an earlier build left in ``BUILD_DIR``
+    (raising if there is none) without compiling."""
     global _lib, _build_s, _builder
     if _lib is not None:
         return _lib
@@ -137,16 +141,22 @@ def load_kernels() -> ctypes.CDLL:
     from torch.utils.cpp_extension import is_ninja_available
 
     t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    (BUILD_DIR / "lock").unlink(missing_ok=True)  # left by a build that was cut off
     use_load = is_ninja_available() and os.environ.get("REPRO_TORCH_BUILDER") != "nvcc"
-    path = _build_with_load() if use_load else _build_with_nvcc()
+    if build:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        (BUILD_DIR / "lock").unlink(missing_ok=True)  # left by a build that was cut off
+        path = _build_with_load() if use_load else _build_with_nvcc()
+    else:
+        path = BUILD_DIR / f"{LIB_NAME}.so"
+        if not path.exists():
+            raise RuntimeError(f"no kernel library at {path}: call load_kernels() first")
+        use_load = None
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in _SIGNATURES.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
     _build_s = time.perf_counter() - t0
-    _builder = "load" if use_load else "nvcc"
+    _builder = {True: "load", False: "nvcc", None: "prebuilt"}[use_load]
     _lib = lib
     return lib

@@ -11,6 +11,7 @@
 //   pools   dense (n_blocks, bs, kv_dim) P, or MX wire payload
 //           (n_blocks, bs, kv_dim*bits/8) + scales (n_blocks, bs, kv_dim/B)
 //   tables  (R, nb) int32, hist (R,) int32, q_pos (R, Sq) int32
+//   row_map (R,) int32, or null (sequence-sharded pools; see below)
 //   extras  k/v (E, kv_dim) T + t_extra (R, E) int32 (optional)
 //   out     (R, Sq, H*hd)            T
 //
@@ -24,9 +25,16 @@
 // table positions and all E extras) with equal weight, as the reference's
 // softmax over all-(-1e30) scores does.
 //
+// row_map (the TPU kernel's has_row_map=True, index maps :196-207): the
+// pools are the virtual pools of core/tp.py pool_exchange (the blocks a
+// step's tables name, gathered from the kv ranks in table order), and block
+// j of row r is virtual row row_map[r] * nb + j. The kernel computes that
+// row itself (BlockMap) and reads no table.
+//
 // Design. The query vectors (row, s, g) of one kv head are flattened and cut
 // into tiles of 64; a tile's vectors split into RUNS of consecutive rows
-// that share (tables[r], hist[r]). The mixed step builds tables[slot_ids],
+// that share (tables[r], hist[r]), or (row_map[r], hist[r]) under row_map.
+// The mixed step builds tables[slot_ids] (row_map = slot_ids when sharded),
 // so the 256 rows of a prefill chunk are one run, and so are a slot's budget
 // pads. The runs are found on the device (each row against the one before
 // it) and dealt out to the kRunCtas CTAs of the tile (gridDim.z), so the
@@ -94,7 +102,8 @@ struct PagedArgs {
   const void* v_pool;
   const uint8_t* k_scales;  // MX only
   const uint8_t* v_scales;
-  const int* tables;
+  const int* tables;        // nullptr under row_map
+  const int* row_map;       // nullptr: walk the tables
   const int* hist;
   const int* q_pos;
   const void* k_extra;     // nullptr when E == 0
@@ -318,6 +327,14 @@ __device__ __forceinline__ void store_unit(const PagedArgs& a, const MxCol& mc, 
   }
 }
 
+// Block j of a run's rows: their table's entry, or under row_map the
+// virtual pool row base + j (base = row_map[r] * nb).
+struct BlockMap {
+  const int* tbl;  // nullptr under row_map
+  int base;
+  __device__ __forceinline__ int operator[](int j) const { return tbl ? tbl[j] : base + j; }
+};
+
 // Stage keys first .. first+n-1 of one kv head into rows 0..n-1 of sK / sV
 // (rows n..nmax-1 zeroed). Key x is pool position x (read through ``tbl``)
 // when x < pool_end, else extra x - e_off. Thread tid of nthr owns 8-value
@@ -327,7 +344,7 @@ __device__ __forceinline__ void store_unit(const PagedArgs& a, const MxCol& mc, 
 // codes and casts are read kBatch rows at a time (all loads in flight
 // before the first store), then decoded into shared memory.
 template <typename T, typename P, bool MX, typename CT>
-__device__ __forceinline__ void stage(const PagedArgs& a, const int* tbl, int kvh, int first, int n,
+__device__ __forceinline__ void stage(const PagedArgs& a, BlockMap tbl, int kvh, int first, int n,
                                       int nmax, int pool_end, int e_off, CT* sK, CT* sV,
                                       bool want_k, const float* s_vals, int tid, int nthr) {
   constexpr int kBatch = 4;
@@ -500,7 +517,7 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t&
 // --------------------------------------------------------------- the runs
 
 struct Run {
-  const int* tbl;
+  BlockMap tbl;
   int M;          // query vectors in the run (this tile's part of it)
   int t_lo, t_hi; // pool positions that any of them may see
 };
@@ -858,11 +875,15 @@ paged_attention_kernel(PagedArgs a) {
     int d = 0;
     if (pr < n_rows) {
       const int r = r_first + pr;
-      const int* t0 = a.tables + static_cast<long long>(r) * a.nb;
-      const int* t1 = t0 - a.nb;
       d = half == 0 && a.hist[r] != a.hist[r - 1];
+      if (a.row_map) {
+        d |= half == 0 && a.row_map[r] != a.row_map[r - 1];
+      } else {
+        const int* t0 = a.tables + static_cast<long long>(r) * a.nb;
+        const int* t1 = t0 - a.nb;
 #pragma unroll 4
-      for (int k = half; k < a.nb; k += 2) d |= t0[k] != t1[k];
+        for (int k = half; k < a.nb; k += 2) d |= t0[k] != t1[k];
+      }
     }
     d |= __shfl_xor_sync(0xffffffffu, d, 1);
     if (half == 0 && pr < n_rows) sm.need[pr] = d;
@@ -904,7 +925,8 @@ paged_attention_kernel(PagedArgs a) {
     __syncthreads();
     Run run;
     const int r0 = sm.qrow[0];
-    run.tbl = a.tables + static_cast<long long>(r0) * a.nb;
+    run.tbl = a.row_map ? BlockMap{nullptr, a.row_map[r0] * a.nb}
+                        : BlockMap{a.tables + static_cast<long long>(r0) * a.nb, 0};
     run.M = M;
     int maxq = INT_MIN, minq = INT_MAX;
     for (int i = 0; i < M; ++i) {
@@ -983,11 +1005,13 @@ cudaError_t launch(const PagedArgs& a, cudaStream_t s) {
 }  // namespace
 
 // pool_kind: 0 dense fp32, 1 dense bf16, 2 MX wire (payload + scales).
-// window <= 0: no sliding window. E == 0: no extras.
+// window <= 0: no sliding window. E == 0: no extras. row_map null: walk
+// tables; else tables is not read.
 extern "C" int mxk_paged_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scales,
-    const void* v_scales, const void* tables, const void* hist, const void* q_pos,
-    const void* k_extra, const void* v_extra, const void* t_extra, void* out, const float* vals,
+    const void* v_scales, const void* tables, const void* row_map, const void* hist,
+    const void* q_pos, const void* k_extra, const void* v_extra, const void* t_extra, void* out,
+    const float* vals,
     int R, int Sq, int H, int KV, int hd, int bs, int kv_dim, int nb, int E, int n_codes,
     int bits, int mx_block, int bias, int window, float scale, int q_is_bf16, int pool_kind,
     void* stream) {
@@ -998,6 +1022,7 @@ extern "C" int mxk_paged_attention(
   a.k_scales = static_cast<const uint8_t*>(k_scales);
   a.v_scales = static_cast<const uint8_t*>(v_scales);
   a.tables = static_cast<const int*>(tables);
+  a.row_map = static_cast<const int*>(row_map);
   a.hist = static_cast<const int*>(hist);
   a.q_pos = static_cast<const int*>(q_pos);
   a.k_extra = k_extra;

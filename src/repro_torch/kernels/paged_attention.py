@@ -4,18 +4,21 @@ version.
 One function serves every paged read geometry of ``models/attention.py``:
 decode (R=B, Sq=1, no extras), chunk (R=1, Sq=C, extras = the chunk) and the
 mixed token-budget step (R=T, Sq=1, extras = the step's K/V under the
-same-slot position mask). Row r attends pool positions ``t < hist_len[r]``
+same-slot position mask). With ``row_map`` (sequence-sharded pools) the
+pools are the virtual pools of ``core.tp.pool_exchange`` and row r's block
+j is virtual row ``row_map[r] * nb + j`` instead of ``tables[r, j]`` (only
+``tables``' width ``nb`` is read). Row r attends pool positions ``t < hist_len[r]``
 (causally against ``q_pos[r]``, optionally window-limited) at pool
 precision, plus ``k_extra`` rows at positions ``t_extra[r]`` in compute
 precision. Masking uses the finite ``NEG_INF = -1e30``: a row with no valid
 key averages every key it addresses, as in the reference.
 
 For a CUDA tensor ``paged_attention`` launches ``csrc/paged_attention.cu``
-(which walks the block tables itself and stages each key tile once for all
-consecutive rows that share a table; any GQA group, head_dim a multiple of
-32 up to 256) or raises; the plain version, which
-gathers ``pool[tables]`` at full capacity, runs only for CPU tensors and as
-the kernel's reference.
+(which walks the block tables, or the ``row_map`` regions, itself and
+stages each key tile once for all consecutive rows that share a table or a
+region; any GQA group, head_dim a multiple of 32 up to 256) or raises; the
+plain version, which gathers ``pool[tables]`` (or the virtual rows) at full
+capacity, runs only for CPU tensors and as the kernel's reference.
 """
 from __future__ import annotations
 
@@ -28,11 +31,21 @@ from repro_torch.core.formats import MXSpec
 from repro_torch.core.mx import MXCompressed, code_tables
 from repro_torch.kernels.build import check_launch, count_launch, load_kernels, stream_ptr
 
-__all__ = ["paged_attention", "paged_attention_plain", "attend_block", "NEG_INF",
-           "T_INVALID"]
+__all__ = ["paged_attention", "paged_attention_plain", "attend_block", "block_rows",
+           "NEG_INF", "T_INVALID"]
 
 NEG_INF = -1e30
 T_INVALID = 2**30  # position of a key that no query may attend
+
+
+def block_rows(tables: torch.Tensor, row_map: Optional[torch.Tensor]) -> torch.Tensor:
+    """(R, nb) pool rows the read walks: ``tables``, or under ``row_map``
+    the virtual rows ``row_map[r] * nb + j``."""
+    if row_map is None:
+        return tables
+    nb = tables.shape[1]
+    return (row_map.long()[:, None] * nb
+            + torch.arange(nb, device=tables.device)[None]).to(torch.int32)
 
 
 def _gather_pool(pool, tables: torch.Tensor, spec: Optional[MXSpec]) -> torch.Tensor:
@@ -53,14 +66,13 @@ def paged_attention_plain(q, pool_k, pool_v, tables, hist_len, q_pos, k_extra=No
                           spec: Optional[MXSpec] = None, kv_heads: int, scale: float,
                           window: Optional[int] = None,
                           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Plain PyTorch version: gather each row's table blocks, concatenate the
-    extras, masked softmax in fp32. Returns (R, Sq, H*hd) in ``out_dtype``
-    (default q's dtype)."""
-    if row_map is not None:
-        raise NotImplementedError("row_map (sequence-sharded pools) is not ported yet")
+    """Plain PyTorch version: gather each row's table blocks (its virtual
+    rows under ``row_map``), concatenate the extras, masked softmax in fp32.
+    Returns (R, Sq, H*hd) in ``out_dtype`` (default q's dtype)."""
     R, Sq, q_dim = q.shape
-    keys = _gather_pool(pool_k, tables, spec)
-    vals = _gather_pool(pool_v, tables, spec)
+    rows = block_rows(tables, row_map)
+    keys = _gather_pool(pool_k, rows, spec)
+    vals = _gather_pool(pool_v, rows, spec)
     cap, kv_dim = keys.shape[1], keys.shape[2]
     t = torch.arange(cap, device=q.device, dtype=torch.int32)[None, :]
     t_pos = torch.where(t < hist_len.to(torch.int32)[:, None], t, T_INVALID)
@@ -121,15 +133,17 @@ def paged_attention(q, pool_k, pool_v, tables, hist_len, q_pos, k_extra=None,
 
     q (R, Sq, H*hd); pools (n_blocks, bs, kv_dim) dense or ``MXCompressed``
     wire pools; tables (R, nb) int32; hist_len (R,) int32; q_pos (R, Sq)
-    int32; k_extra/v_extra (E, kv_dim) in q's dtype; t_extra (R, E) int32.
+    int32; k_extra/v_extra (E, kv_dim) in q's dtype; t_extra (R, E) int32;
+    row_map (R,) int32 or None. Under ``row_map`` the pools are virtual
+    pools whose rows come in regions of nb blocks (n_blocks a multiple of
+    nb); the kernel reads neither ``tables`` nor anything past the regions
+    ``row_map`` names (not checked: that would need a device sync).
     """
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, pool_k, pool_v, tables, hist_len, q_pos, k_extra, v_extra, t_extra,
             row_map, spec=spec, kv_heads=kv_heads, scale=scale, window=window,
             out_dtype=out_dtype)
-    if row_map is not None:
-        raise NotImplementedError("row_map (sequence-sharded pools) is not ported yet")
     _require(q.device.type == "cuda", f"unsupported device {q.device}")
     _require(q.dim() == 3 and q.is_contiguous() and q.dtype in (torch.float32, torch.bfloat16),
              f"q must be a contiguous (R, Sq, H*hd) fp32/bf16 tensor, got "
@@ -166,7 +180,14 @@ def paged_attention(q, pool_k, pool_v, tables, hist_len, q_pos, k_extra=None,
     _require(q_dim % hd == 0 and (q_dim // hd) % kv_heads == 0, "query heads must group over kv heads")
     H = q_dim // hd
     nb = tables.shape[1]
-    _i32(tables, (R, nb), "tables")
+    if row_map is None:
+        _i32(tables, (R, nb), "tables")
+    else:
+        _require(tables.dim() == 2 and tables.shape[0] == R, "tables must be (R, nb)")
+        _i32(row_map, (R,), "row_map")
+        _require(row_map.device == q.device, "row_map must be on q's device")
+        _require(nb > 0 and n_pool % nb == 0,
+                 f"virtual pools of {n_pool} blocks do not hold regions of {nb} blocks")
     _i32(hist_len, (R,), "hist_len")
     _i32(q_pos, (R, Sq), "q_pos")
     E = 0
@@ -185,8 +206,8 @@ def paged_attention(q, pool_k, pool_v, tables, hist_len, q_pos, k_extra=None,
     ptr = lambda t: t.data_ptr() if t is not None else None
     err = load_kernels().mxk_paged_attention(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), ptr(ks), ptr(vs),
-        tables.data_ptr(), hist_len.data_ptr(), q_pos.data_ptr(), ptr(k_extra),
-        ptr(v_extra), ptr(t_extra), out.data_ptr(), ptr(vals),
+        ptr(tables if row_map is None else None), ptr(row_map), hist_len.data_ptr(),
+        q_pos.data_ptr(), ptr(k_extra), ptr(v_extra), ptr(t_extra), out.data_ptr(), ptr(vals),
         R, Sq, H, kv_heads, hd, bs, kv_dim, nb, E, n_codes, bits, mx_block, bias,
         int(window or 0), float(scale), int(q.dtype == torch.bfloat16), pool_kind,
         stream_ptr())

@@ -21,6 +21,15 @@ reduction's result once more, as the reference's simulated path does;
 (llama2, internlm2, qwen2-7b, qwen3-32b, gemma3-4b). Runs on the GPU by
 default; ``--device cpu`` runs the plain PyTorch path on the CPU (use
 ``--reduced`` there). Weights are random, drawn from ``--seed``.
+
+``--shard-pools N`` sequence-shards the paged pools over N kv ranks: N
+processes (``torch.multiprocessing``, gloo over a ``file://`` rendezvous in
+a temporary directory), each running the whole model on the same requests
+and holding ``1/N`` of every pool; rank r uses ``cuda:(r % device_count)``,
+so ranks share a card when there are fewer cards than ranks. The kernels
+are built once, before the ranks start; the ranks only load them. Rank 0
+prints the banner (``kv_shards=``, MB per rank) and the report, and the
+tokens of every rank must be identical.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.kernels.build import load_kernels
+from repro_torch.launch.mesh import spawn_kv_ranks
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.formats import MXSpec
 from repro_torch.core.policy import CompressionPolicy, NO_COMPRESSION
@@ -39,7 +50,7 @@ from repro_torch.models.model import Model
 from repro_torch.serving import Engine, EngineSupervisor, FaultPlan, Request
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama2-7b")
     ap.add_argument("--reduced", action="store_true")
@@ -90,10 +101,44 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed for the random weights, the synthetic prompts and the "
                          "fault plan")
+    ap.add_argument("--shard-pools", type=int, default=1,
+                    help="sequence-shard the paged pools over this many kv ranks "
+                         "(processes over gloo; 1 = replicated pools)")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv=None):
+    """Serve once; returns (engine, requests), or with ``--shard-pools N >
+    1`` (None, the tokens of each rank's requests, by rank)."""
+    args = _parser().parse_args(argv)
     device = resolve_device(args.device)
+    if args.shard_pools > 1:
+        if args.stagger or args.deadline_ms or args.ttft_deadline_ms:
+            raise ValueError("--shard-pools runs every rank's scheduler in lockstep: "
+                             "--stagger and deadlines read each rank's own clock")
+        if device.type == "cuda":
+            load_kernels()   # one build, before the ranks load it
+        outs = spawn_kv_ranks(_serve_rank, args.shard_pools, args, device=device.type)
+        if any(o != outs[0] for o in outs[1:]):
+            raise RuntimeError("kv ranks sampled different tokens")
+        print(f"kv ranks: all {args.shard_pools} sampled identical tokens")
+        return None, outs
+    return _serve(args, device)
+
+
+def _serve_rank(group, rank: int, device: torch.device, args) -> list:
+    """One kv rank of ``--shard-pools``: load the kernels the parent built,
+    serve, return the requests' tokens."""
+    if device.type == "cuda":
+        load_kernels(build=False)
+    _, out = _serve(args, device, group)
+    return [r.output.tolist() for r in out]
+
+
+def _serve(args, device: torch.device, kv_group=None):
+    """The serving run of ``main`` on ``device`` (on one kv rank of
+    ``kv_group`` when given: only rank 0 prints)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
@@ -102,13 +147,14 @@ def main(argv=None):
         spec=MXSpec.make("fp4_e2m1", 32, "e8m0"), variant=args.variant,
         min_prefill_fraction=args.min_prefill_fraction,
         overlap_chunks=args.overlap_chunks)
-    ctx = TPContext(policy=policy, simulate_tp=args.simulate_tp)
+    ctx = TPContext(policy=policy, simulate_tp=args.simulate_tp, kv_group=kv_group)
+    print_ = print if ctx.kv_rank == 0 else (lambda *a, **k: None)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     variant = policy.variant if policy.enabled else "none"
     ignored = (f" overlap_chunks={args.overlap_chunks} (ignored: no effect under simulate_tp)"
                if args.overlap_chunks != 1 else "")
-    print(f"device={name} arch={cfg.name} policy={policy.describe()} variant={variant} "
-          f"simulate_tp={args.simulate_tp}{ignored}")
+    print_(f"device={name} arch={cfg.name} policy={policy.describe()} variant={variant} "
+           f"simulate_tp={args.simulate_tp}{ignored}")
 
     params = model.init_params(device=device, seed=args.seed)
     fault_plan = FaultPlan.parse(args.fault_plan, seed=args.seed)
@@ -121,14 +167,15 @@ def main(argv=None):
                     deadline_ttft_s=args.ttft_deadline_ms / 1e3 or None,
                     fault_plan=fault_plan if len(fault_plan) else None, device=device)
     if len(fault_plan):
-        print(f"fault plan: {fault_plan.describe()}")
+        print_(f"fault plan: {fault_plan.describe()}")
     step = (f"mixed, {engine.token_budget}-token budget ({engine.prefill_chunk} "
             f"tokens/chunk)" if engine.token_budget
             else (f"split, chunked {engine.prefill_chunk} tokens/step"
                   if engine.prefill_chunk else "split, whole-prompt"))
-    print(f"kv cache: {engine.cache_spec.describe()} "
-          f"({engine.kv_pool_bytes() / 1e6:.2f} MB pools); step: {step}; "
-          f"prefix cache: {'on' if engine.prefix_cache else 'off'}")
+    print_(f"kv cache: {engine.cache_spec.describe()} "
+           f"({engine.kv_pool_bytes() / 1e6:.2f} MB pools, kv_shards={engine.kv_shards}, "
+           f"{engine.kv_pool_bytes(per_device=True) / 1e6:.2f} MB per rank); step: {step}; "
+           f"prefix cache: {'on' if engine.prefix_cache else 'off'}")
 
     n_req = args.requests or args.slots
     rng = np.random.default_rng(args.seed)
@@ -152,29 +199,29 @@ def main(argv=None):
         torch.cuda.synchronize(device)
     wall = time.time() - t0
     s = (sup or engine).stats.summary()
-    print(f"{s['n_requests']} requests, {s['n_generated']} tokens in {wall:.2f}s wall; "
-          f"steady tokens/s={s['tokens_per_s']:.1f}")
-    print(f"dispatch: {s['n_steps']} steps, {s['n_dispatches']} program dispatches, "
-          f"{s['tokens_per_step_mean']:.1f} tokens/step ({s['prefill_tokens']} prefill "
-          f"+ {s['decode_tokens']} decode)")
+    print_(f"{s['n_requests']} requests, {s['n_generated']} tokens in {wall:.2f}s wall; "
+           f"steady tokens/s={s['tokens_per_s']:.1f}")
+    print_(f"dispatch: {s['n_steps']} steps, {s['n_dispatches']} program dispatches, "
+           f"{s['tokens_per_step_mean']:.1f} tokens/step ({s['prefill_tokens']} prefill "
+           f"+ {s['decode_tokens']} decode)")
     if "compressed" in engine.gate_variants():
-        print(f"compression gate: {s['n_compressed_steps']} compressed / "
-              f"{s['n_steps'] - s['n_compressed_steps']} dense steps")
+        print_(f"compression gate: {s['n_compressed_steps']} compressed / "
+               f"{s['n_steps'] - s['n_compressed_steps']} dense steps")
     if engine.prefix_cache:
-        print(f"prefix cache: {s['prefill_tokens_skipped']} prompt tokens skipped "
-              f"(hit rate {s['prefix_hit_rate']:.2f})")
-    print(f"preemptions: {s['n_preemptions']}")
-    print(f"TTFT p50 {s['ttft_p50_s']*1e3:.1f} ms, p90 {s['ttft_p90_s']*1e3:.1f} ms; "
-          f"TPOT p50 {s['tpot_p50_s']*1e3:.2f} ms, p95 {s['tpot_p95_s']*1e3:.2f} ms; "
-          f"latency p50 {s['latency_p50_s']*1e3:.1f} ms")
-    print(f"outcomes: {s['n_ok']} ok, {s['n_rejected']} rejected, {s['n_timed_out']} timed "
-          f"out, {s['n_cancelled']} cancelled; goodput={s['goodput_tokens_per_s']:.1f} tok/s")
+        print_(f"prefix cache: {s['prefill_tokens_skipped']} prompt tokens skipped "
+               f"(hit rate {s['prefix_hit_rate']:.2f})")
+    print_(f"preemptions: {s['n_preemptions']}")
+    print_(f"TTFT p50 {s['ttft_p50_s']*1e3:.1f} ms, p90 {s['ttft_p90_s']*1e3:.1f} ms; "
+           f"TPOT p50 {s['tpot_p50_s']*1e3:.2f} ms, p95 {s['tpot_p95_s']*1e3:.2f} ms; "
+           f"latency p50 {s['latency_p50_s']*1e3:.1f} ms")
+    print_(f"outcomes: {s['n_ok']} ok, {s['n_rejected']} rejected, {s['n_timed_out']} timed "
+           f"out, {s['n_cancelled']} cancelled; goodput={s['goodput_tokens_per_s']:.1f} tok/s")
     if sup is not None:
         r = sup.report()
-        print(f"recoveries: {r['n_recoveries']} ({r['n_hard']} hard, {r['n_warm']} warm) "
-              f"recovery {r['recovery_s_total'] * 1e3:.1f} ms + backoff "
-              f"{r['backoff_s_total'] * 1e3:.1f} ms; errors={r['errors']}")
-    print("first request tokens:", out[0].output.tolist())
+        print_(f"recoveries: {r['n_recoveries']} ({r['n_hard']} hard, {r['n_warm']} warm) "
+               f"recovery {r['recovery_s_total'] * 1e3:.1f} ms + backoff "
+               f"{r['backoff_s_total'] * 1e3:.1f} ms; errors={r['errors']}")
+    print_("first request tokens:", out[0].output.tolist())
     return engine, out
 
 

@@ -10,6 +10,14 @@ CUDA kernel on the card, its plain version on the CPU). One difference in
 idiom: cache and pool writes are in place (``index_put_`` / slice
 assignment; JAX returns updated copies via ``.at[].set``); the functions
 still return the cache or pools so call sites read the same.
+
+Sequence-sharded pools (``ctx.kv_sharded``): each kv rank holds a slab of
+every pool. A paged step exchanges the blocks its tables name into virtual
+pools in table order (``_virtual_pools``) and reads them through the
+kernel's ``row_map`` addressing (decode: ``arange(B)``; chunk: ``zeros(1)``;
+mixed: ``slot_ids``, one region per slot); its appends go to the owning
+rank only (``_sharded_append``). The read order against the append is the
+replicated path's: decode reads after its write, chunk and mixed before.
 """
 from __future__ import annotations
 
@@ -20,7 +28,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.formats import KVCacheSpec, MXSpec
 from repro_torch.core.mx import MXCompressed
-from repro_torch.core.tp import TPContext, column_linear, row_linear
+from repro_torch.core.tp import (
+    TPContext, column_linear, pool_exchange, pool_scatter, row_linear,
+)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import (
@@ -30,8 +40,8 @@ from repro_torch.models.common import apply_rope, make_rope, rms_norm
 
 __all__ = ["KVCache", "init_cache", "attention", "paged_attention_decode",
            "paged_attention_chunk", "paged_attention_mixed", "quantize_kv_pages",
-           "pool_rows", "write_pool_rows", "NEG_INF", "T_INVALID", "_attend_block",
-           "_qkv"]
+           "pool_rows", "write_pool_rows", "pool_planes", "NEG_INF", "T_INVALID",
+           "_attend_block", "_qkv"]
 
 _Q_CHUNK = 1024
 
@@ -137,6 +147,39 @@ def write_pool_rows(pool_k, pool_v, k_rows, v_rows, blk: torch.Tensor, offs: tor
             pool.index_put_((blk, offs), rows)
 
 
+def pool_planes(pool_k, pool_v):
+    """The pool planes of a K/V pair: (K, V) dense, or (K payload, K
+    scales, V payload, V scales) on wire pools."""
+    if isinstance(pool_k, MXCompressed):
+        return [pool_k.payload, pool_k.scales, pool_v.payload, pool_v.scales]
+    return [pool_k, pool_v]
+
+
+def _virtual_pools(ctx: TPContext, pool_k, pool_v, tables: torch.Tensor):
+    """Sharded read half: the blocks ``tables`` (R, nb) names, exchanged
+    over the kv group into virtual pools (R*nb, bs, width) in table order,
+    bit for bit the values the replicated pools would hold there."""
+    v = pool_exchange(ctx, pool_planes(pool_k, pool_v), tables)
+    if isinstance(pool_k, MXCompressed):
+        return MXCompressed(v[0], v[1]), MXCompressed(v[2], v[3])
+    return v[0], v[1]
+
+
+def _sharded_append(ctx: TPContext, pool_k, pool_v, k_rows, v_rows, blk, offs):
+    """Sharded write half: each rank writes the rows (from ``pool_rows``)
+    whose block it owns, in place, and drops the rest (no communication)."""
+    pool_scatter(ctx, list(zip(pool_planes(pool_k, pool_v), pool_planes(k_rows, v_rows))), blk, offs)
+
+
+def _write(ctx: TPContext, pool_k, pool_v, k_rows, v_rows, blk, offs) -> None:
+    """Append pool rows at (block, offset) pairs: all of them to replicated
+    pools, this rank's share to sharded ones."""
+    if ctx.kv_sharded:
+        _sharded_append(ctx, pool_k, pool_v, k_rows, v_rows, blk, offs)
+    else:
+        write_pool_rows(pool_k, pool_v, k_rows, v_rows, blk, offs)
+
+
 def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
@@ -169,7 +212,9 @@ def paged_attention_decode(
     wire pools), then ONE paged read in which row b attends its history up
     to and including that token (``hist_len = lengths + 1``, at pool
     precision). Inactive slots point at the null block; their writes and
-    rows are garbage that the engine discards. Returns (out, pool_k, pool_v).
+    rows are garbage that the engine discards. Sharded pools: the read goes
+    through the exchanged virtual pools, row b's region b.
+    Returns (out, pool_k, pool_v).
     """
     B = x.shape[0]
     q, k_new, v_new = _qkv(ctx, params, x, cfg, lengths[:, None])
@@ -177,9 +222,13 @@ def paged_attention_decode(
     pos = lengths.long()
     blk = tables.long().gather(1, (pos // bs).clamp(max=nb - 1)[:, None])[:, 0]
     k_rows, v_rows = pool_rows(k_new[:, 0], v_new[:, 0], pool_k, cache_spec)
-    write_pool_rows(pool_k, pool_v, k_rows, v_rows, blk, pos % bs)
-    out = paged_attention(q.reshape(B, 1, -1).contiguous(), pool_k, pool_v, _i32(tables),
-                          _i32(lengths + 1), _i32(lengths[:, None]),
+    _write(ctx, pool_k, pool_v, k_rows, v_rows, blk, pos % bs)
+    read_k, read_v, row_map = pool_k, pool_v, None
+    if ctx.kv_sharded:
+        read_k, read_v = _virtual_pools(ctx, pool_k, pool_v, tables)
+        row_map = torch.arange(B, device=x.device, dtype=torch.int32)
+    out = paged_attention(q.reshape(B, 1, -1).contiguous(), read_k, read_v, _i32(tables),
+                          _i32(lengths + 1), _i32(lengths[:, None]), row_map=row_map,
                           **_spec_args(cfg, cache_spec, window))
     y = row_linear(ctx, out, params["wo"]["w"], n_tokens=B)
     return y, pool_k, pool_v
@@ -202,8 +251,9 @@ def paged_attention_chunk(
     of the slot's history below ``start`` at pool precision, with the chunk's
     own K/V as compute-precision extras, read BEFORE the append; then the
     chunk's K/V goes into the pools at ``start + [0, C)`` (positions past the
-    table, pads included, fall into the null block).
-    Returns (out (1, C, d_model), pool_k, pool_v)."""
+    table, pads included, fall into the null block). Sharded pools: the
+    slot's blocks are exchanged into one region (``row_map`` 0) before the
+    append. Returns (out (1, C, d_model), pool_k, pool_v)."""
     B, C = x.shape[:2]
     dev = x.device
     p = start + torch.arange(C, device=dev, dtype=torch.int32)
@@ -213,13 +263,17 @@ def paged_attention_chunk(
     blk = torch.where(pl < nb * bs, table_row.long()[(pl // bs).clamp(0, nb - 1)],
                       torch.zeros((), dtype=torch.long, device=dev))
     p_row = p[None, :].contiguous()
+    read_k, read_v, row_map = pool_k, pool_v, None
+    if ctx.kv_sharded:
+        read_k, read_v = _virtual_pools(ctx, pool_k, pool_v, table_row[None])
+        row_map = torch.zeros(1, device=dev, dtype=torch.int32)
     out = paged_attention(
-        q.reshape(1, C, -1).contiguous(), pool_k, pool_v, _i32(table_row[None]),
+        q.reshape(1, C, -1).contiguous(), read_k, read_v, _i32(table_row[None]),
         torch.full((1,), start, dtype=torch.int32, device=dev), p_row,
         k_new[0].to(q.dtype).contiguous(), v_new[0].to(q.dtype).contiguous(), p_row,
-        **_spec_args(cfg, cache_spec, window))
+        row_map, **_spec_args(cfg, cache_spec, window))
     k_rows, v_rows = pool_rows(k_new[0], v_new[0], pool_k, cache_spec)
-    write_pool_rows(pool_k, pool_v, k_rows, v_rows, blk, pl % bs)
+    _write(ctx, pool_k, pool_v, k_rows, v_rows, blk, pl % bs)
     y = row_linear(ctx, out, params["wo"]["w"], n_tokens=B * C)
     return y, pool_k, pool_v
 
@@ -250,7 +304,9 @@ def paged_attention_mixed(
     chunk/decode pair: prefill tokens see in-batch neighbours in compute
     precision, a decode token sees its own new K/V at pool precision (dense
     cast or MX round trip). Then every real token's K/V is appended to the
-    pools in place; pad rows write into the reserved null block 0.
+    pools in place; pad rows write into the reserved null block 0. Sharded
+    pools: ONE region per slot is exchanged (the slots' resident context,
+    not one per token) and token t reads region ``slot_ids[t]``.
     Returns (out (1, T, d_model), pool_k, pool_v).
     """
     B, T = x.shape[:2]
@@ -282,9 +338,13 @@ def paged_attention_mixed(
 
     # the paged read: the gather-free kernel on the card, its plain version
     # (the pool[my_tables] gather) on the CPU
+    read_k, read_v, row_map = pool_k, pool_v, None
+    if ctx.kv_sharded:
+        read_k, read_v = _virtual_pools(ctx, pool_k, pool_v, tables)
+        row_map = _i32(slot_ids)
     out = paged_attention(
-        q[0].reshape(T, 1, -1).contiguous(), pool_k, pool_v, my_tables, start,
-        _i32(positions[:, None]), k_step, v_step, t_step,
+        q[0].reshape(T, 1, -1).contiguous(), read_k, read_v, my_tables, start,
+        _i32(positions[:, None]), k_step, v_step, t_step, row_map,
         **_spec_args(cfg, cache_spec, window))
     out = out[:, 0][None]                                # (1, T, H*hd)
 
@@ -293,7 +353,7 @@ def paged_attention_mixed(
     blk = torch.where(valid & (positions < cap),
                       my_tables[torch.arange(T, device=dev), col].long(),
                       torch.zeros((), dtype=torch.long, device=dev))
-    write_pool_rows(pool_k, pool_v, k_rows, v_rows, blk, (positions % bs).long())
+    _write(ctx, pool_k, pool_v, k_rows, v_rows, blk, (positions % bs).long())
 
     y = row_linear(ctx, out, params["wo"]["w"], n_tokens=B * T)
     return y, pool_k, pool_v

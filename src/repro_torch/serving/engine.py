@@ -34,8 +34,14 @@ steps; the step watchdog (``step_timeout_s``), the stall guard
 (``stall_limit``, 256 by default) and the non-finite logits watch turn them
 into ``StepStuck`` / ``WireCorruption`` / ``EngineDead``, from which
 ``recover()`` (or ``EngineSupervisor``) restores a runnable engine.
-Sequence-sharded pools cannot be asked for: ``TPContext`` has no kv axis
-yet.
+
+Sequence-sharded pools: with a ``TPContext`` whose ``kv_group`` holds N
+ranks, each rank runs this engine on the same requests and holds
+``n_blocks / N`` blocks of every pool (capacity rounds up to a multiple of
+N). Every rank makes the same host decisions (admission, allocation,
+preemption, prefix hits and sampling are deterministic), the steps exchange
+the blocks they read over the group, and every rank samples the same
+tokens.
 """
 from __future__ import annotations
 
@@ -51,9 +57,11 @@ import torch
 
 from repro_torch.core.formats import KVCacheSpec, MXSpec
 from repro_torch.core.policy import NO_COMPRESSION
-from repro_torch.core.tp import TPContext
+from repro_torch.core.tp import (
+    TPContext, pool_block_copy, pool_block_fill, pool_block_write,
+)
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import pool_rows, write_pool_rows
+from repro_torch.models.attention import pool_planes, pool_rows, write_pool_rows
 from repro_torch.models.model import Model, torch_dtype
 from repro_torch.serving.errors import (
     OUTCOME_CANCELLED, OUTCOME_OK, OUTCOME_REJECTED, OUTCOME_TIMED_OUT, EngineDead,
@@ -207,6 +215,15 @@ class Engine:
         self.max_blocks = -(-max_len // block_size)
         # full provisioning by default (+1 for the reserved null block)
         self.n_blocks = n_blocks or (self.n_slots * self.max_blocks + 1)
+        # sequence-sharded pools: each kv rank holds a contiguous
+        # n_blocks / kv_shards of the blocks, so round capacity UP
+        self.kv_shards = ctx.kv_shards
+        if self.n_blocks % self.kv_shards:
+            self.n_blocks += self.kv_shards - self.n_blocks % self.kv_shards
+        if self.kv_shards > 1 and (deadline_s or deadline_ttft_s or step_timeout_s):
+            raise ValueError(
+                "sequence-sharded pools run every kv rank's scheduler in lockstep; "
+                "deadlines and the step watchdog read each rank's own clock")
         self.cache_dtype = cache_dtype or torch.bfloat16
         self.cache_spec = check_cache_spec(self.cfg, cache_spec)
         self.stats = ServeStats()
@@ -296,8 +313,11 @@ class Engine:
 
     def _reset(self) -> None:
         self.prefix_index = PrefixIndex(self.block_size) if self.prefix_cache else None
-        self.allocator = BlockAllocator(self.n_blocks, prefix_index=self.prefix_index)
-        self._state = init_paged_state(self.cfg, self.n_slots, self.n_blocks,
+        self.allocator = BlockAllocator(self.n_blocks, prefix_index=self.prefix_index,
+                                        shards=self.kv_shards)
+        # this rank's slab of every pool (all of it when replicated)
+        self._state = init_paged_state(self.cfg, self.n_slots,
+                                       self.n_blocks // self.kv_shards,
                                        self.block_size, self.cache_dtype,
                                        cache_spec=self.cache_spec, device=self.device)
         self._soft_reset()
@@ -327,11 +347,15 @@ class Engine:
         (empty for split-scheduler and whole-prompt engines)."""
         return [("compressed" if g else "dense") for g in sorted(self._gate_ctxs)]
 
-    def kv_pool_bytes(self) -> int:
+    def kv_pool_bytes(self, *, per_device: bool = False) -> int:
+        """Bytes of the attention KV pools: the pools the engine addresses,
+        or with ``per_device=True`` what this rank holds (``1/kv_shards``
+        of them when sharded)."""
         return paged_cache_bytes(self.cfg, self.n_blocks, self.block_size,
                                  dtype_bytes=torch.empty((), dtype=self.cache_dtype)
                                  .element_size(),
-                                 cache_spec=self.cache_spec)
+                                 cache_spec=self.cache_spec, kv_shards=self.kv_shards,
+                                 per_device=per_device)
 
     def logits_finite(self) -> bool:
         """Whether every step of the last run produced finite logits in every
@@ -378,21 +402,35 @@ class Engine:
         in every layer's pools (in place), through the same row codec and
         writer as the step appends (MX-quantized per position on wire
         pools)."""
-        pos = torch.arange(len(block_ids) * self.block_size, device=self.device)
-        blk = torch.tensor(block_ids, dtype=torch.long, device=self.device)[
-            pos // self.block_size]
+        nb, bs = len(block_ids), self.block_size
+        pos = torch.arange(nb * bs, device=self.device)
+        blk = torch.tensor(block_ids, dtype=torch.long, device=self.device)[pos // bs]
         for i, c in enumerate(layer_caches):
             pk, pv = self._state["pools_k"][i], self._state["pools_v"][i]
             k_rows, v_rows = pool_rows(c.k[0], c.v[0], pk, self.cache_spec)
-            write_pool_rows(pk, pv, k_rows, v_rows, blk, pos % self.block_size)
+            if self.ctx.kv_sharded:   # each rank writes the blocks it owns
+                vals = [r.reshape(nb, bs, -1) for r in pool_planes(k_rows, v_rows)]
+                pool_block_write(self.ctx, list(zip(pool_planes(pk, pv), vals)), block_ids)
+            else:
+                write_pool_rows(pk, pv, k_rows, v_rows, blk, pos % bs)
+
+    def _pool_planes(self) -> List[torch.Tensor]:
+        """Every layer's K and V pool planes (payload and scales of wire
+        pools)."""
+        return [a for pk, pv in zip(self._state["pools_k"], self._state["pools_v"])
+                for a in pool_planes(pk, pv)]
 
     def _cow(self, src: int, dst: int) -> None:
         """Copy block ``src`` to block ``dst`` in every layer's K/V pools (in
         place; payload and scales of wire pools): the private copy a slot
-        writes into instead of a shared tail block."""
-        for pool in self._state["pools_k"] + self._state["pools_v"]:
-            for a in (pool.payload, pool.scales) if self.cache_spec.quantized else (pool,):
-                a[dst] = a[src]
+        writes into instead of a shared tail block. Sharded pools: the owner
+        of ``src`` sends the block over the kv group, the owner of ``dst``
+        writes it."""
+        if self.ctx.kv_sharded:
+            pool_block_copy(self.ctx, self._pool_planes(), src, dst)
+            return
+        for a in self._pool_planes():
+            a[dst] = a[src]
 
     # ------------------------------------------------------------- sampling
 
@@ -861,12 +899,19 @@ class Engine:
         """Poison one pool block in every attention layer's K and V pool, in
         place: scale bytes 255 (2^128, so the block decodes to inf and NaN)
         in MX pools, NaN in dense pools; payload bytes stay. ``block`` -1
-        picks the lowest live block (nothing happens when none is live)."""
+        picks the lowest live block (nothing happens when none is live). On
+        sharded pools only the owner of the block writes."""
         if block < 0:
             live = sorted(b for w in self._running.values() for b in w.blocks)
             if not live:
                 return
             block = live[0]
+        if self.ctx.kv_sharded:
+            q = self.cache_spec.quantized
+            pool_block_fill(self.ctx, [(p.scales if q else p, 255 if q else float("nan"))
+                                       for p in self._state["pools_k"] + self._state["pools_v"]],
+                            block)
+            return
         for pool in self._state["pools_k"] + self._state["pools_v"]:
             if self.cache_spec.quantized:
                 pool.scales[block] = 255
@@ -944,6 +989,11 @@ class Engine:
         self._t0 = time.perf_counter()
         capacity = self.max_blocks * self.block_size
         works = []
+        if self.kv_shards > 1 and any(r.arrival_s or r.deadline_s or r.deadline_ttft_s
+                                      for r in requests):
+            raise ValueError("sequence-sharded pools: requests arrive at t=0 with no "
+                             "deadline (each kv rank's clock would admit and expire them "
+                             "at its own step)")
         for i, r in enumerate(requests):
             need = len(np.asarray(r.prompt)) + r.max_new_tokens - 1
             if need > capacity:

@@ -1,6 +1,7 @@
 """Paged KV cache of the port: host-side block allocator and prefix index,
 mixed-step batch geometry, device pool state and sizing (the reference's
-``serving/kv_cache.py`` without sequence-sharded pools).
+``serving/kv_cache.py``; sequence-sharded pools keep one free list per kv
+shard).
 
 Every attention layer owns a block pool ``(n_blocks, block_size, kv_dim)``
 for K and V (dense, or MX wire payload + scales); a slot's logical sequence
@@ -134,23 +135,68 @@ class BlockAllocator:
     reclaims such blocks only after the free list runs dry. Every transition
     validates its ids, so a scheduler bug that over-releases raises instead
     of handing one block to two requests. Fault injection may ``hold``
-    free blocks out of circulation (``n_held``) until ``unhold``. (The
-    reference's sequence-sharded free lists are not ported.)
+    free blocks out of circulation (``n_held``) until ``unhold``.
+
+    Sequence-sharded pools (``shards > 1``): the block dim is split
+    contiguously over the kv ranks, so global id ``b`` belongs to shard ``b
+    // per_shard``. The allocator keeps one free deque per shard and hands
+    blocks out round-robin across shards (skipping dry ones) for residency
+    balance; ``release``, ``unhold`` and lazy reclaim return every id to its
+    owner's deque, so each shard's free, held, referenced and cached blocks
+    always sum to its capacity. ``shards == 1`` is one FIFO deque. Every kv
+    rank runs the same allocator on the same calls, so all make the same
+    choices.
     """
 
-    def __init__(self, n_blocks: int, prefix_index: Optional[PrefixIndex] = None):
+    def __init__(self, n_blocks: int, prefix_index: Optional[PrefixIndex] = None,
+                 *, shards: int = 1):
         assert n_blocks >= 2, "need at least one allocatable block"
+        assert shards >= 1 and n_blocks % shards == 0, (
+            f"pool capacity {n_blocks} must divide over {shards} kv shards")
         self.n_blocks = n_blocks
+        self.shards = shards
+        self.per_shard = n_blocks // shards
         self.index = prefix_index
-        self._free: collections.deque = collections.deque(range(1, n_blocks))
+        self._free: List[collections.deque] = [collections.deque() for _ in range(shards)]
+        for b in range(1, n_blocks):
+            self._free[b // self.per_shard].append(b)
+        self._n_free = n_blocks - 1
+        self._cursor = 0                   # next shard to hand a block from
         self._ref: Dict[int, int] = {}
         self._held: List[int] = []         # fault-injection holds (see hold())
         self.high_water = 0  # max blocks referenced at once
 
+    def shard_of(self, block: int) -> int:
+        """Owning kv shard of a global block id (contiguous split)."""
+        return int(block) // self.per_shard
+
+    @property
+    def free_per_shard(self) -> List[int]:
+        """Free-list length per kv shard."""
+        return [len(d) for d in self._free]
+
+    def _pop_free(self, n: int) -> List[int]:
+        """Pop ``n`` free ids round-robin across shards, skipping dry ones
+        (the caller checked ``n <= n_free``); one shard: plain FIFO."""
+        ids = []
+        for _ in range(n):
+            for _ in range(self.shards):
+                d = self._free[self._cursor]
+                self._cursor = (self._cursor + 1) % self.shards
+                if d:
+                    ids.append(d.popleft())
+                    break
+        self._n_free -= len(ids)
+        return ids
+
+    def _push_free(self, block: int) -> None:
+        self._free[self.shard_of(block)].append(block)
+        self._n_free += 1
+
     @property
     def n_free(self) -> int:
-        """Immediately allocatable blocks (the free list only)."""
-        return len(self._free)
+        """Immediately allocatable blocks (the free lists only)."""
+        return self._n_free
 
     @property
     def n_cached(self) -> int:
@@ -180,13 +226,14 @@ class BlockAllocator:
         move only between the free list and the hold, never through
         refcounts or the prefix index, so ``unhold`` conserves the pool."""
         take = self.n_free if n <= 0 else min(n, self.n_free)
-        self._held.extend(self._free.popleft() for _ in range(take))
+        self._held.extend(self._pop_free(take))
         return take
 
     def unhold(self) -> int:
-        """Return every held block to the free list; returns how many."""
+        """Return every held block to its shard's free list; returns how many."""
         n = len(self._held)
-        self._free.extend(self._held)
+        for b in self._held:
+            self._push_free(b)
         self._held.clear()
         return n
 
@@ -200,8 +247,9 @@ class BlockAllocator:
         if n > self.n_available:
             return None
         if n > self.n_free:
-            self._free.extend(self.index.pop_lru(n - self.n_free))
-        ids = [self._free.popleft() for _ in range(n)]
+            for b in self.index.pop_lru(n - self.n_free):
+                self._push_free(b)
+        ids = self._pop_free(n)
         for b in ids:
             self._ref[b] = 1
         self.high_water = max(self.high_water, self.n_allocated)
@@ -242,9 +290,10 @@ class BlockAllocator:
         self.high_water = max(self.high_water, self.n_allocated)
 
     def release(self, ids: Sequence[int]) -> None:
-        """Drop one reference per id; at refcount 0 the block is free again,
-        or parks in the index LRU if it is registered there. Over-release,
-        the null block and garbage ids raise before any change."""
+        """Drop one reference per id; at refcount 0 the block is free again
+        (on its shard's list), or parks in the index LRU if it is registered
+        there. Over-release, the null block and garbage ids raise before any
+        change."""
         counts = collections.Counter(self._check_id(b, "release") for b in ids)
         for b, c in counts.items():
             if c > self._ref.get(b, 0):
@@ -257,7 +306,7 @@ class BlockAllocator:
                 if self.index is not None and self.index.contains_block(b):
                     self.index.deactivate(b)   # bytes kept for later hits
                 else:
-                    self._free.append(b)
+                    self._push_free(b)
 
 
 def attn_layer_count(cfg: ModelConfig) -> int:
@@ -367,12 +416,16 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_blocks: int, block_size: 
 
 def paged_cache_bytes(cfg: ModelConfig, n_blocks: int, block_size: int,
                       dtype_bytes: int = 2,
-                      cache_spec: Optional[KVCacheSpec] = None) -> int:
+                      cache_spec: Optional[KVCacheSpec] = None, *,
+                      kv_shards: int = 1, per_device: bool = False) -> int:
     """Bytes held by the paged pools: ``kv_dim * dtype_bytes`` per position
-    dense, the wire bytes (packed payload + one scale byte per block) MX."""
+    dense, the wire bytes (packed payload + one scale byte per block) MX.
+    The global pools by default; ``per_device=True`` gives what one kv rank
+    holds of ``kv_shards`` (``n_blocks / kv_shards`` blocks)."""
     cache_spec = KVCacheSpec.parse(cache_spec)
     if cache_spec.quantized:
         pos_bytes = cache_spec.mx.wire_bytes(cfg.kv_dim)
     else:
         pos_bytes = cfg.kv_dim * dtype_bytes
-    return 2 * attn_layer_count(cfg) * n_blocks * block_size * pos_bytes
+    total = 2 * attn_layer_count(cfg) * n_blocks * block_size * pos_bytes
+    return total // kv_shards if per_device else total

@@ -5,7 +5,11 @@ budget pads, and a row that has no valid key at all), the decode geometry,
 a chunk geometry (Sq > 1), dense and fp4 wire pools, GQA groups G = 1 and 2,
 and one sliding-window case; the multi-segment mixed geometry also at the
 new families' groups G = 7 and 8 and at head_dim 256 (G = 2), with and
-without a window. fp32 throughout; tolerance 1e-5 (summation order only).
+without a window; and the ``row_map`` read of sequence-sharded pools (a
+virtual pool of per-slot regions, ``pool[slot_tables.reshape(-1)]``) in the
+decode, chunk and mixed geometries against the reference kernel's
+``row_map`` path, and bit for bit against the table walk over the original
+pool. fp32 throughout; tolerance 1e-5 (summation order only).
 TF32 is switched off for torch matmuls in this file.
 
 The CUDA kernel cuts the query vectors into 64-vector tiles and those into
@@ -69,7 +73,7 @@ def _mixed_geometry():
 
 
 def _run_both(q, pools_j, pools_t, specs, tables, hist, q_pos, extras, kv_heads, window,
-              hd=HD):
+              hd=HD, row_map=None):
     (pk_j, pv_j), (pk_t, pv_t) = pools_j, pools_t
     jspec, tspec = specs if specs else (None, None)
     e_j = e_t = (None, None, None)
@@ -79,10 +83,12 @@ def _run_both(q, pools_j, pools_t, specs, tables, hist, q_pos, extras, kv_heads,
         e_t = (torch.from_numpy(ke), torch.from_numpy(ve), torch.from_numpy(te))
     ref = pallas_paged_attention(
         jnp.asarray(q), pk_j, pv_j, jnp.asarray(tables), jnp.asarray(hist),
-        jnp.asarray(q_pos), *e_j, spec=jspec, kv_heads=kv_heads, scale=hd**-0.5,
-        window=window, out_dtype=jnp.float32, interpret=True)
+        jnp.asarray(q_pos), *e_j, None if row_map is None else jnp.asarray(row_map),
+        spec=jspec, kv_heads=kv_heads, scale=hd**-0.5, window=window,
+        out_dtype=jnp.float32, interpret=True)
     args = (torch.from_numpy(q), pk_t, pv_t, torch.from_numpy(tables),
-            torch.from_numpy(hist), torch.from_numpy(q_pos), *e_t)
+            torch.from_numpy(hist), torch.from_numpy(q_pos), *e_t,
+            None if row_map is None else torch.from_numpy(row_map))
     got = paged_attention(*args, spec=tspec, kv_heads=kv_heads, scale=hd**-0.5,
                           window=window)
     # the CPU dispatch IS the plain version
@@ -155,13 +161,80 @@ def test_sliding_window_matches_pallas():
     np.testing.assert_allclose(got, ref, **TOL)
 
 
-def test_row_map_is_not_ported():
-    q = torch.zeros(1, 1, 32)
-    pool = torch.zeros(2, 16, 32)
-    with pytest.raises(NotImplementedError, match="row_map"):
-        paged_attention(q, pool, pool, torch.zeros(1, 1, dtype=torch.int32),
-                        torch.zeros(1, dtype=torch.int32), torch.zeros(1, 1, dtype=torch.int32),
-                        row_map=torch.zeros(1, dtype=torch.int32), kv_heads=1, scale=1.0)
+# ------------------------------------------ row_map: sequence-sharded pools
+
+
+def _virtual(pools_j, pools_t, slot_tables):
+    """Both frameworks' virtual pools of ``pool_exchange``: the blocks of
+    each slot's table, one region of nb blocks per slot, in table order."""
+    idx = slot_tables.reshape(-1)
+    take_j = lambda p: p[idx] if not isinstance(p, JMX) else JMX(p.payload[idx], p.scales[idx])
+    take_t = lambda p: (p[torch.from_numpy(idx).long()] if not isinstance(p, MXCompressed)
+                        else MXCompressed(*(a[torch.from_numpy(idx).long()] for a in p)))
+    return tuple(map(take_j, pools_j)), tuple(map(take_t, pools_t))
+
+
+def _row_map_case(geo, fmt, groups=2, hd=HD):
+    """(q, pools, specs, slot tables, row arguments, row_map, extras, kv_heads,
+    window) of one served geometry: the mixed step (row_map = slot_ids),
+    the split decode (arange(B)) and the split chunk (zeros(1))."""
+    rng = np.random.default_rng(13)
+    if geo == "multi_segment":
+        kv_heads = max(1, 4 // groups)
+        pools_j, pools_t, specs = _pools(kv_heads * hd, fmt, seed=8, n_blocks=33)
+        slot_tables = np.arange(1, 33, dtype=np.int32).reshape(4, 8)
+        tables, hist, q_pos, t_extra = _multi_segment_geometry()
+        # rows of the empty slot 4 read an all-null region of their own
+        slot_tables = np.concatenate([slot_tables, np.zeros((1, 8), np.int32)])
+        sid = np.array([next(i for i, t in enumerate(slot_tables) if (t == row).all())
+                        for row in tables], np.int32)
+        window = 24
+    else:
+        kv_heads = 2
+        pools_j, pools_t, specs = _pools(kv_heads * hd, fmt, seed=14)
+        window = None
+        slot_tables = np.array([[1, 2, 3, 4], [5, 6, 7, 8], [0, 0, 0, 0]], np.int32)
+        if geo == "mixed":
+            tables, hist, q_pos, t_extra = _mixed_geometry()
+            sid = np.array([0, 0, 0, 0, 1, 2, 0], np.int32)
+        elif geo == "decode":
+            slot_tables = slot_tables[:2]
+            tables, sid = slot_tables, np.arange(2, dtype=np.int32)
+            lengths = np.array([37, 52], np.int32)
+            hist, q_pos, t_extra = lengths + 1, lengths[:, None].copy(), None
+        else:  # chunk: R = 1, Sq = 8 over its own extras
+            slot_tables = slot_tables[:1]
+            tables, sid = slot_tables, np.zeros(1, np.int32)
+            q_pos = np.arange(37, 45, dtype=np.int32)[None]
+            hist, t_extra = np.array([37], np.int32), q_pos.copy()
+    R, Sq = q_pos.shape
+    q = rng.normal(size=(R, Sq, kv_heads * groups * hd)).astype(np.float32)
+    extras = None
+    if t_extra is not None:
+        E = t_extra.shape[1]
+        extras = (rng.normal(size=(E, kv_heads * hd)).astype(np.float32),
+                  rng.normal(size=(E, kv_heads * hd)).astype(np.float32), t_extra)
+    return (q, pools_j, pools_t, specs, slot_tables, (tables, hist, q_pos), sid, extras,
+            kv_heads, window)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "fp4_e2m1"])
+@pytest.mark.parametrize("geo", ["decode", "chunk", "mixed", "multi_segment"])
+def test_row_map_matches_pallas_and_table_walk(geo, fmt):
+    """The plain version's ``row_map`` read over a virtual pool matches the
+    reference kernel's ``row_map`` read (interpret mode) within the file's
+    tolerance, and equals the table walk over the original pool exactly."""
+    (q, pools_j, pools_t, specs, slot_tables, (tables, hist, q_pos), sid, extras,
+     kv_heads, window) = _row_map_case(geo, fmt)
+    vj, vt = _virtual(pools_j, pools_t, slot_tables)
+    got, ref = _run_both(q, vj, vt, specs, tables, hist, q_pos, extras, kv_heads, window,
+                         row_map=sid)
+    np.testing.assert_allclose(got, ref, **TOL)
+    walk = paged_attention_plain(
+        torch.from_numpy(q), *pools_t, torch.from_numpy(tables), torch.from_numpy(hist),
+        torch.from_numpy(q_pos), *([torch.from_numpy(a) for a in extras] if extras else []),
+        spec=specs[1] if specs else None, kv_heads=kv_heads, scale=HD**-0.5, window=window)
+    np.testing.assert_array_equal(got, walk.numpy())
 
 
 # ------------------------------------------- runs across the kernel's 64-vector tiles

@@ -43,7 +43,7 @@ def test_share_release_conservation():
     assert a.n_free == 8 and a.refcount(ids[0]) == 1
     a.release(ids[:1])
     assert a.n_free == 9 and a.n_allocated == 0
-    assert sorted(a._free) == list(range(1, 10))
+    assert sorted(b for shard in a._free for b in shard) == list(range(1, 10))
 
 
 def test_release_beyond_refcount_rejected():
