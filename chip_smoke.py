@@ -66,7 +66,9 @@ Phases (any failure exits non-zero):
               tokens identical; one compressed mixed step on fp4 pools
               within a stated tolerance.
 5. serve    — llama2-7b at full width and depth, random bf16 weights from a
-              seed, TPContext(PAPER_DEFAULT, simulate_tp=4), 8 requests x 512
+              seed, TPContext(PAPER_DEFAULT, simulate_tp=4), on graphed steps
+              (every step program a CUDA graph, captured at its first call,
+              its launches recorded and added at each replay), 8 requests x 512
               prompt tokens x 32 new tokens: the mixed-step engine on fp4 and
               bf16 pools; (a) the split scheduler (chunk 256) on fp4 and bf16
               pools; (b) whole-prompt prefill on fp4 pools; (c) the mixed
@@ -85,7 +87,7 @@ Phases (any failure exits non-zero):
               held, the planned recoveries, and each kernel's launch count
               against the count the run's own stats give (a supervisor's
               merged over its attempts; launch counts reset just before each
-              run).
+              run), and prints its step programs (decode, prefill).
 6. families — qwen2-7b, gemma3-4b and qwen3-32b at full width on random
               bf16 weights from a seed (``FAMILIES``): qwen2-7b at full
               depth, mixed on fp4 pools, split on bf16 pools, mixed under the
@@ -95,8 +97,9 @@ Phases (any failure exits non-zero):
               1024 window), mixed fp4 and split bf16, measure_ttft at 2048;
               qwen3-32b mixed fp4 at full depth when its weights and pools
               fit the card once the earlier models are freed, else at the
-              depth that fits (printed). Each run held as in phase 5, with
-              its weight GB and peak device memory printed.
+              depth that fits (printed). Each run held as in phase 5 (on
+              graphed steps), with its weight GB and peak device memory
+              printed.
 7. sharded  — llama2-7b at full width and depth on 2 kv ranks (processes
               over gloo, ``file://`` rendezvous) sharing the one card, the
               paged pools sequence-sharded between them (each rank holds half
@@ -114,7 +117,24 @@ Phases (any failure exits non-zero):
               engine at the per-rank budget must refuse the long prompt.
               Prints the exchange's MB and ms per step and TPOT p50 sharded
               against replicated (one card, gloo, host-staged: not NVLink)
-              and each rank's peak device memory.
+              and each rank's peak device memory. Sharded engines run eager
+              steps (a graph cannot hold the host-staged exchange).
+8. graphs   — (run right after phase 5, on its weights and prompts) an eager
+              twin (``cuda_graphs=False``) of phase 5's graphed mixed fp4 and
+              bf16, split bf16 and whole-prompt fp4 runs: greedy tokens
+              identical in every request (no tolerance: the graph replays
+              the eager step's kernels), launches exact on both, the program
+              counts (decode_cache_size, prefill_cache_size) as expected on
+              both, 2 for a mixed engine that ran both gate variants; an
+              eager corrupt@9 supervised run whose tokens and hard recovery
+              the graphed one must match; measure_ttft on eager steps.
+              Prints capture seconds per program, TPOT p50, tokens/s and
+              the device memory each run added at its peak (graph pool and
+              activations) graphed against eager, and measure_ttft at
+              512 and 2048 tokens, graphed against eager, compressed against
+              uncompressed. Then the analytic TTFT model's H100 constants
+              fitted on this run (``launch/ttft_table.fit_h100``) and its
+              codec term against the measured one (``one_card_check``).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. Details go to
@@ -1268,7 +1288,12 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
     from repro_torch.serving import Request
 
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-    if warm:   # cuBLAS handles and first launches, outside the count
+    base = None
+    if dev == "cuda":   # the peak over the run, its warm-up's captures included
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    if warm:   # cuBLAS handles, first launches and captures, outside the count
         plan, eng.fault_plan = eng.fault_plan, None
         eng.run([Request(prompt=traffic[0].copy(), max_new_tokens=2)])
         eng.fault_plan = plan
@@ -1310,7 +1335,15 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
     runs[name] = dict(summary=s, launches=got, gate=dict(eng.gate_counts), wall_s=wall,
                       pool_mb=eng.kv_pool_bytes() / 1e6, pool_bytes=eng.kv_pool_bytes(),
                       outputs=[r.output.tolist() for r in reqs],
-                      outcomes=[r.outcome for r in reqs], exchange=exchange, expected=expect)
+                      outcomes=[r.outcome for r in reqs], exchange=exchange, expected=expect,
+                      graphed=eng.graphed,
+                      programs=(eng.decode_cache_size(), eng.prefill_cache_size()),
+                      capture_s=eng.capture_seconds(),
+                      peak_gb=torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else None,
+                      # what the run added at its peak over what was held before it (the
+                      # engine's pools come with the engine): graph pool and activations
+                      run_peak_gb=((torch.cuda.max_memory_allocated() - base) / 1e9
+                                   if dev == "cuda" else None))
     outcomes = ", ".join(f"{s[k]} {k[2:].replace('_', ' ')}" for k in
                          ("n_ok", "n_rejected", "n_timed_out", "n_cancelled") if s[k])
     log(f"serve[{name}]: {len(reqs)} requests ({outcomes}), {s['n_generated']} tokens in "
@@ -1320,7 +1353,9 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
         f"{s['n_steps']} steps, {s['n_dispatches']} "
         f"dispatches (gate {eng.gate_counts}); {s['n_preemptions']} preemptions; "
         f"{s['prefill_tokens_skipped']} prompt tokens skipped; pool "
-        f"{runs[name]['pool_mb']:.1f} MB; launches {got}")
+        f"{runs[name]['pool_mb']:.1f} MB; {'graphed' if eng.graphed else 'eager'} steps, "
+        f"programs decode={runs[name]['programs'][0]} prefill={runs[name]['programs'][1]}; "
+        f"launches {got}")
     return s, reqs
 
 
@@ -1356,21 +1391,23 @@ def phase_serve(torch, dev="cuda", cfg=None):
     runs, totals = {}, {k: 0 for k in KERNELS}
     serve = functools.partial(serve_run, torch, dev, runs, totals, L)
     kw = dict(max_slots=SLOTS, max_len=MAX_LEN, block_size=BS, device=dev)
+    kept = {}   # the graphed engines phase 8 holds eager ones against
     # the mixed token-budget step
     for spec in ("fp4_e2m1", "bf16"):
-        eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=T, cache_spec=spec,
-                     **kw)
+        eng = kept[f"mixed/{spec}"] = Engine(model, params, ctx, prefill_chunk=CHUNK,
+                                             token_budget=T, cache_spec=spec, **kw)
         serve(f"mixed/{spec}", eng, prompts)[0]
         check(eng.gate_counts["compressed"] > 0 and eng.gate_counts["dense"] > 0,
               f"mixed/{spec}: gate counts {eng.gate_counts}")
     # (a) the split scheduler: one 256-token chunk, then the batched decode
     for spec in ("fp4_e2m1", "bf16"):
-        eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=0, cache_spec=spec,
-                     **kw)
+        eng = kept[f"split/{spec}"] = Engine(model, params, ctx, prefill_chunk=CHUNK,
+                                             token_budget=0, cache_spec=spec, **kw)
         s = serve(f"split/{spec}", eng, prompts)[0]
         check(s["n_dispatches"] > s["n_steps"], f"split/{spec}: one dispatch per step")
     # (b) whole-prompt prefill + insert, then the batched decode
-    eng = Engine(model, params, ctx, prefill_chunk=0, cache_spec="fp4_e2m1", **kw)
+    eng = kept["whole/fp4_e2m1"] = Engine(model, params, ctx, prefill_chunk=0,
+                                          cache_spec="fp4_e2m1", **kw)
     s = serve("whole/fp4_e2m1", eng, prompts)[0]
     check(s["prefill_tokens"] == 8 * PROMPT and s["n_dispatches"] > s["n_steps"],
           "whole/fp4_e2m1: prompts not prefilled whole")
@@ -1414,14 +1451,17 @@ def phase_serve(torch, dev="cuda", cfg=None):
     runs["ttft"] = ttft_runs(torch, dev, model, params, TTFT_LENS, totals)
     check(dev != "cuda" or all(totals[k] > 0 for k in KERNELS),
           f"a kernel never launched: {totals}")
+    runs["graphs"] = phase_graphs(torch, dev, serve, runs, kept, model, params, ctx, prompts,
+                                  kw, totals)
     return runs, totals
 
 
-def ttft_runs(torch, dev, model, params, lens, totals, label=""):
+def ttft_runs(torch, dev, model, params, lens, totals, label="", graphs=True):
     """``measure_ttft`` at each prompt length of ``lens``, compressed
     (PAPER_DEFAULT over simulate_tp = TP) and uncompressed, launches held to
-    one compressed reduction per row-parallel layer and prefill. Returns
-    {"compressed/n" | "uncompressed/n": result}."""
+    one compressed reduction per row-parallel layer and prefill, on graphed
+    steps (``graphs=False``: eager). Returns {"compressed/n" |
+    "uncompressed/n": result}."""
     from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
     from repro_torch.core.tp import TPContext
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
@@ -1431,7 +1471,8 @@ def ttft_runs(torch, dev, model, params, lens, totals, label=""):
     ttft = {}
     for kind, policy in (("compressed", PAPER_DEFAULT), ("uncompressed", NO_COMPRESSION)):
         eng = Engine(model, params, TPContext(policy=policy, simulate_tp=TP), max_slots=1,
-                     max_len=max(lens), block_size=BS, prefill_chunk=0, device=dev)
+                     max_len=max(lens), block_size=BS, prefill_chunk=0, device=dev,
+                     cuda_graphs=graphs)
         for n in lens:
             reset_launch_counts()
             r = eng.measure_ttft(n, iters=TTFT_ITERS)
@@ -1443,11 +1484,108 @@ def ttft_runs(torch, dev, model, params, lens, totals, label=""):
                 check(got == expect, f"{label}ttft/{kind}/{n}: launches {got} != {expect}")
             for k in totals:
                 totals[k] += got[k]
-            ttft[f"{kind}/{n}"] = dict(r, launches=got)
+            ttft[f"{kind}/{n}"] = dict(r, launches=got, capture_s=eng.capture_seconds())
             log(f"{label}ttft[{n} tokens, {kind}]: median {r['median_s'] * 1e3:.2f} ms, std "
                 f"{r['std_s'] * 1e3:.2f} ms over {r['iters']} prefills")
         del eng
     return ttft
+
+
+# ---------------------------------------------------------------------- graphs
+
+# phase 5's graphed run -> (the scheduler options of its eager twin, the
+# (decode, prefill) program counts both must show: 2 for a mixed engine under
+# PAPER_DEFAULT that ran both gate variants)
+GRAPH_PAIRS = {
+    "mixed/fp4_e2m1": (dict(prefill_chunk=CHUNK, token_budget=T, cache_spec="fp4_e2m1"), (2, 2)),
+    "mixed/bf16": (dict(prefill_chunk=CHUNK, token_budget=T, cache_spec="bf16"), (2, 2)),
+    "split/bf16": (dict(prefill_chunk=CHUNK, token_budget=0, cache_spec="bf16"), (1, 1)),
+    "whole/fp4_e2m1": (dict(prefill_chunk=0, cache_spec="fp4_e2m1"), (1, 1)),
+}
+
+
+def phase_graphs(torch, dev, serve, runs, kept, model, params, ctx, prompts, kw, totals):
+    """Phase 8: graphed steps against eager ones on llama2-7b, the weights
+    and prompts of phase 5, whose graphed runs (``kept``) each get an eager
+    twin (``cuda_graphs=False``): greedy tokens identical in every request
+    (no tolerance); launches exact on both (``serve_run``); program
+    counts as ``GRAPH_PAIRS`` expects on both. Then a supervised eager
+    ``corrupt@9`` run on bf16 pools whose tokens and recovery the graphed
+    run of phase 5 must match, and ``measure_ttft`` on eager steps. Prints
+    capture seconds per program, TPOT p50, tokens/s and the device memory
+    each run added at its peak, eager against graphed, and the whole-prompt
+    TTFT of both, compressed against uncompressed."""
+    from repro_torch.serving import Engine, EngineSupervisor, FaultPlan
+
+    out = {}
+    for name, (opts, programs) in GRAPH_PAIRS.items():
+        eng = Engine(model, params, ctx, cuda_graphs=False, **opts, **kw)
+        serve(f"eager {name}", eng, prompts)
+        g, e = runs[name], runs[f"eager {name}"]
+        graphed = kept[name]
+        check(dev != "cuda" or (graphed.graphed and not eng.graphed),
+              f"graphs[{name}]: graphed {graphed.graphed}, eager {eng.graphed}")
+        check(g["programs"] == e["programs"] == programs,
+              f"graphs[{name}]: programs graphed {g['programs']}, eager {e['programs']}, "
+              f"expected {programs}")
+        differ = [i for i, (x, y) in enumerate(zip(g["outputs"], e["outputs"])) if x != y]
+        same = len(prompts) - len(differ)
+        check(g["outputs"] == e["outputs"] and len(g["outputs"]) == len(prompts),
+              f"graphs[{name}]: {same} of {len(prompts)} requests decoded the eager tokens; "
+              f"requests {differ} differ")
+        sg, se = g["summary"], e["summary"]
+        out[name] = dict(same_tokens=same, capture_s=g["capture_s"],
+                         tpot_p50_ms=(sg["tpot_p50_s"] * 1e3, se["tpot_p50_s"] * 1e3),
+                         tokens_per_s=(sg["tokens_per_s"], se["tokens_per_s"]),
+                         run_peak_gb=(g["run_peak_gb"], e["run_peak_gb"]),
+                         programs=g["programs"])
+        peak = (f"{g['run_peak_gb']:.3f} / {e['run_peak_gb']:.3f} GB" if dev == "cuda"
+                else "not measured (no card)")
+        log(f"graphs[{name}]: tokens identical for {same} of {len(prompts)} requests; "
+            f"programs decode={g['programs'][0]} "
+            f"prefill={g['programs'][1]} on both; TPOT p50 {sg['tpot_p50_s'] * 1e3:.2f} ms "
+            f"graphed / {se['tpot_p50_s'] * 1e3:.2f} ms eager; {sg['tokens_per_s']:.1f} / "
+            f"{se['tokens_per_s']:.1f} tokens/s; device memory the run added at its peak "
+            f"{peak} graphed / eager; "
+            f"capture s " + ", ".join(f"{k} {v:.3f}" for k, v in g["capture_s"].items()))
+        del eng
+
+    # a hard recovery under graphs: phase 5's graphed faults/bf16 run
+    eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=T, cache_spec="bf16",
+                 cuda_graphs=False, fault_plan=FaultPlan.parse(FAULT_RUNS["bf16"][0]), **kw)
+    sup = EngineSupervisor(eng)
+    serve("eager faults/bf16", eng, prompts, sup=sup)
+    g, e = runs["faults/bf16"], runs["eager faults/bf16"]
+    ev = lambda r: [(x["error"], x["mode"], x["n_replayed"]) for x in r["events"]]
+    e["events"] = [dict(error=x.error, mode=x.mode, n_replayed=x.n_replayed,
+                        recovery_s=x.recovery_s) for x in sup.events]
+    check(ev(g) == ev(e) == [("WireCorruption", "hard", len(prompts))],
+          f"graphs[faults/bf16]: recoveries graphed {ev(g)}, eager {ev(e)}")
+    check(g["outputs"] == e["outputs"], "graphs[faults/bf16]: the graphed run's tokens after "
+                                        "its hard recovery differ from the eager run's")
+    check(g["programs"] == (2, 2), f"graphs[faults/bf16]: programs {g['programs']} after the "
+                                   f"recovery")
+    out["faults/bf16"] = dict(recovery_s=([x["recovery_s"] for x in g["events"]],
+                                          [x["recovery_s"] for x in e["events"]]))
+    log(f"graphs[faults/bf16]: corrupt@9 recovered hard on both, tokens identical; recovery_s "
+        f"{g['events'][0]['recovery_s']:.4f} graphed / {e['events'][0]['recovery_s']:.4f} "
+        f"eager; programs decode={g['programs'][0]} prefill={g['programs'][1]}")
+    del eng, sup
+
+    runs["ttft_eager"] = ttft_runs(torch, dev, model, params, TTFT_LENS, totals,
+                                   label="eager ", graphs=False)
+    for n in TTFT_LENS:
+        gr, ea = runs["ttft"], runs["ttft_eager"]
+        ms = lambda r, k: r[f"{k}/{n}"]["median_s"] * 1e3
+        out[f"ttft/{n}"] = {k: (ms(gr, k), ms(ea, k)) for k in ("compressed", "uncompressed")}
+        log(f"graphs ttft[{n} tokens]: graphed {ms(gr, 'compressed'):.3f} ms compressed / "
+            f"{ms(gr, 'uncompressed'):.3f} ms uncompressed = "
+            f"{ms(gr, 'compressed') / ms(gr, 'uncompressed'):.3f}x; eager "
+            f"{ms(ea, 'compressed'):.3f} / {ms(ea, 'uncompressed'):.3f} ms = "
+            f"{ms(ea, 'compressed') / ms(ea, 'uncompressed'):.3f}x; capture s "
+            + ", ".join(f"{k} {gr[f'{k}/{n}']['capture_s'].get(f'prefill/{n}', float('nan')):.3f}"
+                        for k in ("compressed", "uncompressed")))
+    return out
 
 
 def fit_depth(torch, dev, cfg, n_blocks, margin_gb=6.0):
@@ -1908,6 +2046,30 @@ def watch_cost(torch, dev, eng, vocab, n=200):
     return out
 
 
+def ttft_fit(info, ttft):
+    """The analytic TTFT model's H100 constants fitted on this run
+    (``launch/ttft_table.fit_h100``: the graphed uncompressed measure_ttft at
+    2048 tokens, the launch floor, the codec's device time at the
+    whole-prompt shapes of 512 tokens), and the one-card check of its codec
+    term against the measured compressed minus uncompressed TTFT."""
+    from repro_torch.launch.ttft_table import fit_h100, measured_from, one_card_check
+
+    q = next(r for r in info["mx_quant"]["shapes"] if "whole-prompt TP partials" in r["shape"])
+    d = next(r for r in info["mx_dequant_reduce"]["shapes"]
+             if "whole-prompt prefill" in r["shape"])
+    fit = fit_h100(ttft["uncompressed/2048"]["median_s"],
+                   info["mx_quant"]["launch_floor_ms"] / 1e3, q["ms"] / 1e3, d["ms"] / 1e3)
+    log(f"ttft model fit (H100 entry): mfu {fit['mfu']:.4f} (graphed uncompressed "
+        f"measure_ttft at 2048 tokens {ttft['uncompressed/2048']['median_s'] * 1e3:.3f} ms), "
+        f"codec_fixed_s {fit['codec_fixed_s']:.4g} (2 x the launch floor), codec_passes "
+        f"{fit['codec_passes']:.4f} ({q['shape']} {q['ms']:.4f} ms + {d['shape']} "
+        f"{d['ms']:.4f} ms)")
+    text, one_card = one_card_check(measured_from(ttft))
+    for line in text.splitlines():
+        log(line)
+    return dict(fit=fit, one_card=one_card)
+
+
 # ------------------------------------------------------------------------ main
 
 
@@ -1947,6 +2109,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     phase_reference(torch)
     runs, totals = phase_serve(torch)
+    ttft_model = ttft_fit(info, runs["ttft"])
     families = {}
     for arch in FAMILIES:
         families[arch], fam_totals = phase_family(torch, arch)
@@ -1973,7 +2136,8 @@ def main() -> int:
         for r in info["paged_attention"]["geometries"]]
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_seconds(), "builder": builder(), "kernels": info,
-         "serve": runs, "families": families, "sharded": sharded, "launches": totals},
+         "serve": runs, "families": families, "sharded": sharded, "launches": totals,
+         "ttft_model": ttft_model},
         indent=1, default=str))
     log("kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g} "

@@ -168,6 +168,10 @@ class MXSpec:
         n_blocks = n_values // self.block_size
         return (n_values * self.elem.bits + 7) // 8 + n_blocks
 
+    def wire_bits_per_value(self, n_values: int) -> float:
+        """Wire bits per value for ``n_values`` values, scales included."""
+        return 8.0 * self.wire_bytes(n_values) / n_values
+
 
 @dataclasses.dataclass(frozen=True)
 class KVCacheSpec:

@@ -18,21 +18,28 @@ same launchers. Nothing here runs at import time: the CPU tests import every
 module of the port on a machine with no ``nvcc``. Processes that share one
 build directory (the kv ranks of sequence-sharded pools) build it once in
 the parent and open it with ``load_kernels(build=False)``.
+
+Launch accounting: each wrapper calls ``count_launch`` where it launches its
+kernel. A CUDA graph's replay runs none of that Python, so a graph's capture
+records its launches (``record_launches``) instead of counting them (a
+capture runs no kernel), and each replay adds the record
+(``add_launches``): ``launch_counts()`` stays the count of kernels run.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
 __all__ = ["load_kernels", "launch_counts", "reset_launch_counts", "count_launch",
-           "check_launch", "stream_ptr", "KERNEL_NAMES", "BUILD_DIR", "build_seconds",
+           "check_launch", "record_launches", "add_launches", "stream_ptr", "KERNEL_NAMES", "BUILD_DIR", "build_seconds",
            "builder"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -44,6 +51,7 @@ LIB_NAME = "repro_torch_kernels"
 
 KERNEL_NAMES = ("mx_quant", "mx_dequant", "mx_dequant_reduce", "paged_attention")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+_RECORD: Optional[Dict[str, int]] = None   # the open capture's record, if any
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -69,7 +77,29 @@ def reset_launch_counts() -> None:
 
 
 def count_launch(name: str) -> None:
-    _LAUNCHES[name] += 1
+    """One launch of ``name``: counted, or recorded while a capture is open."""
+    target = _LAUNCHES if _RECORD is None else _RECORD
+    target[name] = target.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def record_launches() -> Iterator[Dict[str, int]]:
+    """Within the block, launches go into the yielded record instead of the
+    counters: wrap a graph's capture in it, and ``add_launches(record)`` at
+    each replay."""
+    global _RECORD
+    outer, record = _RECORD, {}
+    _RECORD = record
+    try:
+        yield record
+    finally:
+        _RECORD = outer
+
+
+def add_launches(record: Dict[str, int]) -> None:
+    """Count the launches of one replay of a graph whose capture gave ``record``."""
+    for name, n in record.items():
+        _LAUNCHES[name] += n
 
 
 def check_launch(name: str, err: int) -> None:

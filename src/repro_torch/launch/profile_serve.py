@@ -11,8 +11,11 @@ also timed without it, and the idle share is given against both walls.
 ``--cache-spec`` takes a comma-separated list, e.g. ``fp4_e2m1,bf16,bf16,fp4_e2m1``:
 the cells then run in that order in one process on the same weights, so
 their numbers compare within one call. A cell runs the mixed token-budget
-scheduler (budget 260, chunk 256); a cell written ``<spec>:split`` runs the
-split chunk-then-decode scheduler (``token_budget=0``, chunk 256) instead.
+scheduler (budget 260, chunk 256) on graphed steps (the engine's CUDA
+graphs, captured in the warm-up run); ``:split`` after the spec runs the
+split chunk-then-decode scheduler (``token_budget=0``, chunk 256) instead,
+and ``:eager`` runs eager steps (``cuda_graphs=False``), e.g.
+``fp4_e2m1,fp4_e2m1:eager,fp4_e2m1:eager,fp4_e2m1`` holds the two in turns.
 Writes the tables to ``--out`` as a JSON list as well. Needs a GPU.
 """
 from __future__ import annotations
@@ -74,14 +77,15 @@ def main(argv=None):
 def profile_cell(model, params, cell, prompts, args):
     """One cell: an unprofiled run, then the same traffic under the profiler."""
     cfg = model.cfg
-    cache_spec, _, scheduler = cell.partition(":")
-    scheduler = scheduler or "mixed"
-    if scheduler not in ("mixed", "split"):
-        raise ValueError(f"cell {cell!r}: the scheduler is 'mixed' or 'split'")
+    cache_spec, *options = cell.split(":")
+    if not set(options) <= {"mixed", "split", "eager"}:
+        raise ValueError(f"cell {cell!r}: options are 'split' (else mixed) and 'eager'")
+    scheduler = "split" if "split" in options else "mixed"
+    steps = "eager" if "eager" in options else "graphed"
     engine = Engine(model, params, TPContext(policy=PAPER_DEFAULT, simulate_tp=4),
                     max_slots=4, max_len=args.prompt_len + args.new_tokens, block_size=16,
                     prefill_chunk=256, token_budget=260 if scheduler == "mixed" else 0,
-                    cache_spec=cache_spec)
+                    cache_spec=cache_spec, cuda_graphs=steps == "graphed")
     engine.run([Request(prompt=prompts[0].copy(), max_new_tokens=2)])  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -89,6 +93,7 @@ def profile_cell(model, params, cell, prompts, args):
                seed=args.seed)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    plain = engine.stats.summary()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -104,15 +109,17 @@ def profile_cell(model, params, cell, prompts, args):
             by_cat[category(e.name)] += us / 1e3
             by_kernel[e.name] += us / 1e3
     busy = sum(by_cat.values())
-    steps = engine.stats.n_steps
+    n_steps = engine.stats.n_steps
     dispatches = engine.stats.n_dispatches
     name = torch.cuda.get_device_name(0)
     print(f"{name}; {cfg.name}, {cache_spec} pools, {scheduler} scheduler, {steps} steps, "
-          f"{dispatches} dispatches ({engine.gate_counts}), wall {wall_ms:.1f} ms under "
-          f"the profiler, {plain_wall_ms:.1f} ms without it")
+          f"{n_steps} steps, {dispatches} dispatches ({engine.gate_counts}), wall "
+          f"{wall_ms:.1f} ms under the profiler, {plain_wall_ms:.1f} ms without it; TPOT p50 "
+          f"{plain['tpot_p50_s'] * 1e3:.2f} ms, {plain['tokens_per_s']:.1f} tokens/s without "
+          f"it")
     for cat in ("paged_attention", "mx_codec", "gemm", "other"):
         print(f"  {cat:16s} {by_cat[cat]:9.1f} ms  {by_cat[cat] / wall_ms:6.1%} of wall  "
-              f"{by_cat[cat] / max(steps, 1):7.2f} ms/step")
+              f"{by_cat[cat] / max(n_steps, 1):7.2f} ms/step")
     print(f"  device busy {busy:.1f} ms = {busy / wall_ms:.1%} of wall; idle share "
           f"{1 - busy / wall_ms:.1%} under the profiler, {1 - busy / plain_wall_ms:.1%} "
           f"against the wall without it")
@@ -120,7 +127,9 @@ def profile_cell(model, params, cell, prompts, args):
     for k, ms in top:
         print(f"    {ms:9.1f} ms  {k[:100]}")
     return {"device": name, "cache_spec": cache_spec, "scheduler": scheduler,
-            "steps": steps, "dispatches": dispatches,
+            "step_programs": steps, "capture_s": engine.capture_seconds(),
+            "tpot_p50_ms": plain["tpot_p50_s"] * 1e3, "tokens_per_s": plain["tokens_per_s"],
+            "steps": n_steps, "dispatches": dispatches,
             "gate_counts": engine.gate_counts, "wall_ms": wall_ms,
             "plain_wall_ms": plain_wall_ms, "device_ms_by_category": dict(by_cat),
             "top_kernels_ms": dict(top)}

@@ -211,6 +211,8 @@ def _serve(args, device: torch.device, kv_group=None):
         print_(f"prefix cache: {s['prefill_tokens_skipped']} prompt tokens skipped "
                f"(hit rate {s['prefix_hit_rate']:.2f})")
     print_(f"preemptions: {s['n_preemptions']}")
+    print_(f"programs: decode={engine.decode_cache_size()} prefill={engine.prefill_cache_size()} "
+           f"({'graphed' if engine.graphed else 'eager'} steps)")
     print_(f"TTFT p50 {s['ttft_p50_s']*1e3:.1f} ms, p90 {s['ttft_p90_s']*1e3:.1f} ms; "
            f"TPOT p50 {s['tpot_p50_s']*1e3:.2f} ms, p95 {s['tpot_p95_s']*1e3:.2f} ms; "
            f"latency p50 {s['latency_p50_s']*1e3:.1f} ms")

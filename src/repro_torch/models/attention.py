@@ -36,7 +36,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import (
     NEG_INF, T_INVALID, attend_block as _attend_block, paged_attention,
 )
-from repro_torch.models.common import apply_rope, make_rope, rms_norm
+from repro_torch.models.common import apply_rope, int_scalar, make_rope, rms_norm
 
 __all__ = ["KVCache", "init_cache", "attention", "paged_attention_decode",
            "paged_attention_chunk", "paged_attention_mixed", "quantize_kv_pages",
@@ -240,7 +240,7 @@ def paged_attention_chunk(
     x: torch.Tensor,                   # (1, C, d_model) — one prompt chunk
     cfg: ModelConfig,
     *,
-    start: int,                        # position of x[:, 0]
+    start,                             # position of x[:, 0]: int or int32 scalar
     table_row: torch.Tensor,           # (max_blocks,) int32: the slot's blocks
     pool_k,
     pool_v,
@@ -253,9 +253,12 @@ def paged_attention_chunk(
     chunk's K/V goes into the pools at ``start + [0, C)`` (positions past the
     table, pads included, fall into the null block). Sharded pools: the
     slot's blocks are exchanged into one region (``row_map`` 0) before the
-    append. Returns (out (1, C, d_model), pool_k, pool_v)."""
+    append. ``start`` may be a 0-d int32 tensor on x's device (what a
+    captured step reads from its static input). Returns (out (1, C,
+    d_model), pool_k, pool_v)."""
     B, C = x.shape[:2]
     dev = x.device
+    start = int_scalar(start, dev)
     p = start + torch.arange(C, device=dev, dtype=torch.int32)
     q, k_new, v_new = _qkv(ctx, params, x, cfg, p[None, :])
     nb, bs = table_row.shape[0], _block_size(pool_k)
@@ -269,7 +272,7 @@ def paged_attention_chunk(
         row_map = torch.zeros(1, device=dev, dtype=torch.int32)
     out = paged_attention(
         q.reshape(1, C, -1).contiguous(), read_k, read_v, _i32(table_row[None]),
-        torch.full((1,), start, dtype=torch.int32, device=dev), p_row,
+        start.reshape(1), p_row,
         k_new[0].to(q.dtype).contiguous(), v_new[0].to(q.dtype).contiguous(), p_row,
         row_map, **_spec_args(cfg, cache_spec, window))
     k_rows, v_rows = pool_rows(k_new[0], v_new[0], pool_k, cache_spec)

@@ -8,7 +8,8 @@ import torch
 
 from repro_torch.core.tp import TPContext
 
-__all__ = ["rms_norm", "make_rope", "apply_rope", "embed", "unembed", "Initializer"]
+__all__ = ["rms_norm", "make_rope", "apply_rope", "embed", "unembed", "int_scalar",
+           "Initializer"]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -36,6 +37,14 @@ def apply_rope(x: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
     cos = rope[..., 0][:, :, None, :].to(x.dtype)
     sin = rope[..., 1][:, :, None, :].to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def int_scalar(v, device: torch.device) -> torch.Tensor:
+    """A 0-d int32 tensor on ``device`` for an int or an int tensor (an int
+    becomes a fill, not a host-to-device copy, so it can run under capture)."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(()).to(device=device, dtype=torch.int32)
+    return torch.full((), int(v), dtype=torch.int32, device=device)
 
 
 def embed(ctx: TPContext, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
     init_cache, paged_attention_chunk, paged_attention_decode, paged_attention_mixed,
 )
-from repro_torch.models.common import Initializer, embed, rms_norm, unembed
+from repro_torch.models.common import Initializer, embed, int_scalar, rms_norm, unembed
 from repro_torch.models.mlp import mlp
 from repro_torch.models.transformer import apply_stack
 
@@ -151,34 +151,38 @@ class Model:
                 "pos": 0}
 
     def prefill(self, ctx: TPContext, params, batch, cache, *,
-                last_index: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
+                last_index=None) -> Tuple[torch.Tensor, Any]:
         """Whole-prompt prefill of ``batch["tokens"]`` (B, S) into ``cache``
         (written in place); returns (logits (B, V) at ``last_index``, the last
         position by default, and the cache). The engine right-pads prompts to
         a length bucket and passes the last real token's index (causal
-        masking hides the pads)."""
+        masking hides the pads), an int or a 0-d int32 tensor on the tokens'
+        device (the row is picked on the device, so the call holds no host
+        value of it)."""
         tokens = batch["tokens"]
         x = self._embed(ctx, params, tokens)
         x, layer_caches = apply_stack(ctx, self.cfg, params["layers"], x, pos=0,
                                       caches=cache["layers"])
-        i = tokens.shape[1] - 1 if last_index is None else int(last_index)
-        logits = self._logits(ctx, params, x[:, i:i + 1])
+        i = int_scalar(tokens.shape[1] - 1 if last_index is None else last_index, x.device)
+        logits = self._logits(ctx, params, x.index_select(1, i.reshape(1)))
         return logits, {"layers": layer_caches, "pos": tokens.shape[1]}
 
-    def prefill_chunk(self, ctx: TPContext, params, tokens, state, table_row, start: int,
-                      n_valid: int, cache_spec=None) -> Tuple[torch.Tensor, Any]:
+    def prefill_chunk(self, ctx: TPContext, params, tokens, state, table_row, start,
+                      n_valid, cache_spec=None) -> Tuple[torch.Tensor, Any]:
         """Chunked prefill of ONE slot: tokens (1, C) int32, right-padded
         after ``n_valid`` real tokens; table_row (max_blocks,) int32 the
-        slot's blocks; ``start`` the position of tokens[0, 0]. Each layer
-        attends the slot's paged history plus the chunk, then appends the
-        chunk's K/V to the pools (in place). Returns (logits (1, V) at chunk
-        index ``n_valid - 1``, state)."""
+        slot's blocks; ``start`` the position of tokens[0, 0]. ``start`` and
+        ``n_valid`` are ints or 0-d int32 tensors on the tokens' device. Each
+        layer attends the slot's paged history plus the chunk, then appends
+        the chunk's K/V to the pools (in place). Returns (logits (1, V) at
+        chunk index ``n_valid - 1``, state)."""
         x = self._embed(ctx, params, tokens)
         x, state = self._paged_layers(
             ctx, params, x, state, lambda p, h, pk, pv, window: paged_attention_chunk(
                 ctx, p, h, self.cfg, start=start, table_row=table_row, pool_k=pk,
                 pool_v=pv, window=window, cache_spec=cache_spec))
-        return self._logits(ctx, params, x[:, n_valid - 1:n_valid]), state
+        last = int_scalar(n_valid, x.device) - 1
+        return self._logits(ctx, params, x.index_select(1, last.reshape(1))), state
 
     def decode_step_paged(self, ctx: TPContext, params, tokens, state, tables, lengths,
                           cache_spec=None) -> Tuple[torch.Tensor, Any]:

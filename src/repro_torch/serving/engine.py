@@ -35,6 +35,17 @@ steps; the step watchdog (``step_timeout_s``), the stall guard
 into ``StepStuck`` / ``WireCorruption`` / ``EngineDead``, from which
 ``recover()`` (or ``EngineSupervisor``) restores a runnable engine.
 
+Step programs: as the reference jits each step program once, the engine
+runs each of its steps through a compile-once ``StepProgram``
+(``serving/graphs.py``): the mixed step once per gate variant, the split
+chunk and decode, and whole-prompt prefill once per length bucket (under the
+reference's LRU bound of 8). On the card each program is a CUDA graph,
+captured at its first call and replayed after; ``cuda_graphs=False`` asks
+for eager steps instead. On the CPU and on sequence-sharded pools the
+programs run eagerly through the same static buffers. ``decode_cache_size``
+/ ``prefill_cache_size`` count the programs that have run, with the
+reference's semantics.
+
 Sequence-sharded pools: with a ``TPContext`` whose ``kv_group`` holds N
 ranks, each rank runs this engine on the same requests and holds
 ``n_blocks / N`` blocks of every pool (capacity rounds up to a multiple of
@@ -70,8 +81,9 @@ from repro_torch.serving.errors import (
 from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.kv_cache import (
     BlockAllocator, PrefixIndex, build_mixed_batch, check_cache_spec, init_paged_state,
-    paged_cache_bytes,
+    paged_cache_bytes, zero_paged_state,
 )
+from repro_torch.serving.graphs import StepProgram, StepPrograms
 from repro_torch.serving.ttft import RequestTiming, ServeStats
 
 __all__ = ["Request", "Engine"]
@@ -172,7 +184,10 @@ class Engine:
     the request deadlines), ``fault_plan`` (``serving/faults.py``),
     ``step_timeout_s`` (a step slower than this raises ``StepStuck``) and
     ``stall_limit`` (that many steps in a row without a token, with requests
-    in flight and no fault hold, raise ``StepStuck``; 0 = off).
+    in flight and no fault hold, raise ``StepStuck``; 0 = off). On the card
+    the steps replay CUDA graphs unless ``cuda_graphs=False`` (eager steps,
+    to hold the graphed path against; the CPU and sequence-sharded pools
+    always run eagerly).
 
     ``run(requests)`` serves a list of ``Request``s, fills their ``output`` /
     ``ttft_s`` / ``latency_s`` / ``timing`` and leaves per-run aggregates in
@@ -201,6 +216,7 @@ class Engine:
                  max_preempts_per_step: Optional[int] = None,
                  thrash_window: int = 8,
                  thrash_limit: Optional[int] = None,
+                 cuda_graphs: bool = True,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.model = model
@@ -305,6 +321,12 @@ class Engine:
             if ctx.policy.enabled and ctx.policy.compress_tp_reduce:
                 self._gate_ctxs[True] = ctx
         self.gate_counts = {"compressed": 0, "dense": 0}
+        # compile-once step programs (module doc); graphs need the card and
+        # no host-staged exchange inside a step
+        self.graphed = (bool(cuda_graphs) and self.device.type == "cuda"
+                        and self.kv_shards == 1)
+        self._programs = StepPrograms(self.device, graphed=self.graphed)
+        self._state = None
         self._ran = False
         self._fresh = False   # pools rebuilt by recover(): the next run keeps them
         self._reset()
@@ -312,14 +334,20 @@ class Engine:
     # ------------------------------------------------------------- state mgmt
 
     def _reset(self) -> None:
+        """Fresh pools, allocator and prefix index. The pools are allocated
+        once and zeroed in place after that: the step programs hold their
+        addresses."""
         self.prefix_index = PrefixIndex(self.block_size) if self.prefix_cache else None
         self.allocator = BlockAllocator(self.n_blocks, prefix_index=self.prefix_index,
                                         shards=self.kv_shards)
-        # this rank's slab of every pool (all of it when replicated)
-        self._state = init_paged_state(self.cfg, self.n_slots,
-                                       self.n_blocks // self.kv_shards,
-                                       self.block_size, self.cache_dtype,
-                                       cache_spec=self.cache_spec, device=self.device)
+        if self._state is None:
+            # this rank's slab of every pool (all of it when replicated)
+            self._state = init_paged_state(self.cfg, self.n_slots,
+                                           self.n_blocks // self.kv_shards,
+                                           self.block_size, self.cache_dtype,
+                                           cache_spec=self.cache_spec, device=self.device)
+        else:
+            zero_paged_state(self._state)
         self._soft_reset()
 
     def _soft_reset(self) -> None:
@@ -347,6 +375,31 @@ class Engine:
         (empty for split-scheduler and whole-prompt engines)."""
         return [("compressed" if g else "dense") for g in sorted(self._gate_ctxs)]
 
+    def decode_cache_size(self) -> int:
+        """Step programs that advance decode and have run (the reference's
+        compiled-variant count): the mixed step's gate variants in a mixed
+        engine, else the split decode (0 or 1)."""
+        if self.token_budget:
+            return self._programs.count(*(self._mixed_key(g) for g in self._gate_ctxs))
+        return self._programs.count("decode")
+
+    def prefill_cache_size(self) -> int:
+        """Step programs on the serving path's prefill that have run: the
+        mixed step's gate variants in a mixed engine, the one chunk program
+        of a split chunked engine, else the whole-prompt programs by bucket,
+        those the LRU evicted included (``measure_ttft``'s bucket counts
+        only here, as in the reference)."""
+        if self.token_budget:
+            return self.decode_cache_size()
+        if self.prefill_chunk:
+            return self._programs.count("chunk")
+        return self._programs.prefill_count()
+
+    def capture_seconds(self) -> Dict[str, float]:
+        """Wall seconds each captured step program took to capture, by name
+        (empty when the steps run eagerly)."""
+        return self._programs.capture_seconds()
+
     def kv_pool_bytes(self, *, per_device: bool = False) -> int:
         """Bytes of the attention KV pools: the pools the engine addresses,
         or with ``per_device=True`` what this rank holds (``1/kv_shards``
@@ -363,9 +416,70 @@ class Engine:
         watch: that checks sampled rows only and raises)."""
         return bool(self._finite)
 
-    def _t(self, a: np.ndarray) -> torch.Tensor:
-        """A device copy of a host array (the host arrays mutate later)."""
-        return torch.tensor(a, device=self.device)
+    # ---------------------------------------------------------- step programs
+    #
+    # A program's function holds the model, weights and pools it runs on, not
+    # the engine: with no cycle through the engine, dropping the engine frees
+    # its graphs at once, never in a garbage collection that could fall
+    # inside another engine's capture. The pools keep their addresses.
+
+    def _mixed_program(self, gate: bool) -> StepProgram:
+        """The mixed step under gate variant ``gate``: logits (n_slots, V)."""
+        T, S, nb, i32 = self.token_budget, self.n_slots, self.max_blocks, torch.int32
+        model, params, state, spec = self.model, self.params, self._state, self.cache_spec
+
+        def make():
+            ctx = self._gate_ctxs[gate]
+
+            def step(tokens, slot_ids, positions, valid, is_decode, lengths, tables,
+                     sample_idx):
+                return model.mixed_step(ctx, params, tokens, state, slot_ids, positions, valid,
+                                        is_decode, lengths, tables, sample_idx,
+                                        cache_spec=spec)[0]
+
+            return step, dict(tokens=((1, T), i32), slot_ids=((T,), i32),
+                              positions=((T,), i32), valid=((T,), torch.bool),
+                              is_decode=((T,), torch.bool), lengths=((S,), i32),
+                              tables=((S, nb), i32), sample_idx=((S,), i32))
+
+        return self._programs.get(self._mixed_key(gate), make)
+
+    @staticmethod
+    def _mixed_key(gate: bool) -> str:
+        return f"mixed/{'compressed' if gate else 'dense'}"
+
+    def _chunk_program(self) -> StepProgram:
+        """The split scheduler's chunk of one slot: logits (1, V)."""
+        model, params, ctx, state, spec = (self.model, self.params, self.ctx, self._state,
+                                           self.cache_spec)
+
+        def make():
+            def step(tokens, table_row, start, n_valid):
+                return model.prefill_chunk(ctx, params, tokens, state, table_row, start,
+                                           n_valid, cache_spec=spec)[0]
+
+            return step, dict(tokens=((1, self.prefill_chunk), torch.int32),
+                              table_row=((self.max_blocks,), torch.int32),
+                              start=((), torch.int32), n_valid=((), torch.int32))
+
+        return self._programs.get("chunk", make)
+
+    def _decode_program(self) -> StepProgram:
+        """The batched decode of every slot: logits (n_slots, V)."""
+        S = self.n_slots
+        model, params, ctx, state, spec = (self.model, self.params, self.ctx_decode,
+                                           self._state, self.cache_spec)
+
+        def make():
+            def step(tokens, tables, lengths):
+                return model.decode_step_paged(ctx, params, tokens, state, tables, lengths,
+                                               cache_spec=spec)[0]
+
+            return step, dict(tokens=((S, 1), torch.int32),
+                              tables=((S, self.max_blocks), torch.int32),
+                              lengths=((S,), torch.int32))
+
+        return self._programs.get("decode", make)
 
     # ------------------------------------------------------- shape bucketing
 
@@ -383,19 +497,35 @@ class Engine:
         return bucket, bucket // self.block_size
 
     def _prefill_for(self, prompt_len: int):
-        """(bucket, prefill, nb) for a whole prompt of this length:
-        ``prefill(tokens (1, bucket))`` runs ``Model.prefill`` over a fresh
-        dense cache of the bucket's length and returns (logits (1, V) at the
-        last real token, cache). Eager PyTorch compiles nothing, so there is
-        no LRU of per-bucket programs as in the reference."""
+        """(bucket, program, nb) for a whole prompt of this length: the
+        bucket's step program (made on first use, an LRU touch after it)
+        takes ``tokens`` (1, bucket) and ``last_index``, runs
+        ``Model.prefill`` over the program's own dense cache of the bucket's
+        length (every position of it written each call) and returns (logits
+        (1, V) at ``last_index``, the layer caches).
+
+        Each bucket's program holds its dense cache for as long as the
+        program lives (up to 8 under the LRU; an evicted one releases it):
+        2 x n_layers x bucket x n_kv_heads x head_dim elements of
+        ``cache_dtype``, 1.07 GB for llama2-7b's bf16 at 2048. The buckets
+        double (the last capped at the slot's capacity), so together they
+        hold less than twice the largest power-of-two bucket plus the capped
+        one. ``paged_cache_bytes`` does not count it."""
         bucket, nb = self._shapes_for(prompt_len)
+        model, params, ctx = self.model, self.params, self.ctx
 
-        def prefill(tokens: torch.Tensor):
-            cache = self.model.init_cache(1, bucket, self.cache_dtype, self.device)
-            return self.model.prefill(self.ctx, self.params, {"tokens": tokens}, cache,
-                                      last_index=prompt_len - 1)
+        def make():
+            cache = model.init_cache(1, bucket, self.cache_dtype, self.device)
 
-        return bucket, prefill, nb
+            def prefill(tokens, last_index):
+                logits, out = model.prefill(ctx, params, {"tokens": tokens}, cache,
+                                            last_index=last_index)
+                return logits, out["layers"]
+
+            return prefill, dict(tokens=((1, bucket), torch.int32),
+                                 last_index=((), torch.int32))
+
+        return bucket, self._programs.prefill(bucket, make), nb
 
     def _insert(self, layer_caches, block_ids: List[int]) -> None:
         """Scatter a one-request dense prefill cache into the slot's blocks
@@ -493,7 +623,7 @@ class Engine:
                 self._waiting.pop(0)
                 self._admit_chunked(w, slot, now)
                 continue
-            _, nb = self._shapes_for(len(w.prompt))
+            _, _, nb = self._prefill_for(len(w.prompt))   # an LRU touch, as the reference's
             ids = self.allocator.alloc(nb)
             if ids is None:
                 if not self._running and not self.allocator.n_held:
@@ -616,9 +746,8 @@ class Engine:
             return 0
         tokens = np.zeros((1, self.prefill_chunk), np.int32)
         tokens[0, :n_valid] = w.prompt[w.pos:w.pos + n_valid]
-        logits, self._state = self.model.prefill_chunk(
-            self.ctx, self.params, self._t(tokens), self._state, self._t(self._tables[slot]),
-            w.pos, n_valid, cache_spec=self.cache_spec)
+        logits = self._chunk_program()(tokens=tokens, table_row=self._tables[slot],
+                                       start=w.pos, n_valid=n_valid)
         self._advance_prefill(slot, w, n_valid)
         if w.pos >= L:  # final chunk: its logits give the first token
             tok = self._sample_one(logits, w)
@@ -665,12 +794,10 @@ class Engine:
             self.token_budget, self.n_slots)
         gate = (True in self._gate_ctxs
                 and self._gate_policy.active_for_step(batch.n_prefill, batch.n_decode))
-        t = self._t
-        logits, self._state = self.model.mixed_step(
-            self._gate_ctxs[gate], self.params, t(batch.tokens), self._state,
-            t(batch.slot_ids), t(batch.positions), t(batch.valid), t(batch.is_decode),
-            t(self._lengths), t(self._tables), t(batch.sample_idx),
-            cache_spec=self.cache_spec)
+        logits = self._mixed_program(gate)(
+            tokens=batch.tokens, slot_ids=batch.slot_ids, positions=batch.positions,
+            valid=batch.valid, is_decode=batch.is_decode, lengths=self._lengths,
+            tables=self._tables, sample_idx=batch.sample_idx)
         self.gate_counts["compressed" if gate else "dense"] += 1
         self.stats.record_step(batch.n_prefill, batch.n_decode, n_dispatches=1,
                                compressed=gate)
@@ -713,10 +840,10 @@ class Engine:
         bucket, prefill, nb = self._prefill_for(L)
         tokens = np.zeros((1, bucket), np.int32)
         tokens[0, :L] = w.prompt
-        logits, cache = prefill(self._t(tokens))
+        logits, cache = prefill(tokens=tokens, last_index=L - 1)
         self.stats.record_dispatch(2, prefill_tokens=L)  # prefill + insert
         tok = self._sample_one(logits, w)
-        self._insert(cache["layers"], ids)
+        self._insert(cache, ids)
         now = time.perf_counter() - self._t0
         w.blocks = ids
         self._tables[slot, :] = 0
@@ -775,9 +902,8 @@ class Engine:
         along (their writes land where the next chunk overwrites them or in
         the null block) and their tokens are discarded. Returns the decode
         tokens sampled."""
-        logits, self._state = self.model.decode_step_paged(
-            self.ctx_decode, self.params, self._t(self._cur[:, None]), self._state,
-            self._t(self._tables), self._t(self._lengths), cache_spec=self.cache_spec)
+        logits = self._decode_program()(tokens=self._cur[:, None], tables=self._tables,
+                                        lengths=self._lengths)
         self._finite &= torch.isfinite(logits).all()
         active = [s for s, w in self._running.items() if not w.prefilling]
         temps = np.zeros((self.n_slots,), np.float32)
@@ -923,14 +1049,15 @@ class Engine:
         ``EngineDead`` / ``StepStuck`` / ``WireCorruption`` (the
         ``EngineSupervisor`` calls this between attempts).
 
-        ``hard=True`` (pools lost or poisoned): pools, allocator and prefix
-        index are rebuilt here, so the recovery's time includes the rebuild
-        (the reference rebuilds at the next ``run()``; the next run keeps
-        these). ``hard=False`` on a ``persistent_cache`` engine (StepStuck:
-        pools healthy): the in-flight requests' blocks are released and the
-        pools and index stay warm for the replay."""
+        ``hard=True`` (pools lost or poisoned): the pools are zeroed in place
+        and the allocator and prefix index rebuilt here, so the recovery's
+        time includes the rebuild (the reference rebuilds at the next
+        ``run()``; the next run keeps these). The step programs survive, as
+        the reference's compiled programs do. ``hard=False`` on a
+        ``persistent_cache`` engine (StepStuck: pools healthy): the in-flight
+        requests' blocks are released and the pools and index stay warm for
+        the replay."""
         if hard or not self.persistent_cache:
-            self._state = None
             self._reset()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -1043,18 +1170,18 @@ class Engine:
         """Median whole-prompt prefill time at a given prompt length (the
         paper's Table 3 metric), through the bucketed prefill the engine
         serves; the first iteration is dropped as warm-up when there are
-        more than one. Times on the host clock around work that ends in a
-        device synchronize."""
+        more than one (on the card that iteration captures the bucket's
+        graph). Times on the host clock around work that ends in a device
+        synchronize."""
         prompt = np.random.default_rng(0).integers(
             0, self.cfg.vocab_size, (prompt_len,), dtype=np.int64).astype(np.int32)
         bucket, prefill, _ = self._prefill_for(prompt_len)
         tokens = np.zeros((1, bucket), np.int32)
         tokens[0, :prompt_len] = prompt
-        tokens = self._t(tokens)
         times = []
         for _ in range(iters):
             t0 = time.perf_counter()
-            logits, _cache = prefill(tokens)
+            logits, _cache = prefill(tokens=tokens, last_index=prompt_len - 1)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             times.append(time.perf_counter() - t0)

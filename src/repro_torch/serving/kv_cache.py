@@ -27,7 +27,7 @@ from repro_torch.core.formats import KVCacheSpec, MXSpec
 from repro_torch.core.mx import MXCompressed, wire_arrays_shape
 
 __all__ = ["BlockAllocator", "PrefixIndex", "NULL_BLOCK", "MixedBatch",
-           "build_mixed_batch", "init_paged_state", "check_cache_spec",
+           "build_mixed_batch", "init_paged_state", "zero_paged_state", "check_cache_spec",
            "paged_cache_bytes", "attn_layer_count"]
 
 NULL_BLOCK = 0
@@ -412,6 +412,16 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_blocks: int, block_size: 
                 pools.append(torch.zeros((n_blocks, block_size, cfg.kv_dim), dtype=dtype,
                                          device=device))
     return {"pools_k": pools_k, "pools_v": pools_v}
+
+
+def zero_paged_state(state: dict) -> None:
+    """Zero every pool plane of ``state`` in place: what ``init_paged_state``
+    returns, at the same addresses (a captured step program keeps reading
+    and writing those)."""
+    for pool in state["pools_k"] + state["pools_v"]:
+        for plane in ((pool.payload, pool.scales) if isinstance(pool, MXCompressed)
+                      else (pool,)):
+            plane.zero_()
 
 
 def paged_cache_bytes(cfg: ModelConfig, n_blocks: int, block_size: int,

@@ -1,16 +1,122 @@
-"""Measured serving statistics: per-request timing and per-run aggregates
-(the reference's ``RequestTiming`` and ``ServeStats``). The analytic
-``ttft_breakdown`` waits for H100 constants measured on the card."""
+"""The analytic TTFT model of the paper's Table 3 (the reference's
+``Hardware``, ``HARDWARE``, ``ttft_breakdown`` and ``ttft_seconds``, with an
+H100 entry fitted on the card), and the measured serving statistics:
+per-request timing and per-run aggregates (``RequestTiming``,
+``ServeStats``).
+
+The paper's profiling setup all-gathers the full partial tensor from the
+other N-1 workers and sums locally, so each row-parallel reduction moves
+(N-1) x tensor bytes per device, and compression divides that term:
+
+TTFT(model, hw, B, S) =
+    compute:   2 * P_active * B*S / (N * peak_flops * mfu)
+  + comm:      n_reductions * (N-1) * bytes(B*S*d_model) / link_bw
+  + codec:     [if compressed] n_reductions * (codec_passes * N * bytes /
+               hbm_bw + codec_fixed_s)
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.formats import MXSpec
 from repro_torch.serving.errors import (
     OUTCOME_CANCELLED, OUTCOME_OK, OUTCOME_REJECTED, OUTCOME_TIMED_OUT, TERMINAL_OUTCOMES,
 )
 
-__all__ = ["RequestTiming", "ServeStats"]
+__all__ = ["Hardware", "HARDWARE", "ttft_seconds", "ttft_breakdown", "RequestTiming",
+           "ServeStats"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Hardware:
+    name: str
+    peak_flops: float          # per chip, fp16/bf16 dense
+    hbm_bw: float              # bytes/s per chip
+    link_bw: float             # effective all-gather bytes/s per chip
+    mfu: float                 # calibrated prefill MFU
+    codec_fixed_s: float = 2e-4  # per-collective codec launch overhead
+    codec_passes: float = 3.0    # HBM passes for quant+dequant+sum
+
+
+HARDWARE: Dict[str, Hardware] = {
+    # the reference's entries, as they are there
+    "L4": Hardware("L4", peak_flops=60.5e12, hbm_bw=300e9, link_bw=7.0e9, mfu=0.45),
+    "A100": Hardware("A100", peak_flops=312e12, hbm_bw=2.0e12, link_bw=180e9, mfu=0.50),
+    "TPUv5e": Hardware("TPUv5e", peak_flops=197e12, hbm_bw=819e9, link_bw=45e9, mfu=0.55),
+    # NVIDIA H100 SXM. peak_flops, hbm_bw: data sheet (dense bf16, HBM3).
+    # link_bw: data sheet, NVLink 4 at 900 GB/s both ways = 450 GB/s each
+    # way per GPU; not measured (one card). The rest fitted by
+    # launch/ttft_table.py ``fit_h100`` on a chip_smoke.py run (NVIDIA H100
+    # 80GB HBM3, power limit 700 W):
+    "H100": Hardware(
+        "H100", peak_flops=989e12, hbm_bw=3.35e12, link_bw=450e9,
+        # graphed uncompressed measure_ttft of llama2-7b at 2048 tokens on
+        # one card, 122.012 ms (its attention is plain PyTorch)
+        mfu=0.2287,
+        # two codec launches per reduction at the launch floor, 0.00216 ms
+        codec_fixed_s=4.32e-6,
+        # the codec's device time at the whole-prompt shapes of 512 tokens,
+        # TP 4: quantize (2048, 4096) 0.0128 ms + dequantize-and-sum
+        # 4 x (512, 4096) 0.0052 ms, less the fixed cost, over 16.8 MB
+        codec_passes=2.7212),
+}
+
+
+def _n_row_reductions(cfg: ModelConfig) -> int:
+    """Row-parallel reductions per forward pass (attn.o + mlp/moe.down, plus
+    mamba/xlstm out-proj)."""
+    n = 0
+    for spec in cfg.layers:
+        n += 1  # core block out-proj (attn.o / mamba.out / xlstm.down)
+        if spec.kind in ("attn", "mamba") and (cfg.d_ff > 0 or spec.moe):
+            n += 1  # mlp or moe down
+    if cfg.encoder_decoder:
+        n += 2 * cfg.n_encoder_layers + cfg.n_layers  # enc layers + cross-attn
+    return n
+
+
+def ttft_breakdown(cfg: ModelConfig, hw: Hardware, tp: int, batch: int, seq: int,
+                   spec: Optional[MXSpec] = None, *, bytes_per_el: float = 2.0,
+                   scheme: str = "gather") -> Dict[str, float]:
+    """Seconds of compute, comm and codec (and their total) of one prefill.
+    scheme: per-device bytes moved per reduction —
+      "gather"    (N-1) x tensor        (the paper's stack)
+      "ring"      2 (N-1)/N x tensor    (ring all-reduce / rs+ag)
+      "two_phase" 2 (N-1)/N x tensor    on the COMPRESSED payload
+    """
+    tokens = batch * seq
+    compute = 2.0 * cfg.active_param_count() * tokens / (tp * hw.peak_flops * hw.mfu)
+
+    n_red = _n_row_reductions(cfg)
+    tensor_bytes = tokens * cfg.d_model * bytes_per_el
+    if spec is not None:
+        wire = tensor_bytes * spec.wire_bits_per_value(cfg.d_model) / (8 * bytes_per_el)
+    else:
+        wire = tensor_bytes
+    if scheme == "gather":
+        per_red = (tp - 1) * wire
+    else:  # ring / two_phase
+        per_red = 2.0 * (tp - 1) / tp * wire
+    comm = n_red * per_red / hw.link_bw
+
+    codec = 0.0
+    if spec is not None:
+        # gather: each device dequantizes all N gathered partials;
+        # two_phase: about constant passes whatever N
+        hbm_bytes = hw.codec_passes * tensor_bytes * (tp if scheme == "gather" else 1)
+        codec = n_red * (hbm_bytes / hw.hbm_bw + hw.codec_fixed_s)
+    return {"compute": compute, "comm": comm, "codec": codec,
+            "total": compute + comm + codec}
+
+
+def ttft_seconds(cfg: ModelConfig, hw: Hardware, tp: int, batch: int, seq: int,
+                 spec: Optional[MXSpec] = None, scheme: str = "gather") -> float:
+    return ttft_breakdown(cfg, hw, tp, batch, seq, spec, scheme=scheme)["total"]
+
+
+# ----------------------------------------------------- measured serving stats
 
 
 @dataclasses.dataclass
