@@ -46,7 +46,12 @@ Phases (any failure exits non-zero):
               llama2-7b and the families, on fp4 and bf16 pools, over the
               virtual pool of each geometry's regions: bit-identical to the
               table walk over the original pool and within the check of
-              the plain version, mixed and split decode timed. Prints
+              the plain version, mixed and split decode timed; one TP
+              rank's shapes: paged attention at 16 and 10 heads
+              (llama2-7b on 2 ranks, llama2-13b on 4) in every served
+              geometry, mixed and split decode timed, and the codec at the
+              rank's partial, its gathered S = 2 and S = 4 shards and the
+              two_phase slices. Prints
               each kernel's
               device time (CUDA events around back-to-back launches) at every
               shape the served steps launch it, bytes moved and bound, and
@@ -119,6 +124,31 @@ Phases (any failure exits non-zero):
               against replicated (one card, gloo, host-staged: not NVLink)
               and each rank's peak device memory. Sharded engines run eager
               steps (a graph cannot hold the host-staged exchange).
+9. tp       — tensor parallelism across ranks (``phase_tp``, after phase 7):
+              llama2-7b at full width and depth on 2 ranks, (a) mixed on
+              fp4 pools under PAPER_DEFAULT, (b) mixed on bf16 pools under
+              two_phase, (c) split on bf16 pools with overlap_chunks=4, (d)
+              whole-prompt prefill on fp4 pools, and the prefix cache on fp4
+              pools cold then warm, (e) corrupt@3 supervised on fp4 pools,
+              (f) measure_ttft at 512 tokens, compressed and uncompressed;
+              llama2-13b (Table 3's 13b) at full width and depth on 4 ranks,
+              (a) and (f). Each rank holds 1/N of the heads, the MLP columns
+              and the pools, and every row-parallel reduction is the
+              compressed collective between the ranks (NCCL with a card per
+              rank; with one card, gloo with every exchange staged through
+              host memory and eager steps: not NVLink). Held against a
+              single-rank simulate_tp=N engine run first in this process
+              on the same weights and prompts: every rank's tokens
+              identical to rank 0's, each rank 1/N of the pool bytes,
+              launches and collectives exact per rank, the first mixed
+              step's logits (full depth and cut to 2 layers): dense within a
+              quarter of what compression moves them, compressed within the
+              code flips the dense paths' rounding difference explains (x2;
+              ``tp_flip_share``), and the collective bit-identical to the
+              simulated reduction on
+              the same partials (gather, two_phase). Prints the transport,
+              the collectives, MB and host ms per step, the requests whose
+              tokens equal the simulated run's, TPOT and TTFT.
 8. graphs   — (run right after phase 5, on its weights and prompts) an eager
               twin (``cuda_graphs=False``) of phase 5's graphed mixed fp4 and
               bf16, split bf16 and whole-prompt fp4 runs: greedy tokens
@@ -137,7 +167,9 @@ Phases (any failure exits non-zero):
               codec term against the measured one (``one_card_check``).
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
-line is ``{"ok": true, "device": {...}}``. Details go to
+line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --phase
+tp`` builds the kernels and runs phase 9 alone (on a machine with a card
+per rank, over NCCL). Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -473,6 +505,11 @@ def phase_codec(torch, dev="cuda"):
 
     # the new families' widths at the shapes their serve runs launch the codec
     info["mx_dequant"]["shapes"] = []
+    for name, rows in codec_tp(torch, dev, g, fp4, same, timed).items():
+        info[name]["shapes"] += rows
+        log(f"kernel {name} (TP ranks): exact; " + "; ".join(
+            f"{r['shape']} {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms), "
+            f"{r['bytes'] / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms" for r in rows))
     for arch, plan in FAMILIES.items():
         for name, rows in codec_family(torch, dev, g, fp4, arch, plan, same, timed).items():
             info[name]["shapes"] += rows
@@ -480,6 +517,66 @@ def phase_codec(torch, dev="cuda"):
                 f"{r['shape']} {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms), "
                 f"{r['bytes'] / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms" for r in rows))
     return info
+
+
+def codec_tp(torch, dev, g, fp4, same, timed):
+    """The codec at the shapes one rank of the TP phase launches it (the
+    mixed step's T rows): llama2-7b on 2 ranks, the partial (T, 4096), its
+    gathered S = 2 shards, and two_phase's slices: the N destination slices
+    (2 T, 2048), the reduction of the 2 received ones, the reduced slice's
+    quantize and the 2 gathered slices' dequantize; llama2-13b on 4 ranks,
+    the partial (T, 5120) and its S = 4 shards. Each exact against the plain
+    version and timed."""
+    from repro_torch.core.mx import MXCompressed
+    from repro_torch.kernels import mx_dequant, mx_quant
+
+    sites = {  # kernel -> (shards S, rows, width, site)
+        "mx_quant": [(1, T, 4096, "llama2-7b TP 2 partial"),
+                     (1, 2 * T, 2048, "llama2-7b TP 2 two_phase destination slices"),
+                     (1, T, 2048, "llama2-7b TP 2 two_phase reduced slice"),
+                     (1, T, 5120, "llama2-13b TP 4 partial")],
+        "mx_dequant_reduce": [(2, T, 4096, "llama2-7b TP 2 gathered shards"),
+                              (2, T, 2048, "llama2-7b TP 2 two_phase received slices"),
+                              (4, T, 5120, "llama2-13b TP 4 gathered shards")],
+        "mx_dequant": [(1, 2 * T, 2048, "llama2-7b TP 2 two_phase gathered slices")],
+    }
+    out = {}
+    for name, rows in sites.items():
+        out[name] = []
+        for S, m, width, site in rows:
+            x, _ = codec_partials(torch, S * m, width, g, dev)
+            c = mx_quant.mx_quantize_2d(x, fp4)
+            shape = f"({S} x {m}, {width})" if S > 1 else f"({m}, {width})"
+            if name == "mx_quant":
+                pl = mx_quant.quantize_plain(x, fp4)
+                check(torch.equal(c.payload, pl.payload) and torch.equal(c.scales, pl.scales),
+                      f"mx_quant bytes differ from the plain version at {shape}, {site}")
+                run = lambda x=x: mx_quant.mx_quantize_2d(x, fp4)
+                plain = lambda x=x: mx_quant.quantize_plain(x, fp4)
+                nbytes = x.numel() * 2 + c.payload.numel() + c.scales.numel()
+                what, n_ops = f"{shape} bf16 -> fp4_e2m1_b32, {site}", x.numel() * 20
+            elif name == "mx_dequant":
+                check(same(mx_dequant.mx_dequantize_2d(c.payload, c.scales, fp4, torch.bfloat16),
+                           mx_dequant.dequantize_plain(c, fp4, torch.bfloat16)),
+                      f"mx_dequant differs from the plain version at {shape}, {site}")
+                run = lambda c=c: mx_dequant.mx_dequantize_2d(c.payload, c.scales, fp4,
+                                                              torch.bfloat16)
+                plain = lambda c=c: mx_dequant.dequantize_plain(c, fp4, torch.bfloat16)
+                nbytes = c.payload.numel() + c.scales.numel() + m * width * 2
+                what, n_ops = f"{shape} fp4_e2m1_b32 -> bf16, {site}", m * width * 2
+            else:
+                w = MXCompressed(c.payload.reshape(S, m, -1), c.scales.reshape(S, m, -1))
+                check(same(mx_dequant.dequant_reduce(w.payload, w.scales, fp4, torch.bfloat16),
+                           mx_dequant.dequant_reduce_plain(w, fp4, torch.bfloat16)),
+                      f"mx_dequant_reduce differs from the plain version at {shape}, {site}")
+                run = lambda w=w: mx_dequant.dequant_reduce(w.payload, w.scales, fp4,
+                                                            torch.bfloat16)
+                plain = lambda w=w: mx_dequant.dequant_reduce_plain(w, fp4, torch.bfloat16)
+                nbytes = w.payload.numel() + w.scales.numel() + m * width * 2
+                what, n_ops = f"S={S} x ({m}, {width}) fp4_e2m1_b32 -> bf16, {site}", \
+                    S * m * width * 2
+            out[name].append(timed(run, plain, nbytes, n_ops, what))
+    return out
 
 
 def codec_sites(cfg, plan):
@@ -877,6 +974,15 @@ def phase_paged(torch, dev="cuda"):
                            timed_only=("mixed", "decode") if window == windows[0] else (),
                            row_map=rm)
         del geos, fpools
+    # one TP rank's heads (llama2-7b on 2 ranks: 16; llama2-13b on 4: 10) in
+    # the served geometries at phase 5's prompt length, mixed and split
+    # decode timed
+    for label, heads in (("llama2-7b TP2 ", 16), ("llama2-13b TP4 ", 10)):
+        geos, tpools, _, textras = paged_geometries(torch, dev, g, heads * hd, heads * hd,
+                                                    PROMPT)
+        time_paged(torch, dev, res, label, geos, tpools, textras, heads, heads, hd, None,
+                   timed_only=("mixed", "decode"))
+        del geos, tpools
     n_sweep = paged_sweep(torch, dev)
     log(f"kernel paged_attention: {n_sweep} small-shape cases through every path match "
         f"the plain version (fp32 / bf16 q; fp32, bf16, fp4, fp6, int8 pools; hd 32-128 at "
@@ -1240,19 +1346,34 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     quantize of the reduced result). The mixed step compresses under its
     compressed gate; the split chunk and the whole-prompt prefill under the
     engine's context, the split decode under ``ctx_decode``. A COW fork
-    launches nothing, and a layer's window changes no count. On
+    launches nothing, and a layer's window changes no count. On a TP group
+    (``eng.tp_size > 1``) the gather variant's reduction quantizes and
+    reduces each of its ``overlap_chunks`` chunks apart (two_phase launches
+    what the simulated two_phase does), and the count also holds the
+    group's collectives: ``tp_all_gather`` (payload and scales of each
+    chunk, or of the reduced slice under two_phase), ``tp_all_to_all``
+    (two_phase's payload and scales) and ``tp_all_reduce`` (one per dense
+    reduction: each row-parallel layer of a dense step). On
     sequence-sharded pools (``eng.kv_shards > 1``) the count also holds
     ``all_reduce``, the exchange's: per paged read and per COW fork one for
     each pool plane of each layer (K and V; payload and scales of each on
     fp4 pools)."""
+    from repro_torch.core.collectives import _overlap_chunks
+
     L, q, s = n_layers, eng.cache_spec.quantized, stats
-    two = eng.ctx.policy.variant == "two_phase"
+    policy = eng.ctx.policy
+    two = policy.variant == "two_phase"
     planes = 4 if q else 2
+    # a TP group's gather variant quantizes and reduces each of its
+    # overlap_chunks feature chunks apart (two_phase is unchunked)
+    tp = eng.tp_size > 1
+    k = (_overlap_chunks(eng.cfg.d_model, policy.spec, policy.overlap_chunks)
+         if tp and policy.enabled and not two else 1)
     if eng.token_budget:
         n_c, n_d = s.n_compressed_steps, s.n_steps - s.n_compressed_steps
-        red = L * 2 * n_c
-        out = {"mx_quant": red * (1 + two) + (L * 2 * (n_c + n_d) if q else 0),
-               "mx_dequant_reduce": red,
+        red, dense = L * 2 * n_c, L * 2 * n_d
+        out = {"mx_quant": red * (k + two) + (L * 2 * (n_c + n_d) if q else 0),
+               "mx_dequant_reduce": red * k,
                "mx_dequant": red * two + (L * 2 * (n_c + n_d) if q else 0),
                "paged_attention": L * (n_c + n_d)}
         reads, forks = s.n_steps, s.n_dispatches - s.n_steps
@@ -1263,14 +1384,17 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
         n_whole = 0 if eng.prefill_chunk else (s.n_dispatches - n_chunk - n_dec) // 2
         comp = ((n_chunk + n_whole) * eng.ctx.policy.enabled
                 + n_dec * eng.ctx_decode.policy.enabled)
-        red = L * 2 * comp
-        out = {"mx_quant": red * (1 + two) + (L * 2 * (n_chunk + n_dec + n_whole) if q else 0),
-               "mx_dequant_reduce": red, "mx_dequant": red * two,
+        red, dense = L * 2 * comp, L * 2 * (n_chunk + n_whole + n_dec - comp)
+        out = {"mx_quant": red * (k + two) + (L * 2 * (n_chunk + n_dec + n_whole) if q else 0),
+               "mx_dequant_reduce": red * k, "mx_dequant": red * two,
                "paged_attention": L * (n_chunk + n_dec)}
         reads = n_chunk + n_dec
         forks = s.n_dispatches - reads - 2 * n_whole
     if eng.kv_shards > 1:
         out["all_reduce"] = L * planes * (reads + forks)
+    if tp:   # per compressed reduction: payload and scales (per chunk); per dense one
+        out.update(tp_all_gather=red * (2 if two else 2 * k), tp_all_to_all=red * 2 * two,
+                   tp_all_reduce=dense)
     return out
 
 
@@ -1283,7 +1407,9 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
     attempt, launches equal to the stats' (on sharded pools the exchange's
     all-reduces too). ``during(reqs)`` starts what acts on the run from
     outside (a timer). Returns (summary, requests)."""
-    from repro_torch.core.collectives import exchange_counts, reset_exchange_counts
+    from repro_torch.core.collectives import (
+        exchange_counts, reset_exchange_counts, reset_tp_counts, tp_counts,
+    )
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.serving import Request
 
@@ -1303,14 +1429,19 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
     stop = during(reqs) if during else None
     reset_launch_counts()
     reset_exchange_counts()
+    reset_tp_counts()
     t0 = time.perf_counter()
     (sup or eng).run(reqs, seed=0)
     sync()
     wall = time.perf_counter() - t0
     got = launch_counts()
     exchange = exchange_counts()
+    collectives = tp_counts()
     if eng.kv_shards > 1:
         got["all_reduce"] = exchange["all_reduce"]
+    if eng.tp_size > 1:
+        got.update({f"tp_{c}": collectives[c] for c in ("all_gather", "all_to_all",
+                                                          "all_reduce")})
     if stop:
         stop()
     stats = (sup or eng).stats
@@ -1327,15 +1458,17 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
           f"{a.n_allocated} referenced, {a.n_held} held of {eng.n_blocks - 1})")
     if dev == "cuda":  # kernels launch only on the card
         check(got == expect, f"{name}: launches {got} != expected {expect}")
-    elif eng.kv_shards > 1:   # the exchange runs on the CPU too
-        check(got["all_reduce"] == expect["all_reduce"],
-              f"{name}: {got['all_reduce']} all-reduces != expected {expect['all_reduce']}")
+    else:   # the exchanges and the TP collectives run on the CPU too
+        for c in ("all_reduce", "tp_all_gather", "tp_all_to_all", "tp_all_reduce"):
+            check(got.get(c) == expect.get(c),
+                  f"{name}: {got.get(c)} {c} != expected {expect.get(c)}")
     for k in totals:
         totals[k] += got[k]
     runs[name] = dict(summary=s, launches=got, gate=dict(eng.gate_counts), wall_s=wall,
                       pool_mb=eng.kv_pool_bytes() / 1e6, pool_bytes=eng.kv_pool_bytes(),
                       outputs=[r.output.tolist() for r in reqs],
                       outcomes=[r.outcome for r in reqs], exchange=exchange, expected=expect,
+                      tp=collectives,
                       graphed=eng.graphed,
                       programs=(eng.decode_cache_size(), eng.prefill_cache_size()),
                       capture_s=eng.capture_seconds(),
@@ -1825,7 +1958,7 @@ def phase_sharded(torch, card, dev="cuda", cfg=None):
     from repro_torch.configs import get_config
     from repro_torch.core.policy import PAPER_DEFAULT
     from repro_torch.core.tp import TPContext
-    from repro_torch.launch.mesh import spawn_kv_ranks
+    from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.models.model import Model
     from repro_torch.serving import Engine, PoolExhausted, Request
 
@@ -1861,7 +1994,7 @@ def phase_sharded(torch, card, dev="cuda", cfg=None):
         torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ranks = spawn_kv_ranks(_sharded_rank, KV_RANKS, cfg, device=dev, timeout_s=900,
+    ranks = spawn_ranks(_sharded_rank, KV_RANKS, cfg, device=dev, timeout_s=900,
                            threads=0 if cuda else 2)
     wall = time.perf_counter() - t0
     log(f"sharded: {KV_RANKS} kv ranks on {card} over gloo (exchange staged through host "
@@ -1904,6 +2037,400 @@ def phase_sharded(torch, card, dev="cuda", cfg=None):
     log(f"sharded: card {card}")
     return dict(replicated=rep, ranks=ranks, wall_s=wall, budget_bytes=budget,
                 long_prompt=long_s, long_replicated=long_r), totals
+
+
+# -------------------------------------------------------------------------- tp
+
+# the TP phase's models -> (ranks, runs); traffic as phase 7's: SLOTS requests
+# of SHARD_PROMPT + SHARD_NEW tokens
+TP_MODELS = {
+    "llama2-7b": (2, ("mixed/fp4_e2m1", "two_phase/bf16", "split-overlap4/bf16",
+                      "whole/fp4_e2m1", "prefix/fp4_e2m1", "corrupt@3/fp4_e2m1", "ttft")),
+    "llama2-13b": (4, ("mixed/fp4_e2m1", "ttft")),
+}
+TP_TTFT = 512          # measure_ttft's prompt tokens in the TP phase
+TP_CUT_LAYERS = 2      # the depth-cut model whose logits are held too
+TP_DENSE_SHARE = 0.25  # dense rank vs simulated logits, at most this share of what
+                       # compression moves them
+TP_FLIP_MARGIN = 2.0   # the compressed bound's margin over tp_flip_share
+
+
+def tp_flip_share(rel_dense: float) -> float:
+    """How far the rank path's compressed logits may lie from the simulated
+    path's, as a share of what compression moves them (rel-L2), given
+    ``rel_dense``, the dense paths' rel-L2 in the same run. The ranks' GEMMs
+    have other shapes than the simulated ones, so their bf16 results round
+    differently: a relative perturbation r of what is quantized. fp4_e2m1's
+    neighbouring codes lie s ~ 1/2 of a value apart, so a fraction ~ 2r/s of
+    the codes flips, each by one gap, where the quantization error has an
+    RMS of a gap over sqrt(12): the flips add sqrt(12 * 2r / s) = sqrt(48 r)
+    of the quantization noise, and the network carries both alike. r is
+    read from the dense comparison (the same GEMMs without the codec)."""
+    return math.sqrt(48 * rel_dense)
+
+
+def tp_context(group, n, policy):
+    """``policy`` over the TP group, or over ``simulate_tp = n`` without one."""
+    from repro_torch.core.tp import TPContext
+
+    if group is None:
+        return TPContext(policy=policy, simulate_tp=n)
+    return TPContext(policy=policy, tp_group=group)
+
+
+def first_logits(torch, dev, model, params, ctx, prompt):
+    """The logits of one mixed step that prefills ``prompt`` (one slot) over
+    fresh fp4 pools: the first step of a served run, as fp32 numpy (what a
+    rank hands its parent holds no torch tensor: a tensor would travel as
+    a file descriptor that dies with the rank)."""
+    import numpy as np
+
+    from repro_torch.core.formats import KVCacheSpec
+    from repro_torch.serving import init_paged_state
+
+    spec = KVCacheSpec.parse("fp4_e2m1")
+    t = len(prompt)
+    nb = -(-t // BS)
+    state = init_paged_state(model.local_cfg(ctx), 2, 2 * nb + 1, BS, torch.bfloat16,
+                             cache_spec=spec, device=dev)
+    i32 = lambda a: torch.tensor(np.asarray(a), device=dev, dtype=torch.int32)
+    tables = torch.zeros((2, nb), device=dev, dtype=torch.int32)
+    tables[0] = torch.arange(1, nb + 1, device=dev, dtype=torch.int32)
+    logits, _ = model.mixed_step(ctx, params, i32(prompt)[None], state, i32(np.zeros(t)),
+                                 i32(np.arange(t)), torch.ones(t, dtype=torch.bool, device=dev),
+                                 torch.zeros(t, dtype=torch.bool, device=dev), i32([0, 0]),
+                                 tables, i32([t - 1, 0]), cache_spec=spec)
+    return logits[0].float().cpu().numpy()
+
+
+def tp_partials(torch, n, rows, width):
+    """(n, rows, width) bf16 partials at row_linear's spread of scales, from
+    seed 7 on the CPU (the same on every process)."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(n, rows, width, generator=g)
+    return (x * torch.pow(10.0, torch.rand(n, rows, 1, generator=g) * 4 - 2)).to(torch.bfloat16)
+
+
+def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
+    """The TP phase's runs of ``model`` on this rank of ``group`` (None: the
+    single-rank engine over ``simulate_tp = n`` they are held to), each held
+    as ``serve_run`` holds it (on a TP group its collectives counted with
+    the launches): (a) ``mixed/fp4_e2m1`` under PAPER_DEFAULT; (b)
+    ``two_phase/bf16``; (c) ``split-overlap4/bf16``, the split scheduler
+    with ``overlap_chunks=4``; (d) ``whole/fp4_e2m1``, whole-prompt prefill,
+    and ``prefix/fp4_e2m1``, the mixed engine with the prefix cache, a cold
+    run then a warm one (the engine's prefix cache rides on chunked
+    prefill); (e) ``corrupt@3/fp4_e2m1``, supervised; (f) ``ttft``:
+    measure_ttft at TP_TTFT tokens, compressed against uncompressed. Also
+    the first mixed step's logits, compressed and dense. Returns (runs,
+    totals)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.collectives import reset_tp_counts, tp_counts
+    from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine, EngineSupervisor, FaultPlan
+
+    cfg = model.cfg
+    L = cfg.n_layers
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, SHARD_PROMPT).astype(np.int32)
+               for _ in range(SLOTS)]
+    shared = rng.integers(0, cfg.vocab_size, SHARD_PROMPT // 2).astype(np.int32)
+    shared_prompts = [np.concatenate([shared, p[SHARD_PROMPT // 2:]]) for p in prompts]
+    runs, totals = {}, {k: 0 for k in KERNELS}
+    serve = functools.partial(serve_run, torch, dev, runs, totals, L, new=SHARD_NEW)
+    ctx = functools.partial(tp_context, group, n)
+    comp = ctx(PAPER_DEFAULT)
+    max_len = SHARD_PROMPT + SHARD_NEW
+    kw = dict(max_slots=SLOTS, max_len=max_len, block_size=BS, device=dev)
+    mixed = dict(kw, prefill_chunk=CHUNK, token_budget=T)
+
+    def held(name, eng):
+        b = pool_bytes_held(eng)
+        check(b == eng.kv_pool_bytes(per_device=True) == eng.kv_pool_bytes() // eng.tp_size,
+              f"{label}{name}: this rank holds {b} pool bytes, not "
+              f"{eng.kv_pool_bytes(per_device=True)} of {eng.kv_pool_bytes()}")
+        runs[label + name].update(pool_bytes_held=b, transport=eng.ctx.transport)
+
+    engines = {
+        "mixed/fp4_e2m1": lambda: Engine(model, params, comp, cache_spec="fp4_e2m1", **mixed),
+        "two_phase/bf16": lambda: Engine(model, params, ctx(dataclasses.replace(
+            PAPER_DEFAULT, variant="two_phase", strict_variant=True)), cache_spec="bf16",
+            **mixed),
+        "split-overlap4/bf16": lambda: Engine(model, params, ctx(dataclasses.replace(
+            PAPER_DEFAULT, overlap_chunks=4)), prefill_chunk=CHUNK, token_budget=0,
+            cache_spec="bf16", **kw),
+        "whole/fp4_e2m1": lambda: Engine(model, params, comp, prefill_chunk=0,
+                                         cache_spec="fp4_e2m1", **kw),
+    }
+    for name in runs_wanted:
+        if name in engines:
+            eng = engines[name]()
+            serve(label + name, eng, prompts)
+            held(name, eng)
+            del eng
+        elif name == "prefix/fp4_e2m1":
+            # 32-token chunks: a lossy pool's warm match resumes at a chunk
+            # boundary, and a 256-token chunk would hold the whole prompt
+            eng = Engine(model, params, comp, cache_spec="fp4_e2m1", prefix_cache=True,
+                         persistent_cache=True, n_blocks=2 * SLOTS * (-(-max_len // BS)) + 2,
+                         **dict(mixed, prefill_chunk=2 * BS))
+            for run in ("run1", "run2"):
+                serve(f"{label}{name}/{run}", eng, shared_prompts, warm=False)
+                held(f"{name}/{run}", eng)
+            check(runs[f"{label}{name}/run2"]["summary"]["prefill_tokens_skipped"] > 0,
+                  f"{label}{name}: the warm run skipped no prompt token")
+            del eng
+        elif name == "corrupt@3/fp4_e2m1":
+            eng = Engine(model, params, comp, cache_spec="fp4_e2m1",
+                         fault_plan=FaultPlan.parse("corrupt@3"), **mixed)
+            sup = EngineSupervisor(eng, backoff_s=0.0)
+            serve(label + name, eng, prompts, sup=sup)
+            events = [(e.error, e.mode) for e in sup.events]
+            check(events == [("WireCorruption", "hard")], f"{label}{name}: recoveries {events}")
+            runs[label + name]["events"] = [(e.error, e.mode, e.n_replayed, e.detail)
+                                            for e in sup.events]
+            held(name, eng)
+            del eng, sup
+        elif name == "ttft":
+            ttft = {}
+            for kind, policy in (("compressed", PAPER_DEFAULT), ("uncompressed", NO_COMPRESSION)):
+                eng = Engine(model, params, ctx(policy), max_slots=1, max_len=TP_TTFT,
+                             block_size=BS, prefill_chunk=0, device=dev)
+                reset_launch_counts()
+                reset_tp_counts()
+                r = eng.measure_ttft(TP_TTFT, iters=TTFT_ITERS)
+                got, c = launch_counts(), tp_counts()
+                m = int(policy.enabled) * TTFT_ITERS * L * 2
+                expect = {"mx_quant": m, "mx_dequant": 0, "mx_dequant_reduce": m,
+                          "paged_attention": 0}
+                if dev == "cuda":
+                    check(got == expect, f"{label}ttft/{kind}: launches {got} != {expect}")
+                if eng.tp_size > 1:
+                    want = (2 * m, TTFT_ITERS * L * 2 - m)
+                    check((c["all_gather"], c["all_reduce"]) == want,
+                          f"{label}ttft/{kind}: collectives {c} != {want}")
+                for k in totals:
+                    totals[k] += got[k]
+                ttft[kind] = dict(r, launches=got, tp=c)
+                log(f"{label}ttft[{TP_TTFT} tokens, {kind}]: median {r['median_s'] * 1e3:.2f} "
+                    f"ms, std {r['std_s'] * 1e3:.2f} ms over {r['iters']} prefills; "
+                    + (f"{c['all_gather']} all-gathers, {c['all_reduce']} all-reduces, "
+                       f"{c['bytes'] / 1e6:.2f} MB sent, {c['seconds'] * 1e3:.1f} ms host "
+                       f"({eng.ctx.transport})" if eng.tp_size > 1 else "one process"))
+                del eng
+            runs[label + "ttft"] = ttft
+    runs[label + "logits"] = {
+        "compressed": first_logits(torch, dev, model, params, comp, prompts[0]),
+        "dense": first_logits(torch, dev, model, params, ctx(NO_COMPRESSION), prompts[0])}
+    return runs, totals
+
+
+def cut_logits(torch, dev, group, n, cfg):
+    """``first_logits`` (compressed and dense) of ``cfg`` cut to its first
+    TP_CUT_LAYERS layers at full width, on seed-0 weights (this rank's
+    shard on a TP group), for the prompt ``tp_serve`` serves first."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
+    from repro_torch.models.model import Model
+
+    cut = dataclasses.replace(cfg, n_layers=TP_CUT_LAYERS, layers=cfg.layers[:TP_CUT_LAYERS])
+    rank = dist.get_rank(group) if group is not None else 0
+    model = Model(cut)
+    params = model.init_params(device=dev, seed=0, tp=(rank, n) if group is not None else (0, 1))
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, SHARD_PROMPT).astype(np.int32)
+    return {kind: first_logits(torch, dev, model, params, tp_context(group, n, policy), prompt)
+            for kind, policy in (("compressed", PAPER_DEFAULT), ("dense", NO_COMPRESSION))}
+
+
+def _tp_rank(group, rank, dev, cfg, n, runs_wanted):
+    """One rank of ``phase_tp``: open the kernels the parent built, draw its
+    shard of ``cfg``'s seed-0 weights, serve ``tp_serve``'s runs, and reduce
+    its slice of the collective probe (gather and two_phase). Only rank 0
+    prints."""
+    import torch
+
+    from repro_torch.core.collectives import rank_compressed_psum, transport
+    from repro_torch.core.policy import PAPER_DEFAULT
+    from repro_torch.kernels.build import load_kernels
+    from repro_torch.models.model import Model
+
+    _QUIET[0] = rank != 0
+    cuda = dev.type == "cuda"
+    if cuda:
+        load_kernels(build=False)
+    model = Model(cfg)
+    params = model.init_params(device=dev, seed=0, tp=(rank, n))
+    weight_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    runs, totals = tp_serve(torch, dev.type, group, n, model, params, runs_wanted, "tp ")
+    runs["tp cut logits"] = cut_logits(torch, dev, group, n, cfg)
+    x = tp_partials(torch, n, T, cfg.d_model)[rank].to(dev)
+    probe = {v: rank_compressed_psum(x, group, PAPER_DEFAULT.spec, variant=v, strict=True)
+             .cpu().view(torch.int16).numpy() for v in ("gather", "two_phase")}
+    return dict(runs=runs, totals=totals, device=str(dev), transport=transport(group),
+                probe=probe, weight_gb=weight_gb,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+
+
+def rel_l2(a, b) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_tp(torch, card, dev="cuda", cfg=None):
+    """Tensor parallelism across ranks (``TP_MODELS``): llama2-7b at full
+    width and depth on 2 ranks, runs (a)-(f) of ``tp_serve``; llama2-13b
+    on 4 ranks, runs (a) and (f). Each model's single-rank engine over
+    ``simulate_tp = n`` runs first in this process on the same seed-0
+    weights and prompts and is freed; then n ranks (spawned processes:
+    NCCL with a card each, else gloo with the exchanges staged through host
+    memory; ``launch/mesh.py``) serve the same runs, each with its shard of
+    the weights and of the pools. Held: every rank's tokens identical to
+    rank 0's; each rank's pool bytes 1/n of the simulated engine's; launches
+    and collectives exact per rank; the first mixed step's logits, at full
+    depth and cut to TP_CUT_LAYERS layers: dense within TP_DENSE_SHARE of
+    what compression moves them, compressed within TP_FLIP_MARGIN x
+    ``tp_flip_share`` of it; and the rank collective bit-identical to the simulated
+    reduction on the same partials at the model's reduction shape, for the
+    gather and two_phase variants. Prints the transport, the collectives
+    per step, the tokens identical to the simulated run's (counted: bf16
+    GEMMs of other shapes round differently, and random weights have near
+    ties), and TTFT. (``dev="cpu"`` and a reduced ``cfg`` rehearse it.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import compressed_psum
+    from repro_torch.core.policy import PAPER_DEFAULT
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    from repro_torch.models.model import Model
+
+    cuda = dev == "cuda"
+    totals = {k: 0 for k in KERNELS}
+    out = {}
+    for arch, (n, runs_wanted) in TP_MODELS.items():
+        mcfg = cfg or get_config(arch)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        model = Model(mcfg)
+        t0 = time.perf_counter()
+        params = model.init_params(device=dev, seed=0)
+        log(f"tp[{arch}]: {mcfg.n_layers} layers d_model {mcfg.d_model}, "
+            f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB of "
+            f"seed-0 weights in {time.perf_counter() - t0:.1f} s; the simulate_tp={n} engine "
+            f"first")
+        sim, _ = tp_serve(torch, dev, None, n, model, params, runs_wanted, "simulated ")
+        sim["simulated cut logits"] = cut_logits(torch, dev, None, n, mcfg)
+        stacked = tp_partials(torch, n, T, mcfg.d_model).to(dev)
+        want = {"gather": compressed_psum(stacked, PAPER_DEFAULT.spec)}
+        spec = PAPER_DEFAULT.spec
+        want["two_phase"] = ops.mx_dequantize(ops.mx_quantize(want["gather"], spec), spec,
+                                              out_dtype=torch.bfloat16)
+        want = {k: v.cpu().view(torch.int16).numpy() for k, v in want.items()}
+        del params, model, stacked
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_tp_rank, n, mcfg, n, runs_wanted, device=dev, timeout_s=900,
+                            threads=0 if cuda else 2)
+        wall = time.perf_counter() - t0
+        transport = ranks[0]["transport"]
+        check(transport == ("nccl" if backend_for(n, dev) == "nccl" else "gloo-staged"),
+              f"tp[{arch}]: transport {transport}")
+        where = ("NCCL, one card per rank" if transport == "nccl" else
+                 "gloo, exchanges staged through host memory, eager steps" +
+                 (": the ranks share one card, not NVLink" if cuda else ""))
+        log(f"tp[{arch}]: {n} ranks on {card} over {where}; {wall:.1f} s with start-up; "
+            f"{ranks[0]['weight_gb']:.2f} GB of weights per rank")
+        for r in ranks:
+            for k in totals:
+                totals[k] += r["totals"][k]
+        for v in ("gather", "two_phase"):
+            for i, r in enumerate(ranks):
+                check((r["probe"][v] == want[v]).all(),
+                      f"tp[{arch}]: rank {i}'s {v} reduction differs from the simulated one")
+        log(f"tp[{arch}]: the rank collective is bit-identical to the simulated reduction on "
+            f"the same ({n}, {T}, {mcfg.d_model}) bf16 partials, gather and two_phase, on "
+            f"every rank")
+        logit_checks = []
+        for name, rr in sim.items():
+            case = name.split(" ", 1)[1]
+            got = [r["runs"]["tp " + case] for r in ranks]
+            if case.endswith("logits"):
+                for i, g in enumerate(got):
+                    for k in ("compressed", "dense"):
+                        check((g[k] == got[0][k]).all(),
+                              f"tp[{arch}] {case}: rank {i}'s {k} logits differ from rank 0's")
+                rel_q = rel_l2(rr["compressed"], rr["dense"])
+                rel_c = rel_l2(got[0]["compressed"], rr["compressed"])
+                rel_d = rel_l2(got[0]["dense"], rr["dense"])
+                rel_x = rel_l2(got[0]["compressed"], rr["dense"])
+                out.setdefault(arch, {})[case.replace(" ", "_") + "_rel_l2"] = dict(
+                    compressed=rel_c, dense=rel_d, compression=rel_q, rank_c_vs_sim_dense=rel_x)
+                log(f"tp[{arch}] {case} (first mixed step): rel-L2 rank vs simulated "
+                    f"{rel_c:.4g} compressed (bound {TP_FLIP_MARGIN} x sqrt(48 x {rel_d:.4g}) "
+                    f"x {rel_q:.4g} = {TP_FLIP_MARGIN * tp_flip_share(rel_d) * rel_q:.4g}), "
+                    f"{rel_d:.4g} dense (bound {TP_DENSE_SHARE} x {rel_q:.4g}); compression "
+                    f"itself moves them {rel_q:.4g}; rank compressed vs simulated dense "
+                    f"{rel_x:.4g}")
+                logit_checks.append((case, rel_c, rel_d, rel_q))
+                continue
+            if case == "ttft":
+                for kind in ("compressed", "uncompressed"):
+                    log(f"tp[{arch}] ttft[{TP_TTFT} tokens, {kind}]: {n} ranks median "
+                        f"{got[0][kind]['median_s'] * 1e3:.2f} ms ({transport}); "
+                        f"simulate_tp={n} in one process {rr[kind]['median_s'] * 1e3:.2f} ms")
+                continue
+            for i, g in enumerate(got):
+                check(g["outputs"] == got[0]["outputs"],
+                      f"tp[{arch}] {case}: rank {i}'s tokens differ from rank 0's")
+                check(g["pool_bytes_held"] * n == rr["pool_bytes"] == g["pool_bytes"],
+                      f"tp[{arch}] {case}: rank {i} holds {g['pool_bytes_held']} pool bytes, "
+                      f"not 1/{n} of {rr['pool_bytes']}")
+                check(g.get("events") == rr.get("events"),
+                      f"tp[{arch}] {case}: rank {i}'s recoveries {g.get('events')} differ "
+                      f"from {rr.get('events')}")
+            same = sum(a == b for a, b in zip(got[0]["outputs"], rr["outputs"]))
+            c, s = got[0]["tp"], got[0]["summary"]
+            steps = max(s["n_steps"], 1)
+            log(f"tp[{arch}] {case}: tokens identical on {n} ranks; {same} of "
+                f"{len(rr['outputs'])} requests decode the simulated run's tokens; "
+                f"{got[0]['pool_bytes_held'] / 1e6:.2f} MB of pools per rank of "
+                f"{got[0]['pool_mb']:.2f} MB; per step {c['all_gather'] / steps:.1f} "
+                f"all-gathers, {c['all_to_all'] / steps:.1f} all-to-alls, "
+                f"{c['all_reduce'] / steps:.1f} all-reduces, {c['bytes'] / steps / 1e6:.3f} MB "
+                f"sent and {c['seconds'] / steps * 1e3:.2f} ms host per rank ({transport}); "
+                f"TPOT p50 {s['tpot_p50_s'] * 1e3:.2f} ms on {n} ranks vs "
+                f"{rr['summary']['tpot_p50_s'] * 1e3:.2f} ms simulated in one process")
+            got[0]["same_as_simulated"] = same
+        for case, rel_c, rel_d, rel_q in logit_checks:
+            bound_c = TP_FLIP_MARGIN * tp_flip_share(rel_d) * rel_q
+            check(math.isfinite(rel_c) and rel_c <= bound_c and rel_d <= TP_DENSE_SHARE * rel_q,
+                  f"tp[{arch}] {case}: rel-L2 rank vs simulated {rel_c:.4g} compressed (bound "
+                  f"{bound_c:.4g}), {rel_d:.4g} dense (bound {TP_DENSE_SHARE} x {rel_q:.4g})")
+        for i, r in enumerate(ranks):
+            log(f"tp[{arch}]: rank {i} ({r['device']}) peak device memory "
+                + (f"{r['peak_gb']:.2f} GB" if cuda else "not measured (no card)"))
+        out.setdefault(arch, {}).update(
+            ranks=n, transport=transport, wall_s=wall,
+            simulated={k: v for k, v in sim.items() if not k.endswith("logits")},
+            rank_runs=[{k: v for k, v in r["runs"].items() if not k.endswith("logits")}
+                       for r in ranks],
+            peak_gb=[r["peak_gb"] for r in ranks], weight_gb=ranks[0]["weight_gb"])
+    log(f"tp: card {card}")
+    return out, totals
 
 
 FAULT_RUNS = {  # pools -> (fault plan, the recoveries it must cause, in order)
@@ -2104,6 +2631,15 @@ def main() -> int:
 
     load_kernels()
     log(f"build: {build_seconds():.1f} s for {len(KERNELS)} kernels ({builder()} path)")
+    if sys.argv[1:] == ["--phase", "tp"]:
+        # phase 9 alone (a machine with a card per rank runs it over NCCL);
+        # without an argument the script runs every phase
+        tp, _ = phase_tp(torch, card)
+        print(json.dumps({"ok": True, "phase": "tp", "transport": {a: r["transport"]
+                                                                   for a, r in tp.items()},
+                          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}}))
+        return 0
     info = phase_kernels(torch)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2118,6 +2654,9 @@ def main() -> int:
     sharded, sh_totals = phase_sharded(torch, card)
     for k in totals:
         totals[k] += sh_totals[k]
+    tp, tp_totals = phase_tp(torch, card)
+    for k in totals:
+        totals[k] += tp_totals[k]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=totals[n],
@@ -2136,7 +2675,8 @@ def main() -> int:
         for r in info["paged_attention"]["geometries"]]
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_seconds(), "builder": builder(), "kernels": info,
-         "serve": runs, "families": families, "sharded": sharded, "launches": totals,
+         "serve": runs, "families": families, "sharded": sharded, "tp": tp,
+         "launches": totals,
          "ttft_model": ttft_model},
         indent=1, default=str))
     log("kernels: " + ", ".join(

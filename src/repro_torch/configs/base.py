@@ -105,6 +105,35 @@ class ModelConfig:
             per_layer += (3 if self.activation == "silu" else 2) * d * ff
         return n + self.n_layers * per_layer
 
+    def tp_shard(self, n: int) -> "ModelConfig":
+        """The rank-local view of this config on a TP group of ``n`` ranks:
+        ``n_heads / n`` query heads, ``n_kv_heads / n`` kv heads and ``d_ff /
+        n`` MLP columns; ``head_dim``, ``d_model`` and the vocabulary
+        unchanged. Rank r holds whole heads, q heads ``[r H/n, (r+1) H/n)``
+        with their kv heads ``[r KV/n, (r+1) KV/n)``, so q head h keeps kv
+        head ``h // G``. Everything sized from the config (the paged pools,
+        the paged kernel's ``kv_heads``) follows. Raises unless the kv heads
+        divide over the ranks and each rank's ``q_dim`` and ``d_ff`` are
+        multiples of the policies' MX block (32). ``n = 1`` is the config
+        itself."""
+        if n == 1:
+            return self
+        block_size = 32
+        q_local = self.q_dim // n if self.n_heads % n == 0 else 0
+        bad = [why for why, ok in (
+            (f"n_kv_heads={self.n_kv_heads} % {n} != 0", self.n_kv_heads % n == 0),
+            (f"n_heads={self.n_heads} % {n} != 0", self.n_heads % n == 0),
+            (f"the local q_dim {self.q_dim}/{n} is not a multiple of {block_size}",
+             q_local and q_local % block_size == 0),
+            (f"the local d_ff {self.d_ff}/{n} is not a multiple of {block_size}",
+             self.d_ff % n == 0 and (self.d_ff // n) % block_size == 0),
+        ) if not ok]
+        if n < 1 or bad:
+            raise ValueError(f"{self.name} does not shard over {n} TP ranks: "
+                             f"{'; '.join(bad) or 'n < 1'}")
+        return dataclasses.replace(self, n_heads=self.n_heads // n,
+                                   n_kv_heads=self.n_kv_heads // n, d_ff=self.d_ff // n)
+
     def active_param_count(self) -> int:
         """Params touched per token: every parameter of a dense model."""
         return self.param_count()

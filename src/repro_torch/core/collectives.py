@@ -1,33 +1,52 @@
-"""The compressed row-parallel reduction (the paper's Fig. 1b, gather
-variant) over N stacked partial sums — what one card needs.
+"""The paper's compressed row-parallel reduction (Fig. 1b) — over N partial
+sums stacked on one card, and between the ranks of a ``torch.distributed``
+group — and the bit-exact ownership select of the sequence-sharded pools.
 
-``compressed_psum`` quantizes every partial to the MX wire format (payload +
-scale bytes), [gathers the N shards' bytes], and dequantizes and sums them
-in fp32 in shard order 0..N-1 in one fused pass, casting back to the
-partials' dtype. Under ``TPContext.simulate_tp`` the N partials already sit
-stacked on one device, so the gather step is the identity; a multi-GPU slice
-replaces it with ``torch.distributed.all_gather_into_tensor`` of the two
-uint8 tensors and nothing else changes. The codec runs through
-``kernels/ops.py``: the hand-written kernels on the card, their plain
-versions on the CPU. ``tp.row_linear`` adds the ``two_phase`` variant's
-second quantize of the reduced result itself, as the reference's simulated
-path does.
+Simulated (``TPContext.simulate_tp``): ``compressed_psum`` quantizes the N
+stacked partials to the MX wire format (payload + scale bytes), [gathers the
+N shards' bytes] (the identity: they already sit on this card), and
+dequantizes and sums them in fp32 in shard order 0..N-1 in one fused pass,
+casting back to the partials' dtype. ``tp.row_linear`` adds the
+``two_phase`` variant's second quantize of the reduced result itself, as the
+reference's simulated path does.
 
-``masked_owner_psum`` is the bit-exact ownership select of the
-sequence-sharded pools (``core/tp.py``): a ``torch.distributed`` all-reduce
-over the kv group in which exactly one rank contributes each byte.
+Ranks (``TPContext.tp_group``, the reference's ``collectives.py:139-398``):
+``rank_compressed_psum`` reduces this rank's partial ``(..., F)`` over the
+group. The gather variant quantizes every feature chunk
+(``overlap_chunks``) before any collective is issued, all-gathers each
+chunk's payload and then its scales, and dequantizes and sums the N gathered
+shards in rank order 0..N-1 (``mx_dequant_reduce``); ``keep_local_fp``
+swaps the dequantized own shard for the full-precision partial. The
+``two_phase`` variant is a quantized reduce-scatter (``all_to_all`` of the
+per-destination feature slices, ``mx_dequant_reduce`` of the N received
+slices) followed by a quantized all-gather of the reduced slices. Both give
+bit for bit the simulated path's result on the same partials (MX blocks are
+independent, and the sums run in the same order), and every rank the same
+bytes, except under ``keep_local_fp``. ``rank_psum`` is the dense gate
+variant (an all-reduce in the partial's dtype, the reference's
+``lax.psum``); ``psum_maybe_compressed`` picks one with the policy's
+``min_tokens`` gate, and ``compressed_all_gather`` gathers a tensor in
+compressed form. The codec runs through ``kernels/ops.py``: the
+hand-written kernels on the card, their plain versions on the CPU.
 
-Not ported yet (see ROADMAP.md): the rank collectives of the ``two_phase``
-variant (reduce-scatter + all-gather), ``keep_local_fp``, ``overlap_chunks``
-and a non-fp32 accumulator, which change what ranks exchange or sum (a call
-here that asks for any of them raises, see ``check_ported``); the
-straight-through-estimator gradient and ``compressed_all_to_all``.
+Transport: ``wire`` stages a tensor through host memory when the group is a
+gloo group and the tensor lives on the card (ranks sharing a card), and
+returns it as it is under NCCL (one card per rank) or on the CPU; each
+collective's result goes back to the tensor's device. ``tp_counts`` counts
+the rank collectives (all-gathers, all-to-alls, all-reduces, the bytes this
+rank puts into them and the host seconds they take), ``exchange_counts``
+the sequence-sharded pools' ``masked_owner_psum`` calls.
+
+Left out (see ROADMAP.md): the straight-through-estimator gradient
+(training) and ``compressed_all_to_all`` (MoE dispatch).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
-from typing import Dict, Optional
+import warnings
+from typing import Dict, Iterator, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -37,13 +56,20 @@ from repro_torch.core.mx import MXCompressed
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.kernels import ops
 
-__all__ = ["compressed_psum", "psum", "psum_maybe_compressed", "check_ported",
-           "masked_owner_psum", "exchange_counts", "reset_exchange_counts"]
+__all__ = ["compressed_psum", "psum", "psum_maybe_compressed", "rank_compressed_psum",
+           "rank_psum", "compressed_all_gather", "check_stacked", "masked_owner_psum", "wire",
+           "transport",
+           "exchange_counts", "reset_exchange_counts", "tp_counts", "reset_tp_counts",
+           "recorded_collectives", "add_tp_counts", "reset_downgrade_warnings"]
 
 # masked_owner_psum calls since the last reset: all-reduces, bytes each rank
-# contributes, and host seconds spent in them (device-to-host copy, the
-# all-reduce, host-to-device copy; each call ends synchronized)
+# contributes, and host seconds spent in them (each call ends synchronized
+# when staged through the host)
 _EXCHANGE: Dict[str, float] = {"all_reduce": 0, "bytes": 0, "seconds": 0.0}
+# the rank collectives of the TP group since the last reset: calls by kind,
+# the bytes this rank puts into them (its input tensors) and host seconds
+_TP: Dict[str, float] = {"all_gather": 0, "all_to_all": 0, "all_reduce": 0, "bytes": 0,
+                         "seconds": 0.0}
 
 
 def exchange_counts() -> Dict[str, float]:
@@ -54,6 +80,64 @@ def exchange_counts() -> Dict[str, float]:
 
 def reset_exchange_counts() -> None:
     _EXCHANGE.update(all_reduce=0, bytes=0, seconds=0.0)
+
+
+def tp_counts() -> Dict[str, float]:
+    """The TP group's collectives since the last reset: ``all_gather``,
+    ``all_to_all``, ``all_reduce`` calls, ``bytes`` this rank put into them
+    and host ``seconds`` (staging included; under NCCL the enqueue only)."""
+    return dict(_TP)
+
+
+def reset_tp_counts() -> None:
+    _TP.update(all_gather=0, all_to_all=0, all_reduce=0, bytes=0, seconds=0.0)
+
+
+@contextlib.contextmanager
+def recorded_collectives() -> Iterator[Dict[str, float]]:
+    """Within the block (a CUDA graph's capture, which runs no collective),
+    the TP collectives go into the yielded record instead of the counters;
+    ``add_tp_counts(record)`` at each replay counts them. Host seconds are
+    not recorded."""
+    before = dict(_TP)
+    record: Dict[str, float] = {}
+    try:
+        yield record
+    finally:
+        for k in _TP:
+            if k != "seconds":
+                record[k] = _TP[k] - before[k]
+        _TP.update(before)
+
+
+def add_tp_counts(record: Dict[str, float]) -> None:
+    """Count the collectives of one replay of a graph whose capture gave
+    ``record``."""
+    for k, n in record.items():
+        _TP[k] += n
+
+
+def _count(kind: str, t: torch.Tensor, t0: float) -> None:
+    _TP[kind] += 1
+    _TP["bytes"] += t.numel() * t.element_size()
+    _TP["seconds"] += time.perf_counter() - t0
+
+
+def transport(group) -> str:
+    """How ``group``'s collectives move data: ``"nccl"`` (device memory) or
+    ``"gloo-staged"`` (host memory; a tensor on the card is copied out and
+    back)."""
+    return "nccl" if dist.get_backend(group) == "nccl" else "gloo-staged"
+
+
+def wire(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` as ``group``'s collectives take it: a host copy when the group
+    is gloo and ``t`` lives on the card (ranks that share a card), else
+    ``t`` itself (NCCL moves device memory; CPU tensors are already on the
+    host). Contiguous either way."""
+    if t.device.type == "cuda" and transport(group) == "gloo-staged":
+        return t.cpu()
+    return t.contiguous()
 
 
 def masked_owner_psum(x: torch.Tensor, own: torch.Tensor, group) -> torch.Tensor:
@@ -68,56 +152,64 @@ def masked_owner_psum(x: torch.Tensor, own: torch.Tensor, group) -> torch.Tensor
     bytes all arrive bit for bit. (A float sum would turn ``-0.0`` into
     ``+0.0``, and gloo has no 16- or 32-bit unsigned sum.)
 
-    Transport: gloo on the host. A tensor on the card is staged through
+    Transport (``wire``): under gloo a tensor on the card is staged through
     host memory (device-to-host copy, the all-reduce, host-to-device copy),
-    so each call ends synchronized; the pools and every kernel stay on the
-    card. ``x`` has at least one dimension. Returns a new tensor like
-    ``x``."""
+    so each call ends synchronized; under NCCL it stays on the card. The
+    pools and every kernel stay on the card. ``x`` has at least one
+    dimension. Returns a new tensor like ``x``."""
     t0 = time.perf_counter()
     x = x.contiguous()
     u = x.view(torch.uint8).reshape(*x.shape, x.element_size())   # (..., bytes)
     own = torch.as_tensor(own, dtype=torch.bool, device=x.device)
-    buf = torch.where(own[..., None], u, torch.zeros((), dtype=torch.uint8, device=x.device))
-    host = buf.cpu() if buf.device.type != "cpu" else buf.contiguous()
-    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
-    out = host.to(x.device).reshape(-1).view(x.dtype).reshape(x.shape)
+    buf = wire(torch.where(own[..., None], u,
+                           torch.zeros((), dtype=torch.uint8, device=x.device)), group)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    out = buf.to(x.device).reshape(-1).view(x.dtype).reshape(x.shape)
     _EXCHANGE["all_reduce"] += 1
-    _EXCHANGE["bytes"] += host.numel()
+    _EXCHANGE["bytes"] += buf.numel()
     _EXCHANGE["seconds"] += time.perf_counter() - t0
     return out
 
 
-def check_ported(policy: CompressionPolicy) -> None:
-    """Raise on a policy option whose rank collective is not ported yet, so
-    that a request for it is refused and never silently served by the plain
-    gather variant. (On the simulated path, ``tp.row_linear``, these options
-    need no collective: it serves ``two_phase`` and ignores the rest, as the
-    reference does.)"""
-    unported = [name for name, asked in (
-        (f"variant={policy.variant!r}", policy.variant != "gather"),
-        ("keep_local_fp", policy.keep_local_fp),
-        (f"overlap_chunks={policy.overlap_chunks}", policy.overlap_chunks != 1),
-        (f"accum_dtype={policy.accum_dtype!r}", policy.accum_dtype != "float32"),
-    ) if asked]
-    if unported:
-        raise NotImplementedError(
-            f"compressed collective option(s) not ported yet: {', '.join(unported)}; "
-            f"only the paper's 'gather' variant with an fp32 accumulator runs")
+# ----------------------------------------------------------------- simulated
 
 
 def compressed_psum(partials: torch.Tensor, spec: MXSpec, *,
                     variant: str = "gather") -> torch.Tensor:
     """Sum N stacked partials ``(N, ..., F)`` through the MX wire format:
     quantize -> [gather] -> fused dequantize + fp32 sum (order 0..N-1) ->
-    cast to ``partials.dtype``. Returns ``(..., F)``."""
+    cast to ``partials.dtype``. Returns ``(..., F)``. (The ``two_phase``
+    variant's second quantize is ``tp.row_linear``'s.)"""
     if variant != "gather":
         raise NotImplementedError(
-            f"compressed_psum variant {variant!r} is not ported yet; only the "
-            f"paper's 'gather' variant runs")
+            f"compressed_psum variant {variant!r}: the simulated reduction runs the "
+            f"gather variant (tp.row_linear adds two_phase's second quantize)")
     comp = ops.mx_quantize(partials, spec)
     # [gather]: the N shards' wire bytes are already stacked on this device
     gathered = MXCompressed(comp.payload, comp.scales)
     return ops.mx_dequant_reduce(gathered, spec, out_dtype=partials.dtype)
+
+
+def check_stacked(policy: CompressionPolicy) -> None:
+    """Raise on a policy option that only the rank collective gives a
+    meaning (``two_phase``'s reduce-scatter, ``keep_local_fp``'s own shard,
+    ``overlap_chunks``' staged gathers, a non-fp32 accumulator): the stacked
+    reduction of ``psum_maybe_compressed`` without a group has no ranks, so
+    a request for one is refused there and never silently served by the
+    plain gather variant. (``tp.row_linear``'s simulated path serves
+    ``two_phase`` and ignores the rest, as the reference's does; the rank
+    path, ``group=``, runs them all.)"""
+    asked = [name for name, on in (
+        (f"variant={policy.variant!r}", policy.variant != "gather"),
+        ("keep_local_fp", policy.keep_local_fp),
+        (f"overlap_chunks={policy.overlap_chunks}", policy.overlap_chunks != 1),
+        (f"accum_dtype={policy.accum_dtype!r}", policy.accum_dtype != "float32"),
+    ) if on]
+    if asked:
+        raise NotImplementedError(
+            f"compressed collective option(s) {', '.join(asked)} need ranks: the stacked "
+            f"reduction runs the paper's 'gather' variant with an fp32 accumulator only; "
+            f"pass group= (a TP group) for the rank collective")
 
 
 def psum(partials: torch.Tensor) -> torch.Tensor:
@@ -129,17 +221,212 @@ def psum(partials: torch.Tensor) -> torch.Tensor:
     return total.to(partials.dtype)
 
 
+# --------------------------------------------------------------------- ranks
+
+
+_DOWNGRADE_WARNED: set = set()
+
+
+def reset_downgrade_warnings() -> None:
+    """Forget which two_phase downgrades have already warned."""
+    _DOWNGRADE_WARNED.clear()
+
+
+def _variant_downgrade(reason: str, strict: bool, key: tuple = ()) -> None:
+    """A requested two_phase reduction cannot run: raise under ``strict`` or
+    warn once per distinct (reason, spec, feature dim, group size) site, as
+    the reference does."""
+    msg = (
+        f"compressed_psum: variant='two_phase' requested but {reason}; "
+        "falling back to the gather variant. Plumb axis_size (the TP degree) "
+        "and ensure the feature dim is divisible by axis_size * block_size, "
+        "or set strict=False/strict_variant=False to accept the fallback."
+    )
+    if strict:
+        raise ValueError(msg)
+    dedup = (reason,) + key
+    if dedup not in _DOWNGRADE_WARNED:
+        _DOWNGRADE_WARNED.add(dedup)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+def _overlap_chunks(f: int, spec: MXSpec, requested: int) -> int:
+    """Largest chunk count <= ``requested`` that splits a feature dim of
+    ``f`` into equal block-aligned chunks (1 when none does). MX blocks are
+    independent, so any block-aligned split gives the unchunked codec's
+    bytes: chunking changes the schedule, never the values."""
+    n = max(1, int(requested))
+    while n > 1 and (f % n != 0 or (f // n) % spec.block_size != 0):
+        n -= 1
+    return n
+
+
+def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """``(N, *t.shape)``: every rank's ``t`` in rank order, on ``t``'s
+    device."""
+    t0 = time.perf_counter()
+    w = wire(t, group)
+    n = dist.get_world_size(group)
+    out = torch.empty((n, *w.shape), dtype=w.dtype, device=w.device)
+    dist.all_gather(list(out.unbind(0)), w, group=group)
+    _count("all_gather", w, t0)
+    return out.to(t.device)
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` ``(N, ...)``: slice i goes to rank i; returns ``(N, ...)`` whose
+    slice j came from rank j."""
+    t0 = time.perf_counter()
+    w = wire(t, group)
+    out = torch.empty_like(w)
+    dist.all_to_all_single(out, w, group=group)
+    _count("all_to_all", w, t0)
+    return out.to(t.device)
+
+
+def _quantize_staged(x: torch.Tensor, spec: MXSpec, n_chunks: int):
+    """Quantize every feature chunk before any collective is issued (the
+    reference's ``_quantize_staged``)."""
+    chunks = [x] if n_chunks == 1 else list(x.chunk(n_chunks, dim=-1))
+    return chunks, [ops.mx_quantize(c.contiguous(), spec) for c in chunks]
+
+
+def _gather_staged(comps: List[MXCompressed], group):
+    """Each chunk's payload, then its scales, gathered from every rank."""
+    return [MXCompressed(_all_gather(c.payload, group), _all_gather(c.scales, group))
+            for c in comps]
+
+
+def _gathered_reduce(gathered: MXCompressed, comp: MXCompressed, chunk: torch.Tensor,
+                     spec: MXSpec, keep_local_fp: bool, accum: torch.dtype) -> torch.Tensor:
+    """One chunk's gathered ``(N, ..., f)`` shards summed in fp32, rank order
+    0..N-1 (``mx_dequant_reduce``), in ``accum`` (the partial's dtype when
+    that is all that follows); with ``keep_local_fp`` the own shard's
+    dequantized values swapped for the partial itself."""
+    if not keep_local_fp:
+        out = chunk.dtype if accum == torch.float32 else accum
+        return ops.mx_dequant_reduce(gathered, spec, out_dtype=out)
+    total = ops.mx_dequant_reduce(gathered, spec, out_dtype=accum)
+    own_q = ops.mx_dequantize(comp, spec, out_dtype=accum)
+    return total - own_q + chunk.to(accum)
+
+
+def _compressed_psum_fwd(partial: torch.Tensor, group, spec: MXSpec, keep_local_fp: bool,
+                         accum: torch.dtype, overlap_chunks: int) -> torch.Tensor:
+    n_chunks = _overlap_chunks(partial.shape[-1], spec, overlap_chunks)
+    chunks, comps = _quantize_staged(partial, spec, n_chunks)
+    wires = _gather_staged(comps, group)
+    totals = [_gathered_reduce(w, c, x, spec, keep_local_fp, accum)
+              for w, c, x in zip(wires, comps, chunks)]
+    total = totals[0] if n_chunks == 1 else torch.cat(totals, dim=-1)
+    return total.to(partial.dtype)
+
+
+def _compressed_psum_two_phase(partial: torch.Tensor, group, spec: MXSpec,
+                               accum: torch.dtype) -> torch.Tensor:
+    """Quantized reduce-scatter (all-to-all of the N destination slices of
+    the features, then ``mx_dequant_reduce`` of the N received ones in rank
+    order, the reference's ``jnp.sum(axis=0)``) and a quantized all-gather
+    of the reduced slices."""
+    n = dist.get_world_size(group)
+    lead, f = partial.shape[:-1], partial.shape[-1]
+    m = math.prod(lead)
+    slices = partial.reshape(m, n, f // n).transpose(0, 1).contiguous()   # (N, M, F/N)
+    comp = ops.mx_quantize(slices, spec)
+    recv = MXCompressed(_all_to_all(comp.payload, group), _all_to_all(comp.scales, group))
+    out = partial.dtype if accum == torch.float32 else accum
+    mine = ops.mx_dequant_reduce(recv, spec, out_dtype=out).to(partial.dtype)   # (M, F/N)
+    comp2 = ops.mx_quantize(mine, spec)
+    gathered = MXCompressed(_all_gather(comp2.payload, group),
+                            _all_gather(comp2.scales, group))
+    full = ops.mx_dequantize(gathered, spec, out_dtype=partial.dtype)          # (N, M, F/N)
+    return full.transpose(0, 1).reshape(*lead, f)
+
+
+_ACCUM = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def rank_compressed_psum(partial: torch.Tensor, group, spec: MXSpec, *,
+                         keep_local_fp: bool = False, accum_dtype: str = "float32",
+                         variant: str = "gather", strict: bool = False,
+                         overlap_chunks: int = 1) -> torch.Tensor:
+    """The paper's compressed reduction of this rank's partial ``(..., F)``
+    over ``group`` (F a multiple of the block size): the sum of every rank's
+    partial up to quantization error, moving ``16 / effective_bits`` times
+    fewer bytes than a bf16 reduction.
+
+    ``variant="two_phase"`` runs the reduce-scatter + all-gather form when
+    F divides into N block-aligned slices, and otherwise falls back to the
+    gather variant with a warning (once per site) or, under ``strict``, a
+    ``ValueError``. ``keep_local_fp`` (gather variant) adds the own partial
+    at full precision; the result then differs from rank to rank by each
+    rank's own quantization residual. ``accum_dtype``: the fused kernel
+    sums in fp32 and hands the total over in this dtype (float32 or
+    bfloat16), as the reference's kernel route does. Returns the partial's
+    shape and dtype."""
+    accum = _ACCUM[accum_dtype]
+    n = dist.get_world_size(group)
+    f = partial.shape[-1]
+    if variant == "two_phase":
+        if n > 1 and f % (n * spec.block_size) == 0:
+            return _compressed_psum_two_phase(partial, group, spec, accum)
+        key = (spec.name, f, n)
+        if n <= 1:
+            _variant_downgrade(f"axis_size={n} is not plumbed (need the TP degree)",
+                               strict, key)
+        else:
+            _variant_downgrade(f"feature dim {f} is not divisible by axis_size * "
+                               f"block_size = {n * spec.block_size}", strict, key)
+    return _compressed_psum_fwd(partial, group, spec, keep_local_fp, accum, overlap_chunks)
+
+
+def rank_psum(partial: torch.Tensor, group) -> torch.Tensor:
+    """The dense reduction of this rank's partial over ``group``: one
+    all-reduce in the partial's dtype (the reference's ``lax.psum``)."""
+    t0 = time.perf_counter()
+    w = wire(partial, group)
+    if w is partial:
+        w = w.clone()
+    dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
+    _count("all_reduce", w, t0)
+    return w.to(partial.device)
+
+
+def compressed_all_gather(x: torch.Tensor, group, spec: MXSpec, *,
+                          overlap_chunks: int = 1) -> torch.Tensor:
+    """Every rank's ``x`` (``(N, *x.shape)``, rank order), moved in
+    compressed form and dequantized to ``x``'s dtype; ``overlap_chunks``
+    as in the gather reduction (bit-identical to one chunk)."""
+    n_chunks = _overlap_chunks(x.shape[-1], spec, overlap_chunks)
+    _, comps = _quantize_staged(x, spec, n_chunks)
+    outs = [ops.mx_dequantize(w, spec, out_dtype=x.dtype)
+            for w in _gather_staged(comps, group)]
+    return outs[0] if n_chunks == 1 else torch.cat(outs, dim=-1)
+
+
 def psum_maybe_compressed(partials: torch.Tensor,
                           policy: Optional[CompressionPolicy], *,
-                          n_tokens: Optional[int] = None) -> torch.Tensor:
-    """Policy-gated reduction of N stacked partials ``(N, ..., F)``.
+                          n_tokens: Optional[int] = None, group=None) -> torch.Tensor:
+    """Policy-gated reduction: of N stacked partials ``(N, ..., F)`` on this
+    card, or with ``group`` of this rank's partial ``(..., F)`` over the
+    group's ranks.
 
     ``n_tokens`` defaults to the number of activation rows crossing the wire
-    (the product of the dims between the shard axis and the features) — the
-    prefill/decode discriminator of ``CompressionPolicy.active_for``."""
+    (the product of the dims between the shard axis, if any, and the
+    features) — the prefill/decode discriminator of
+    ``CompressionPolicy.active_for``."""
+    rows = partials.shape[:-1] if group is not None else partials.shape[1:-1]
     if n_tokens is None:
-        n_tokens = math.prod(partials.shape[1:-1]) if partials.dim() > 2 else 1
-    if policy is None or not policy.active_for(n_tokens):
-        return psum(partials)
-    check_ported(policy)
-    return compressed_psum(partials, policy.spec)
+        n_tokens = math.prod(rows)
+    compress = policy is not None and policy.active_for(n_tokens)
+    if group is None:
+        if not compress:
+            return psum(partials)
+        check_stacked(policy)
+        return compressed_psum(partials, policy.spec)
+    if not compress:
+        return rank_psum(partials, group)
+    return rank_compressed_psum(
+        partials, group, policy.spec, keep_local_fp=policy.keep_local_fp,
+        accum_dtype=policy.accum_dtype, variant=policy.variant,
+        strict=policy.strict_variant, overlap_chunks=policy.overlap_chunks)

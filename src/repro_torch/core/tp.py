@@ -1,19 +1,31 @@
-"""Tensor-parallel linear layers on one device, and the sequence-sharded
-paged pools over a kv group of ranks — the port's ``core/tp.py``.
+"""Tensor-parallel linear layers — simulated on one card, or across the
+ranks of a TP group — and the sequence-sharded paged pools over a kv group
+of ranks: the port's ``core/tp.py``.
 
-``TPContext`` carries the compression policy and ``simulate_tp``: with
-``simulate_tp = N > 1`` and an active policy, ``row_linear`` splits its
-contraction into N partial sums exactly as N tensor-parallel ranks would
-and reduces them through the paper's compressed reduction
-(``collectives.compressed_psum``), so the codec runs on the served path of
-one card. The partial products stay ``torch.matmul``.
+``TPContext`` carries the compression policy and one of two ways to run
+the row-parallel reductions the paper compresses:
 
-On this simulated path the policy's ``variant="two_phase"`` re-quantizes
-the reduced result once more (one more ``mx_quantize`` and
-``mx_dequantize``), and ``keep_local_fp``, ``overlap_chunks`` and
-``accum_dtype`` have no effect, as in the reference's simulated
-``row_linear`` (``overlap_chunks`` is bit-identical either way there; the
-other two change only what ranks exchange).
+* ``simulate_tp = N > 1`` (one card): with an active policy,
+  ``row_linear`` splits its contraction into N partial sums exactly as N
+  ranks would and reduces them through ``collectives.compressed_psum``, so
+  the codec runs on the served path of one card. The policy's
+  ``variant="two_phase"`` re-quantizes the reduced result once more (one
+  more ``mx_quantize`` and ``mx_dequantize``); ``keep_local_fp``,
+  ``overlap_chunks`` and ``accum_dtype`` have no effect there, as in the
+  reference's simulated ``row_linear``.
+* ``tp_group`` (a ``torch.distributed`` group of N ranks, the reference's
+  ``model`` mesh axis): each rank holds ``1/N`` of the heads and of the MLP
+  columns (``ModelConfig.tp_shard``, ``Model.init_params(tp=...)``).
+  ``column_linear`` is the local product on this rank's output columns (no
+  collective); ``row_linear`` reduces this rank's partial with
+  ``collectives.psum_maybe_compressed`` over the group (the compressed rank
+  collective, every policy option included, or an all-reduce under the
+  ``min_tokens`` gate) and adds the bias once, after the reduction;
+  ``fused_mlp`` is their composition. ``transport`` says how the group
+  moves bytes (``launch/mesh.py``).
+
+The two are exclusive, and a TP group does not compose with a kv group yet
+(the reference's ``kv x model`` mesh; ROADMAP.md): such a context raises.
 
 Sequence-sharded pools (the reference's kv mesh axis): ``TPContext.kv_group``
 is a ``torch.distributed`` process group of ``kv_shards`` ranks, each of
@@ -28,29 +40,44 @@ place and return them, so call sites read like the reference's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.collectives import compressed_psum, masked_owner_psum
+from repro_torch.core.collectives import (
+    compressed_psum, masked_owner_psum, psum_maybe_compressed, transport,
+)
 from repro_torch.core.policy import CompressionPolicy, NO_COMPRESSION
 from repro_torch.kernels import ops
 
-__all__ = ["TPContext", "column_linear", "row_linear", "pool_exchange", "pool_scatter",
-           "pool_block_write", "pool_block_fill", "pool_block_copy"]
+__all__ = ["TPContext", "column_linear", "row_linear", "fused_mlp", "pool_exchange",
+           "pool_scatter", "pool_block_write", "pool_block_fill", "pool_block_copy"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TPContext:
     """Everything model code needs to know about distribution: the
-    compression policy, simulated TP on one device, and the kv group of
-    sequence-sharded pools (None: replicated pools)."""
+    compression policy, simulated TP on one device or the TP group of
+    ranks, and the kv group of sequence-sharded pools (None: replicated
+    pools)."""
 
     policy: CompressionPolicy = NO_COMPRESSION
     simulate_tp: int = 0     # single-device TP emulation: split row-parallel
                              # contractions into N quantized partial sums
     kv_group: Any = None     # torch.distributed ProcessGroup of the kv ranks
+    tp_group: Any = None     # torch.distributed ProcessGroup of the TP ranks
+
+    def __post_init__(self):
+        if self.tp_group is not None and self.simulate_tp > 1:
+            raise ValueError(
+                f"simulate_tp={self.simulate_tp} with a tp_group: a context either "
+                f"simulates TP on one card or runs it across ranks, not both")
+        if self.tp_group is not None and self.kv_group is not None:
+            raise ValueError(
+                "a tp_group with a kv_group (sequence-sharded pools under tensor "
+                "parallelism, the reference's kv x model mesh) is not ported yet: "
+                "see ROADMAP.md Queue 1")
 
     @property
     def kv_shards(self) -> int:
@@ -66,6 +93,23 @@ class TPContext:
     def kv_sharded(self) -> bool:
         return self.kv_shards > 1
 
+    @property
+    def tp_size(self) -> int:
+        """Ranks of the TP group (1 without one)."""
+        return dist.get_world_size(self.tp_group) if self.tp_group is not None else 1
+
+    @property
+    def tp_rank(self) -> int:
+        """This process's rank in ``tp_group`` (0 without one)."""
+        return dist.get_rank(self.tp_group) if self.tp_group is not None else 0
+
+    @property
+    def transport(self) -> Optional[str]:
+        """How the group of ranks moves bytes: ``"nccl"`` or
+        ``"gloo-staged"`` (``launch/mesh.py``); None without a group."""
+        group = self.tp_group if self.tp_group is not None else self.kv_group
+        return None if group is None else transport(group)
+
     def without_compression(self) -> "TPContext":
         """The dense gate variant of this context (uncompressed reductions)."""
         if not self.policy.enabled:
@@ -75,7 +119,8 @@ class TPContext:
 
 def column_linear(ctx: TPContext, x: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = x @ w with w (Fin, Fout)."""
+    """y = x @ w with w (Fin, Fout): on a TP group, this rank's output
+    columns (``w`` is its shard); no collective either way."""
     y = torch.matmul(x, w.to(x.dtype))
     return y if bias is None else y + bias.to(y.dtype)
 
@@ -85,12 +130,16 @@ def row_linear(ctx: TPContext, x: torch.Tensor, w: torch.Tensor,
                n_tokens: Optional[int] = None) -> torch.Tensor:
     """y = sum over shards of x_shard @ w_shard — the row-parallel layer whose
     reduction the paper compresses. x (..., Fin), w (Fin, Fout); bias added
-    once after the reduction. ``n_tokens`` is accepted for the reference's
-    signature; the simulated path has no token gate (as in the reference)."""
-    del n_tokens
+    once after the reduction. On a TP group x and w are this rank's shard
+    of the contraction and ``n_tokens`` (default: the rows of x) feeds the
+    policy's ``min_tokens`` gate; the simulated path has no token gate (as
+    in the reference)."""
     n = ctx.simulate_tp
     policy = ctx.policy
-    if (n > 1 and policy.enabled and policy.compress_tp_reduce
+    if ctx.tp_group is not None:
+        part = torch.matmul(x, w.to(x.dtype))
+        y = psum_maybe_compressed(part, policy, n_tokens=n_tokens, group=ctx.tp_group)
+    elif (n > 1 and policy.enabled and policy.compress_tp_reduce
             and x.shape[-1] % n == 0
             and w.shape[-1] % policy.spec.block_size == 0):
         fin, fout = x.shape[-1], w.shape[-1]
@@ -106,6 +155,18 @@ def row_linear(ctx: TPContext, x: torch.Tensor, w: torch.Tensor,
     else:
         y = torch.matmul(x, w.to(x.dtype))
     return y if bias is None else y + bias.to(y.dtype)
+
+
+def fused_mlp(ctx: TPContext, x: torch.Tensor, w_gate: Optional[torch.Tensor],
+              w_up: torch.Tensor, w_down: torch.Tensor, *, act: Callable,
+              n_tokens: Optional[int] = None) -> torch.Tensor:
+    """Column (gate, up) + activation + row (down): ``act(x @ gate) * (x @
+    up)`` (``act(x @ up)`` without a gate), then ``row_linear`` with
+    ``down``. On a TP group the weights are this rank's shards: the hidden
+    columns stay on the rank and only ``down``'s reduction crosses ranks."""
+    h = column_linear(ctx, x, w_up)
+    h = act(column_linear(ctx, x, w_gate)) * h if w_gate is not None else act(h)
+    return row_linear(ctx, h, w_down, n_tokens=n_tokens)
 
 
 # --------------------------------------------------------------------------

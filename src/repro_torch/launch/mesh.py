@@ -1,13 +1,26 @@
-"""The kv group of sequence-sharded paged pools — the port's counterpart of
-the reference's ``make_kv_mesh`` (a ``kv`` mesh axis there, a
-``torch.distributed`` process group of ranks here).
+"""Groups of ranks: the port's counterpart of the reference's meshes (a mesh
+axis there, a ``torch.distributed`` process group of ranks here). One group
+kind serves both of the port's axes: the kv group of sequence-sharded paged
+pools (``TPContext.kv_group``) and the tensor-parallel group
+(``TPContext.tp_group``).
 
-Each rank is one process that runs the whole model and holds
-``n_blocks / kv`` blocks of every pool. The backend is gloo: NCCL refuses
-two ranks on one card, and the kv ranks of a one-card run share it. Every
-rank calls ``init_kv_group`` with the same ``init_method`` (a ``file://``
-path or ``tcp://localhost:<port>``) and its own rank; ``spawn_kv_ranks``
-starts the ranks as processes and collects what each returns.
+Each rank is one process. Every rank calls ``init_group`` with the same
+``init_method`` (a ``file://`` path or ``tcp://localhost:<port>``) and its
+own rank; ``spawn_ranks`` starts the ranks as processes and collects what
+each returns. The transport a group gives is ``collectives.transport``.
+
+The backend follows one rule (``backend_for``):
+
+* NCCL when the device is ``cuda`` and ``torch.cuda.device_count() >=
+  world``: rank r runs on ``cuda:r`` and the collectives move device memory
+  (transport ``"nccl"``);
+* gloo otherwise: rank r runs on ``cuda:(r % device_count)`` (ranks share a
+  card when there are fewer cards than ranks; NCCL refuses two ranks on one
+  card) or on the CPU, and every exchange of a tensor on the card is staged
+  through host memory (transport ``"gloo-staged"``; on the CPU the tensors
+  already live there).
+
+Nothing switches transport after a failure: a collective that fails raises.
 """
 from __future__ import annotations
 
@@ -25,37 +38,48 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["init_kv_group", "spawn_kv_ranks"]
+__all__ = ["backend_for", "init_group", "spawn_ranks"]
 
 
-KV_TIMEOUT_S = 300.0   # a collective that waits longer raises instead of hanging
+GROUP_TIMEOUT_S = 300.0   # a collective that waits longer raises instead of hanging
 
 
-def init_kv_group(kv: int, rank: int, init_method: str, backend: str = "gloo",
-                  device: str = "cuda") -> Tuple[Any, torch.device]:
-    """Join the kv group as ``rank`` of ``kv``: initialise
-    ``torch.distributed`` and return (the group, this rank's device). The
-    device is ``cuda:(rank % device_count)`` (raising when there is no
-    card), or the CPU when ``device="cpu"``."""
-    if kv < 2:
-        raise ValueError(f"a kv group needs at least 2 ranks, got {kv}")
-    if not 0 <= rank < kv:
-        raise ValueError(f"rank {rank} is not in a kv group of {kv}")
+def backend_for(world: int, device: str | torch.device) -> str:
+    """``"nccl"`` when every one of ``world`` ranks can have a card of its
+    own, else ``"gloo"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.is_available() and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def init_group(world: int, rank: int, init_method: str,
+               device: str = "cuda") -> Tuple[Any, torch.device]:
+    """Join a group of ``world`` ranks as ``rank``: initialise
+    ``torch.distributed`` with the backend ``backend_for`` picks and return
+    (the group, this rank's device). The device is ``cuda:rank`` under
+    NCCL, ``cuda:(rank % device_count)`` under gloo (raising when there is
+    no card), or the CPU when ``device="cpu"``."""
+    if world < 2:
+        raise ValueError(f"a group needs at least 2 ranks, got {world}")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not in a group of {world}")
     dev = resolve_device(device)
+    backend = backend_for(world, dev)
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=init_method, world_size=kv, rank=rank,
-                            timeout=datetime.timedelta(seconds=KV_TIMEOUT_S))
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
     return dist.group.WORLD, dev
 
 
-def _rank_entry(rank: int, fn: Callable, kv: int, init_method: str, device: str,
+def _rank_entry(rank: int, fn: Callable, world: int, init_method: str, device: str,
                 threads: int, args: tuple, results) -> None:
     try:
         if threads:
             torch.set_num_threads(threads)
-        group, dev = init_kv_group(kv, rank, init_method, device=device)
+        group, dev = init_group(world, rank, init_method, device=device)
         try:
             out = fn(group, rank, dev, *args)
         finally:
@@ -65,10 +89,10 @@ def _rank_entry(rank: int, fn: Callable, kv: int, init_method: str, device: str,
         results.put((rank, False, traceback.format_exc()))
 
 
-def spawn_kv_ranks(fn: Callable, kv: int, *args, device: str = "cuda", threads: int = 0,
-                   timeout_s: float = 900.0) -> List[Any]:
-    """Run ``fn(group, rank, device, *args)`` on ``kv`` ranks, each a new
-    process (``spawn``) that joins one kv group over gloo (``file://``
+def spawn_ranks(fn: Callable, world: int, *args, device: str = "cuda", threads: int = 0,
+                timeout_s: float = 900.0) -> List[Any]:
+    """Run ``fn(group, rank, device, *args)`` on ``world`` ranks, each a new
+    process (``spawn``) that joins one group (``init_group``; ``file://``
     rendezvous in a new temporary directory), and return what each rank
     returned, by rank. ``fn`` and ``args`` must pickle, and ``fn`` must live
     in a module the ranks can import. ``threads`` > 0 sets each rank's torch
@@ -77,31 +101,31 @@ def spawn_kv_ranks(fn: Callable, kv: int, *args, device: str = "cuda", threads: 
     traceback when it raised)."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    with tempfile.TemporaryDirectory(prefix="kv_ranks_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_entry,
-                             args=(r, fn, kv, init, device, threads, args, results))
-                 for r in range(kv)]
+                             args=(r, fn, world, init, device, threads, args, results))
+                 for r in range(world)]
         for p in procs:
             p.start()
-        out: List[Any] = [None] * kv
+        out: List[Any] = [None] * world
         answered = set()
         deadline = time.monotonic() + timeout_s
         try:
-            while len(answered) < kv:
+            while len(answered) < world:
                 try:
                     rank, ok, val = results.get(timeout=1.0)
                 except queue_mod.Empty:
                     dead = [(r, p.exitcode) for r, p in enumerate(procs)
                             if r not in answered and p.exitcode not in (None, 0)]
                     if dead:
-                        raise RuntimeError(f"kv rank(s) exited without an answer "
+                        raise RuntimeError(f"rank(s) exited without an answer "
                                            f"(rank, exit code): {dead}") from None
                     if time.monotonic() > deadline:
-                        raise RuntimeError(f"kv ranks: no answer within {timeout_s} s") from None
+                        raise RuntimeError(f"ranks: no answer within {timeout_s} s") from None
                     continue
                 if not ok:
-                    raise RuntimeError(f"kv rank {rank} failed:\n{val}")
+                    raise RuntimeError(f"rank {rank} failed:\n{val}")
                 out[rank] = val
                 answered.add(rank)
             for p in procs:

@@ -15,9 +15,11 @@ deadlines, ``--max-queue`` bounds admission, and ``--fault-plan`` (e.g.
 ``'exhaust@2x2;die@5'``, grammar in ``serving/faults.py``) injects faults
 and wraps the run in an ``EngineSupervisor``; the report counts outcomes
 and recoveries. ``--variant two_phase`` re-quantizes each compressed
-reduction's result once more, as the reference's simulated path does;
-``--overlap-chunks`` is accepted as in the reference's launcher and ignored
-(this simulated path has no rank collective to chunk; the banner says so). ``--arch`` takes every ported family
+reduction's result once more, as the reference's simulated path does (on
+``--tp`` ranks: the reduce-scatter + all-gather form); ``--overlap-chunks``
+chunks each compressed reduction's gathers on ``--tp`` ranks (the same bytes
+either way) and is ignored under ``--simulate-tp``, which has no rank
+collective to chunk (the banner says so). ``--arch`` takes every ported family
 (llama2, internlm2, qwen2-7b, qwen3-32b, gemma3-4b). Runs on the GPU by
 default; ``--device cpu`` runs the plain PyTorch path on the CPU (use
 ``--reduced`` there). Weights are random, drawn from ``--seed``.
@@ -30,17 +32,29 @@ so ranks share a card when there are fewer cards than ranks. The kernels
 are built once, before the ranks start; the ranks only load them. Rank 0
 prints the banner (``kv_shards=``, MB per rank) and the report, and the
 tokens of every rank must be identical.
+
+``--tp N`` runs tensor parallelism over N ranks instead of simulating it:
+N processes, each holding ``1/N`` of the heads, the MLP columns and the
+pools, every row-parallel reduction the paper's compressed collective
+between them. The group is NCCL when there are at least N cards (rank r on
+``cuda:r``), else gloo with every exchange staged through host memory
+(``launch/mesh.py``); the banner names the transport, and the report the
+collectives per step. As with ``--shard-pools``, rank 0 prints and every
+rank must sample the same tokens; ``--tp`` and ``--shard-pools`` do not
+combine yet.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.build import load_kernels
-from repro_torch.launch.mesh import spawn_kv_ranks
+from repro_torch.core.collectives import reset_tp_counts, tp_counts
+from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.formats import MXSpec
 from repro_torch.core.policy import CompressionPolicy, NO_COMPRESSION
@@ -62,12 +76,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--policy", default="mx", choices=["mx", "none"])
     ap.add_argument("--variant", default="gather", choices=["gather", "two_phase"])
     ap.add_argument("--overlap-chunks", type=int, default=1,
-                    help="accepted as in the reference's launcher and IGNORED: it chunks "
-                         "the rank collectives' payload (bit-identical results either way), "
-                         "which the simulated path does not run; the banner says so")
-    ap.add_argument("--simulate-tp", type=int, default=4,
+                    help="feature-dim chunks of each compressed reduction's all-gathers on "
+                         "--tp ranks (bit-identical results either way); ignored under "
+                         "--simulate-tp, which has no rank collective (the banner says so)")
+    ap.add_argument("--simulate-tp", type=int, default=None,
                     help="row-parallel reductions split into this many MX-compressed "
-                         "partial sums on the one device (TPContext.simulate_tp)")
+                         "partial sums on the one device (TPContext.simulate_tp; default "
+                         "4 without --tp)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallelism over this many ranks (processes; NCCL with "
+                         "a card per rank, else gloo staged through host memory)")
     ap.add_argument("--min-prefill-fraction", type=float, default=0.5,
                     help="per-step compression gate: a step runs compressed only "
                          "when at least this fraction of its real tokens are prefill")
@@ -113,32 +131,43 @@ def main(argv=None):
     1`` (None, the tokens of each rank's requests, by rank)."""
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
-    if args.shard_pools > 1:
+    if args.tp > 1 and args.shard_pools > 1:
+        raise ValueError("--tp with --shard-pools (the kv x model mesh) is not ported yet")
+    if args.tp > 1 and args.simulate_tp:
+        raise ValueError("--tp runs tensor parallelism across ranks; --simulate-tp "
+                         "simulates it on one device: give one of them")
+    ranks = max(args.tp, args.shard_pools)
+    if ranks > 1:
         if args.stagger or args.deadline_ms or args.ttft_deadline_ms:
-            raise ValueError("--shard-pools runs every rank's scheduler in lockstep: "
+            raise ValueError("--shard-pools and --tp run every rank's scheduler in lockstep: "
                              "--stagger and deadlines read each rank's own clock")
         if device.type == "cuda":
             load_kernels()   # one build, before the ranks load it
-        outs = spawn_kv_ranks(_serve_rank, args.shard_pools, args, device=device.type)
+        # on the CPU the ranks share its cores: no rank takes them all
+        threads = 0 if device.type == "cuda" else max(1, (os.cpu_count() or 2) // ranks)
+        outs = spawn_ranks(_serve_rank, ranks, args, device=device.type, threads=threads)
         if any(o != outs[0] for o in outs[1:]):
-            raise RuntimeError("kv ranks sampled different tokens")
-        print(f"kv ranks: all {args.shard_pools} sampled identical tokens")
+            raise RuntimeError(f"{'tp' if args.tp > 1 else 'kv'} ranks sampled different tokens")
+        print(f"{'tp' if args.tp > 1 else 'kv'} ranks: all {ranks} sampled identical tokens")
         return None, outs
     return _serve(args, device)
 
 
 def _serve_rank(group, rank: int, device: torch.device, args) -> list:
-    """One kv rank of ``--shard-pools``: load the kernels the parent built,
-    serve, return the requests' tokens."""
+    """One rank of ``--shard-pools`` or ``--tp``: load the kernels the parent
+    built, serve, return the requests' tokens."""
     if device.type == "cuda":
         load_kernels(build=False)
-    _, out = _serve(args, device, group)
+    if args.tp > 1:
+        _, out = _serve(args, device, tp_group=group)
+    else:
+        _, out = _serve(args, device, kv_group=group)
     return [r.output.tolist() for r in out]
 
 
-def _serve(args, device: torch.device, kv_group=None):
-    """The serving run of ``main`` on ``device`` (on one kv rank of
-    ``kv_group`` when given: only rank 0 prints)."""
+def _serve(args, device: torch.device, kv_group=None, tp_group=None):
+    """The serving run of ``main`` on ``device`` (on one rank of ``kv_group``
+    or ``tp_group`` when given: only rank 0 prints)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
@@ -147,16 +176,25 @@ def _serve(args, device: torch.device, kv_group=None):
         spec=MXSpec.make("fp4_e2m1", 32, "e8m0"), variant=args.variant,
         min_prefill_fraction=args.min_prefill_fraction,
         overlap_chunks=args.overlap_chunks)
-    ctx = TPContext(policy=policy, simulate_tp=args.simulate_tp, kv_group=kv_group)
-    print_ = print if ctx.kv_rank == 0 else (lambda *a, **k: None)
+    simulate = 0 if tp_group is not None else (4 if args.simulate_tp is None
+                                               else args.simulate_tp)
+    ctx = TPContext(policy=policy, simulate_tp=simulate, kv_group=kv_group, tp_group=tp_group)
+    print_ = print if ctx.kv_rank == 0 and ctx.tp_rank == 0 else (lambda *a, **k: None)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     variant = policy.variant if policy.enabled else "none"
-    ignored = (f" overlap_chunks={args.overlap_chunks} (ignored: no effect under simulate_tp)"
-               if args.overlap_chunks != 1 else "")
+    if tp_group is not None:
+        tp = f"tp={ctx.tp_size} transport={ctx.transport}"
+        if ctx.transport == "gloo-staged" and device.type == "cuda":
+            tp += " (ranks share a card: exchanges staged through host memory, eager steps)"
+        ignored = f" overlap_chunks={args.overlap_chunks}" if args.overlap_chunks != 1 else ""
+    else:
+        tp = f"simulate_tp={simulate}"
+        ignored = (f" overlap_chunks={args.overlap_chunks} (ignored: no effect under "
+                   f"simulate_tp)" if args.overlap_chunks != 1 else "")
     print_(f"device={name} arch={cfg.name} policy={policy.describe()} variant={variant} "
-           f"simulate_tp={args.simulate_tp}{ignored}")
+           f"{tp}{ignored}")
 
-    params = model.init_params(device=device, seed=args.seed)
+    params = model.init_params(device=device, seed=args.seed, tp=(ctx.tp_rank, ctx.tp_size))
     fault_plan = FaultPlan.parse(args.fault_plan, seed=args.seed)
     engine = Engine(model, params, ctx, max_slots=args.slots,
                     max_len=args.prompt_len + args.new_tokens,
@@ -174,6 +212,7 @@ def _serve(args, device: torch.device, kv_group=None):
                   if engine.prefill_chunk else "split, whole-prompt"))
     print_(f"kv cache: {engine.cache_spec.describe()} "
            f"({engine.kv_pool_bytes() / 1e6:.2f} MB pools, kv_shards={engine.kv_shards}, "
+           f"tp={engine.tp_size}, "
            f"{engine.kv_pool_bytes(per_device=True) / 1e6:.2f} MB per rank); step: {step}; "
            f"prefix cache: {'on' if engine.prefix_cache else 'off'}")
 
@@ -193,6 +232,7 @@ def _serve(args, device: torch.device, kv_group=None):
     engine.run([Request(prompt=reqs[0].prompt.copy(), max_new_tokens=2)])
     engine.fault_plan = plan
     sup = EngineSupervisor(engine) if len(fault_plan) else None
+    reset_tp_counts()
     t0 = time.time()
     out = (sup or engine).run(reqs, seed=args.seed)
     if device.type == "cuda":
@@ -211,6 +251,12 @@ def _serve(args, device: torch.device, kv_group=None):
         print_(f"prefix cache: {s['prefill_tokens_skipped']} prompt tokens skipped "
                f"(hit rate {s['prefix_hit_rate']:.2f})")
     print_(f"preemptions: {s['n_preemptions']}")
+    if tp_group is not None:
+        c, n = tp_counts(), max(s["n_steps"], 1)
+        print_(f"collectives ({ctx.transport}): {c['all_gather']} all-gathers, "
+               f"{c['all_to_all']} all-to-alls, {c['all_reduce']} all-reduces; per step "
+               f"{c['bytes'] / n / 1e6:.3f} MB sent by rank 0, {c['seconds'] / n * 1e3:.2f} "
+               f"ms host")
     print_(f"programs: decode={engine.decode_cache_size()} prefill={engine.prefill_cache_size()} "
            f"({'graphed' if engine.graphed else 'eager'} steps)")
     print_(f"TTFT p50 {s['ttft_p50_s']*1e3:.1f} ms, p90 {s['ttft_p90_s']*1e3:.1f} ms; "

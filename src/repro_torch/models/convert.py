@@ -11,9 +11,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import check_supported, param_shapes, torch_dtype
+from repro_torch.models.model import check_supported, param_shapes, shard_leaf, torch_dtype
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "shard_params"]
 
 
 def _convert(node: Any, dtype: torch.dtype, device: torch.device, path: str):
@@ -58,3 +58,23 @@ def params_from_numpy(tree, cfg: ModelConfig, device: str | torch.device = "cuda
     params = _convert(tree, torch_dtype(cfg.dtype), dev, "")
     _check_tree(params, param_shapes(cfg), "")
     return params
+
+
+def shard_params(tree, cfg: ModelConfig, rank: int, n: int):
+    """Rank ``rank``'s shard of a numpy parameter tree (reference names and
+    layouts) on a TP group of ``n`` ranks, by ``model.shard_axis``, as
+    ``Model.init_params(tp=(rank, n))`` keeps it: the n shards put together
+    are the tree. Checks the tree against ``cfg`` first."""
+    check_supported(cfg)
+    cfg.tp_shard(n)
+    _check_tree(tree, param_shapes(cfg), "")
+
+    def walk(node, key, parent):
+        if isinstance(node, dict):
+            return {k: walk(v, k, key) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, key, parent) for v in node]
+        return np.ascontiguousarray(shard_leaf(np.asarray(node), parent, key, rank, n))
+
+    return walk(tree, "", "")
+

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.tp import TPContext, column_linear, row_linear
+from repro_torch.core.tp import TPContext, fused_mlp
 
 __all__ = ["mlp"]
 
@@ -24,10 +24,7 @@ _ACT = {"silu": F.silu, "gelu": _gelu}
 
 
 def mlp(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    act = _ACT[cfg.activation]
-    h = column_linear(ctx, x, params["up"]["w"])
-    if "gate" in params:
-        h = act(column_linear(ctx, x, params["gate"]["w"])) * h
-    else:
-        h = act(h)
-    return row_linear(ctx, h, params["down"]["w"], n_tokens=math.prod(x.shape[:-1]))
+    gate = params.get("gate")
+    return fused_mlp(ctx, x, gate["w"] if gate else None, params["up"]["w"],
+                     params["down"]["w"], act=_ACT[cfg.activation],
+                     n_tokens=math.prod(x.shape[:-1]))

@@ -12,6 +12,14 @@ mlp.{up, down, gate}}``, ``final_norm``, ``lm_head``) and its layouts
 has: q/k/v biases with ``qkv_bias``, ``q_norm``/``k_norm`` with
 ``qk_norm``, ``gate`` only for the gated (silu) MLP, and no ``lm_head``
 with ``tie_embeddings`` (the logits then read ``embed``).
+
+Tensor parallelism (``TPContext.tp_group`` of N ranks): ``init_params(...,
+tp=(rank, N))`` keeps this rank's shard of each tensor (``shard_axis``):
+``wq``, ``wk``, ``wv`` (with their biases), ``gate`` and ``up`` by output
+columns, ``wo`` and ``down`` by input rows; norms, ``embed`` and
+``lm_head`` replicated, so every rank computes the full logits, the same
+bits on every rank, with no float collective. The steps then run on the
+rank-local config (``local_cfg``, ``ModelConfig.tp_shard``).
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ from repro_torch.models.common import Initializer, embed, int_scalar, rms_norm, 
 from repro_torch.models.mlp import mlp
 from repro_torch.models.transformer import apply_stack
 
-__all__ = ["Model", "torch_dtype", "param_shapes"]
+__all__ = ["Model", "torch_dtype", "param_shapes", "shard_axis", "shard_leaf"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -82,20 +90,53 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return tree
 
 
+_COLUMNS = ("wq", "wk", "wv", "gate", "up")   # column-parallel: sharded by outputs
+_ROWS = ("wo", "down")                        # row-parallel: sharded by inputs
+
+
+def shard_axis(parent: str, key: str) -> Optional[int]:
+    """The axis a TP group shards the leaf ``key`` of ``parent`` along
+    (``-1`` output columns, ``0`` input rows), or None (replicated)."""
+    if parent in _COLUMNS and key in ("w", "b"):
+        return -1
+    if parent in _ROWS and key == "w":
+        return 0
+    return None
+
+
+def shard_leaf(t, parent: str, key: str, rank: int, n: int):
+    """Rank ``rank``'s contiguous ``1/n`` of a leaf (a tensor or numpy
+    array) along ``shard_axis``; the leaf itself when replicated."""
+    axis = shard_axis(parent, key)
+    if axis is None or n == 1:
+        return t
+    size = t.shape[axis] // n
+    index = [slice(None)] * len(t.shape)
+    index[axis] = slice(rank * size, (rank + 1) * size)
+    return t[tuple(index)]
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
         check_supported(cfg)
         self.cfg = cfg
 
     def init_params(self, generator: Optional[torch.Generator] = None,
-                    device: str | torch.device = "cuda", *, seed: int = 0) -> Dict[str, Any]:
+                    device: str | torch.device = "cuda", *, seed: int = 0,
+                    tp: Tuple[int, int] = (0, 1)) -> Dict[str, Any]:
         """Random weights from ``generator`` (default: a fresh generator on
         ``device`` seeded with ``seed``), drawn on ``device`` in the config's
-        dtype. Runs on the card unless ``device="cpu"``."""
+        dtype. Runs on the card unless ``device="cpu"``. With ``tp=(rank,
+        n)`` every tensor is drawn in the single-rank order from the same
+        generator and only this rank's shard is kept (``shard_leaf``), so the
+        n ranks' trees put together are the single-rank tree; a rank holds
+        no more than its shard plus the tensor being drawn."""
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(seed)
         cfg = self.cfg
+        rank, n = tp
+        cfg.tp_shard(n)   # raises when the config does not shard over n ranks
         init = Initializer(generator, torch_dtype(cfg.dtype), dev)
 
         def draw(node, key, parent):
@@ -106,12 +147,21 @@ class Model:
             if isinstance(node, list):
                 return [draw(v, key, parent) for v in node]
             if key == "b":
-                return init.zeros(node)
-            if parent in _NORMS:
-                return init.ones(node)
-            return init.linear(node, scale=cfg.d_model**-0.5 if parent == "embed" else None)
+                t = init.zeros(node)
+            elif parent in _NORMS:
+                t = init.ones(node)
+            else:
+                t = init.linear(node, scale=cfg.d_model**-0.5 if parent == "embed" else None)
+            if shard_axis(parent, key) is None or n == 1:
+                return t
+            return shard_leaf(t, parent, key, rank, n).clone()
 
         return draw(param_shapes(cfg), "", "")
+
+    def local_cfg(self, ctx: TPContext) -> ModelConfig:
+        """The config this process computes with: the rank-local view on a
+        TP group (``ModelConfig.tp_shard``), else the config itself."""
+        return self.cfg.tp_shard(ctx.tp_size)
 
     # ----------------------------------------------------------------- serve
 
@@ -127,27 +177,32 @@ class Model:
 
     def _paged_layers(self, ctx: TPContext, params, x: torch.Tensor, state,
                       attend: Callable) -> Tuple[torch.Tensor, Any]:
-        """Every layer over the paged pools of ``state``: ``attend(core
+        """Every layer over the paged pools of ``state``: ``attend(cfg, core
         params, h, pool_k, pool_v, window)`` is the step's paged attention
-        (``window`` the layer's own ``LayerSpec.window``) and returns (out,
+        (``cfg`` the rank-local config, ``window`` the layer's own
+        ``LayerSpec.window``) and returns (out,
         pool_k, pool_v); then the MLP. Pools update in place. Returns (x,
         state)."""
         pools_k, pools_v = list(state["pools_k"]), list(state["pools_v"])
-        for i, spec in enumerate(self.cfg.layers):
+        cfg = self.local_cfg(ctx)
+        for i, spec in enumerate(cfg.layers):
             lp = params["layers"][i]
             h = rms_norm(x, lp["ln1"]["w"])
-            out, pools_k[i], pools_v[i] = attend(lp["core"], h, pools_k[i], pools_v[i],
+            out, pools_k[i], pools_v[i] = attend(cfg, lp["core"], h, pools_k[i], pools_v[i],
                                                  spec.window)
             x = x + out
             h = rms_norm(x, lp["ln2"]["w"])
-            x = x + mlp(ctx, lp["mlp"], h, self.cfg)
+            x = x + mlp(ctx, lp["mlp"], h, cfg)
         return x, {**state, "pools_k": pools_k, "pools_v": pools_v}
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
-                   device: str | torch.device = "cuda") -> Dict[str, Any]:
-        """Dense per-layer K/V caches for whole-prompt prefill."""
-        return {"layers": [init_cache(self.cfg, batch, max_len, dtype, device)
-                           for _ in self.cfg.layers],
+                   device: str | torch.device = "cuda", ctx: Optional[TPContext] = None
+                   ) -> Dict[str, Any]:
+        """Dense per-layer K/V caches for whole-prompt prefill (this rank's
+        kv heads on a TP group ``ctx``)."""
+        cfg = self.local_cfg(ctx) if ctx is not None else self.cfg
+        return {"layers": [init_cache(cfg, batch, max_len, dtype, device)
+                           for _ in cfg.layers],
                 "pos": 0}
 
     def prefill(self, ctx: TPContext, params, batch, cache, *,
@@ -161,7 +216,7 @@ class Model:
         value of it)."""
         tokens = batch["tokens"]
         x = self._embed(ctx, params, tokens)
-        x, layer_caches = apply_stack(ctx, self.cfg, params["layers"], x, pos=0,
+        x, layer_caches = apply_stack(ctx, self.local_cfg(ctx), params["layers"], x, pos=0,
                                       caches=cache["layers"])
         i = int_scalar(tokens.shape[1] - 1 if last_index is None else last_index, x.device)
         logits = self._logits(ctx, params, x.index_select(1, i.reshape(1)))
@@ -178,8 +233,8 @@ class Model:
         chunk index ``n_valid - 1``, state)."""
         x = self._embed(ctx, params, tokens)
         x, state = self._paged_layers(
-            ctx, params, x, state, lambda p, h, pk, pv, window: paged_attention_chunk(
-                ctx, p, h, self.cfg, start=start, table_row=table_row, pool_k=pk,
+            ctx, params, x, state, lambda cfg, p, h, pk, pv, window: paged_attention_chunk(
+                ctx, p, h, cfg, start=start, table_row=table_row, pool_k=pk,
                 pool_v=pv, window=window, cache_spec=cache_spec))
         last = int_scalar(n_valid, x.device) - 1
         return self._logits(ctx, params, x.index_select(1, last.reshape(1))), state
@@ -191,8 +246,8 @@ class Model:
         Returns (logits (B, V), state); the pools update in place."""
         x = self._embed(ctx, params, tokens)
         x, state = self._paged_layers(
-            ctx, params, x, state, lambda p, h, pk, pv, window: paged_attention_decode(
-                ctx, p, h, self.cfg, lengths=lengths, pool_k=pk, pool_v=pv,
+            ctx, params, x, state, lambda cfg, p, h, pk, pv, window: paged_attention_decode(
+                ctx, p, h, cfg, lengths=lengths, pool_k=pk, pool_v=pv,
                 tables=tables, window=window, cache_spec=cache_spec))
         return self._logits(ctx, params, x), state
 
@@ -207,8 +262,8 @@ class Model:
         of ``state`` (in place) and returns (logits (n_slots, V), state)."""
         x = self._embed(ctx, params, tokens)
         x, state = self._paged_layers(
-            ctx, params, x, state, lambda p, h, pk, pv, window: paged_attention_mixed(
-                ctx, p, h, self.cfg, positions=positions, slot_ids=slot_ids,
+            ctx, params, x, state, lambda cfg, p, h, pk, pv, window: paged_attention_mixed(
+                ctx, p, h, cfg, positions=positions, slot_ids=slot_ids,
                 slot_starts=slot_starts, valid=valid, is_decode=is_decode,
                 tables=tables, pool_k=pk, pool_v=pv, window=window,
                 cache_spec=cache_spec))

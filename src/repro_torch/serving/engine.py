@@ -41,10 +41,21 @@ runs each of its steps through a compile-once ``StepProgram``
 chunk and decode, and whole-prompt prefill once per length bucket (under the
 reference's LRU bound of 8). On the card each program is a CUDA graph,
 captured at its first call and replayed after; ``cuda_graphs=False`` asks
-for eager steps instead. On the CPU and on sequence-sharded pools the
-programs run eagerly through the same static buffers. ``decode_cache_size``
-/ ``prefill_cache_size`` count the programs that have run, with the
-reference's semantics.
+for eager steps instead. On the CPU, on sequence-sharded pools and on a
+gloo TP group the programs run eagerly through the same static buffers.
+``decode_cache_size`` / ``prefill_cache_size`` count the programs that have
+run, with the reference's semantics.
+
+Tensor parallelism: with a ``TPContext`` whose ``tp_group`` holds N ranks,
+each rank runs this engine on the same requests with its shard of the
+weights (``Model.init_params(tp=...)``) and the pools of its ``1/N`` of
+the kv heads (the rank-local config, ``ModelConfig.tp_shard``); every
+row-parallel reduction crosses the group. The logits are replicated, so
+every rank samples the same tokens and makes the same host decisions. Under
+NCCL the step programs stay CUDA graphs (the communicator is initialised
+with one collective before the first capture); over gloo-staged transport
+the steps run eagerly. ``keep_local_fp`` is refused here: it gives every
+rank different logits (ROADMAP.md Queue 3 item 11).
 
 Sequence-sharded pools: with a ``TPContext`` whose ``kv_group`` holds N
 ranks, each rank runs this engine on the same requests and holds
@@ -186,8 +197,8 @@ class Engine:
     ``stall_limit`` (that many steps in a row without a token, with requests
     in flight and no fault hold, raise ``StepStuck``; 0 = off). On the card
     the steps replay CUDA graphs unless ``cuda_graphs=False`` (eager steps,
-    to hold the graphed path against; the CPU and sequence-sharded pools
-    always run eagerly).
+    to hold the graphed path against; the CPU, sequence-sharded pools and
+    gloo TP groups always run eagerly).
 
     ``run(requests)`` serves a list of ``Request``s, fills their ``output`` /
     ``ttft_s`` / ``latency_s`` / ``timing`` and leaves per-run aggregates in
@@ -220,8 +231,15 @@ class Engine:
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.model = model
-        self.cfg = model.cfg
+        self.cfg = model.local_cfg(ctx)   # this rank's heads on a TP group
         self.ctx = ctx
+        self.tp_size = ctx.tp_size
+        if self.tp_size > 1 and ctx.policy.enabled and ctx.policy.keep_local_fp:
+            raise ValueError(
+                "keep_local_fp on a TP group gives each rank its own logits (its own "
+                "quantization residual), so the ranks' sampled tokens and schedules "
+                "could part; the engine refuses it on the rank path (ROADMAP.md Queue 3 "
+                "item 11: the reference's out_specs claim a replicated output there)")
         self.params = params
         if max_slots <= 0:
             raise SlotExhausted(f"max_slots must be >= 1, got {max_slots}")
@@ -236,10 +254,11 @@ class Engine:
         self.kv_shards = ctx.kv_shards
         if self.n_blocks % self.kv_shards:
             self.n_blocks += self.kv_shards - self.n_blocks % self.kv_shards
-        if self.kv_shards > 1 and (deadline_s or deadline_ttft_s or step_timeout_s):
+        if ((self.kv_shards > 1 or self.tp_size > 1)
+                and (deadline_s or deadline_ttft_s or step_timeout_s)):
             raise ValueError(
-                "sequence-sharded pools run every kv rank's scheduler in lockstep; "
-                "deadlines and the step watchdog read each rank's own clock")
+                "sequence-sharded pools and TP groups run every rank's scheduler in "
+                "lockstep; deadlines and the step watchdog read each rank's own clock")
         self.cache_dtype = cache_dtype or torch.bfloat16
         self.cache_spec = check_cache_spec(self.cfg, cache_spec)
         self.stats = ServeStats()
@@ -324,7 +343,13 @@ class Engine:
         # compile-once step programs (module doc); graphs need the card and
         # no host-staged exchange inside a step
         self.graphed = (bool(cuda_graphs) and self.device.type == "cuda"
-                        and self.kv_shards == 1)
+                        and self.kv_shards == 1 and ctx.transport != "gloo-staged")
+        if self.graphed and ctx.tp_group is not None:
+            # NCCL sets its communicator up at its first collective, which
+            # must not happen inside a capture
+            torch.distributed.all_reduce(torch.zeros(1, device=self.device),
+                                         group=ctx.tp_group)
+            torch.cuda.synchronize(self.device)
         self._programs = StepPrograms(self.device, graphed=self.graphed)
         self._state = None
         self._ran = False
@@ -401,14 +426,16 @@ class Engine:
         return self._programs.capture_seconds()
 
     def kv_pool_bytes(self, *, per_device: bool = False) -> int:
-        """Bytes of the attention KV pools: the pools the engine addresses,
-        or with ``per_device=True`` what this rank holds (``1/kv_shards``
-        of them when sharded)."""
-        return paged_cache_bytes(self.cfg, self.n_blocks, self.block_size,
-                                 dtype_bytes=torch.empty((), dtype=self.cache_dtype)
-                                 .element_size(),
-                                 cache_spec=self.cache_spec, kv_shards=self.kv_shards,
-                                 per_device=per_device)
+        """Bytes of the attention KV pools: the pools the engine addresses
+        (every rank's kv heads on a TP group), or with ``per_device=True``
+        what this rank holds (``1/kv_shards`` of them when sharded, ``1/N``
+        on a TP group of N ranks)."""
+        b = paged_cache_bytes(self.cfg, self.n_blocks, self.block_size,
+                              dtype_bytes=torch.empty((), dtype=self.cache_dtype)
+                              .element_size(),
+                              cache_spec=self.cache_spec, kv_shards=self.kv_shards,
+                              per_device=per_device)
+        return b if per_device else b * self.tp_size
 
     def logits_finite(self) -> bool:
         """Whether every step of the last run produced finite logits in every
@@ -515,7 +542,7 @@ class Engine:
         model, params, ctx = self.model, self.params, self.ctx
 
         def make():
-            cache = model.init_cache(1, bucket, self.cache_dtype, self.device)
+            cache = model.init_cache(1, bucket, self.cache_dtype, self.device, ctx=ctx)
 
             def prefill(tokens, last_index):
                 logits, out = model.prefill(ctx, params, {"tokens": tokens}, cache,
@@ -1116,11 +1143,11 @@ class Engine:
         self._t0 = time.perf_counter()
         capacity = self.max_blocks * self.block_size
         works = []
-        if self.kv_shards > 1 and any(r.arrival_s or r.deadline_s or r.deadline_ttft_s
-                                      for r in requests):
-            raise ValueError("sequence-sharded pools: requests arrive at t=0 with no "
-                             "deadline (each kv rank's clock would admit and expire them "
-                             "at its own step)")
+        if ((self.kv_shards > 1 or self.tp_size > 1)
+                and any(r.arrival_s or r.deadline_s or r.deadline_ttft_s for r in requests)):
+            raise ValueError("sequence-sharded pools and TP groups: requests arrive at t=0 "
+                             "with no deadline (each rank's clock would admit and expire "
+                             "them at its own step)")
         for i, r in enumerate(requests):
             need = len(np.asarray(r.prompt)) + r.max_new_tokens - 1
             if need > capacity:

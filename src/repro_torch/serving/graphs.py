@@ -12,9 +12,12 @@ is that call's), then captures the same function over the same buffers; a
 later call replays the graph and returns its static outputs, which the next
 replay overwrites. A capture runs no kernel: its launches are recorded
 (``kernels.build.record_launches``) and added to the counters at each replay,
-so ``launch_counts()`` stays the count of kernels run. A program that is not
-``graphed`` (on the CPU, on sequence-sharded pools, whose host-staged
-exchange a graph cannot hold, or when eager steps are asked for) runs the
+so ``launch_counts()`` stays the count of kernels run; a TP group's NCCL
+collectives are recorded and added the same way
+(``collectives.recorded_collectives``). A program that is not ``graphed``
+(on the CPU, on sequence-sharded pools or a gloo TP group, whose
+host-staged exchanges a graph cannot hold, or when eager steps are asked
+for) runs the
 function over the same buffers at every call. A capture or replay that fails
 raises; nothing falls back to eager steps.
 
@@ -34,6 +37,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import add_tp_counts, recorded_collectives
 from repro_torch.kernels.build import add_launches, record_launches
 
 __all__ = ["StepProgram", "StepPrograms", "PREFILL_PROGRAMS_MAX"]
@@ -59,6 +63,7 @@ class StepProgram:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._out: Any = None
         self._record: Dict[str, int] = {}
+        self._collectives: Dict[str, float] = {}
         layout, size = {}, 0   # each input's byte range, 16-byte aligned
         for key, (shape, dtype) in inputs.items():
             nbytes = math.prod(shape) * (1 if dtype == torch.bool else 4)
@@ -97,6 +102,7 @@ class StepProgram:
             return self._capture()
         self._graph.replay()
         add_launches(self._record)
+        add_tp_counts(self._collectives)
         return self._out
 
     def _capture(self) -> Any:
@@ -115,7 +121,7 @@ class StepProgram:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with record_launches() as record:
+            with record_launches() as record, recorded_collectives() as collectives:
                 with torch.cuda.graph(graph, pool=self._pool):
                     static = self._fn(**self.inputs)
         finally:
@@ -124,6 +130,7 @@ class StepProgram:
         torch.cuda.synchronize(self._device)
         self.capture_s = time.perf_counter() - t0
         self._graph, self._out, self._record = graph, static, record
+        self._collectives = collectives
         return out
 
     def release(self) -> None:

@@ -1,5 +1,6 @@
 """The port stands alone: no module of src/repro_torch/, and neither
-chip_smoke.py nor kernel_ab.py, imports jax or the reference package
+chip_smoke.py nor kernel_ab.py nor the spawned ranks' workers
+(tests/torch_*_worker.py), imports jax or the reference package
 ``repro`` (checked on the source with ``ast``, so nothing is imported to
 check it)."""
 import ast
@@ -10,6 +11,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                  ROOT / "kernel_ab.py"]
+# the workers of spawned ranks: a rank re-imports its target's module
+FILES += sorted((ROOT / "tests").glob("torch_*_worker.py"))
 
 
 def _forbidden(name: str) -> bool:

@@ -11,8 +11,10 @@ scale per shard, rel-L2 <= 1e-4, and at most 0.1% of codes flipped; the test
 prints the flip count. A dense policy equals a plain matmul. The reduction
 options ``two_phase``, ``keep_local_fp``, ``overlap_chunks`` and a bf16
 ``accum_dtype`` are served on the simulated path as the reference serves them
-(the same tolerance), and the rank collectives still refuse them. TF32 is
-off for torch matmuls in this file.
+(the same tolerance), and the stacked reduction (``psum_maybe_compressed``
+without a group) still refuses them (the rank collectives that give them
+their meaning are held in ``tests/test_torch_tp.py``). TF32 is off for
+torch matmuls in this file.
 """
 import dataclasses
 
@@ -134,8 +136,9 @@ def test_two_phase_raises_instead_of_downgrading(option, match):
     codec's quantize + dequantize of the gather variant's result), the other
     three change nothing; against the reference's ``row_linear`` under
     ``simulate_tp=2`` within the tolerance of the gather variant's test. The
-    rank collectives that would give the options their meaning are not
-    ported: they raise, and none is silently served by the gather variant."""
+    stacked reduction has no ranks to give the options their meaning (the
+    rank collective, ``group=``, does): it raises, and none is silently
+    served by the gather variant."""
     x, w = _inputs(9)
     policy = CompressionPolicy(spec=PAPER_DEFAULT.spec, **option)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)

@@ -49,7 +49,7 @@ from repro.serving.kv_cache import paged_cache_bytes as jpaged_cache_bytes
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.formats import KVCacheSpec
 from repro_torch.launch import serve
-from repro_torch.launch.mesh import spawn_kv_ranks
+from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.serving import BlockAllocator, PrefixIndex, paged_cache_bytes
 from tests.test_torch_serving import (  # noqa: F401 (fixture)
     SUMMARY_KEYS, _CopyingJnp, contexts, models, parity_traffic,
@@ -266,7 +266,7 @@ def served(models):
     params_np = jax.tree.map(np.asarray, params_j)
     probe = _probe()
     job = dict(cfg=cfg, params=params_np, cases=cases, probe=probe)
-    ranks = spawn_kv_ranks(run_rank, KV, job, device="cpu", threads=2, timeout_s=600)
+    ranks = spawn_ranks(run_rank, KV, job, device="cpu", threads=2, timeout_s=600)
     # the replicated port engine; a 9-block pool (the per-rank budget) must
     # refuse the long prompt
     refused = dict(cases["capacity"], engine=dict(cases["capacity"]["engine"], n_blocks=9))

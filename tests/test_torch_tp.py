@@ -1,0 +1,494 @@
+"""Tensor parallelism of the port across ``torch.distributed`` ranks against
+the port's simulated path and the reference.
+
+* The rank collective (``collectives.rank_compressed_psum``) on 2 and 4
+  gloo ranks, each reducing its own slice of the same numpy partials (fp32
+  at a spread of scales, and bf16): bit-identical to the port's simulated
+  ``compressed_psum`` on the stacked partials (plus the ``two_phase``
+  re-quantize) for the gather variant at ``overlap_chunks`` 1, 2 and 4,
+  ``two_phase`` and a bf16 accumulator; the gathered wire bytes are the
+  stacked partials' quantize; every rank's output identical, except under
+  ``keep_local_fp``, which equals ``total - dequant(quant(own)) + own`` in
+  fp32; the downgrade of an indivisible ``two_phase`` warns once or raises
+  under ``strict``, as the reference's; the counters count each collective
+  and its bytes; ``compressed_all_gather`` and the dense all-reduce.
+* The same collectives against the reference's ``compressed_psum`` under
+  ``shard_map`` on 4 host CPU devices (a subprocess, as
+  ``tests/test_collectives.py`` runs them), within rel-L2 1e-4: the
+  reference's exp2 of a scale can be inexact (ROADMAP Queue 3 item 2).
+* Sharded ``Model.init_params(tp=...)`` and ``convert.shard_params``
+  concatenate to the single-rank tree.
+* Reduced llama2 in fp32 on 2 TP ranks: one mixed step's logits against
+  the single-rank port (dense; compressed against ``simulate_tp=2``)
+  within rel-L2 1e-5; greedy tokens, steps, dispatches, gate counts,
+  preemptions and recovery events equal on both ranks, to the port's
+  single-rank engine (``simulate_tp=2`` under the policy) and to the
+  reference's single-device ``Engine(simulate_tp=2)``, on the mixed and
+  split schedulers over dense fp32 and fp4 pools, bf16 pools
+  uncompressed, and a supervised ``corrupt@3`` run; each rank holds half
+  the pool bytes, and its collectives are exactly two all-gathers per
+  compressed reduction and one all-reduce per dense one.
+* Refusals: ``keep_local_fp`` in the engine on the rank path (ROADMAP
+  Queue 3 item 11), a TP group with ``simulate_tp`` or with a kv group,
+  heads or MLP columns that do not divide; the backend rule;
+  ``launch/serve.py --tp 2`` on the CPU.
+
+One spawn of 4 ranks (collectives only) and one of 2 ranks (everything)
+per module; the ranks import torch and the port only
+(``tests/torch_tp_worker.py``). TF32 is off for torch matmuls.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.serving.engine as reference_engine
+from repro.models.model import Model as JModel
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.core.collectives import compressed_psum
+from repro_torch.core.mx import MXCompressed
+from repro_torch.core.policy import PAPER_DEFAULT
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh, serve
+from repro_torch.models.convert import shard_params
+from repro_torch.models.model import Model, param_shapes, shard_axis
+from tests.conftest import fp32_reduced
+from tests.test_torch_serving import SUMMARY_KEYS, _CopyingJnp, parity_traffic
+from tests.test_torch_sharded_pools import _reference
+from tests.torch_tp_worker import run_rank, run_tp_cases
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+SPEC = PAPER_DEFAULT.spec
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _probe(n):
+    """Partials of n ranks: fp32 (n, 24, 256) at row scales 10^[-2, 2), and
+    bf16 (n, 2, 12, 256); a feature dim of 96 for the downgrade."""
+    rng = np.random.default_rng(40 + n)
+    f32 = rng.normal(size=(n, 24, 256)) * 10.0 ** rng.uniform(-2, 2, (n, 24, 1))
+    bf = rng.normal(size=(n, 2, 12, 256))
+    return dict(partials={"f32": (f32.astype(np.float32), "float32"),
+                          "bf16": (bf.astype(np.float32), "bfloat16")}, odd_width=96)
+
+
+def _stacked(probe, name):
+    arr, dtype = probe["partials"][name]
+    return torch.from_numpy(arr).to(DT[dtype])
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8).numpy()
+
+
+@pytest.fixture(scope="module")
+def models():
+    cfg_j = fp32_reduced("llama2-7b")
+    cfg_t = dataclasses.replace(reduced_config(get_config("llama2-7b")), dtype="float32")
+    model_j = JModel(cfg_j)
+    params_j = model_j.init_params(jax.random.PRNGKey(0))
+    return cfg_t, model_j, params_j, None, None
+
+
+ENGINE = dict(max_slots=2, max_len=64, block_size=16, prefill_chunk=16, token_budget=18)
+SPLIT = dict(ENGINE, token_budget=0)
+
+
+def _cases(vocab):
+    parity = parity_traffic(vocab)
+    fault = [((np.arange(16, dtype=np.int32) + 3 * i) % vocab, 8) for i in range(2)]
+    return {
+        "mixed-fp32": dict(engine=dict(ENGINE), traffic=parity, gated=True),
+        "mixed-fp4": dict(engine=dict(ENGINE, cache_spec="fp4_e2m1"), traffic=parity,
+                          gated=True),
+        "split-fp32": dict(engine=dict(SPLIT), traffic=parity, gated=True),
+        "split-fp4": dict(engine=dict(SPLIT, cache_spec="fp4_e2m1"), traffic=parity,
+                          gated=True),
+        "mixed-bf16-dense": dict(engine=dict(ENGINE, cache_dtype="bfloat16"), traffic=parity),
+        "corrupt-fp4": dict(engine=dict(max_slots=2, max_len=64, cache_spec="fp4_e2m1"),
+                            traffic=fault, plan="corrupt@3", gated=True),
+    }
+
+
+@pytest.fixture(scope="module")
+def ranks4():
+    probe = _probe(4)
+    return probe, mesh.spawn_ranks(run_rank, 4, dict(probe=probe), device="cpu", threads=1,
+                                   timeout_s=600)
+
+
+@pytest.fixture(scope="module")
+def served(models):
+    """2 TP ranks (probe, refusals, logits, engine cases), the port's
+    single-rank engine and the reference Engine on every case."""
+    cfg, _, params_j, _, _ = models
+    params_np = jax.tree.map(np.asarray, params_j)
+    cases = _cases(cfg.vocab_size)
+    job = dict(probe=_probe(2), cfg=cfg, params=params_np, cases=cases,
+               logit_tokens=(np.arange(24, dtype=np.int32) * 7 + 1) % cfg.vocab_size)
+    ranks = mesh.spawn_ranks(run_rank, 2, job, device="cpu", threads=2, timeout_s=600)
+    single = run_tp_cases(None, "cpu", cfg, params_np, job)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(reference_engine, "jnp", _CopyingJnp())
+        reference = {name: _reference(models, case) for name, case in cases.items()}
+    return dict(job=job, ranks=ranks, single=single, reference=reference)
+
+
+def _ranks(n, ranks4, served):
+    if n == 4:
+        return ranks4
+    return served["job"]["probe"], served["ranks"]
+
+
+# ---------------------------------------------------------------- collectives
+
+
+def _simulated(probe, name, kind):
+    """What the port's simulated path gives for ``kind`` on the stacked
+    partials."""
+    x = _stacked(probe, name)
+    if kind == "accum_bf16":
+        comp = ops.mx_quantize(x, SPEC)
+        return ops.mx_dequant_reduce(comp, SPEC, out_dtype=torch.bfloat16).to(x.dtype)
+    y = compressed_psum(x, SPEC)
+    if kind.startswith("two_phase"):
+        y = ops.mx_dequantize(ops.mx_quantize(y, SPEC), SPEC, out_dtype=x.dtype)
+    return y
+
+
+@pytest.mark.parametrize("kind", ["gather/1", "gather/2", "gather/4", "two_phase",
+                                  "two_phase/strict", "accum_bf16", "maybe/compressed"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_rank_reduction_bit_identical_to_simulated(n, kind, ranks4, served):
+    probe, ranks = _ranks(n, ranks4, served)
+    for name in probe["partials"]:
+        want = _simulated(probe, name, kind)
+        for r in ranks:
+            got = r["collectives"][name][kind]
+            np.testing.assert_array_equal(got["y"].reshape(-1), _bits(want).reshape(-1),
+                                          err_msg=f"{name} {kind}")
+            if "shape" in got:
+                assert got["shape"] == tuple(want.shape) and got["dtype"] == str(want.dtype)
+    assert all(r["transport"] == "gloo-staged" for r in ranks)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_gathered_wire_is_the_stacked_quantize(n, ranks4, served):
+    probe, ranks = _ranks(n, ranks4, served)
+    for name in probe["partials"]:
+        x = _stacked(probe, name)
+        full = ops.mx_quantize(x, SPEC)
+        for r in ranks:
+            for k in (1, 4):
+                w = r["collectives"][name][f"wire/{k}"]
+                assert w["n_chunks"] == k
+                chunks = [ops.mx_quantize(c.contiguous(), SPEC) for c in x.chunk(k, dim=-1)]
+                for i, c in enumerate(chunks):
+                    np.testing.assert_array_equal(w["payload"][i].reshape(-1),
+                                                  _bits(c.payload).reshape(-1))
+                    np.testing.assert_array_equal(w["scales"][i].reshape(-1),
+                                                  _bits(c.scales).reshape(-1))
+            pay = np.concatenate([p.reshape(*full.payload.shape[:-1], -1)
+                                  for p in r["collectives"][name]["wire/4"]["payload"]], -1)
+            np.testing.assert_array_equal(pay.reshape(-1), _bits(full.payload).reshape(-1))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_keep_local_fp_adds_own_partial_at_full_precision(n, ranks4, served):
+    probe, ranks = _ranks(n, ranks4, served)
+    for name in probe["partials"]:
+        x = _stacked(probe, name)
+        comp = ops.mx_quantize(x, SPEC)
+        total = ops.mx_dequant_reduce(comp, SPEC, out_dtype=torch.float32)
+        outs = []
+        for rank, r in enumerate(ranks):
+            own_q = ops.mx_dequantize(MXCompressed(comp.payload[rank], comp.scales[rank]), SPEC,
+                                      out_dtype=torch.float32)
+            want = (total - own_q + x[rank].float()).to(x.dtype)
+            got = r["collectives"][name]["keep_local_fp"]["y"]
+            np.testing.assert_array_equal(got.reshape(-1), _bits(want).reshape(-1))
+            outs.append(got)
+        # each rank keeps its own residual: the outputs differ across ranks
+        assert any(not np.array_equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_collective_counts_and_bytes(n, ranks4, served):
+    probe, ranks = _ranks(n, ranks4, served)
+    for name in probe["partials"]:
+        x = _stacked(probe, name)[0]
+        comp = ops.mx_quantize(x, SPEC)
+        wire = comp.payload.numel() + comp.scales.numel()
+        slc = ops.mx_quantize(x.reshape(-1, n, x.shape[-1] // n)[:, 0].contiguous(), SPEC)
+        slice_wire = slc.payload.numel() + slc.scales.numel()
+        c = ranks[0]["collectives"][name]
+        for k in (1, 2, 4):
+            assert c[f"gather/{k}"]["counts"]["all_gather"] == 2 * k
+            assert c[f"gather/{k}"]["counts"]["bytes"] == wire
+            assert c[f"gather/{k}"]["counts"]["all_reduce"] == 0
+        tp = c["two_phase"]["counts"]
+        assert (tp["all_to_all"], tp["all_gather"], tp["bytes"]) == (2, 2, wire + slice_wire)
+        for kind in ("dense", "maybe/gated", "maybe/none"):
+            cnt = c[kind]["counts"]
+            assert (cnt["all_reduce"], cnt["all_gather"]) == (1, 0), kind
+            assert cnt["bytes"] == x.numel() * x.element_size()
+        assert c["maybe/compressed"]["counts"]["all_gather"] == 2
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_dense_reduction_and_compressed_all_gather(n, ranks4, served):
+    probe, ranks = _ranks(n, ranks4, served)
+    for name in probe["partials"]:
+        x = _stacked(probe, name)
+        want = x.float().sum(0).to(x.dtype)
+        dense = [r["collectives"][name]["dense"]["y"] for r in ranks]
+        assert all(np.array_equal(dense[0], d) for d in dense[1:])
+        got = torch.from_numpy(dense[0].copy()).view(x.dtype).reshape(want.shape)
+        # the all-reduce sums in its own order, rounding to the dtype at each
+        # of its n - 1 adds: within (n - 1) units of the dtype's rounding of
+        # the summands' magnitudes (and the final rounding)
+        eps = torch.finfo(x.dtype).eps / 2
+        bound = n * eps * x.float().abs().sum(0)
+        assert bool(((got.float() - x.float().sum(0)).abs() <= bound).all()), name
+        ag = ops.mx_dequantize(ops.mx_quantize(x, SPEC), SPEC, out_dtype=x.dtype)
+        for r in ranks:
+            assert r["collectives"][name]["all_gather"]["shape"] == tuple(ag.shape)
+            np.testing.assert_array_equal(r["collectives"][name]["all_gather"]["y"].reshape(-1),
+                                          _bits(ag).reshape(-1))
+        for kind in ("maybe/gated", "maybe/none"):   # below min_tokens / no policy: dense
+            np.testing.assert_array_equal(ranks[0]["collectives"][name][kind]["y"], dense[0])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_two_phase_downgrade_warns_once_or_raises(n, ranks4, served):
+    _, ranks = _ranks(n, ranks4, served)
+    for r in ranks:
+        d = r["collectives"]["downgrade"]
+        assert len(d["warnings"]) == 1 and "not divisible" in d["warnings"][0]
+        assert d["same"]
+        assert d["strict"] and "falling back" in d["strict"]
+
+
+_REFERENCE_SCRIPT = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import PartitionSpec as P
+from repro import compat
+from repro.core.collectives import compressed_psum
+from repro.core.policy import PAPER_DEFAULT
+data = np.load(sys.argv[1])
+x = jnp.asarray(data["x"])                          # (4, M, F)
+mesh = compat.make_mesh((4,), ("model",))
+out = {}
+for name, kw in (("gather/1", {}), ("gather/2", dict(overlap_chunks=2)),
+                 ("two_phase", dict(variant="two_phase", axis_size=4)),
+                 ("keep_local_fp", dict(keep_local_fp=True))):
+    f = compat.shard_map(
+        lambda p: compressed_psum(p[0], "model", PAPER_DEFAULT.spec, **kw)[None],
+        mesh=mesh, in_specs=(P("model"),), out_specs=P("model"), check_vma=False)
+    out[name] = np.asarray(jax.jit(f)(x))               # (4, M, F): every worker's output
+np.savez(sys.argv[2], **{k.replace("/", "_"): v for k, v in out.items()})
+"""
+
+
+def test_rank_collectives_match_reference_shard_map(ranks4, tmp_path):
+    """The 4-rank collectives against the reference's ``compressed_psum``
+    under ``shard_map`` on 4 host CPU devices (every worker's output),
+    fp32 partials, within rel-L2 1e-4."""
+    probe, ranks = ranks4
+    x = probe["partials"]["f32"][0]
+    np.savez(tmp_path / "x.npz", x=x)
+    proc = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(_REFERENCE_SCRIPT), str(tmp_path / "x.npz"),
+         str(tmp_path / "ref.npz")], capture_output=True, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu"), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ref = np.load(tmp_path / "ref.npz")
+    for kind in ("gather/1", "gather/2", "two_phase", "keep_local_fp"):
+        for rank, r in enumerate(ranks):
+            got = r["collectives"]["f32"][kind]["y"].view(np.float32).reshape(x.shape[1:])
+            want = ref[kind.replace("/", "_")][rank]
+            assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-4, (kind, rank)
+
+
+# --------------------------------------------------------------------- weights
+
+
+def _leaves(tree, key="", parent=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, k, key)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v, key, parent)
+    else:
+        yield parent, key, tree
+
+
+def _to_numpy(tree):
+    """A torch parameter tree as numpy, in the tree's own key order."""
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    return tree.float().numpy()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_params_concatenate_to_single_rank_tree(n):
+    """``init_params(tp=(r, n))`` draws the single-rank tree and keeps rank
+    r's slice; ``shard_params`` slices a numpy tree the same way; either
+    way the n shards put together are the tree, and each shard has the
+    rank-local config's shapes."""
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2-7b")), n_kv_heads=4)
+    model = Model(cfg)
+    full = list(_leaves(model.init_params(device="cpu", seed=3)))
+    shards = [list(_leaves(model.init_params(device="cpu", seed=3, tp=(r, n))))
+              for r in range(n)]
+    np_tree = _to_numpy(model.init_params(device="cpu", seed=3))
+    np_shards = [list(_leaves(shard_params(np_tree, cfg, r, n))) for r in range(n)]
+    local = list(_leaves(param_shapes(cfg.tp_shard(n))))
+    assert any(k == "b" for _, k, _ in full)   # qwen2's q/k/v biases are sharded too
+    for i, (parent, key, t) in enumerate(full):
+        axis = shard_axis(parent, key)
+        parts = [s[i][2] for s in shards]
+        assert all(tuple(p.shape) == local[i][2] for p in parts), (parent, key)
+        if axis is None:
+            assert all(torch.equal(p, t) for p in parts)
+        else:
+            assert torch.equal(torch.cat(parts, dim=axis), t), (parent, key)
+        np_parts = [s[i][2] for s in np_shards]
+        np.testing.assert_array_equal(
+            np_parts[0] if axis is None else np.concatenate(np_parts, axis=axis),
+            t.float().numpy())
+
+
+def test_configs_that_do_not_shard_are_refused():
+    cfg = reduced_config(get_config("llama2-7b"))          # 4 heads, d_ff 512
+    assert cfg.tp_shard(1) is cfg
+    assert (cfg.tp_shard(2).n_heads, cfg.tp_shard(2).n_kv_heads, cfg.tp_shard(2).d_ff) == \
+        (2, 2, 256)
+    for n in (3, 8):
+        with pytest.raises(ValueError, match="does not shard"):
+            cfg.tp_shard(n)
+        with pytest.raises(ValueError, match="does not shard"):
+            Model(cfg).init_params(device="cpu", tp=(0, n))
+    with pytest.raises(ValueError, match="d_ff"):
+        dataclasses.replace(cfg, d_ff=96).tp_shard(2)
+    full = get_config("llama2-13b").tp_shard(4)
+    assert (full.n_heads, full.n_kv_heads, full.d_ff) == (10, 10, 3456)
+    assert get_config("llama2-7b").tp_shard(2).d_ff == 5504
+
+
+# ---------------------------------------------------------------- the engine
+
+
+def test_mixed_step_logits_at_tp2(served):
+    for name, want in served["single"]["logits"].items():
+        got = [r["cases"]["logits"][name] for r in served["ranks"]]
+        assert np.array_equal(got[0], got[1]), name          # replicated logits
+        assert np.isfinite(got[0]).all() and got[0].shape == want.shape
+        assert np.linalg.norm(got[0] - want) / np.linalg.norm(want) <= 1e-5, name
+
+
+@pytest.mark.parametrize("case", ["mixed-fp32", "mixed-fp4", "split-fp32", "split-fp4",
+                                  "mixed-bf16-dense", "corrupt-fp4"])
+def test_tp_engine_tokens_identical_to_simulated_and_reference(served, case):
+    single, ref = served["single"][case], served["reference"][case]
+    for i, ref_run in enumerate(ref):
+        one = single["runs"][i]
+        assert one["outputs"] == ref_run["outputs"]
+        for r in served["ranks"]:
+            run = r["cases"][case]["runs"][i]
+            assert run["outputs"] == one["outputs"]
+            assert all(o == "ok" for o in run["outcomes"]) and run["finite"]
+            assert {k: run["summary"][k] for k in SUMMARY_KEYS} == ref_run["summary"]
+            assert run["gate"] == one["gate"]
+            assert run["events"] == ref_run["events"]
+            assert run["n_free"] + run["n_cached"] == r["cases"][case]["n_blocks"] - 1
+    rank0 = served["ranks"][0]["cases"][case]
+    assert rank0["tp_size"] == 2 and rank0["transport"] == "gloo-staged"
+    if case.startswith("mixed") and case != "mixed-bf16-dense":
+        gate = rank0["runs"][0]["gate"]
+        assert gate["compressed"] > 0 and gate["dense"] > 0
+    if case == "corrupt-fp4":
+        assert [e[:2] for e in rank0["runs"][0]["events"]] == [("WireCorruption", "hard")]
+
+
+def test_each_rank_holds_half_of_every_pool(served):
+    for name in served["job"]["cases"]:
+        one = served["single"][name]
+        for r in served["ranks"]:
+            c = r["cases"][name]
+            assert c["slab_bytes"] == c["pool_bytes_per_device"] == one["pool_bytes"] // 2
+            assert c["pool_bytes"] == one["pool_bytes"] and c["n_blocks"] == one["n_blocks"]
+
+
+@pytest.mark.parametrize("case", ["mixed-fp32", "mixed-fp4", "split-fp32", "split-fp4",
+                                  "mixed-bf16-dense"])
+def test_collectives_per_step(served, models, case):
+    """Two all-gathers (payload, scales) per compressed reduction and one
+    all-reduce per dense one, two reductions (``wo``, ``down``) per layer:
+    compressed mixed steps or split chunks, dense mixed steps or split
+    decodes."""
+    L = models[0].n_layers
+    split = served["job"]["cases"][case]["engine"]["token_budget"] == 0
+    gated = served["job"]["cases"][case].get("gated", False)
+    for r in served["ranks"]:
+        run = r["cases"][case]["runs"][0]
+        s, tp = run["summary"], run["tp"]
+        if split:
+            n_c = sum(1 for p, _ in run["step_tokens"] if p) if gated else 0
+            n_d = sum(1 for _, d in run["step_tokens"] if d) + (
+                0 if gated else sum(1 for p, _ in run["step_tokens"] if p))
+        else:
+            n_c = s["n_compressed_steps"]
+            n_d = s["n_steps"] - n_c
+        assert (tp["all_gather"], tp["all_reduce"], tp["all_to_all"]) == (
+            2 * L * 2 * n_c, 2 * L * n_d, 0), (case, tp)
+
+
+def test_refusals_on_the_rank_path(served):
+    for r in served["ranks"]:
+        m = r["refusals"]
+        assert m["keep_local_fp"] and "Queue 3 item 11" in m["keep_local_fp"]
+        assert m["simulate_tp"] and "simulate_tp=2" in m["simulate_tp"]
+        assert m["kv_group"] and "not ported yet" in m["kv_group"]
+
+
+def test_backend_rule(monkeypatch):
+    assert mesh.backend_for(2, "cpu") == "gloo"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert mesh.backend_for(2, "cuda") == "nccl"
+    assert mesh.backend_for(4, "cuda") == "gloo"
+
+
+def test_serve_cli_tp_on_cpu(capfd):
+    """``launch/serve.py --tp 2`` on the CPU: rank 0's banner names the
+    group and its transport, the report its collectives, and both ranks
+    sample the tokens of ``--simulate-tp 2``."""
+    argv = ["--reduced", "--device", "cpu", "--slots", "2", "--requests", "3", "--prompt-len",
+            "40", "--new-tokens", "3", "--cache-spec", "fp4_e2m1"]
+    _, out = serve.main(argv + ["--simulate-tp", "2"])
+    simulated = [r.output.tolist() for r in out]
+    capfd.readouterr()
+    engine, ranks = serve.main(argv + ["--tp", "2", "--overlap-chunks", "2"])
+    text = capfd.readouterr().out
+    assert engine is None and ranks == [simulated, simulated]
+    assert "tp=2 transport=gloo-staged overlap_chunks=2" in text
+    assert "collectives (gloo-staged):" in text and "tp ranks: all 2 sampled identical" in text
+    with pytest.raises(ValueError, match="not ported"):
+        serve.main(argv + ["--tp", "2", "--shard-pools", "2"])
+    with pytest.raises(ValueError, match="give one of them"):
+        serve.main(argv + ["--tp", "2", "--simulate-tp", "2"])

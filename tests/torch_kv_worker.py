@@ -2,7 +2,7 @@
 module imports torch and the port only, never jax or ``repro``: the ranks
 are spawned processes, and the JAX reference runs in the test process.
 
-``run_rank(group, rank, device, job)`` (the ``spawn_kv_ranks`` target)
+``run_rank(group, rank, device, job)`` (the ``spawn_ranks`` target)
 runs the pool-op probe and then every engine case of ``job``; the test
 process calls ``run_cases(None, "cpu", ...)`` itself for the replicated
 engine, so both run the same code.
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.collectives import (
-    exchange_counts, masked_owner_psum, reset_exchange_counts,
+    exchange_counts, masked_owner_psum, reset_exchange_counts, reset_tp_counts, tp_counts,
 )
 from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
 from repro_torch.core.tp import (
@@ -71,7 +71,8 @@ def run_case(model, params, ctx: TPContext, device, case: dict) -> dict:
     """One engine case: ``case["runs"]`` runs of ``case["traffic"]`` on one
     engine (under a supervisor when ``case["plan"]`` is set). Returns by
     run: tokens, the stats' counts, gate counts, the free lists, the
-    exchange's all-reduces; and the pools this rank holds."""
+    exchange's all-reduces, the TP group's collectives; and the pools this
+    rank holds."""
     kw = dict(case["engine"])
     kw["cache_dtype"] = DTYPES[kw.get("cache_dtype", "float32")]
     plan = case.get("plan")
@@ -84,6 +85,7 @@ def run_case(model, params, ctx: TPContext, device, case: dict) -> dict:
         reqs = _requests(case["traffic"])
         sup = EngineSupervisor(eng, backoff_s=0.0) if plan else None
         reset_exchange_counts()
+        reset_tp_counts()
         try:
             (sup or eng).run(reqs)
         except PoolExhausted as e:
@@ -106,6 +108,7 @@ def run_case(model, params, ctx: TPContext, device, case: dict) -> dict:
             "max_resident_ctx": eng.max_resident_ctx,
             "hit_blocks": eng.prefix_index.hit_blocks if eng.prefix_index else 0,
             "exchange": exchange_counts()["all_reduce"],
+            "tp": tp_counts(),
         })
     planes = [p for pk, pv in zip(eng._state["pools_k"], eng._state["pools_v"])
               for p in pool_planes(pk, pv)]
@@ -130,7 +133,7 @@ def run_cases(group, device, cfg, params_np, cases) -> dict:
 
 
 def run_rank(group, rank: int, device, job: dict) -> dict:
-    """The ``spawn_kv_ranks`` target: the pool-op probe, then the engine
+    """The ``spawn_ranks`` target: the pool-op probe, then the engine
     cases of ``job``, on this kv rank."""
     return {"pool_ops": run_pool_ops(group, rank, job["probe"]),
             "cases": run_cases(group, device, job["cfg"], job["params"], job["cases"])}

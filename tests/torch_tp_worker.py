@@ -1,0 +1,186 @@
+"""What each TP rank of ``tests/test_torch_tp.py`` runs. This module imports
+torch and the port only, never jax or ``repro``: the ranks are spawned
+processes, and the JAX reference runs in the test process.
+
+``run_rank(group, rank, device, job)`` (the ``spawn_ranks`` target) runs the
+collective probe on this rank's partials, then (when the job has them) the
+refusals, one mixed step's logits and every engine case; the test process
+calls ``run_tp_cases(None, ...)`` and ``mixed_logits`` itself for the
+port's single-rank engine, so both run the same code.
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import collectives as C
+from repro_torch.core.formats import KVCacheSpec
+from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT, CompressionPolicy
+from repro_torch.core.tp import TPContext
+from repro_torch.models.convert import params_from_numpy, shard_params
+from repro_torch.models.model import Model
+from repro_torch.serving import Engine
+from repro_torch.serving.kv_cache import init_paged_state
+from tests.torch_kv_worker import bits, run_case
+
+SPEC = PAPER_DEFAULT.spec
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _reduce_cases(x: torch.Tensor, group) -> dict:
+    """Every rank reduction of this rank's partial ``x``, as bytes, with the
+    TP counters of each."""
+    kinds = {f"gather/{k}": dict(overlap_chunks=k) for k in (1, 2, 4)}
+    kinds["two_phase"] = dict(variant="two_phase")
+    kinds["two_phase/strict"] = dict(variant="two_phase", strict=True)
+    kinds["keep_local_fp"] = dict(keep_local_fp=True)
+    kinds["accum_bf16"] = dict(accum_dtype="bfloat16")
+    out = {}
+    for name, kw in kinds.items():
+        C.reset_tp_counts()
+        y = C.rank_compressed_psum(x, group, SPEC, **kw)
+        out[name] = dict(y=bits(y), dtype=str(y.dtype), shape=tuple(y.shape),
+                         counts=C.tp_counts())
+    # the wire: each chunk's gathered payload and scales, in rank order
+    for k in (1, 4):
+        n_chunks = C._overlap_chunks(x.shape[-1], SPEC, k)
+        _, comps = C._quantize_staged(x, SPEC, n_chunks)
+        wires = C._gather_staged(comps, group)
+        out[f"wire/{k}"] = dict(payload=[bits(w.payload) for w in wires],
+                                scales=[bits(w.scales) for w in wires], n_chunks=n_chunks)
+    C.reset_tp_counts()
+    out["dense"] = dict(y=bits(C.rank_psum(x, group)), counts=C.tp_counts())
+    ag = C.compressed_all_gather(x, group, SPEC, overlap_chunks=2)
+    out["all_gather"] = dict(y=bits(ag), shape=tuple(ag.shape))
+    for name, policy, n_tok in (("maybe/compressed", PAPER_DEFAULT, None),
+                                ("maybe/gated", PAPER_DEFAULT, 4),
+                                ("maybe/none", None, None)):
+        C.reset_tp_counts()
+        y = C.psum_maybe_compressed(x, policy, n_tokens=n_tok, group=group)
+        out[name] = dict(y=bits(y), counts=C.tp_counts())
+    return out
+
+
+def _downgrades(group, width: int) -> dict:
+    """two_phase on a feature dim that does not split into N block-aligned
+    slices: warnings (once per site), the gather variant's result, and the
+    strict variant's error."""
+    x = torch.ones(4, width)
+    C.reset_downgrade_warnings()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        y = C.rank_compressed_psum(x, group, SPEC, variant="two_phase")
+        C.rank_compressed_psum(x, group, SPEC, variant="two_phase")
+    gather = C.rank_compressed_psum(x, group, SPEC)
+    try:
+        C.rank_compressed_psum(x, group, SPEC, variant="two_phase", strict=True)
+        strict = None
+    except ValueError as e:
+        strict = str(e)
+    return dict(warnings=[str(w.message) for w in caught], same=bool(torch.equal(y, gather)),
+                strict=strict)
+
+
+def run_collectives(group, rank: int, probe: dict) -> dict:
+    """The probe's partials (``(N, ...)`` numpy, one per rank) reduced over
+    ``group`` from this rank's slice, by case."""
+    out = {}
+    for name, (arr, dtype) in probe["partials"].items():
+        x = torch.from_numpy(arr[rank].copy()).to(DTYPES[dtype])
+        out[name] = _reduce_cases(x, group)
+    out["downgrade"] = _downgrades(group, probe["odd_width"])
+    return out
+
+
+def mixed_logits(model: Model, params, ctx: TPContext, tokens: np.ndarray,
+                 cache_spec=None, device="cpu") -> np.ndarray:
+    """Logits of one mixed step that prefills ``tokens`` (one slot, from
+    position 0) over fresh pools of this rank's kv heads (dense fp32, or
+    ``cache_spec``)."""
+    cfg = model.local_cfg(ctx)
+    cache_spec = KVCacheSpec.parse(cache_spec)
+    t, bs, n_slots = len(tokens), 16, 2
+    nb = -(-t // bs)
+    state = init_paged_state(cfg, n_slots, n_slots * nb + 1, bs, torch.float32,
+                             cache_spec=cache_spec, device=device)
+    tables = torch.zeros((n_slots, nb), dtype=torch.int32)
+    tables[0] = torch.arange(1, nb + 1, dtype=torch.int32)
+    i32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32)
+    logits, _ = model.mixed_step(
+        ctx, params, i32(tokens)[None], state, slot_ids=i32(np.zeros(t)),
+        positions=i32(np.arange(t)), valid=torch.ones(t, dtype=torch.bool),
+        is_decode=torch.zeros(t, dtype=torch.bool), slot_starts=i32([0, 0]), tables=tables,
+        sample_idx=i32([t - 1, 0]), cache_spec=cache_spec)
+    return logits.float().numpy()
+
+
+def _context(group, gated: bool, **policy) -> TPContext:
+    """PAPER_DEFAULT (``policy`` fields replaced) or NO_COMPRESSION, over the
+    TP group, or over ``simulate_tp=2`` in the single-rank port."""
+    pol = CompressionPolicy(spec=SPEC, **policy) if gated else NO_COMPRESSION
+    if group is None:
+        return TPContext(policy=pol, simulate_tp=2 if gated else 0)
+    return TPContext(policy=pol, tp_group=group)
+
+
+def _params(group, cfg, params_np, device):
+    """(model, this rank's parameters) of ``params_np``: the rank's shard on
+    a TP group, the whole tree without one."""
+    n = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
+    tree = params_np if n == 1 else shard_params(params_np, cfg, rank, n)
+    return Model(cfg), params_from_numpy(tree, cfg.tp_shard(n), device)
+
+
+def run_tp_cases(group, device, cfg, params_np, job) -> dict:
+    """One mixed step's logits (dense and compressed) and every engine case
+    of ``job`` on this TP rank of ``group`` (None: the port's single-rank
+    engine, compressed runs over ``simulate_tp=2``). Each engine case also
+    returns the pool bytes this process holds and the TP counters by run."""
+    model, params = _params(group, cfg, params_np, device)
+    out = {"logits": {}}
+    tokens = job["logit_tokens"]
+    for name, gated, spec in (("dense", False, None), ("compressed", True, None),
+                              ("compressed-fp4", True, "fp4_e2m1")):
+        out["logits"][name] = mixed_logits(model, params, _context(group, gated), tokens,
+                                           cache_spec=spec, device=device)
+    for name, case in job["cases"].items():
+        ctx = _context(group, case.get("gated", False))
+        res = run_case(model, params, ctx, device, case)
+        res["tp_size"] = ctx.tp_size
+        res["transport"] = ctx.transport
+        out[name] = res
+    return out
+
+
+def _refusals(group, cfg, params_np) -> dict:
+    """The rank path's refusals, by message: keep_local_fp in the engine, a
+    TP group with simulate_tp or with a kv group."""
+    model, params = _params(group, cfg, params_np, "cpu")
+    msgs = {}
+    for name, make in (
+            ("keep_local_fp", lambda: Engine(model, params, _context(group, True,
+                                                                     keep_local_fp=True),
+                                             max_slots=2, max_len=64, device="cpu")),
+            ("simulate_tp", lambda: TPContext(simulate_tp=2, tp_group=group)),
+            ("kv_group", lambda: TPContext(tp_group=group, kv_group=group))):
+        try:
+            make()
+            msgs[name] = None
+        except ValueError as e:
+            msgs[name] = str(e)
+    return msgs
+
+
+def run_rank(group, rank: int, device, job: dict) -> dict:
+    """The ``spawn_ranks`` target: the collective probe, then (when ``job``
+    carries a model) the refusals and the engine cases, on this TP rank."""
+    out = {"collectives": run_collectives(group, rank, job["probe"]),
+           "transport": C.transport(group)}
+    if "cfg" in job:
+        out["refusals"] = _refusals(group, job["cfg"], job["params"])
+        out["cases"] = run_tp_cases(group, device, job["cfg"], job["params"], job)
+    return out
