@@ -38,7 +38,11 @@ Phases (any failure exits non-zero):
               without) in every one of those geometries on fp4 and bf16
               pools, the mixed and split-decode ones timed; the
               codec at the families' widths (d_model 3584, 5120, 2560;
-              kv_dim 512, 1024) at their served shapes; plus a sweep of
+              kv_dim 512, 1024) at their served shapes; the MoE families'
+              served reads (mixtral-8x22b G 6 with its 4096 window,
+              llama4-maverick G 5, both KV 8 at hd 128) in every geometry,
+              mixed and split decode timed, and the codec at their
+              partials (d_model 6144 and 5120); plus a sweep of
               small shapes through every path of the paged kernel (hd 32 to
               256, GQA groups 1, 2, 7, 8, with and without a window); the
               sequence-sharded read (``row_map``, the TPU kernel's
@@ -68,8 +72,11 @@ Phases (any failure exits non-zero):
               new families' reduced configs with their GQA group and
               head_dim kept (G 7, 8; G 2 at hd 256 with a window) on the
               mixed step (fp32 and fp4 pools) and the split scheduler,
-              tokens identical; one compressed mixed step on fp4 pools
-              within a stated tolerance.
+              tokens identical; the MoE families' reduced configs (mixtral
+              G 6, llama4 G 5, 4 experts) the same, and the mixed step over
+              an 80-token budget too (the sort-based dispatch; the 18-token
+              budget runs every expert on every token); one compressed
+              mixed step on fp4 pools within a stated tolerance.
 5. serve    — llama2-7b at full width and depth, random bf16 weights from a
               seed, TPContext(PAPER_DEFAULT, simulate_tp=4), on graphed steps
               (every step program a CUDA graph, captured at its first call,
@@ -102,9 +109,17 @@ Phases (any failure exits non-zero):
               1024 window), mixed fp4 and split bf16, measure_ttft at 2048;
               qwen3-32b mixed fp4 at full depth when its weights and pools
               fit the card once the earlier models are freed, else at the
-              depth that fits (printed). Each run held as in phase 5 (on
-              graphed steps), with its weight GB and peak device memory
-              printed.
+              depth that fits (printed); the MoE families at full width on
+              the largest prefix of their schedule that fits (``fit_depth``,
+              each layer at its own size; printed: about 15 of mixtral's 56
+              layers, 5 of llama4's 48, two of them MoE): mixtral-8x22b mixed
+              fp4 with an eager twin whose tokens must equal the graphed
+              run's (the graphs hold the routing sort, the dispatch scatter
+              and the combine's scatter-add), split bf16 and measure_ttft at
+              512; llama4-maverick mixed fp4 and split bf16. Each run held
+              as in phase 5 (on graphed steps; a MoE layer's launches count
+              one compressed reduction for ``wo`` and one per shared
+              expert), with its weight GB and peak device memory printed.
 7. sharded  — llama2-7b at full width and depth on 2 kv ranks (processes
               over gloo, ``file://`` rendezvous) sharing the one card, the
               paged pools sequence-sharded between them (each rank holds half
@@ -132,7 +147,12 @@ Phases (any failure exits non-zero):
               pools cold then warm, (e) corrupt@3 supervised on fp4 pools,
               (f) measure_ttft at 512 tokens, compressed and uncompressed;
               llama2-13b (Table 3's 13b) at full width and depth on 4 ranks,
-              (a) and (f). Each rank holds 1/N of the heads, the MLP columns
+              (a) and (f); mixtral-8x22b at full width cut to 2 layers on 2
+              ranks, (a): each rank holds half of every expert's d_ff (its
+              routed-expert bytes held to half), and one dense all-reduce
+              per MoE layer and step reduces the routed experts (the
+              reference's TP-only path leaves them uncompressed). Each rank
+              holds 1/N of the heads, the MLP columns
               and the pools, and every row-parallel reduction is the
               compressed collective between the ranks (NCCL with a card per
               rank; with one card, gloo with every exchange staged through
@@ -207,14 +227,19 @@ TTFT_LENS, TTFT_ITERS = (512, 2048), 6   # measure_ttft prompt lengths, prefills
 
 # The new families' serve phase (``phase_family``), in the order they run:
 # requests, prompt tokens per request, runs (scheduler/pools; "two_phase"
-# is the mixed step under the two_phase variant) and measure_ttft lengths.
-# The paged and codec phases time each family at the shapes these runs give.
+# is the mixed step under the two_phase variant), measure_ttft lengths and
+# the runs given an eager twin (``graphs_vs_eager``). The paged and codec
+# phases time each family at the shapes these runs give.
 FAMILIES = {
     "qwen2-7b": dict(requests=8, prompt=PROMPT, ttft=(512,),
                      runs=("mixed/fp4_e2m1", "split/bf16", "two_phase/fp4_e2m1")),
     "gemma3-4b": dict(requests=4, prompt=1536, ttft=(2048,),
                       runs=("mixed/fp4_e2m1", "split/bf16")),
     "qwen3-32b": dict(requests=4, prompt=PROMPT, ttft=(), runs=("mixed/fp4_e2m1",)),
+    "mixtral-8x22b": dict(requests=8, prompt=PROMPT, ttft=(512,),
+                          runs=("mixed/fp4_e2m1", "split/bf16"), eager=("mixed/fp4_e2m1",)),
+    "llama4-maverick-400b-a17b": dict(requests=4, prompt=PROMPT, ttft=(),
+                                      runs=("mixed/fp4_e2m1", "split/bf16")),
 }
 
 
@@ -1191,14 +1216,20 @@ def phase_reference(torch, dev="cuda"):
 # family's GQA group and head_dim in its reduced config
 FAMILY_REDUCED = {"qwen2-7b": dict(n_heads=7, n_kv_heads=1),
                   "qwen3-32b": dict(n_heads=8, n_kv_heads=1),
-                  "gemma3-4b": dict(n_heads=2, n_kv_heads=1, head_dim=256)}
+                  "gemma3-4b": dict(n_heads=2, n_kv_heads=1, head_dim=256),
+                  "mixtral-8x22b": dict(n_heads=6, n_kv_heads=1),
+                  "llama4-maverick-400b-a17b": dict(n_heads=5, n_kv_heads=1)}
+MOE_BUDGET = 80   # the reduced MoE runs' token budget: above 64, so the mixed step dispatches
 
 
 def reference_families(torch, dev, base):
     """Each new family's reduced config (its group and head_dim kept: G 7,
-    8 at hd 32, G 2 at hd 256 with a 32-token window; fp32) on the card vs
-    on the CPU: the mixed step on dense fp32 and fp4 pools, and the split
-    scheduler, over prompts of 5 to 48 tokens (two longer than the window):
+    8 at hd 32, G 2 at hd 256 with a 32-token window, mixtral G 6 and
+    llama4 G 5 at hd 32 with 4 experts; fp32) on the card vs on the CPU: the
+    mixed step on dense fp32 and fp4 pools, and the split scheduler, over
+    prompts of 5 to 48 tokens (two longer than the window); a MoE family's
+    mixed step also over a MOE_BUDGET-token budget (the sort-based dispatch;
+    the 18-token budget runs every expert on every token) on both pools:
     greedy tokens, steps and dispatches identical."""
     import dataclasses
 
@@ -1216,10 +1247,14 @@ def reference_families(torch, dev, base):
         gpu = _tree_to(cpu, torch.device(dev))
         traffic = [(((np.arange(n) * 11 + i) % cfg.vocab_size).astype(np.int32), 4 + i)
                    for i, n in enumerate((5, 14, 40, 48))]
-        for case, opts in (("mixed", dict(prefill_chunk=16, token_budget=18)),
-                           ("mixed fp4", dict(prefill_chunk=16, token_budget=18,
-                                              cache_spec="fp4_e2m1")),
-                           ("split", dict(prefill_chunk=16, token_budget=0))):
+        cases = [("mixed", dict(prefill_chunk=16, token_budget=18)),
+                 ("mixed fp4", dict(prefill_chunk=16, token_budget=18, cache_spec="fp4_e2m1")),
+                 ("split", dict(prefill_chunk=16, token_budget=0))]
+        if moe_layers(cfg):
+            cases += [(f"mixed dispatch{fp4}", dict(prefill_chunk=16, token_budget=MOE_BUDGET,
+                                                    **({"cache_spec": "fp4_e2m1"} if fp4 else {})))
+                      for fp4 in ("", " fp4")]
+        for case, opts in cases:
             seen = {}
             for name, params in (("cpu", cpu), ("card", gpu)):
                 eng = Engine(model, params, TPContext(), device=params["embed"]["w"].device,
@@ -1231,7 +1266,9 @@ def reference_families(torch, dev, base):
                   f"reference[{arch} {case}]: card and CPU differ: {seen['card']} vs "
                   f"{seen['cpu']}")
             log(f"reference[{arch} {case}]: reduced {arch} (G {cfg.n_heads // cfg.n_kv_heads}, "
-                f"hd {cfg.head_dim}, windows {[sp.window for sp in cfg.layers]}) fp32 greedy "
+                f"hd {cfg.head_dim}, windows {[sp.window for sp in cfg.layers]}"
+                + (f", {moe_layers(cfg)} MoE layers of {cfg.n_experts} experts top-{cfg.top_k}"
+                   if moe_layers(cfg) else "") + ") fp32 greedy "
                 f"tokens identical card vs CPU ({sum(map(len, seen['cpu'][0]))} tokens); "
                 f"{seen['card'][1]} steps, {seen['card'][2]} dispatches on both")
 
@@ -1336,7 +1373,10 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     over its attempts: a ``die`` fault raises before its step dispatches,
     and the corruption watch raises after the mixed step has launched and
     recorded it, so an aborted attempt's stats cover exactly its launches).
-    Per layer: a compressed row-parallel reduction (``wo``, ``down``)
+    Per layer, each compressed row-parallel reduction (``row_reductions``:
+    ``wo`` and the MLP's ``down``, or on a MoE layer ``wo`` and each shared
+    expert's ``down``; the routed experts are never compressed, as in the
+    reference outside its expert-parallel island)
     is one ``mx_quant`` + one ``mx_dequant_reduce``; a paged step (mixed,
     chunk or decode) is one ``paged_attention``; fp4 pools add one
     ``mx_quant`` each for K and V per write (step append, whole-prompt
@@ -1353,7 +1393,8 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     group's collectives: ``tp_all_gather`` (payload and scales of each
     chunk, or of the reduced slice under two_phase), ``tp_all_to_all``
     (two_phase's payload and scales) and ``tp_all_reduce`` (one per dense
-    reduction: each row-parallel layer of a dense step). On
+    reduction: each row-parallel layer of a dense step; and one per MoE
+    layer per forward pass for its routed experts, compressed or not). On
     sequence-sharded pools (``eng.kv_shards > 1``) the count also holds
     ``all_reduce``, the exchange's: per paged read and per COW fork one for
     each pool plane of each layer (K and V; payload and scales of each on
@@ -1361,6 +1402,9 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     from repro_torch.core.collectives import _overlap_chunks
 
     L, q, s = n_layers, eng.cache_spec.quantized, stats
+    check(len(eng.cfg.layers) == L, f"expected_launches: {L} layers, the engine has "
+                                    f"{len(eng.cfg.layers)}")
+    R, M = row_reductions(eng.cfg), moe_layers(eng.cfg)
     policy = eng.ctx.policy
     two = policy.variant == "two_phase"
     planes = 4 if q else 2
@@ -1371,7 +1415,8 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
          if tp and policy.enabled and not two else 1)
     if eng.token_budget:
         n_c, n_d = s.n_compressed_steps, s.n_steps - s.n_compressed_steps
-        red, dense = L * 2 * n_c, L * 2 * n_d
+        red, dense = R * n_c, R * n_d
+        passes = s.n_steps
         out = {"mx_quant": red * (k + two) + (L * 2 * (n_c + n_d) if q else 0),
                "mx_dequant_reduce": red * k,
                "mx_dequant": red * two + (L * 2 * (n_c + n_d) if q else 0),
@@ -1384,7 +1429,8 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
         n_whole = 0 if eng.prefill_chunk else (s.n_dispatches - n_chunk - n_dec) // 2
         comp = ((n_chunk + n_whole) * eng.ctx.policy.enabled
                 + n_dec * eng.ctx_decode.policy.enabled)
-        red, dense = L * 2 * comp, L * 2 * (n_chunk + n_whole + n_dec - comp)
+        red, dense = R * comp, R * (n_chunk + n_whole + n_dec - comp)
+        passes = n_chunk + n_whole + n_dec
         out = {"mx_quant": red * (k + two) + (L * 2 * (n_chunk + n_dec + n_whole) if q else 0),
                "mx_dequant_reduce": red * k, "mx_dequant": red * two,
                "paged_attention": L * (n_chunk + n_dec)}
@@ -1394,8 +1440,28 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
         out["all_reduce"] = L * planes * (reads + forks)
     if tp:   # per compressed reduction: payload and scales (per chunk); per dense one
         out.update(tp_all_gather=red * (2 if two else 2 * k), tp_all_to_all=red * 2 * two,
-                   tp_all_reduce=dense)
+                   tp_all_reduce=dense + M * passes)
     return out
+
+
+def expert_bytes(params) -> int:
+    """Bytes of the routed experts' weights (``up``, ``gate``, ``down`` of
+    every MoE layer) in a parameter tree."""
+    return sum(t.numel() * t.element_size() for lp in params["layers"] if "moe" in lp
+               for k in ("up", "gate", "down") for t in _leaves(lp["moe"][k]))
+
+
+def row_reductions(cfg) -> int:
+    """Row-parallel reductions the policy compresses per forward pass of
+    ``cfg``: each layer's ``wo``, and its MLP's ``down`` or its MoE's shared
+    experts' (a mixtral layer 1, a llama4 MoE layer 2, a dense layer 2)."""
+    return sum(1 + (cfg.n_shared_experts if sp.moe else 1) for sp in cfg.layers)
+
+
+def moe_layers(cfg) -> int:
+    """MoE layers of ``cfg``: on a TP group each reduces its routed experts
+    with one dense all-reduce per forward pass."""
+    return sum(sp.moe for sp in cfg.layers)
 
 
 def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=None,
@@ -1524,22 +1590,21 @@ def phase_serve(torch, dev="cuda", cfg=None):
     runs, totals = {}, {k: 0 for k in KERNELS}
     serve = functools.partial(serve_run, torch, dev, runs, totals, L)
     kw = dict(max_slots=SLOTS, max_len=MAX_LEN, block_size=BS, device=dev)
-    kept = {}   # the graphed engines phase 8 holds eager ones against
     # the mixed token-budget step
     for spec in ("fp4_e2m1", "bf16"):
-        eng = kept[f"mixed/{spec}"] = Engine(model, params, ctx, prefill_chunk=CHUNK,
+        eng = Engine(model, params, ctx, prefill_chunk=CHUNK,
                                              token_budget=T, cache_spec=spec, **kw)
         serve(f"mixed/{spec}", eng, prompts)[0]
         check(eng.gate_counts["compressed"] > 0 and eng.gate_counts["dense"] > 0,
               f"mixed/{spec}: gate counts {eng.gate_counts}")
     # (a) the split scheduler: one 256-token chunk, then the batched decode
     for spec in ("fp4_e2m1", "bf16"):
-        eng = kept[f"split/{spec}"] = Engine(model, params, ctx, prefill_chunk=CHUNK,
+        eng = Engine(model, params, ctx, prefill_chunk=CHUNK,
                                              token_budget=0, cache_spec=spec, **kw)
         s = serve(f"split/{spec}", eng, prompts)[0]
         check(s["n_dispatches"] > s["n_steps"], f"split/{spec}: one dispatch per step")
     # (b) whole-prompt prefill + insert, then the batched decode
-    eng = kept["whole/fp4_e2m1"] = Engine(model, params, ctx, prefill_chunk=0,
+    eng = Engine(model, params, ctx, prefill_chunk=0,
                                           cache_spec="fp4_e2m1", **kw)
     s = serve("whole/fp4_e2m1", eng, prompts)[0]
     check(s["prefill_tokens"] == 8 * PROMPT and s["n_dispatches"] > s["n_steps"],
@@ -1584,7 +1649,7 @@ def phase_serve(torch, dev="cuda", cfg=None):
     runs["ttft"] = ttft_runs(torch, dev, model, params, TTFT_LENS, totals)
     check(dev != "cuda" or all(totals[k] > 0 for k in KERNELS),
           f"a kernel never launched: {totals}")
-    runs["graphs"] = phase_graphs(torch, dev, serve, runs, kept, model, params, ctx, prompts,
+    runs["graphs"] = phase_graphs(torch, dev, serve, runs, model, params, ctx, prompts,
                                   kw, totals)
     return runs, totals
 
@@ -1592,7 +1657,8 @@ def phase_serve(torch, dev="cuda", cfg=None):
 def ttft_runs(torch, dev, model, params, lens, totals, label="", graphs=True):
     """``measure_ttft`` at each prompt length of ``lens``, compressed
     (PAPER_DEFAULT over simulate_tp = TP) and uncompressed, launches held to
-    one compressed reduction per row-parallel layer and prefill, on graphed
+    one compressed reduction per row-parallel layer (``row_reductions``) and
+    prefill, on graphed
     steps (``graphs=False``: eager). Returns {"compressed/n" |
     "uncompressed/n": result}."""
     from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
@@ -1600,7 +1666,7 @@ def ttft_runs(torch, dev, model, params, lens, totals, label="", graphs=True):
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.serving import Engine
 
-    L = model.cfg.n_layers
+    R = row_reductions(model.cfg)
     ttft = {}
     for kind, policy in (("compressed", PAPER_DEFAULT), ("uncompressed", NO_COMPRESSION)):
         eng = Engine(model, params, TPContext(policy=policy, simulate_tp=TP), max_slots=1,
@@ -1611,8 +1677,8 @@ def ttft_runs(torch, dev, model, params, lens, totals, label="", graphs=True):
             r = eng.measure_ttft(n, iters=TTFT_ITERS)
             got = launch_counts()
             comp = int(policy.enabled)
-            expect = {"mx_quant": TTFT_ITERS * L * 2 * comp, "mx_dequant": 0,
-                      "mx_dequant_reduce": TTFT_ITERS * L * 2 * comp, "paged_attention": 0}
+            expect = {"mx_quant": TTFT_ITERS * R * comp, "mx_dequant": 0,
+                      "mx_dequant_reduce": TTFT_ITERS * R * comp, "paged_attention": 0}
             if dev == "cuda":
                 check(got == expect, f"{label}ttft/{kind}/{n}: launches {got} != {expect}")
             for k in totals:
@@ -1637,11 +1703,11 @@ GRAPH_PAIRS = {
 }
 
 
-def phase_graphs(torch, dev, serve, runs, kept, model, params, ctx, prompts, kw, totals):
+def phase_graphs(torch, dev, serve, runs, model, params, ctx, prompts, kw, totals):
     """Phase 8: graphed steps against eager ones on llama2-7b, the weights
-    and prompts of phase 5, whose graphed runs (``kept``) each get an eager
-    twin (``cuda_graphs=False``): greedy tokens identical in every request
-    (no tolerance); launches exact on both (``serve_run``); program
+    and prompts of phase 5, whose graphed runs (``GRAPH_PAIRS``) each get an
+    eager twin (``graphs_vs_eager``): greedy tokens identical in every
+    request (no tolerance); launches exact on both (``serve_run``); program
     counts as ``GRAPH_PAIRS`` expects on both. Then a supervised eager
     ``corrupt@9`` run on bf16 pools whose tokens and recovery the graphed
     run of phase 5 must match, and ``measure_ttft`` on eager steps. Prints
@@ -1652,36 +1718,8 @@ def phase_graphs(torch, dev, serve, runs, kept, model, params, ctx, prompts, kw,
 
     out = {}
     for name, (opts, programs) in GRAPH_PAIRS.items():
-        eng = Engine(model, params, ctx, cuda_graphs=False, **opts, **kw)
-        serve(f"eager {name}", eng, prompts)
-        g, e = runs[name], runs[f"eager {name}"]
-        graphed = kept[name]
-        check(dev != "cuda" or (graphed.graphed and not eng.graphed),
-              f"graphs[{name}]: graphed {graphed.graphed}, eager {eng.graphed}")
-        check(g["programs"] == e["programs"] == programs,
-              f"graphs[{name}]: programs graphed {g['programs']}, eager {e['programs']}, "
-              f"expected {programs}")
-        differ = [i for i, (x, y) in enumerate(zip(g["outputs"], e["outputs"])) if x != y]
-        same = len(prompts) - len(differ)
-        check(g["outputs"] == e["outputs"] and len(g["outputs"]) == len(prompts),
-              f"graphs[{name}]: {same} of {len(prompts)} requests decoded the eager tokens; "
-              f"requests {differ} differ")
-        sg, se = g["summary"], e["summary"]
-        out[name] = dict(same_tokens=same, capture_s=g["capture_s"],
-                         tpot_p50_ms=(sg["tpot_p50_s"] * 1e3, se["tpot_p50_s"] * 1e3),
-                         tokens_per_s=(sg["tokens_per_s"], se["tokens_per_s"]),
-                         run_peak_gb=(g["run_peak_gb"], e["run_peak_gb"]),
-                         programs=g["programs"])
-        peak = (f"{g['run_peak_gb']:.3f} / {e['run_peak_gb']:.3f} GB" if dev == "cuda"
-                else "not measured (no card)")
-        log(f"graphs[{name}]: tokens identical for {same} of {len(prompts)} requests; "
-            f"programs decode={g['programs'][0]} "
-            f"prefill={g['programs'][1]} on both; TPOT p50 {sg['tpot_p50_s'] * 1e3:.2f} ms "
-            f"graphed / {se['tpot_p50_s'] * 1e3:.2f} ms eager; {sg['tokens_per_s']:.1f} / "
-            f"{se['tokens_per_s']:.1f} tokens/s; device memory the run added at its peak "
-            f"{peak} graphed / eager; "
-            f"capture s " + ", ".join(f"{k} {v:.3f}" for k, v in g["capture_s"].items()))
-        del eng
+        out[name] = graphs_vs_eager(dev, serve, runs, name, Engine(
+            model, params, ctx, cuda_graphs=False, **opts, **kw), prompts, programs)
 
     # a hard recovery under graphs: phase 5's graphed faults/bf16 run
     eng = Engine(model, params, ctx, prefill_chunk=CHUNK, token_budget=T, cache_spec="bf16",
@@ -1724,23 +1762,25 @@ def phase_graphs(torch, dev, serve, runs, kept, model, params, ctx, prompts, kw,
 def fit_depth(torch, dev, cfg, n_blocks, margin_gb=6.0):
     """``cfg`` at full depth if its bf16 weights (``param_count``), the K/V
     pools of ``n_blocks`` blocks (bf16, the larger format) and ``margin_gb``
-    fit in the card's free memory, else at the most layers that fit (the
-    schedule's first layers). Returns (config, free bytes, needed bytes)."""
-    import dataclasses
+    fit in the card's free memory, else the largest prefix ``layers[:n]`` of
+    its schedule whose summed sizes fit (each layer counted at its own size:
+    a llama4 MoE layer is 86 times a dense one). Returns (config, free
+    bytes, bytes needed at full depth)."""
+    from repro_torch.configs import first_layers
 
     if dev != "cuda":
         return cfg, None, None
     free = torch.cuda.mem_get_info()[0]
-    per_layer = (dataclasses.replace(cfg, n_layers=2, layers=cfg.layers[:2]).param_count()
-                 - dataclasses.replace(cfg, n_layers=1, layers=cfg.layers[:1]).param_count()) * 2
-    per_layer += 2 * n_blocks * BS * cfg.kv_dim * 2
-    need = cfg.param_count() * 2 + 2 * n_blocks * BS * cfg.kv_dim * 2 * cfg.n_layers
-    need += margin_gb * 1e9
-    if need <= free:
-        return cfg, free, need
-    fixed = need - per_layer * cfg.n_layers
-    n = max(1, int((free - fixed) // per_layer))
-    return dataclasses.replace(cfg, n_layers=n, layers=cfg.layers[:n]), free, need
+
+    def need(n):
+        prefix = first_layers(cfg, n)
+        return (prefix.param_count() * 2 + 2 * n_blocks * BS * cfg.kv_dim * 2 * n
+                + margin_gb * 1e9)
+
+    n = cfg.n_layers
+    while n > 1 and need(n) > free:
+        n -= 1
+    return first_layers(cfg, n), free, need(cfg.n_layers)
 
 
 def phase_family(torch, arch, dev="cuda"):
@@ -1760,6 +1800,7 @@ def phase_family(torch, arch, dev="cuda"):
     from repro_torch.core.policy import PAPER_DEFAULT
     from repro_torch.core.tp import TPContext
     from repro_torch.models.model import Model
+    from repro_torch.models.moe import DENSE_MAX_TOKENS, capacity
     from repro_torch.serving import Engine
 
     plan = FAMILIES[arch]
@@ -1788,19 +1829,33 @@ def phase_family(torch, arch, dev="cuda"):
         f"{cfg.head_dim} vocab {cfg.vocab_size}, windows "
         f"{sorted({sp.window for sp in cfg.layers}, key=str)}, random {cfg.dtype} weights "
         f"(seed 0) in {time.perf_counter() - t0:.1f} s; {weights_gb:.2f} GB")
+    n_moe = moe_layers(cfg)
+    if n_moe:
+        experts_gb = expert_bytes(params) / 1e9
+        log(f"{arch}: {n_moe} MoE layers of {L} served ({full.n_layers} in the config): "
+            f"{cfg.n_experts} experts, top-{cfg.top_k}, {cfg.n_shared_experts} shared, "
+            f"capacity factor {cfg.capacity_factor}: {capacity(cfg, T)} slots per expert in a "
+            f"{T}-token mixed step, {capacity(cfg, CHUNK)} in a {CHUNK}-token chunk, every expert "
+            f"on every token at {DENSE_MAX_TOKENS} tokens or fewer; routed expert weights "
+            f"{experts_gb:.2f} GB, read whole by every step")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, plan["prompt"]).astype(np.int32)
                for _ in range(plan["requests"])]
     runs, totals = {}, {k: 0 for k in KERNELS}
     serve = functools.partial(serve_run, torch, dev, runs, totals, L)
     kw = dict(max_slots=SLOTS, max_len=max_len, block_size=BS, device=dev)
-    for run in plan["runs"]:
+
+    def engine(run, graphs=True):
         kind, spec = run.split("/")
         policy = (dataclasses.replace(PAPER_DEFAULT, variant="two_phase") if kind == "two_phase"
                   else PAPER_DEFAULT)
-        eng = Engine(model, params, TPContext(policy=policy, simulate_tp=TP),
-                     prefill_chunk=CHUNK, token_budget=0 if kind == "split" else T,
-                     cache_spec=spec, **kw)
+        return Engine(model, params, TPContext(policy=policy, simulate_tp=TP),
+                      prefill_chunk=CHUNK, token_budget=0 if kind == "split" else T,
+                      cache_spec=spec, cuda_graphs=graphs, **kw)
+
+    for run in plan["runs"]:
+        kind = run.split("/")[0]
+        eng = engine(run)
         if dev == "cuda":
             torch.cuda.reset_peak_memory_stats()
         s = serve(f"{arch} {run}", eng, prompts)[0]
@@ -1814,6 +1869,9 @@ def phase_family(torch, arch, dev="cuda"):
         log(f"{arch} {run}: peak device memory " + (f"{peak:.2f} GB" if peak is not None
                                                     else "not measured (no card)"))
         del eng
+        if run in plan.get("eager", ()):
+            runs[f"{arch} graphs/{run}"] = graphs_vs_eager(
+                dev, serve, runs, f"{arch} {run}", engine(run, graphs=False), prompts)
     if plan["ttft"]:
         runs["ttft"] = ttft_runs(torch, dev, model, params, plan["ttft"], totals, f"{arch} ")
     if "two_phase/fp4_e2m1" in plan["runs"]:
@@ -1823,8 +1881,46 @@ def phase_family(torch, arch, dev="cuda"):
             f"({two['summary']['n_compressed_steps']} compressed steps x {L} layers x 2 "
             f"reductions each)")
     runs["config"] = dict(n_layers=L, full_layers=full.n_layers, weights_gb=weights_gb,
-                          free_gb=free and free / 1e9, need_gb=need and need / 1e9)
+                          free_gb=free and free / 1e9, need_gb=need and need / 1e9,
+                          moe_layers=n_moe)
     return runs, totals
+
+
+def graphs_vs_eager(dev, serve, runs, name, eng, prompts, programs=None):
+    """The eager twin ``eng`` (``cuda_graphs=False``) of the graphed run
+    ``name``, on its weights and prompts: greedy tokens identical in every
+    request (no tolerance: a replay runs the eager step's kernels; on a MoE
+    model the graph holds the routing sort, the dispatch scatter and the
+    combine's scatter-add), launches exact on both (``serve_run``), the
+    same program counts (and ``programs`` when given). Returns what it
+    printed: tokens, capture seconds, TPOT p50, tokens/s and the device
+    memory each run added at its peak, graphed against eager."""
+    serve(f"eager {name}", eng, prompts)
+    g, e = runs[name], runs[f"eager {name}"]
+    check(dev != "cuda" or (g["graphed"] and not eng.graphed),
+          f"graphs[{name}]: graphed {g['graphed']}, eager {eng.graphed}")
+    check(g["programs"] == e["programs"] and programs in (None, g["programs"]),
+          f"graphs[{name}]: programs graphed {g['programs']}, eager {e['programs']}, "
+          f"expected {programs or 'the same'}")
+    differ = [i for i, (x, y) in enumerate(zip(g["outputs"], e["outputs"])) if x != y]
+    same = len(prompts) - len(differ)
+    check(g["outputs"] == e["outputs"] and len(g["outputs"]) == len(prompts),
+          f"graphs[{name}]: {same} of {len(prompts)} requests decoded the eager tokens; "
+          f"requests {differ} differ")
+    sg, se = g["summary"], e["summary"]
+    peak = (f"{g['run_peak_gb']:.3f} / {e['run_peak_gb']:.3f} GB" if dev == "cuda"
+            else "not measured (no card)")
+    log(f"graphs[{name}]: tokens identical for {same} of {len(prompts)} requests; "
+        f"programs decode={g['programs'][0]} "
+        f"prefill={g['programs'][1]} on both; TPOT p50 {sg['tpot_p50_s'] * 1e3:.2f} ms "
+        f"graphed / {se['tpot_p50_s'] * 1e3:.2f} ms eager; {sg['tokens_per_s']:.1f} / "
+        f"{se['tokens_per_s']:.1f} tokens/s; device memory the run added at its peak "
+        f"{peak} graphed / eager; "
+        f"capture s " + ", ".join(f"{k} {v:.3f}" for k, v in g["capture_s"].items()))
+    return dict(same_tokens=same, capture_s=g["capture_s"],
+                tpot_p50_ms=(sg["tpot_p50_s"] * 1e3, se["tpot_p50_s"] * 1e3),
+                tokens_per_s=(sg["tokens_per_s"], se["tokens_per_s"]),
+                run_peak_gb=(g["run_peak_gb"], e["run_peak_gb"]), programs=g["programs"])
 
 
 # ---------------------------------------------------------------------- sharded
@@ -2041,12 +2137,14 @@ def phase_sharded(torch, card, dev="cuda", cfg=None):
 
 # -------------------------------------------------------------------------- tp
 
-# the TP phase's models -> (ranks, runs); traffic as phase 7's: SLOTS requests
-# of SHARD_PROMPT + SHARD_NEW tokens
+# the TP phase's models -> (ranks, runs, layers served: None for all, else the
+# schedule's first N at full width); traffic as phase 7's: SLOTS requests of
+# SHARD_PROMPT + SHARD_NEW tokens
 TP_MODELS = {
     "llama2-7b": (2, ("mixed/fp4_e2m1", "two_phase/bf16", "split-overlap4/bf16",
-                      "whole/fp4_e2m1", "prefix/fp4_e2m1", "corrupt@3/fp4_e2m1", "ttft")),
-    "llama2-13b": (4, ("mixed/fp4_e2m1", "ttft")),
+                      "whole/fp4_e2m1", "prefix/fp4_e2m1", "corrupt@3/fp4_e2m1", "ttft"), None),
+    "llama2-13b": (4, ("mixed/fp4_e2m1", "ttft"), None),
+    "mixtral-8x22b": (2, ("mixed/fp4_e2m1",), 2),
 }
 TP_TTFT = 512          # measure_ttft's prompt tokens in the TP phase
 TP_CUT_LAYERS = 2      # the depth-cut model whose logits are held too
@@ -2204,13 +2302,14 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
                 reset_tp_counts()
                 r = eng.measure_ttft(TP_TTFT, iters=TTFT_ITERS)
                 got, c = launch_counts(), tp_counts()
-                m = int(policy.enabled) * TTFT_ITERS * L * 2
+                R = row_reductions(cfg)
+                m = int(policy.enabled) * TTFT_ITERS * R
                 expect = {"mx_quant": m, "mx_dequant": 0, "mx_dequant_reduce": m,
                           "paged_attention": 0}
                 if dev == "cuda":
                     check(got == expect, f"{label}ttft/{kind}: launches {got} != {expect}")
                 if eng.tp_size > 1:
-                    want = (2 * m, TTFT_ITERS * L * 2 - m)
+                    want = (2 * m, TTFT_ITERS * (R + moe_layers(cfg)) - m)
                     check((c["all_gather"], c["all_reduce"]) == want,
                           f"{label}ttft/{kind}: collectives {c} != {want}")
                 for k in totals:
@@ -2269,16 +2368,18 @@ def _tp_rank(group, rank, dev, cfg, n, runs_wanted):
     model = Model(cfg)
     params = model.init_params(device=dev, seed=0, tp=(rank, n))
     weight_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    experts = expert_bytes(params)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     runs, totals = tp_serve(torch, dev.type, group, n, model, params, runs_wanted, "tp ")
-    runs["tp cut logits"] = cut_logits(torch, dev, group, n, cfg)
+    if cfg.n_layers > TP_CUT_LAYERS:
+        runs["tp cut logits"] = cut_logits(torch, dev, group, n, cfg)
     x = tp_partials(torch, n, T, cfg.d_model)[rank].to(dev)
     probe = {v: rank_compressed_psum(x, group, PAPER_DEFAULT.spec, variant=v, strict=True)
              .cpu().view(torch.int16).numpy() for v in ("gather", "two_phase")}
     return dict(runs=runs, totals=totals, device=str(dev), transport=transport(group),
-                probe=probe, weight_gb=weight_gb,
+                probe=probe, weight_gb=weight_gb, expert_bytes=experts,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
 
 
@@ -2303,11 +2404,15 @@ def phase_tp(torch, card, dev="cuda", cfg=None):
     what compression moves them, compressed within TP_FLIP_MARGIN x
     ``tp_flip_share`` of it; and the rank collective bit-identical to the simulated
     reduction on the same partials at the model's reduction shape, for the
-    gather and two_phase variants. Prints the transport, the collectives
+    gather and two_phase variants. mixtral-8x22b at full width cut to its
+    first 2 layers on 2 ranks, run (a): each rank holds half of every
+    expert's ``d_ff`` (its routed-expert bytes half the single-rank
+    model's), and one dense all-reduce per MoE layer and step reduces the
+    routed experts. Prints the transport, the collectives
     per step, the tokens identical to the simulated run's (counted: bf16
     GEMMs of other shapes round differently, and random weights have near
     ties), and TTFT. (``dev="cpu"`` and a reduced ``cfg`` rehearse it.)"""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import first_layers, get_config
     from repro_torch.core.collectives import compressed_psum
     from repro_torch.core.policy import PAPER_DEFAULT
     from repro_torch.kernels import ops
@@ -2317,20 +2422,22 @@ def phase_tp(torch, card, dev="cuda", cfg=None):
     cuda = dev == "cuda"
     totals = {k: 0 for k in KERNELS}
     out = {}
-    for arch, (n, runs_wanted) in TP_MODELS.items():
-        mcfg = cfg or get_config(arch)
+    for arch, (n, runs_wanted, layers) in TP_MODELS.items():
+        mcfg = cfg or first_layers(get_config(arch), layers or 0)
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
         model = Model(mcfg)
         t0 = time.perf_counter()
         params = model.init_params(device=dev, seed=0)
+        sim_experts = expert_bytes(params)
         log(f"tp[{arch}]: {mcfg.n_layers} layers d_model {mcfg.d_model}, "
             f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f} GB of "
             f"seed-0 weights in {time.perf_counter() - t0:.1f} s; the simulate_tp={n} engine "
             f"first")
         sim, _ = tp_serve(torch, dev, None, n, model, params, runs_wanted, "simulated ")
-        sim["simulated cut logits"] = cut_logits(torch, dev, None, n, mcfg)
+        if mcfg.n_layers > TP_CUT_LAYERS:
+            sim["simulated cut logits"] = cut_logits(torch, dev, None, n, mcfg)
         stacked = tp_partials(torch, n, T, mcfg.d_model).to(dev)
         want = {"gather": compressed_psum(stacked, PAPER_DEFAULT.spec)}
         spec = PAPER_DEFAULT.spec
@@ -2354,6 +2461,14 @@ def phase_tp(torch, card, dev="cuda", cfg=None):
                  (": the ranks share one card, not NVLink" if cuda else ""))
         log(f"tp[{arch}]: {n} ranks on {card} over {where}; {wall:.1f} s with start-up; "
             f"{ranks[0]['weight_gb']:.2f} GB of weights per rank")
+        for i, r in enumerate(ranks):
+            check(r["expert_bytes"] * n == sim_experts,
+                  f"tp[{arch}]: rank {i} holds {r['expert_bytes']} routed-expert bytes, not "
+                  f"1/{n} of {sim_experts}")
+        if sim_experts:
+            log(f"tp[{arch}]: each rank holds {ranks[0]['expert_bytes'] / 1e9:.2f} GB of routed "
+                f"experts, 1/{n} of {sim_experts / 1e9:.2f} GB (every expert, 1/{n} of its "
+                f"d_ff)")
         for r in ranks:
             for k in totals:
                 totals[k] += r["totals"][k]

@@ -1,12 +1,15 @@
-"""Architecture registry of the port: the dense pure-attention archs ported so
-far (llama2, internlm2, qwen2, qwen3, gemma3). ``get_config(arch_id)`` /
+"""Architecture registry of the port: the pure-attention archs ported so far,
+dense (llama2, internlm2, qwen2, qwen3, gemma3) and MoE (mixtral-8x22b,
+llama4-maverick-400b-a17b). ``get_config(arch_id)`` /
 ``ARCHS`` mirror the reference's API."""
 from __future__ import annotations
 
-from repro_torch.configs.base import LayerSpec, ModelConfig, reduced_config
+from repro_torch.configs.base import LayerSpec, ModelConfig, first_layers, reduced_config
 from repro_torch.configs.gemma3_4b import CONFIG as gemma3_4b
 from repro_torch.configs.internlm2_1_8b import CONFIG as internlm2_1_8b
 from repro_torch.configs.llama2 import LLAMA2_7B, LLAMA2_13B, LLAMA2_70B
+from repro_torch.configs.llama4_maverick import CONFIG as llama4_maverick
+from repro_torch.configs.mixtral_8x22b import CONFIG as mixtral_8x22b
 from repro_torch.configs.qwen2_7b import CONFIG as qwen2_7b
 from repro_torch.configs.qwen3_32b import CONFIG as qwen3_32b
 
@@ -18,6 +21,8 @@ ARCHS = {
     "qwen2-7b": qwen2_7b,
     "qwen3-32b": qwen3_32b,
     "gemma3-4b": gemma3_4b,
+    "mixtral-8x22b": mixtral_8x22b,
+    "llama4-maverick-400b-a17b": llama4_maverick,
 }
 
 
@@ -29,4 +34,4 @@ def get_config(arch_id: str) -> ModelConfig:
     return ARCHS[arch_id]
 
 
-__all__ = ["ARCHS", "get_config", "ModelConfig", "LayerSpec", "reduced_config"]
+__all__ = ["ARCHS", "get_config", "ModelConfig", "LayerSpec", "first_layers", "reduced_config"]

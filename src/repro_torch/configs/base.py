@@ -1,15 +1,16 @@
 """Model configuration: the port's copy of ``repro.configs.base``.
 
 ``ModelConfig`` keeps every field of the reference (so configs read the same
-and ``reduced_config`` shrinks them the same way); the port serves only the
-dense pure-attention families for now and its model raises on anything else.
+and ``reduced_config`` shrinks them the same way); the port serves the
+pure-attention families, with dense MLP or MoE layers, and its model raises
+on anything else.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["LayerSpec", "ModelConfig", "reduced_config"]
+__all__ = ["LayerSpec", "ModelConfig", "first_layers", "reduced_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,21 +90,28 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head), as the
-        reference counts it, for the dense attention families the port
-        serves; other layer kinds, MoE and encoder-decoder raise."""
-        if self.encoder_decoder or any(sp.kind != "attn" or sp.moe for sp in self.layers):
-            raise NotImplementedError(f"{self.name}: param_count covers dense attention "
+        reference counts it, for the attention families the port serves:
+        dense MLP layers and MoE layers (router, ``n_experts`` gated experts
+        of ``d_ff`` columns, ``n_shared_experts`` shared ones). Other layer
+        kinds and encoder-decoder raise."""
+        if self.encoder_decoder or any(sp.kind != "attn" for sp in self.layers):
+            raise NotImplementedError(f"{self.name}: param_count covers attention "
                                       "layers only")
         d, ff = self.d_model, self.d_ff
         n = self.vocab_size * d  # embedding
         if not self.tie_embeddings:
             n += self.vocab_size * d
-        per_layer = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d + 2 * d  # + norms
-        if self.qkv_bias:
-            per_layer += self.q_dim + 2 * self.kv_dim
-        if ff > 0:
-            per_layer += (3 if self.activation == "silu" else 2) * d * ff
-        return n + self.n_layers * per_layer
+        for spec in self.layers:
+            n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            if self.qkv_bias:
+                n += self.q_dim + 2 * self.kv_dim
+            if spec.moe:
+                n += d * self.n_experts  # router
+                n += (self.n_experts + self.n_shared_experts) * 3 * d * ff
+            elif ff > 0:
+                n += (3 if self.activation == "silu" else 2) * d * ff
+            n += 2 * d  # norms
+        return n
 
     def tp_shard(self, n: int) -> "ModelConfig":
         """The rank-local view of this config on a TP group of ``n`` ranks:
@@ -125,7 +133,8 @@ class ModelConfig:
             (f"n_heads={self.n_heads} % {n} != 0", self.n_heads % n == 0),
             (f"the local q_dim {self.q_dim}/{n} is not a multiple of {block_size}",
              q_local and q_local % block_size == 0),
-            (f"the local d_ff {self.d_ff}/{n} is not a multiple of {block_size}",
+            (f"the local {'expert ' if self.n_experts else ''}d_ff {self.d_ff}/{n} is not "
+             f"a multiple of {block_size}",
              self.d_ff % n == 0 and (self.d_ff // n) % block_size == 0),
         ) if not ok]
         if n < 1 or bad:
@@ -135,8 +144,19 @@ class ModelConfig:
                                    n_kv_heads=self.n_kv_heads // n, d_ff=self.d_ff // n)
 
     def active_param_count(self) -> int:
-        """Params touched per token: every parameter of a dense model."""
-        return self.param_count()
+        """Params touched per token: a MoE layer counts only its ``top_k``
+        routed experts and its shared ones."""
+        inactive = sum((self.n_experts - self.top_k) * 3 * self.d_model * self.d_ff
+                       for spec in self.layers if spec.moe)
+        return self.param_count() - inactive
+
+
+def first_layers(cfg: ModelConfig, n: int) -> ModelConfig:
+    """``cfg`` cut to the first ``n`` layers of its schedule at full width
+    (``n`` of 0 or at least ``n_layers``: ``cfg`` itself)."""
+    if n <= 0 or n >= cfg.n_layers:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=n, layers=cfg.layers[:n])
 
 
 def reduced_config(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,

@@ -1,12 +1,27 @@
 """Where the time of a serving run goes on the card: the llama2-7b serve of
-``chip_smoke.py`` (or another ported family, ``--arch``, e.g. qwen2-7b)
+``chip_smoke.py`` (or another ported family, ``--arch``, e.g. qwen2-7b or
+mixtral-8x22b; ``--layers N`` serves the schedule's first N layers at full
+width, for a model whose weights do not fit one card)
 under ``torch.profiler``, device kernel time
-summed by layer of the stack (paged attention, MX codec, GEMMs, the rest),
-against the run's wall time (the rest is the device's idle share: host-side
-dispatch and scheduling). The profiler slows the host, so the same run is
-also timed without it, and the idle share is given against both walls.
+summed by layer of the stack (paged attention, MX codec, MoE dispatch,
+GEMMs, the rest), against the run's wall time (the rest is the device's idle
+share: host-side dispatch and scheduling). The profiler slows the host, so
+the same run is also timed without it, and the idle share is given against
+both walls.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --cache-spec fp4_e2m1
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mixtral-8x22b \
+      --layers 15 --cache-spec fp4_e2m1
+
+The ``moe_dispatch`` row holds a MoE layer's routing and dispatch kernels
+(``models/moe.py``): the router's softmax, the top-k and expert-id sorts,
+``searchsorted``, the gathers of the sorted slots and routed rows
+(``index_select``), the scatter into the expert buffer (``index_copy_``) and
+the combine (``index_add_``); the expert products stay under GEMM and the
+small elementwise kernels between them (positions, destinations, gate
+products) under the rest. No other kernel of a mixed step has those names;
+a split chunk or whole-prompt prefill adds one one-row ``index_select``
+(its logits row), and whole-prompt attention its own softmax.
 
 ``--cache-spec`` takes a comma-separated list, e.g. ``fp4_e2m1,bf16,bf16,fp4_e2m1``:
 the cells then run in that order in one process on the same weights, so
@@ -29,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import first_layers, get_config
 from repro_torch.core.policy import PAPER_DEFAULT
 from repro_torch.core.tp import TPContext
 from repro_torch.models.model import Model
@@ -38,6 +53,8 @@ from repro_torch.serving import Engine, Request
 CATEGORIES = (  # (category, substrings of the device kernel's name)
     ("paged_attention", ("paged_attention_kernel",)),
     ("mx_codec", ("mx_quant_kernel", "mx_dequant_kernel", "mx_dequant_reduce_kernel")),
+    ("moe_dispatch", ("sort", "softmax", "searchsorted", "index_copy", "indexfunc",
+                      "indexselect")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90")),
 )
 
@@ -53,6 +70,8 @@ def category(name: str) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the schedule's first N layers (0: all)")
     ap.add_argument("--cache-spec", default="fp4_e2m1")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=512)
@@ -61,7 +80,7 @@ def main(argv=None):
     ap.add_argument("--out", default="chiprun_out/profile_serve.json")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
+    cfg = first_layers(get_config(args.arch), args.layers)
     model = Model(cfg)
     params = model.init_params(device="cuda", seed=args.seed)
     rng = np.random.default_rng(args.seed)
@@ -112,12 +131,13 @@ def profile_cell(model, params, cell, prompts, args):
     n_steps = engine.stats.n_steps
     dispatches = engine.stats.n_dispatches
     name = torch.cuda.get_device_name(0)
-    print(f"{name}; {cfg.name}, {cache_spec} pools, {scheduler} scheduler, {steps} steps, "
+    print(f"{name}; {cfg.name} ({cfg.n_layers} layers), {cache_spec} pools, {scheduler} "
+          f"scheduler, {steps} steps, "
           f"{n_steps} steps, {dispatches} dispatches ({engine.gate_counts}), wall "
           f"{wall_ms:.1f} ms under the profiler, {plain_wall_ms:.1f} ms without it; TPOT p50 "
           f"{plain['tpot_p50_s'] * 1e3:.2f} ms, {plain['tokens_per_s']:.1f} tokens/s without "
           f"it")
-    for cat in ("paged_attention", "mx_codec", "gemm", "other"):
+    for cat in ("paged_attention", "mx_codec", "moe_dispatch", "gemm", "other"):
         print(f"  {cat:16s} {by_cat[cat]:9.1f} ms  {by_cat[cat] / wall_ms:6.1%} of wall  "
               f"{by_cat[cat] / max(n_steps, 1):7.2f} ms/step")
     print(f"  device busy {busy:.1f} ms = {busy / wall_ms:.1%} of wall; idle share "
@@ -126,7 +146,8 @@ def profile_cell(model, params, cell, prompts, args):
     top = by_kernel.most_common(8)
     for k, ms in top:
         print(f"    {ms:9.1f} ms  {k[:100]}")
-    return {"device": name, "cache_spec": cache_spec, "scheduler": scheduler,
+    return {"device": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+            "cache_spec": cache_spec, "scheduler": scheduler,
             "step_programs": steps, "capture_s": engine.capture_seconds(),
             "tpot_p50_ms": plain["tpot_p50_s"] * 1e3, "tokens_per_s": plain["tokens_per_s"],
             "steps": n_steps, "dispatches": dispatches,

@@ -20,7 +20,12 @@ reduction's result once more, as the reference's simulated path does (on
 chunks each compressed reduction's gathers on ``--tp`` ranks (the same bytes
 either way) and is ignored under ``--simulate-tp``, which has no rank
 collective to chunk (the banner says so). ``--arch`` takes every ported family
-(llama2, internlm2, qwen2-7b, qwen3-32b, gemma3-4b). Runs on the GPU by
+(llama2, internlm2, qwen2-7b, qwen3-32b, gemma3-4b, and the MoE families
+mixtral-8x22b and llama4-maverick-400b-a17b, whose banner adds experts,
+top-k, shared experts, capacity factor and the layers served). ``--layers
+N`` serves the schedule's first N layers at full width (a model whose
+weights do not fit one card: mixtral-8x22b fits about 15 of its 56 layers on
+an 80 GB H100, llama4-maverick 5 of 48). Runs on the GPU by
 default; ``--device cpu`` runs the plain PyTorch path on the CPU (use
 ``--reduced`` there). Weights are random, drawn from ``--seed``.
 
@@ -55,7 +60,7 @@ import torch
 from repro_torch.kernels.build import load_kernels
 from repro_torch.core.collectives import reset_tp_counts, tp_counts
 from repro_torch.launch.mesh import spawn_ranks
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import first_layers, get_config, reduced_config
 from repro_torch.core.formats import MXSpec
 from repro_torch.core.policy import CompressionPolicy, NO_COMPRESSION
 from repro_torch.core.tp import TPContext
@@ -68,6 +73,8 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama2-7b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the schedule's first N layers at full width (0: all)")
     ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=0,
                     help="total requests (default: one per slot)")
@@ -168,9 +175,8 @@ def _serve_rank(group, rank: int, device: torch.device, args) -> list:
 def _serve(args, device: torch.device, kv_group=None, tp_group=None):
     """The serving run of ``main`` on ``device`` (on one rank of ``kv_group``
     or ``tp_group`` when given: only rank 0 prints)."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced_config(cfg)
+    full = get_config(args.arch)
+    cfg = first_layers(reduced_config(full) if args.reduced else full, args.layers)
     model = Model(cfg)
     policy = NO_COMPRESSION if args.policy == "none" else CompressionPolicy(
         spec=MXSpec.make("fp4_e2m1", 32, "e8m0"), variant=args.variant,
@@ -193,6 +199,14 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
                    f"simulate_tp)" if args.overlap_chunks != 1 else "")
     print_(f"device={name} arch={cfg.name} policy={policy.describe()} variant={variant} "
            f"{tp}{ignored}")
+    n_moe = sum(spec.moe for spec in cfg.layers)
+    if n_moe:
+        print_(f"moe: experts={cfg.n_experts} top_k={cfg.top_k} "
+               f"shared={cfg.n_shared_experts} capacity_factor={cfg.capacity_factor}; "
+               f"{n_moe} MoE of {cfg.n_layers} layers served (of {full.n_layers} in the "
+               f"config); routed experts reduced "
+               + ("by one all-reduce per MoE layer" if tp_group is not None
+                  else "unsplit (simulate_tp splits only the row-parallel layers)"))
 
     params = model.init_params(device=device, seed=args.seed, tp=(ctx.tp_rank, ctx.tp_size))
     fault_plan = FaultPlan.parse(args.fault_plan, seed=args.seed)

@@ -1,1 +1,2 @@
-"""Model code of the port: dense pure-attention decoders over paged pools."""
+"""Model code of the port: pure-attention decoders (dense MLP or MoE layers) over
+paged pools."""

@@ -1,8 +1,8 @@
-"""The port's Model for dense pure-attention decoders: parameter init, the
-whole-prompt prefill over a dense cache, and the three paged serving steps
-(the reference's ``Model.init_params``, ``init_cache``, ``prefill``,
-``prefill_chunk``, ``decode_step_paged`` and ``mixed_step``). Other families
-raise ``NotImplementedError``.
+"""The port's Model for pure-attention decoders with dense MLP or MoE
+layers: parameter init, the whole-prompt prefill over a dense cache, and the
+three paged serving steps (the reference's ``Model.init_params``,
+``init_cache``, ``prefill``, ``prefill_chunk``, ``decode_step_paged`` and
+``mixed_step``). Other families raise ``NotImplementedError``.
 
 Parameters are a plain nested dict with the reference's tree and names
 (``embed``, ``layers[i].{ln1, core.{wq, wk, wv, wo, q_norm, k_norm}, ln2,
@@ -11,14 +11,19 @@ mlp.{up, down, gate}}``, ``final_norm``, ``lm_head``) and its layouts
 ``embed``/``lm_head`` ``(V, d)``). ``param_shapes`` gives the tree a config
 has: q/k/v biases with ``qkv_bias``, ``q_norm``/``k_norm`` with
 ``qk_norm``, ``gate`` only for the gated (silu) MLP, and no ``lm_head``
-with ``tie_embeddings`` (the logits then read ``embed``).
+with ``tie_embeddings`` (the logits then read ``embed``). A MoE layer has
+``moe.{router, up, gate, down, shared0, ...}`` in place of ``mlp``: router
+``(d, E)``, experts ``up`` / ``gate`` ``(E, d, d_ff)`` and ``down`` ``(E,
+d_ff, d)``, and each shared expert a dense MLP's tree.
 
 Tensor parallelism (``TPContext.tp_group`` of N ranks): ``init_params(...,
 tp=(rank, N))`` keeps this rank's shard of each tensor (``shard_axis``):
 ``wq``, ``wk``, ``wv`` (with their biases), ``gate`` and ``up`` by output
-columns, ``wo`` and ``down`` by input rows; norms, ``embed`` and
-``lm_head`` replicated, so every rank computes the full logits, the same
-bits on every rank, with no float collective. The steps then run on the
+columns (the last axis), ``wo`` and ``down`` by input rows (the
+second-to-last axis: an expert tensor keeps every expert and splits its
+``d_ff``); norms, the router, ``embed`` and ``lm_head`` replicated, so
+every rank computes the full logits, the same bits on every rank, with no
+float collective. The steps then run on the
 rank-local config (``local_cfg``, ``ModelConfig.tp_shard``).
 """
 from __future__ import annotations
@@ -34,8 +39,7 @@ from repro_torch.models.attention import (
     init_cache, paged_attention_chunk, paged_attention_decode, paged_attention_mixed,
 )
 from repro_torch.models.common import Initializer, embed, int_scalar, rms_norm, unembed
-from repro_torch.models.mlp import mlp
-from repro_torch.models.transformer import apply_stack
+from repro_torch.models.transformer import apply_stack, feed_forward
 
 __all__ = ["Model", "torch_dtype", "param_shapes", "shard_axis", "shard_leaf"]
 
@@ -47,14 +51,16 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise on anything but a dense pure-attention text decoder with an
-    RMSNorm and a SwiGLU or gelu MLP."""
-    bad = [s for s in cfg.layers if s.kind != "attn" or s.moe]
-    if (bad or cfg.encoder_decoder or cfg.frontend is not None or cfg.norm != "rmsnorm"
-            or cfg.activation not in ("silu", "gelu") or cfg.d_ff <= 0):
+    """Raise on anything but a pure-attention text decoder with an RMSNorm
+    and, per layer, a SwiGLU or gelu MLP or a MoE of top-k routed experts."""
+    bad = [s for s in cfg.layers if s.kind != "attn"]
+    moe_ok = not any(s.moe for s in cfg.layers) or 0 < cfg.top_k <= cfg.n_experts
+    if (bad or not moe_ok or cfg.encoder_decoder or cfg.frontend is not None
+            or cfg.norm != "rmsnorm" or cfg.activation not in ("silu", "gelu")
+            or cfg.d_ff <= 0):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense pure-attention decoders with an "
-            f"RMSNorm and a SwiGLU or gelu MLP only (MoE, SSM/xLSTM, "
+            f"{cfg.name}: the port serves pure-attention decoders with an RMSNorm "
+            f"and a SwiGLU or gelu MLP or a top-k MoE only (SSM/xLSTM, "
             f"encoder-decoder and vision frontends are not ported yet)")
 
 
@@ -69,7 +75,7 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     def linear(fin, fout, bias=False):
         return {"w": (fin, fout), **({"b": (fout,)} if bias else {})}
 
-    def layer():
+    def layer(spec):
         core = {"wq": linear(d, cfg.q_dim, cfg.qkv_bias),
                 "wk": linear(d, cfg.kv_dim, cfg.qkv_bias),
                 "wv": linear(d, cfg.kv_dim, cfg.qkv_bias),
@@ -77,13 +83,24 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         if cfg.qk_norm:
             core["q_norm"] = {"w": (cfg.head_dim,)}
             core["k_norm"] = {"w": (cfg.head_dim,)}
+        return {"ln1": {"w": (d,)}, "core": core, "ln2": {"w": (d,)},
+                **({"moe": moe()} if spec.moe else {"mlp": mlp()})}
+
+    def mlp():
         mlp_p = {"up": linear(d, ff), "down": linear(ff, d)}
         if cfg.activation == "silu":  # gated
             mlp_p["gate"] = linear(d, ff)
-        return {"ln1": {"w": (d,)}, "core": core, "ln2": {"w": (d,)}, "mlp": mlp_p}
+        return mlp_p
+
+    def moe():
+        E = cfg.n_experts
+        p = {"router": {"w": (d, E)}, "up": {"w": (E, d, ff)}, "gate": {"w": (E, d, ff)},
+             "down": {"w": (E, ff, d)}}
+        p.update({f"shared{i}": mlp() for i in range(cfg.n_shared_experts)})
+        return p
 
     tree: Dict[str, Any] = {"embed": {"w": (cfg.vocab_size, d)},
-                            "layers": [layer() for _ in cfg.layers],
+                            "layers": [layer(spec) for spec in cfg.layers],
                             "final_norm": {"w": (d,)}}
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": (cfg.vocab_size, d)}
@@ -96,11 +113,13 @@ _ROWS = ("wo", "down")                        # row-parallel: sharded by inputs
 
 def shard_axis(parent: str, key: str) -> Optional[int]:
     """The axis a TP group shards the leaf ``key`` of ``parent`` along
-    (``-1`` output columns, ``0`` input rows), or None (replicated)."""
+    (``-1`` output columns, ``-2`` input rows: axis 0 of a ``(Fin, Fout)``
+    weight, the ``d_ff`` axis of an expert ``down`` ``(E, d_ff, d)``), or
+    None (replicated)."""
     if parent in _COLUMNS and key in ("w", "b"):
         return -1
     if parent in _ROWS and key == "w":
-        return 0
+        return -2
     return None
 
 
@@ -130,7 +149,10 @@ class Model:
         n)`` every tensor is drawn in the single-rank order from the same
         generator and only this rank's shard is kept (``shard_leaf``), so the
         n ranks' trees put together are the single-rank tree; a rank holds
-        no more than its shard plus the tensor being drawn."""
+        no more than its shard plus the tensor being drawn. A 3-D expert
+        tensor is drawn one expert at a time (its fp32 transient is one
+        expert's, not the whole tensor's: 21.5 GB for llama4-maverick's
+        ``up``)."""
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(seed)
@@ -146,6 +168,14 @@ class Model:
                 return {k: draw(v, k, key) for k, v in node.items()}
             if isinstance(node, list):
                 return [draw(v, key, parent) for v in node]
+            if len(node) == 3:   # experts: each drawn (and sharded) in turn, in place
+                experts = None
+                for e in range(node[0]):
+                    t = draw(node[1:], key, parent)
+                    if experts is None:
+                        experts = t.new_empty((node[0], *t.shape))
+                    experts[e] = t
+                return experts
             if key == "b":
                 t = init.zeros(node)
             elif parent in _NORMS:
@@ -181,7 +211,8 @@ class Model:
         params, h, pool_k, pool_v, window)`` is the step's paged attention
         (``cfg`` the rank-local config, ``window`` the layer's own
         ``LayerSpec.window``) and returns (out,
-        pool_k, pool_v); then the MLP. Pools update in place. Returns (x,
+        pool_k, pool_v); then the layer's MLP or MoE (``feed_forward``).
+        Pools update in place. Returns (x,
         state)."""
         pools_k, pools_v = list(state["pools_k"]), list(state["pools_v"])
         cfg = self.local_cfg(ctx)
@@ -192,7 +223,7 @@ class Model:
                                                  spec.window)
             x = x + out
             h = rms_norm(x, lp["ln2"]["w"])
-            x = x + mlp(ctx, lp["mlp"], h, cfg)
+            x = x + feed_forward(ctx, cfg, spec, lp, h)
         return x, {**state, "pools_k": pools_k, "pools_v": pools_v}
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,

@@ -28,6 +28,14 @@ the port's simulated path and the reference.
   uncompressed, and a supervised ``corrupt@3`` run; each rank holds half
   the pool bytes, and its collectives are exactly two all-gathers per
   compressed reduction and one all-reduce per dense one.
+* Reduced mixtral (MoE, 4 experts top-2, 6 query heads over 2 kv heads at
+  hd 32) in fp32 on the same 2 ranks: each rank holds half of every
+  expert's ``d_ff``; one mixed step's logits (80 tokens: the sort-based
+  dispatch) within rel-L2 1e-5 of the single-rank port's; the mixed
+  scheduler over an 80-token budget on fp4 pools, gated: tokens equal on
+  both ranks, to the single-rank engine's and to the reference Engine's,
+  and one dense all-reduce per MoE layer per step for the routed experts
+  beside the ``wo`` reduction.
 * Refusals: ``keep_local_fp`` in the engine on the rank path (ROADMAP
   Queue 3 item 11), a TP group with ``simulate_tp`` or with a kv group,
   heads or MLP columns that do not divide; the backend rule;
@@ -59,6 +67,7 @@ from repro_torch.launch import mesh, serve
 from repro_torch.models.convert import shard_params
 from repro_torch.models.model import Model, param_shapes, shard_axis
 from tests.conftest import fp32_reduced
+from tests.test_torch_families import family_traffic
 from tests.test_torch_serving import SUMMARY_KEYS, _CopyingJnp, parity_traffic
 from tests.test_torch_sharded_pools import _reference
 from tests.torch_tp_worker import run_rank, run_tp_cases
@@ -119,6 +128,24 @@ def _cases(vocab):
     }
 
 
+def _moe_models():
+    """Reduced mixtral in fp32 with 6 query heads over 2 kv heads (the kv
+    heads divide over 2 ranks): (cfg, reference model, reference params)."""
+    over = dict(n_heads=6, n_kv_heads=2)
+    cfg_j = dataclasses.replace(fp32_reduced("mixtral-8x22b"), **over)
+    cfg_t = dataclasses.replace(reduced_config(get_config("mixtral-8x22b")), dtype="float32",
+                                **over)
+    model_j = JModel(cfg_j)
+    return cfg_t, model_j, model_j.init_params(jax.random.PRNGKey(0)), None, None
+
+
+def _moe_cases(vocab):
+    """The MoE engine case: the mixed scheduler over an 80-token budget (the
+    dispatch path) on fp4 pools, gated."""
+    return {"moe-mixed-fp4": dict(engine=dict(ENGINE, token_budget=80, cache_spec="fp4_e2m1"),
+                                  traffic=family_traffic(vocab), gated=True)}
+
+
 @pytest.fixture(scope="module")
 def ranks4():
     probe = _probe(4)
@@ -135,12 +162,21 @@ def served(models):
     cases = _cases(cfg.vocab_size)
     job = dict(probe=_probe(2), cfg=cfg, params=params_np, cases=cases,
                logit_tokens=(np.arange(24, dtype=np.int32) * 7 + 1) % cfg.vocab_size)
+    moe_models = _moe_models()
+    moe_cfg, moe_j, moe_params_j = moe_models[:3]
+    job["moe"] = dict(cfg=moe_cfg, params=jax.tree.map(np.asarray, moe_params_j),
+                      cases=_moe_cases(moe_cfg.vocab_size),
+                      logit_tokens=(np.arange(80, dtype=np.int32) * 5 + 2) % moe_cfg.vocab_size)
     ranks = mesh.spawn_ranks(run_rank, 2, job, device="cpu", threads=2, timeout_s=600)
     single = run_tp_cases(None, "cpu", cfg, params_np, job)
+    moe = job["moe"]
+    single_moe = run_tp_cases(None, "cpu", moe_cfg, moe["params"], moe)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(reference_engine, "jnp", _CopyingJnp())
         reference = {name: _reference(models, case) for name, case in cases.items()}
-    return dict(job=job, ranks=ranks, single=single, reference=reference)
+        reference_moe = {name: _reference(moe_models, case) for name, case in moe["cases"].items()}
+    return dict(job=job, ranks=ranks, single=single, reference=reference, single_moe=single_moe,
+                reference_moe=reference_moe)
 
 
 def _ranks(n, ranks4, served):
@@ -456,6 +492,44 @@ def test_collectives_per_step(served, models, case):
             n_d = s["n_steps"] - n_c
         assert (tp["all_gather"], tp["all_reduce"], tp["all_to_all"]) == (
             2 * L * 2 * n_c, 2 * L * n_d, 0), (case, tp)
+
+
+def test_moe_mixed_step_logits_at_tp2(served):
+    """Reduced mixtral on 2 ranks: each holds half of every expert's d_ff,
+    and one mixed step's logits (the dispatch path) lie within rel-L2 1e-5
+    of the single-rank port's, dense and compressed."""
+    for name, want in served["single_moe"]["logits"].items():
+        got = [r["moe"]["logits"][name] for r in served["ranks"]]
+        assert np.array_equal(got[0], got[1]), name
+        assert np.isfinite(got[0]).all() and got[0].shape == want.shape
+        assert np.linalg.norm(got[0] - want) / np.linalg.norm(want) <= 1e-5, name
+
+
+def test_moe_engine_tokens_identical_on_ranks(served):
+    """Tokens equal on both ranks, to the single-rank engine (simulate_tp=2)
+    and to the reference Engine; half the pool bytes per rank; per step two
+    all-gathers per compressed ``wo`` reduction, one all-reduce per dense
+    one, and one all-reduce per MoE layer for the routed experts."""
+    case = "moe-mixed-fp4"
+    cfg = served["job"]["moe"]["cfg"]
+    L = cfg.n_layers
+    assert all(s.moe for s in cfg.layers) and cfg.n_shared_experts == 0
+    one, ref = served["single_moe"][case], served["reference_moe"][case][0]
+    assert one["runs"][0]["outputs"] == ref["outputs"]
+    for r in served["ranks"]:
+        c = r["moe"][case]
+        run = c["runs"][0]
+        assert run["outputs"] == one["runs"][0]["outputs"]
+        assert all(o == "ok" for o in run["outcomes"]) and run["finite"]
+        assert {k: run["summary"][k] for k in SUMMARY_KEYS} == ref["summary"]
+        assert run["gate"] == one["runs"][0]["gate"]
+        assert run["gate"]["compressed"] > 0 and run["gate"]["dense"] > 0
+        assert c["slab_bytes"] == one["pool_bytes"] // 2 and c["tp_size"] == 2
+        s, tp = run["summary"], run["tp"]
+        n_c = s["n_compressed_steps"]
+        n_d = s["n_steps"] - n_c
+        assert (tp["all_gather"], tp["all_reduce"], tp["all_to_all"]) == (
+            2 * L * n_c, L * n_d + L * s["n_steps"], 0), tp
 
 
 def test_refusals_on_the_rank_path(served):

@@ -4,9 +4,10 @@ processes, and the JAX reference runs in the test process.
 
 ``run_rank(group, rank, device, job)`` (the ``spawn_ranks`` target) runs the
 collective probe on this rank's partials, then (when the job has them) the
-refusals, one mixed step's logits and every engine case; the test process
-calls ``run_tp_cases(None, ...)`` and ``mixed_logits`` itself for the
-port's single-rank engine, so both run the same code.
+refusals, one mixed step's logits and every engine case, and the same for
+the job's MoE model (``job["moe"]``); the test process calls
+``run_tp_cases(None, ...)`` and ``mixed_logits`` itself for the port's
+single-rank engine, so both run the same code.
 """
 from __future__ import annotations
 
@@ -177,10 +178,14 @@ def _refusals(group, cfg, params_np) -> dict:
 
 def run_rank(group, rank: int, device, job: dict) -> dict:
     """The ``spawn_ranks`` target: the collective probe, then (when ``job``
-    carries a model) the refusals and the engine cases, on this TP rank."""
+    carries a model) the refusals and the engine cases, and those of the
+    MoE model, on this TP rank."""
     out = {"collectives": run_collectives(group, rank, job["probe"]),
            "transport": C.transport(group)}
     if "cfg" in job:
         out["refusals"] = _refusals(group, job["cfg"], job["params"])
         out["cases"] = run_tp_cases(group, device, job["cfg"], job["params"], job)
+    if "moe" in job:
+        m = job["moe"]
+        out["moe"] = run_tp_cases(group, device, m["cfg"], m["params"], m)
     return out
