@@ -42,7 +42,12 @@ Phases (any failure exits non-zero):
               served reads (mixtral-8x22b G 6 with its 4096 window,
               llama4-maverick G 5, both KV 8 at hd 128) in every geometry,
               mixed and split decode timed, and the codec at their
-              partials (d_model 6144 and 5120); plus a sweep of
+              partials (d_model 6144 and 5120); jamba-v0.1-52b's one
+              paged read, the split decode (KV 8, G 4, hd 128, no
+              window), timed, and the codec at its whole-prompt shapes
+              (the TP partials of every row-parallel reduction, a Mamba
+              layer's out_proj included, at its three exact prompt
+              lengths, the insert and the decode append); plus a sweep of
               small shapes through every path of the paged kernel (hd 32 to
               256, GQA groups 1, 2, 7, 8, with and without a window); the
               sequence-sharded read (``row_map``, the TPU kernel's
@@ -75,8 +80,12 @@ Phases (any failure exits non-zero):
               tokens identical; the MoE families' reduced configs (mixtral
               G 6, llama4 G 5, 4 experts) the same, and the mixed step over
               an 80-token budget too (the sort-based dispatch; the 18-token
-              budget runs every expert on every token); one compressed
-              mixed step on fp4 pools within a stated tolerance.
+              budget runs every expert on every token); reduced jamba
+              (Mamba, Mamba + MoE, attention) whole-prompt at exact
+              lengths on fp32 and fp4 pools and through a preemption,
+              tokens, steps, dispatches and preemptions identical; one
+              compressed mixed step on fp4 pools within a stated
+              tolerance.
 5. serve    — llama2-7b at full width and depth, random bf16 weights from a
               seed, TPContext(PAPER_DEFAULT, simulate_tp=4), on graphed steps
               (every step program a CUDA graph, captured at its first call,
@@ -116,10 +125,19 @@ Phases (any failure exits non-zero):
               fp4 with an eager twin whose tokens must equal the graphed
               run's (the graphs hold the routing sort, the dispatch scatter
               and the combine's scatter-add), split bf16 and measure_ttft at
-              512; llama4-maverick mixed fp4 and split bf16. Each run held
-              as in phase 5 (on graphed steps; a MoE layer's launches count
-              one compressed reduction for ``wo`` and one per shared
-              expert), with its weight GB and peak device memory printed.
+              512; llama4-maverick mixed fp4 and split bf16; jamba-v0.1-52b
+              (Mamba + MoE hybrid) on the prefix fit_depth finds (24 of 32
+              layers with 84 GB free, three of them attention),
+              whole-prompt (its only scheduler) on fp4 and bf16 pools over
+              prompts of 512, 480 and 448 tokens (one step program per
+              exact length, each captured once and replayed), an eager
+              twin of the fp4 run whose tokens must equal the graphed
+              run's, and measure_ttft at 512. Each run held as in phase 5 (on graphed steps; a MoE
+              layer's launches count one compressed reduction for ``wo``
+              and one per shared expert, a Mamba layer's one for its
+              ``out_proj``; paged reads and pool writes count attention
+              layers only), with its weight GB and peak device memory
+              printed.
 7. sharded  — llama2-7b at full width and depth on 2 kv ranks (processes
               over gloo, ``file://`` rendezvous) sharing the one card, the
               paged pools sequence-sharded between them (each rank holds half
@@ -151,7 +169,11 @@ Phases (any failure exits non-zero):
               ranks, (a): each rank holds half of every expert's d_ff (its
               routed-expert bytes held to half), and one dense all-reduce
               per MoE layer and step reduces the routed experts (the
-              reference's TP-only path leaves them uncompressed). Each rank
+              reference's TP-only path leaves them uncompressed);
+              jamba-v0.1-52b at full width cut to layers 0-4 on 2 ranks,
+              (d): each rank holds half of every Mamba layer's channels and
+              recurrent state, and one dense all-reduce per Mamba layer
+              and pass reduces x_proj (in fp32). Each rank
               holds 1/N of the heads, the MLP columns
               and the pools, and every row-parallel reduction is the
               compressed collective between the ranks (NCCL with a card per
@@ -240,6 +262,12 @@ FAMILIES = {
                           runs=("mixed/fp4_e2m1", "split/bf16"), eager=("mixed/fp4_e2m1",)),
     "llama4-maverick-400b-a17b": dict(requests=4, prompt=PROMPT, ttft=(),
                                       runs=("mixed/fp4_e2m1", "split/bf16")),
+    # a recurrent stack serves whole-prompt only, each prompt at its exact
+    # length: three lengths, so three prefill programs are captured and each
+    # replayed; its only paged read is the split decode
+    "jamba-v0.1-52b": dict(requests=8, prompt=PROMPT, lengths=(PROMPT, PROMPT - 32, PROMPT - 64),
+                           ttft=(512,), runs=("whole/fp4_e2m1", "whole/bf16"),
+                           eager=("whole/fp4_e2m1",), geometries=("decode",)),
 }
 
 
@@ -312,16 +340,18 @@ def codec_partials(torch, rows, width, g, dev):
     """The quantize checks' base inputs: ``(rows, width)`` partials at
     row_linear's spread of scales (randn times 10^[-3, 3) per row) in fp32,
     where hardly any value is a bf16, and rounded to bf16 with rows 0-5
-    holding the edge blocks."""
+    holding the edge blocks (as many of them as there are rows)."""
     xf = torch.randn(rows, width, generator=g, device=dev)
     xf = xf * torch.pow(10.0, torch.rand(rows, 1, generator=g, device=dev) * 6 - 3)
     x = xf.to(torch.bfloat16)
-    x[0] = 0.0                       # zero row
-    x[1] = 1e-40                     # subnormal amax
-    x[2, 5] = float("nan")           # NaN block
-    x[3, 7] = float("inf")           # +inf block
-    x[4, 9] = float("-inf")          # -inf block
-    x[5, :32] = 0.0                  # zero block inside a normal row
+    edges = ((0, slice(None), 0.0),              # zero row
+             (1, slice(None), 1e-40),            # subnormal amax
+             (2, 5, float("nan")),               # NaN block
+             (3, 7, float("inf")),               # +inf block
+             (4, 9, float("-inf")),              # -inf block
+             (5, slice(0, 32), 0.0))             # zero block inside a normal row
+    for row, col, value in edges[:rows]:
+        x[row, col] = value
     return x, xf
 
 
@@ -538,9 +568,11 @@ def phase_codec(torch, dev="cuda"):
     for arch, plan in FAMILIES.items():
         for name, rows in codec_family(torch, dev, g, fp4, arch, plan, same, timed).items():
             info[name]["shapes"] += rows
-            log(f"kernel {name} ({arch}): bytes exact; " + "; ".join(
-                f"{r['shape']} {r['ms']:.4f} ms on the device (plain {r['plain_ms']:.4f} ms), "
-                f"{r['bytes'] / 1e6:.2f} MB, bound {r['bound_ms']:.4f} ms" for r in rows))
+            if rows:
+                log(f"kernel {name} ({arch}): bytes exact; " + "; ".join(
+                    f"{r['shape']} {r['ms']:.4f} ms on the device (plain "
+                    f"{r['plain_ms']:.4f} ms), {r['bytes'] / 1e6:.2f} MB, bound "
+                    f"{r['bound_ms']:.4f} ms" for r in rows))
     return info
 
 
@@ -607,19 +639,31 @@ def codec_tp(torch, dev, g, fp4, same, timed):
 def codec_sites(cfg, plan):
     """The codec's call sites in a family's serve runs (``FAMILIES``): (rows,
     width, site) of each quantize, dequantize and S = TP dequantize+reduce.
-    The row-parallel reductions are d_model wide, the pool writes and the
-    mixed step's K/V round trip kv_dim wide."""
+    The row-parallel reductions (``wo``, ``down``, a Mamba layer's
+    ``out_proj``) are d_model wide, the pool writes and the mixed step's K/V
+    round trip kv_dim wide. A whole-prompt family (a recurrent stack) runs
+    no mixed step: its prefill at each exact prompt length, the insert of
+    its K/V and the split decode's append."""
     d, kv = cfg.d_model, cfg.kv_dim
     kinds = {r.split("/")[0] for r in plan["runs"]}
-    quant = [(TP * T, d, "mixed TP partials"), (T, kv, "mixed pool append, K or V")]
-    deq = [(T, kv, "mixed K/V round trip")]
-    red = [(T, d, "mixed step")]
+    quant, deq, red = [], [], []
+    if kinds - {"split", "whole"}:   # a mixed step runs
+        quant = [(TP * T, d, "mixed TP partials"), (T, kv, "mixed pool append, K or V")]
+        deq = [(T, kv, "mixed K/V round trip")]
+        red = [(T, d, "mixed step")]
+    if "whole" in kinds:   # whole-prompt prefill at each exact length, insert, split decode
+        for n in plan.get("lengths", (plan["prompt"],)):
+            quant += [(TP * n, d, f"whole-prompt TP partials, {n} tokens"),
+                      (n, kv, f"whole-prompt insert, K or V, {n} tokens")]
+            red.append((n, d, f"whole-prompt prefill, {n} tokens"))
+        quant.append((SLOTS, kv, "split decode append, K or V"))
     if "split" in kinds:
         quant.append((TP * CHUNK, d, "split chunk TP partials"))
         red.append((CHUNK, d, "split chunk"))
     for n in plan["ttft"]:
-        quant.append((TP * n, d, f"whole-prompt TP partials, {n} tokens"))
-        red.append((n, d, f"whole-prompt prefill, {n} tokens"))
+        if (TP * n, d, f"whole-prompt TP partials, {n} tokens") not in quant:
+            quant.append((TP * n, d, f"whole-prompt TP partials, {n} tokens"))
+            red.append((n, d, f"whole-prompt prefill, {n} tokens"))
     if "two_phase" in kinds:
         quant.append((T, d, "two_phase re-quantize of the reduced result"))
         deq.append((T, d, "two_phase second pass"))
@@ -985,15 +1029,20 @@ def phase_paged(torch, dev="cuda"):
     del geometries, pools
     # the new families' served reads at their prompt lengths, each geometry
     # under every window their layers run (gemma3: 1024 and global); the
-    # mixed step and the split decode timed
+    # mixed step and the split decode timed. A family that serves only some
+    # geometries (jamba: the split decode) is held and timed on those, and
+    # not on the sequence-sharded read it does not serve
     for arch, plan in FAMILIES.items():
         cfg = get_config(arch)
         geos, fpools, _, fextras = paged_geometries(torch, dev, g, cfg.kv_dim, cfg.q_dim,
                                                     plan["prompt"])
-        windows = sorted({sp.window for sp in cfg.layers}, key=lambda w: w is None)
+        if "geometries" in plan:
+            geos = {k: v for k, v in geos.items() if k in plan["geometries"]}
+        windows = sorted({sp.window for sp in cfg.layers if sp.kind == "attn"},
+                         key=lambda w: w is None)
         for window in windows:
             label = f"{arch} " if window == windows[0] else f"{arch} global "
-            for rm in (False, True):
+            for rm in (False, True) if "geometries" not in plan else (False,):
                 time_paged(torch, dev, res, label, geos, fpools, fextras, cfg.n_heads,
                            cfg.n_kv_heads, cfg.head_dim, window,
                            timed_only=("mixed", "decode") if window == windows[0] else (),
@@ -1218,7 +1267,11 @@ FAMILY_REDUCED = {"qwen2-7b": dict(n_heads=7, n_kv_heads=1),
                   "qwen3-32b": dict(n_heads=8, n_kv_heads=1),
                   "gemma3-4b": dict(n_heads=2, n_kv_heads=1, head_dim=256),
                   "mixtral-8x22b": dict(n_heads=6, n_kv_heads=1),
-                  "llama4-maverick-400b-a17b": dict(n_heads=5, n_kv_heads=1)}
+                  "llama4-maverick-400b-a17b": dict(n_heads=5, n_kv_heads=1),
+                  "jamba-v0.1-52b": {}}
+# reduced jamba keeps one layer of each kind of its schedule: Mamba, Mamba +
+# MoE, attention (reduced_config's default 2 layers hold no attention layer)
+REDUCED_LAYERS = {"jamba-v0.1-52b": 3}
 MOE_BUDGET = 80   # the reduced MoE runs' token budget: above 64, so the mixed step dispatches
 
 
@@ -1229,7 +1282,9 @@ def reference_families(torch, dev, base):
     mixed step on dense fp32 and fp4 pools, and the split scheduler, over
     prompts of 5 to 48 tokens (two longer than the window); a MoE family's
     mixed step also over a MOE_BUDGET-token budget (the sort-based dispatch;
-    the 18-token budget runs every expert on every token) on both pools:
+    the 18-token budget runs every expert on every token) on both pools;
+    a recurrent stack (jamba: Mamba, Mamba + MoE, attention) whole-prompt
+    at exact lengths on dense fp32 and fp4 pools, and through a preemption:
     greedy tokens, steps and dispatches identical."""
     import dataclasses
 
@@ -1241,7 +1296,9 @@ def reference_families(torch, dev, base):
     from repro_torch.serving import Engine, Request
 
     for arch, over in FAMILY_REDUCED.items():
-        cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32", **over)
+        cfg = dataclasses.replace(reduced_config(get_config(arch),
+                                                 n_layers=REDUCED_LAYERS.get(arch, 2)),
+                                  dtype="float32", **over)
         model = Model(cfg)
         cpu = model.init_params(device="cpu", seed=1)
         gpu = _tree_to(cpu, torch.device(dev))
@@ -1250,27 +1307,41 @@ def reference_families(torch, dev, base):
         cases = [("mixed", dict(prefill_chunk=16, token_budget=18)),
                  ("mixed fp4", dict(prefill_chunk=16, token_budget=18, cache_spec="fp4_e2m1")),
                  ("split", dict(prefill_chunk=16, token_budget=0))]
-        if moe_layers(cfg):
+        if mamba_layers(cfg):   # whole-prompt only, each prompt at its exact length
+            cases = [("whole", {}), ("whole fp4", dict(cache_spec="fp4_e2m1")),
+                     ("whole evict", dict(n_blocks=4))]
+        elif moe_layers(cfg):
             cases += [(f"mixed dispatch{fp4}", dict(prefill_chunk=16, token_budget=MOE_BUDGET,
                                                     **({"cache_spec": "fp4_e2m1"} if fp4 else {})))
                       for fp4 in ("", " fp4")]
+        # two 12-token prompts on 3 usable blocks: both cross 16 tokens, the
+        # later one is preempted and re-prefilled at its new exact length
+        evict = [(((np.arange(12) * 5 + i) % cfg.vocab_size).astype(np.int32), 8)
+                 for i in range(2)]
         for case, opts in cases:
             seen = {}
             for name, params in (("cpu", cpu), ("card", gpu)):
                 eng = Engine(model, params, TPContext(), device=params["embed"]["w"].device,
                              **{**base, **opts})
-                reqs = eng.run([Request(prompt=p.copy(), max_new_tokens=n) for p, n in traffic])
+                reqs = eng.run([Request(prompt=p.copy(), max_new_tokens=n)
+                                for p, n in (evict if case.endswith("evict") else traffic)])
                 s = eng.stats.summary()
-                seen[name] = ([r.output.tolist() for r in reqs], s["n_steps"], s["n_dispatches"])
+                seen[name] = ([r.output.tolist() for r in reqs], s["n_steps"], s["n_dispatches"],
+                              s["n_preemptions"])
             check(seen["cpu"] == seen["card"],
                   f"reference[{arch} {case}]: card and CPU differ: {seen['card']} vs "
                   f"{seen['cpu']}")
+            if case == "whole evict":
+                check(seen["card"][3] >= 1, f"reference[{arch} {case}]: no preemption")
             log(f"reference[{arch} {case}]: reduced {arch} (G {cfg.n_heads // cfg.n_kv_heads}, "
                 f"hd {cfg.head_dim}, windows {[sp.window for sp in cfg.layers]}"
                 + (f", {moe_layers(cfg)} MoE layers of {cfg.n_experts} experts top-{cfg.top_k}"
-                   if moe_layers(cfg) else "") + ") fp32 greedy "
+                   if moe_layers(cfg) else "")
+                + (f", layers {[sp.kind for sp in cfg.layers]}, d_inner {cfg.ssm_d_inner}"
+                   if mamba_layers(cfg) else "") + ") fp32 greedy "
                 f"tokens identical card vs CPU ({sum(map(len, seen['cpu'][0]))} tokens); "
-                f"{seen['card'][1]} steps, {seen['card'][2]} dispatches on both")
+                f"{seen['card'][1]} steps, {seen['card'][2]} dispatches, {seen['card'][3]} "
+                f"preemptions on both")
 
 
 def reference_faults(torch, model, cpu, gpu, parity, base):
@@ -1374,14 +1445,15 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     and the corruption watch raises after the mixed step has launched and
     recorded it, so an aborted attempt's stats cover exactly its launches).
     Per layer, each compressed row-parallel reduction (``row_reductions``:
-    ``wo`` and the MLP's ``down``, or on a MoE layer ``wo`` and each shared
-    expert's ``down``; the routed experts are never compressed, as in the
-    reference outside its expert-parallel island)
-    is one ``mx_quant`` + one ``mx_dequant_reduce``; a paged step (mixed,
-    chunk or decode) is one ``paged_attention``; fp4 pools add one
-    ``mx_quant`` each for K and V per write (step append, whole-prompt
-    insert) and, in the mixed step only, one ``mx_dequant`` each for the
-    decode round trip. Under the ``two_phase`` variant each compressed
+    ``wo`` (a Mamba layer's ``out_proj``) and the MLP's ``down``, or on a
+    MoE layer ``wo`` (``out_proj``) and each shared expert's ``down``; the
+    routed experts are never compressed, as in the reference outside its
+    expert-parallel island) is one ``mx_quant`` + one ``mx_dequant_reduce``;
+    per attention layer (``attn_layers``; a Mamba layer reads no pool) a
+    paged step (mixed, chunk or decode) is one ``paged_attention``, fp4
+    pools add one ``mx_quant`` each for K and V per write (step append,
+    whole-prompt insert) and, in the mixed step only, one ``mx_dequant``
+    each for the decode round trip. Under the ``two_phase`` variant each compressed
     reduction adds one ``mx_quant`` and one ``mx_dequant`` (the second
     quantize of the reduced result). The mixed step compresses under its
     compressed gate; the split chunk and the whole-prompt prefill under the
@@ -1393,18 +1465,20 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     group's collectives: ``tp_all_gather`` (payload and scales of each
     chunk, or of the reduced slice under two_phase), ``tp_all_to_all``
     (two_phase's payload and scales) and ``tp_all_reduce`` (one per dense
-    reduction: each row-parallel layer of a dense step; and one per MoE
-    layer per forward pass for its routed experts, compressed or not). On
-    sequence-sharded pools (``eng.kv_shards > 1``) the count also holds
-    ``all_reduce``, the exchange's: per paged read and per COW fork one for
-    each pool plane of each layer (K and V; payload and scales of each on
-    fp4 pools)."""
+    reduction: each row-parallel layer of a dense step; one per MoE layer
+    per forward pass for its routed experts, compressed or not; and one per
+    Mamba layer per pass for its ``x_proj`` partial). On sequence-sharded
+    pools (``eng.kv_shards > 1``) the count also holds ``all_reduce``, the
+    exchange's: per paged read and per COW fork one for each pool plane of
+    each attention layer (K and V; payload and scales of each on fp4
+    pools)."""
     from repro_torch.core.collectives import _overlap_chunks
 
-    L, q, s = n_layers, eng.cache_spec.quantized, stats
-    check(len(eng.cfg.layers) == L, f"expected_launches: {L} layers, the engine has "
-                                    f"{len(eng.cfg.layers)}")
-    R, M = row_reductions(eng.cfg), moe_layers(eng.cfg)
+    q, s = eng.cache_spec.quantized, stats
+    check(len(eng.cfg.layers) == n_layers, f"expected_launches: {n_layers} layers, the engine "
+                                           f"has {len(eng.cfg.layers)}")
+    L = attn_layers(eng.cfg)
+    R, M = row_reductions(eng.cfg), moe_layers(eng.cfg) + mamba_layers(eng.cfg)
     policy = eng.ctx.policy
     two = policy.variant == "two_phase"
     planes = 4 if q else 2
@@ -1453,8 +1527,9 @@ def expert_bytes(params) -> int:
 
 def row_reductions(cfg) -> int:
     """Row-parallel reductions the policy compresses per forward pass of
-    ``cfg``: each layer's ``wo``, and its MLP's ``down`` or its MoE's shared
-    experts' (a mixtral layer 1, a llama4 MoE layer 2, a dense layer 2)."""
+    ``cfg``: each layer's ``wo`` (a Mamba layer's ``out_proj``), and its
+    MLP's ``down`` or its MoE's shared experts' (a mixtral layer 1, a llama4
+    MoE layer 2, a dense layer 2, a jamba MoE layer 1)."""
     return sum(1 + (cfg.n_shared_experts if sp.moe else 1) for sp in cfg.layers)
 
 
@@ -1462,6 +1537,17 @@ def moe_layers(cfg) -> int:
     """MoE layers of ``cfg``: on a TP group each reduces its routed experts
     with one dense all-reduce per forward pass."""
     return sum(sp.moe for sp in cfg.layers)
+
+
+def mamba_layers(cfg) -> int:
+    """Mamba layers of ``cfg``: on a TP group each reduces its ``x_proj``
+    partial with one dense all-reduce per forward pass."""
+    return sum(sp.kind == "mamba" for sp in cfg.layers)
+
+
+def attn_layers(cfg) -> int:
+    """Attention layers of ``cfg``: the layers with paged pools."""
+    return sum(sp.kind == "attn" for sp in cfg.layers)
 
 
 def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=None,
@@ -1760,13 +1846,17 @@ def phase_graphs(torch, dev, serve, runs, model, params, ctx, prompts, kw, total
 
 
 def fit_depth(torch, dev, cfg, n_blocks, margin_gb=6.0):
-    """``cfg`` at full depth if its bf16 weights (``param_count``), the K/V
-    pools of ``n_blocks`` blocks (bf16, the larger format) and ``margin_gb``
-    fit in the card's free memory, else the largest prefix ``layers[:n]`` of
-    its schedule whose summed sizes fit (each layer counted at its own size:
-    a llama4 MoE layer is 86 times a dense one). Returns (config, free
-    bytes, bytes needed at full depth)."""
+    """``cfg`` at full depth if its bf16 weights (``param_count``: every
+    leaf of the tree ``init_params`` builds, a jamba Mamba layer's MLP
+    included), the K/V pools of ``n_blocks`` blocks (bf16, the larger
+    format) of each attention layer, the fp32 recurrent state of SLOTS slots
+    of each Mamba layer and ``margin_gb`` fit in the card's free memory,
+    else the largest prefix ``layers[:n]`` of its schedule whose summed
+    sizes fit (each layer counted at its own size: a llama4 MoE layer is 86
+    times a dense one). Returns (config, free bytes, bytes needed at full
+    depth)."""
     from repro_torch.configs import first_layers
+    from repro_torch.serving.kv_cache import recurrent_state_bytes
 
     if dev != "cuda":
         return cfg, None, None
@@ -1774,8 +1864,9 @@ def fit_depth(torch, dev, cfg, n_blocks, margin_gb=6.0):
 
     def need(n):
         prefix = first_layers(cfg, n)
-        return (prefix.param_count() * 2 + 2 * n_blocks * BS * cfg.kv_dim * 2 * n
-                + margin_gb * 1e9)
+        return (prefix.param_count() * 2
+                + 2 * n_blocks * BS * cfg.kv_dim * 2 * attn_layers(prefix)
+                + recurrent_state_bytes(prefix, SLOTS) + margin_gb * 1e9)
 
     n = cfg.n_layers
     while n > 1 and need(n) > free:
@@ -1786,12 +1877,15 @@ def fit_depth(torch, dev, cfg, n_blocks, margin_gb=6.0):
 def phase_family(torch, arch, dev="cuda"):
     """One new family (``FAMILIES[arch]``) at full width on random seed-0
     bf16 weights, its runs under TPContext(PAPER_DEFAULT, simulate_tp=4)
-    (``two_phase`` runs under the two_phase variant) and its measure_ttft
-    lengths; every run held as ``serve_run`` holds it (ok with its token
-    count, finite logits, the free list conserved, exact launch counts).
-    At full depth when it fits the card (``fit_depth``), else at the depth
-    that fits, printed. Prints the weight GB and each run's peak device
-    memory."""
+    (``two_phase`` runs under the two_phase variant; ``whole`` runs
+    whole-prompt prefill and the split decode, the one scheduler of a
+    recurrent stack, over prompts of the plan's exact ``lengths``: one
+    step program per length, each captured once and replayed) and its
+    measure_ttft lengths; every run held as ``serve_run`` holds it (ok with
+    its token count, finite logits, the free list conserved, exact launch
+    counts). At full depth when it fits the card (``fit_depth``), else at
+    the depth that fits, printed. Prints the weight GB and each run's peak
+    device memory."""
     import dataclasses
 
     import numpy as np
@@ -1802,10 +1896,12 @@ def phase_family(torch, arch, dev="cuda"):
     from repro_torch.models.model import Model
     from repro_torch.models.moe import DENSE_MAX_TOKENS, capacity
     from repro_torch.serving import Engine
+    from repro_torch.serving.kv_cache import recurrent_state_bytes
 
     plan = FAMILIES[arch]
     full = get_config(arch)
-    max_len = plan["prompt"] + NEW
+    lengths = plan.get("lengths", (plan["prompt"],))
+    max_len = max(lengths) + NEW
     n_blocks = SLOTS * (max_len // BS) + 1
     gc.collect()
     if dev == "cuda":
@@ -1834,13 +1930,24 @@ def phase_family(torch, arch, dev="cuda"):
         experts_gb = expert_bytes(params) / 1e9
         log(f"{arch}: {n_moe} MoE layers of {L} served ({full.n_layers} in the config): "
             f"{cfg.n_experts} experts, top-{cfg.top_k}, {cfg.n_shared_experts} shared, "
-            f"capacity factor {cfg.capacity_factor}: {capacity(cfg, T)} slots per expert in a "
-            f"{T}-token mixed step, {capacity(cfg, CHUNK)} in a {CHUNK}-token chunk, every expert "
-            f"on every token at {DENSE_MAX_TOKENS} tokens or fewer; routed expert weights "
+            f"capacity factor {cfg.capacity_factor}: "
+            + (", ".join(f"{capacity(cfg, n)} slots per expert in a {n}-token prefill"
+                         for n in lengths) if "lengths" in plan else
+               f"{capacity(cfg, T)} slots per expert in a {T}-token mixed step, "
+               f"{capacity(cfg, CHUNK)} in a {CHUNK}-token chunk")
+            + f", every expert on every token at {DENSE_MAX_TOKENS} tokens or fewer; routed "
+            f"expert weights "
             f"{experts_gb:.2f} GB, read whole by every step")
+    n_mamba = mamba_layers(cfg)
+    if n_mamba:
+        log(f"{arch}: {n_mamba} Mamba layers and {attn_layers(cfg)} attention layers of {L} "
+            f"served: d_inner {cfg.ssm_d_inner}, d_state {cfg.ssm_d_state}, dt_rank "
+            f"{cfg.dt_rank}, d_conv {cfg.ssm_d_conv}; recurrent state "
+            f"{recurrent_state_bytes(cfg, SLOTS) / 1e6:.2f} MB fp32 for {SLOTS} slots; "
+            f"whole-prompt prefill at exact lengths {list(lengths)}")
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, plan["prompt"]).astype(np.int32)
-               for _ in range(plan["requests"])]
+    prompts = [rng.integers(0, cfg.vocab_size, lengths[i % len(lengths)]).astype(np.int32)
+               for i in range(plan["requests"])]
     runs, totals = {}, {k: 0 for k in KERNELS}
     serve = functools.partial(serve_run, torch, dev, runs, totals, L)
     kw = dict(max_slots=SLOTS, max_len=max_len, block_size=BS, device=dev)
@@ -1849,9 +1956,10 @@ def phase_family(torch, arch, dev="cuda"):
         kind, spec = run.split("/")
         policy = (dataclasses.replace(PAPER_DEFAULT, variant="two_phase") if kind == "two_phase"
                   else PAPER_DEFAULT)
+        steps = (dict(prefill_chunk=0) if kind == "whole" else
+                 dict(prefill_chunk=CHUNK, token_budget=0 if kind == "split" else T))
         return Engine(model, params, TPContext(policy=policy, simulate_tp=TP),
-                      prefill_chunk=CHUNK, token_budget=0 if kind == "split" else T,
-                      cache_spec=spec, cuda_graphs=graphs, **kw)
+                      cache_spec=spec, cuda_graphs=graphs, **steps, **kw)
 
     for run in plan["runs"]:
         kind = run.split("/")[0]
@@ -1863,6 +1971,20 @@ def phase_family(torch, arch, dev="cuda"):
         runs[f"{arch} {run}"]["peak_gb"] = peak
         if kind == "split":
             check(s["n_dispatches"] > s["n_steps"], f"{arch} {run}: one dispatch per step")
+        elif kind == "whole":
+            captured = sorted(k for k in eng.capture_seconds() if k.startswith("prefill/"))
+            check(s["prefill_tokens"] == sum(map(len, prompts))
+                  and eng.prefill_cache_size() == len(set(lengths))
+                  and (dev != "cuda" or captured == sorted(f"prefill/{n}" for n in set(lengths))),
+                  f"{arch} {run}: {s['prefill_tokens']} prompt tokens prefilled, "
+                  f"{eng.prefill_cache_size()} prefill programs {captured}, not one per exact "
+                  f"length {sorted(set(lengths))}")
+            runs[f"{arch} {run}"]["prefill_capture_s"] = {
+                k: v for k, v in eng.capture_seconds().items() if k.startswith("prefill/")}
+            log(f"{arch} {run}: {eng.prefill_cache_size()} whole-prompt programs, one per exact "
+                f"length, each replayed for the later prompts of its length; capture s "
+                + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                    runs[f'{arch} {run}']['prefill_capture_s'].items())))
         else:
             check(eng.gate_counts["compressed"] > 0 and eng.gate_counts["dense"] > 0,
                   f"{arch} {run}: gate counts {eng.gate_counts}")
@@ -1882,7 +2004,8 @@ def phase_family(torch, arch, dev="cuda"):
             f"reductions each)")
     runs["config"] = dict(n_layers=L, full_layers=full.n_layers, weights_gb=weights_gb,
                           free_gb=free and free / 1e9, need_gb=need and need / 1e9,
-                          moe_layers=n_moe)
+                          moe_layers=n_moe, mamba_layers=n_mamba,
+                          attn_layers=attn_layers(cfg))
     return runs, totals
 
 
@@ -2145,6 +2268,8 @@ TP_MODELS = {
                       "whole/fp4_e2m1", "prefix/fp4_e2m1", "corrupt@3/fp4_e2m1", "ttft"), None),
     "llama2-13b": (4, ("mixed/fp4_e2m1", "ttft"), None),
     "mixtral-8x22b": (2, ("mixed/fp4_e2m1",), 2),
+    # layers 0-4: Mamba, Mamba + MoE twice, then attention (about 14.3 GB)
+    "jamba-v0.1-52b": (2, ("whole/fp4_e2m1",), 5),
 }
 TP_TTFT = 512          # measure_ttft's prompt tokens in the TP phase
 TP_CUT_LAYERS = 2      # the depth-cut model whose logits are held too
@@ -2180,12 +2305,19 @@ def first_logits(torch, dev, model, params, ctx, prompt):
     """The logits of one mixed step that prefills ``prompt`` (one slot) over
     fresh fp4 pools: the first step of a served run, as fp32 numpy (what a
     rank hands its parent holds no torch tensor: a tensor would travel as
-    a file descriptor that dies with the rank)."""
+    a file descriptor that dies with the rank). A recurrent stack (no mixed
+    step) gives its whole-prompt prefill's logits at the exact length."""
     import numpy as np
 
     from repro_torch.core.formats import KVCacheSpec
+    from repro_torch.models.model import recurrent_layer
     from repro_torch.serving import init_paged_state
 
+    if recurrent_layer(model.cfg) is not None:
+        cache = model.init_cache(1, len(prompt), torch.bfloat16, dev, ctx=ctx)
+        tokens = torch.tensor(np.asarray(prompt), device=dev, dtype=torch.int32)[None]
+        logits, _ = model.prefill(ctx, params, {"tokens": tokens}, cache)
+        return logits[0].float().cpu().numpy()
     spec = KVCacheSpec.parse("fp4_e2m1")
     t = len(prompt)
     nb = -(-t // BS)
@@ -2230,6 +2362,7 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
     from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.serving import Engine, EngineSupervisor, FaultPlan
+    from repro_torch.serving.kv_cache import recurrent_state_bytes
 
     cfg = model.cfg
     L = cfg.n_layers
@@ -2251,7 +2384,13 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
         check(b == eng.kv_pool_bytes(per_device=True) == eng.kv_pool_bytes() // eng.tp_size,
               f"{label}{name}: this rank holds {b} pool bytes, not "
               f"{eng.kv_pool_bytes(per_device=True)} of {eng.kv_pool_bytes()}")
-        runs[label + name].update(pool_bytes_held=b, transport=eng.ctx.transport)
+        rec = sum(t.numel() * t.element_size() for c in eng._state["rec"] for t in c)
+        check(rec == eng.rec_state_bytes()
+              and rec * eng.tp_size == recurrent_state_bytes(cfg, eng.n_slots),
+              f"{label}{name}: this rank holds {rec} bytes of recurrent state, not 1/"
+              f"{eng.tp_size} of {recurrent_state_bytes(cfg, eng.n_slots)}")
+        runs[label + name].update(pool_bytes_held=b, transport=eng.ctx.transport,
+                                  rec_bytes_held=rec)
 
     engines = {
         "mixed/fp4_e2m1": lambda: Engine(model, params, comp, cache_spec="fp4_e2m1", **mixed),
@@ -2309,7 +2448,7 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
                 if dev == "cuda":
                     check(got == expect, f"{label}ttft/{kind}: launches {got} != {expect}")
                 if eng.tp_size > 1:
-                    want = (2 * m, TTFT_ITERS * (R + moe_layers(cfg)) - m)
+                    want = (2 * m, TTFT_ITERS * (R + moe_layers(cfg) + mamba_layers(cfg)) - m)
                     check((c["all_gather"], c["all_reduce"]) == want,
                           f"{label}ttft/{kind}: collectives {c} != {want}")
                 for k in totals:
@@ -2494,7 +2633,7 @@ def phase_tp(torch, card, dev="cuda", cfg=None):
                 rel_x = rel_l2(got[0]["compressed"], rr["dense"])
                 out.setdefault(arch, {})[case.replace(" ", "_") + "_rel_l2"] = dict(
                     compressed=rel_c, dense=rel_d, compression=rel_q, rank_c_vs_sim_dense=rel_x)
-                log(f"tp[{arch}] {case} (first mixed step): rel-L2 rank vs simulated "
+                log(f"tp[{arch}] {case} (first step): rel-L2 rank vs simulated "
                     f"{rel_c:.4g} compressed (bound {TP_FLIP_MARGIN} x sqrt(48 x {rel_d:.4g}) "
                     f"x {rel_q:.4g} = {TP_FLIP_MARGIN * tp_flip_share(rel_d) * rel_q:.4g}), "
                     f"{rel_d:.4g} dense (bound {TP_DENSE_SHARE} x {rel_q:.4g}); compression "

@@ -1,12 +1,15 @@
-"""Architecture registry of the port: the pure-attention archs ported so far,
-dense (llama2, internlm2, qwen2, qwen3, gemma3) and MoE (mixtral-8x22b,
-llama4-maverick-400b-a17b). ``get_config(arch_id)`` /
-``ARCHS`` mirror the reference's API."""
+"""Architecture registry of the port: the archs ported so far, dense
+(llama2, internlm2, qwen2, qwen3, gemma3), MoE (mixtral-8x22b,
+llama4-maverick-400b-a17b) and the Mamba + MoE hybrid jamba-v0.1-52b.
+``get_config(arch_id)`` / ``ARCHS`` mirror the reference's API."""
 from __future__ import annotations
 
-from repro_torch.configs.base import LayerSpec, ModelConfig, first_layers, reduced_config
+from repro_torch.configs.base import (
+    LayerSpec, ModelConfig, RankConfig, first_layers, reduced_config,
+)
 from repro_torch.configs.gemma3_4b import CONFIG as gemma3_4b
 from repro_torch.configs.internlm2_1_8b import CONFIG as internlm2_1_8b
+from repro_torch.configs.jamba_v01_52b import CONFIG as jamba_v01_52b
 from repro_torch.configs.llama2 import LLAMA2_7B, LLAMA2_13B, LLAMA2_70B
 from repro_torch.configs.llama4_maverick import CONFIG as llama4_maverick
 from repro_torch.configs.mixtral_8x22b import CONFIG as mixtral_8x22b
@@ -23,6 +26,7 @@ ARCHS = {
     "gemma3-4b": gemma3_4b,
     "mixtral-8x22b": mixtral_8x22b,
     "llama4-maverick-400b-a17b": llama4_maverick,
+    "jamba-v0.1-52b": jamba_v01_52b,
 }
 
 
@@ -34,4 +38,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return ARCHS[arch_id]
 
 
-__all__ = ["ARCHS", "get_config", "ModelConfig", "LayerSpec", "first_layers", "reduced_config"]
+__all__ = ["ARCHS", "get_config", "ModelConfig", "RankConfig", "LayerSpec", "first_layers",
+           "reduced_config"]

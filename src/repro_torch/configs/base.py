@@ -2,15 +2,17 @@
 
 ``ModelConfig`` keeps every field of the reference (so configs read the same
 and ``reduced_config`` shrinks them the same way); the port serves the
-pure-attention families, with dense MLP or MoE layers, and its model raises
-on anything else.
+attention and Mamba layer kinds, with dense MLP or MoE sublayers, and its
+model raises on anything else. ``tp_shard`` returns a ``RankConfig``, which
+also carries the rank-local Mamba ``d_inner`` (the reference derives it from
+``d_model``, which a rank keeps whole).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["LayerSpec", "ModelConfig", "first_layers", "reduced_config"]
+__all__ = ["LayerSpec", "ModelConfig", "RankConfig", "first_layers", "reduced_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +83,14 @@ class ModelConfig:
         assert len(self.layers) == self.n_layers
 
     @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank or -(-self.d_model // 16)
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
     def q_dim(self) -> int:
         return self.n_heads * self.head_dim
 
@@ -89,22 +99,36 @@ class ModelConfig:
         return self.n_kv_heads * self.head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head), as the
-        reference counts it, for the attention families the port serves:
-        dense MLP layers and MoE layers (router, ``n_experts`` gated experts
-        of ``d_ff`` columns, ``n_shared_experts`` shared ones). Other layer
-        kinds and encoder-decoder raise."""
-        if self.encoder_decoder or any(sp.kind != "attn" for sp in self.layers):
-            raise NotImplementedError(f"{self.name}: param_count covers attention "
-                                      "layers only")
+        """Parameter count (embedding + blocks + head): the leaves of the
+        tree ``Model.init_params`` builds. Attention layers (q/k/v/o,
+        biases) and Mamba layers (in_x, in_z, conv, x_proj, dt_proj, A_log,
+        D, out_proj) as the reference counts them, and each layer's dense
+        MLP or MoE (router, ``n_experts`` gated experts of ``d_ff`` columns,
+        ``n_shared_experts`` shared ones). Two terms the reference's count
+        leaves out are counted (ROADMAP.md Queue 3): the dense MLP of a Mamba
+        layer without MoE, which its ``init_layer`` builds
+        (``_has_mlp_sublayer``), and two of a Mamba layer's three
+        ``d_inner`` vectors (``conv_b``, ``dt_proj.b``, ``D``). xLSTM layers
+        and encoder-decoder raise."""
+        if self.encoder_decoder or any(sp.kind not in ("attn", "mamba")
+                                       for sp in self.layers):
+            raise NotImplementedError(f"{self.name}: param_count covers attention and "
+                                      "Mamba layers only")
         d, ff = self.d_model, self.d_ff
         n = self.vocab_size * d  # embedding
         if not self.tie_embeddings:
             n += self.vocab_size * d
         for spec in self.layers:
-            n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-            if self.qkv_bias:
-                n += self.q_dim + 2 * self.kv_dim
+            if spec.kind == "attn":
+                n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                if self.qkv_bias:
+                    n += self.q_dim + 2 * self.kv_dim
+            else:
+                di, N = self.ssm_d_inner, self.ssm_d_state
+                n += d * 2 * di + self.ssm_d_conv * di + di          # in_x, in_z, conv
+                n += di * (self.dt_rank + 2 * N)                     # x_proj
+                n += self.dt_rank * di + di + di * N + di            # dt_proj, A_log, D
+                n += di * d                                          # out_proj
             if spec.moe:
                 n += d * self.n_experts  # router
                 n += (self.n_experts + self.n_shared_experts) * 3 * d * ff
@@ -114,20 +138,23 @@ class ModelConfig:
         return n
 
     def tp_shard(self, n: int) -> "ModelConfig":
-        """The rank-local view of this config on a TP group of ``n`` ranks:
-        ``n_heads / n`` query heads, ``n_kv_heads / n`` kv heads and ``d_ff /
-        n`` MLP columns; ``head_dim``, ``d_model`` and the vocabulary
-        unchanged. Rank r holds whole heads, q heads ``[r H/n, (r+1) H/n)``
-        with their kv heads ``[r KV/n, (r+1) KV/n)``, so q head h keeps kv
-        head ``h // G``. Everything sized from the config (the paged pools,
-        the paged kernel's ``kv_heads``) follows. Raises unless the kv heads
-        divide over the ranks and each rank's ``q_dim`` and ``d_ff`` are
-        multiples of the policies' MX block (32). ``n = 1`` is the config
-        itself."""
+        """The rank-local view of this config on a TP group of ``n`` ranks
+        (a ``RankConfig``): ``n_heads / n`` query heads, ``n_kv_heads / n``
+        kv heads, ``d_ff / n`` MLP columns and ``ssm_d_inner / n`` Mamba
+        channels; ``head_dim``, ``d_model``, ``dt_rank``, ``ssm_d_state``
+        and the vocabulary unchanged. Rank r holds whole heads, q heads ``[r
+        H/n, (r+1) H/n)`` with their kv heads ``[r KV/n, (r+1) KV/n)``, so q
+        head h keeps kv head ``h // G``, and Mamba channels ``[r di/n, (r+1)
+        di/n)``. Everything sized from the config (the paged pools, the
+        recurrent state, the paged kernel's ``kv_heads``) follows. Raises
+        unless the kv heads and (with Mamba layers) ``d_inner`` divide over
+        the ranks and each rank's ``q_dim`` and ``d_ff`` are multiples of the
+        policies' MX block (32). ``n = 1`` is the config itself."""
         if n == 1:
             return self
         block_size = 32
         q_local = self.q_dim // n if self.n_heads % n == 0 else 0
+        mamba = any(sp.kind == "mamba" for sp in self.layers)
         bad = [why for why, ok in (
             (f"n_kv_heads={self.n_kv_heads} % {n} != 0", self.n_kv_heads % n == 0),
             (f"n_heads={self.n_heads} % {n} != 0", self.n_heads % n == 0),
@@ -136,12 +163,16 @@ class ModelConfig:
             (f"the local {'expert ' if self.n_experts else ''}d_ff {self.d_ff}/{n} is not "
              f"a multiple of {block_size}",
              self.d_ff % n == 0 and (self.d_ff // n) % block_size == 0),
+            (f"ssm_d_inner={self.ssm_d_inner} % {n} != 0",
+             not mamba or self.ssm_d_inner % n == 0),
         ) if not ok]
         if n < 1 or bad:
             raise ValueError(f"{self.name} does not shard over {n} TP ranks: "
                              f"{'; '.join(bad) or 'n < 1'}")
-        return dataclasses.replace(self, n_heads=self.n_heads // n,
-                                   n_kv_heads=self.n_kv_heads // n, d_ff=self.d_ff // n)
+        fields = {f.name: getattr(self, f.name) for f in dataclasses.fields(ModelConfig)}
+        return RankConfig(**dict(fields, n_heads=self.n_heads // n,
+                                 n_kv_heads=self.n_kv_heads // n, d_ff=self.d_ff // n),
+                          ssm_d_inner_local=self.ssm_d_inner // n)
 
     def active_param_count(self) -> int:
         """Params touched per token: a MoE layer counts only its ``top_k``
@@ -149,6 +180,20 @@ class ModelConfig:
         inactive = sum((self.n_experts - self.top_k) * 3 * self.d_model * self.d_ff
                        for spec in self.layers if spec.moe)
         return self.param_count() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """A config as one rank of a TP group computes it (``tp_shard``): its
+    ``ssm_d_inner`` is this rank's share of the Mamba channels, which the
+    reference derives from ``d_model`` (kept whole on a rank). A field of
+    its own, so ``ModelConfig`` keeps exactly the reference's fields."""
+
+    ssm_d_inner_local: int = 0
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_d_inner_local
 
 
 def first_layers(cfg: ModelConfig, n: int) -> ModelConfig:

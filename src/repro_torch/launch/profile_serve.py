@@ -1,7 +1,7 @@
 """Where the time of a serving run goes on the card: the llama2-7b serve of
-``chip_smoke.py`` (or another ported family, ``--arch``, e.g. qwen2-7b or
-mixtral-8x22b; ``--layers N`` serves the schedule's first N layers at full
-width, for a model whose weights do not fit one card)
+``chip_smoke.py`` (or another ported family, ``--arch``, e.g. qwen2-7b,
+mixtral-8x22b or jamba-v0.1-52b; ``--layers N`` serves the schedule's first
+N layers at full width, for a model whose weights do not fit one card)
 under ``torch.profiler``, device kernel time
 summed by layer of the stack (paged attention, MX codec, MoE dispatch,
 GEMMs, the rest), against the run's wall time (the rest is the device's idle
@@ -12,6 +12,8 @@ both walls.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --cache-spec fp4_e2m1
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mixtral-8x22b \
       --layers 15 --cache-spec fp4_e2m1
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch jamba-v0.1-52b \
+      --layers 21 --cache-spec fp4_e2m1,bf16
 
 The ``moe_dispatch`` row holds a MoE layer's routing and dispatch kernels
 (``models/moe.py``): the router's softmax, the top-k and expert-id sorts,
@@ -21,7 +23,10 @@ the combine (``index_add_``); the expert products stay under GEMM and the
 small elementwise kernels between them (positions, destinations, gate
 products) under the rest. No other kernel of a mixed step has those names;
 a split chunk or whole-prompt prefill adds one one-row ``index_select``
-(its logits row), and whole-prompt attention its own softmax.
+(its logits row), and whole-prompt attention its own softmax. A Mamba
+layer's convolution, selective scan and gates (``models/ssm.py``: plain
+PyTorch elementwise ops, concatenations and the scan's ``einsum``, which
+lands under GEMM) fall in the rest ("other").
 
 ``--cache-spec`` takes a comma-separated list, e.g. ``fp4_e2m1,bf16,bf16,fp4_e2m1``:
 the cells then run in that order in one process on the same weights, so
@@ -31,6 +36,8 @@ graphs, captured in the warm-up run); ``:split`` after the spec runs the
 split chunk-then-decode scheduler (``token_budget=0``, chunk 256) instead,
 and ``:eager`` runs eager steps (``cuda_graphs=False``), e.g.
 ``fp4_e2m1,fp4_e2m1:eager,fp4_e2m1:eager,fp4_e2m1`` holds the two in turns.
+A stack with recurrent layers (jamba) runs whole-prompt prefill and the
+split decode, its only scheduler (``prefill_chunk=0``), in every cell.
 Writes the tables to ``--out`` as a JSON list as well. Needs a GPU.
 """
 from __future__ import annotations
@@ -47,7 +54,7 @@ import torch
 from repro_torch.configs import first_layers, get_config
 from repro_torch.core.policy import PAPER_DEFAULT
 from repro_torch.core.tp import TPContext
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, recurrent_layer
 from repro_torch.serving import Engine, Request
 
 CATEGORIES = (  # (category, substrings of the device kernel's name)
@@ -99,11 +106,13 @@ def profile_cell(model, params, cell, prompts, args):
     cache_spec, *options = cell.split(":")
     if not set(options) <= {"mixed", "split", "eager"}:
         raise ValueError(f"cell {cell!r}: options are 'split' (else mixed) and 'eager'")
-    scheduler = "split" if "split" in options else "mixed"
+    scheduler = ("whole" if recurrent_layer(cfg) is not None
+                 else "split" if "split" in options else "mixed")
     steps = "eager" if "eager" in options else "graphed"
     engine = Engine(model, params, TPContext(policy=PAPER_DEFAULT, simulate_tp=4),
                     max_slots=4, max_len=args.prompt_len + args.new_tokens, block_size=16,
-                    prefill_chunk=256, token_budget=260 if scheduler == "mixed" else 0,
+                    prefill_chunk=0 if scheduler == "whole" else 256,
+                    token_budget=260 if scheduler == "mixed" else 0,
                     cache_spec=cache_spec, cuda_graphs=steps == "graphed")
     engine.run([Request(prompt=prompts[0].copy(), max_new_tokens=2)])  # warm-up
     torch.cuda.synchronize()

@@ -20,12 +20,18 @@ reduction's result once more, as the reference's simulated path does (on
 chunks each compressed reduction's gathers on ``--tp`` ranks (the same bytes
 either way) and is ignored under ``--simulate-tp``, which has no rank
 collective to chunk (the banner says so). ``--arch`` takes every ported family
-(llama2, internlm2, qwen2-7b, qwen3-32b, gemma3-4b, and the MoE families
+(llama2, internlm2, qwen2-7b, qwen3-32b, gemma3-4b, the MoE families
 mixtral-8x22b and llama4-maverick-400b-a17b, whose banner adds experts,
-top-k, shared experts, capacity factor and the layers served). ``--layers
-N`` serves the schedule's first N layers at full width (a model whose
-weights do not fit one card: mixtral-8x22b fits about 15 of its 56 layers on
-an 80 GB H100, llama4-maverick 5 of 48). Runs on the GPU by
+top-k, shared experts, capacity factor and the layers served, and the Mamba +
+MoE hybrid jamba-v0.1-52b, whose banner adds its Mamba layers and recurrent
+state). jamba serves split and whole-prompt only: each prompt prefills at
+its exact length (a recurrent layer would fold pads into its state), so
+``--prefill-chunk``, ``--token-budget`` and ``--prefix-cache`` are refused
+for it; ``--reduced`` keeps one layer of each kind of its schedule (Mamba,
+Mamba + MoE, attention). ``--layers N`` serves the schedule's first N
+layers at full width (a model whose weights do not fit one card:
+mixtral-8x22b fits about 15 of its 56 layers on an 80 GB H100,
+llama4-maverick 5 of 48, jamba 24 of 32). Runs on the GPU by
 default; ``--device cpu`` runs the plain PyTorch path on the CPU (use
 ``--reduced`` there). Weights are random, drawn from ``--seed``.
 
@@ -176,7 +182,10 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
     """The serving run of ``main`` on ``device`` (on one rank of ``kv_group``
     or ``tp_group`` when given: only rank 0 prints)."""
     full = get_config(args.arch)
-    cfg = first_layers(reduced_config(full) if args.reduced else full, args.layers)
+    # reduced: at least one layer of each kind the schedule has (jamba: 3)
+    kinds = len({(sp.kind, sp.moe, sp.window is not None) for sp in full.layers})
+    cfg = first_layers(reduced_config(full, n_layers=max(2, kinds)) if args.reduced else full,
+                       args.layers)
     model = Model(cfg)
     policy = NO_COMPRESSION if args.policy == "none" else CompressionPolicy(
         spec=MXSpec.make("fp4_e2m1", 32, "e8m0"), variant=args.variant,
@@ -207,6 +216,13 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
                f"config); routed experts reduced "
                + ("by one all-reduce per MoE layer" if tp_group is not None
                   else "unsplit (simulate_tp splits only the row-parallel layers)"))
+    n_mamba = sum(spec.kind == "mamba" for spec in cfg.layers)
+    if n_mamba:
+        print_(f"mamba: {n_mamba} Mamba of {cfg.n_layers} layers served, d_inner="
+               f"{cfg.ssm_d_inner} d_state={cfg.ssm_d_state} dt_rank={cfg.dt_rank} "
+               f"d_conv={cfg.ssm_d_conv}; out_proj reduced by the policy, x_proj "
+               + ("by one all-reduce per Mamba layer" if tp_group is not None
+                  else "unsplit (simulate_tp splits only the row-parallel layers)"))
 
     params = model.init_params(device=device, seed=args.seed, tp=(ctx.tp_rank, ctx.tp_size))
     fault_plan = FaultPlan.parse(args.fault_plan, seed=args.seed)
@@ -224,10 +240,15 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
             f"tokens/chunk)" if engine.token_budget
             else (f"split, chunked {engine.prefill_chunk} tokens/step"
                   if engine.prefill_chunk else "split, whole-prompt"))
+    if n_mamba:
+        step += (" (recurrent layers: each prompt prefills at its exact length, since pads "
+                 "would fold into the recurrent state; no chunked or mixed step)")
+    rec = (f", recurrent state {engine.rec_state_bytes() / 1e6:.2f} MB fp32 per rank"
+           if n_mamba else "")
     print_(f"kv cache: {engine.cache_spec.describe()} "
            f"({engine.kv_pool_bytes() / 1e6:.2f} MB pools, kv_shards={engine.kv_shards}, "
            f"tp={engine.tp_size}, "
-           f"{engine.kv_pool_bytes(per_device=True) / 1e6:.2f} MB per rank); step: {step}; "
+           f"{engine.kv_pool_bytes(per_device=True) / 1e6:.2f} MB per rank{rec}); step: {step}; "
            f"prefix cache: {'on' if engine.prefix_cache else 'off'}")
 
     n_req = args.requests or args.slots

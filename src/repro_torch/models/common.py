@@ -84,3 +84,6 @@ class Initializer:
 
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(*shape, dtype=self.dtype, device=self.device)
+
+    def full(self, shape, value: float) -> torch.Tensor:
+        return torch.full(tuple(shape), value, dtype=self.dtype, device=self.device)

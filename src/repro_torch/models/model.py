@@ -1,8 +1,12 @@
-"""The port's Model for pure-attention decoders with dense MLP or MoE
-layers: parameter init, the whole-prompt prefill over a dense cache, and the
-three paged serving steps (the reference's ``Model.init_params``,
-``init_cache``, ``prefill``, ``prefill_chunk``, ``decode_step_paged`` and
-``mixed_step``). Other families raise ``NotImplementedError``.
+"""The port's Model for decoders of attention and Mamba layers with dense
+MLP or MoE sublayers: parameter init, the whole-prompt prefill over a dense
+cache, and the three paged serving steps (the reference's
+``Model.init_params``, ``init_cache``, ``prefill``, ``prefill_chunk``,
+``decode_step_paged`` and ``mixed_step``). Other families raise
+``NotImplementedError``. A stack with Mamba layers (jamba) serves through
+whole-prompt prefill and ``decode_step_paged`` only: the chunk and mixed
+steps raise, as the reference's do, since a recurrent layer would fold a
+chunk's pads into its state.
 
 Parameters are a plain nested dict with the reference's tree and names
 (``embed``, ``layers[i].{ln1, core.{wq, wk, wv, wo, q_norm, k_norm}, ln2,
@@ -14,20 +18,28 @@ has: q/k/v biases with ``qkv_bias``, ``q_norm``/``k_norm`` with
 with ``tie_embeddings`` (the logits then read ``embed``). A MoE layer has
 ``moe.{router, up, gate, down, shared0, ...}`` in place of ``mlp``: router
 ``(d, E)``, experts ``up`` / ``gate`` ``(E, d, d_ff)`` and ``down`` ``(E,
-d_ff, d)``, and each shared expert a dense MLP's tree.
+d_ff, d)``, and each shared expert a dense MLP's tree. A Mamba layer's
+``core`` is ``{in_x, in_z: {w (d, di)}, conv_w (d_conv, di), conv_b (di,),
+x_proj: {w (di, dt_rank + 2N)}, dt_proj: {w (dt_rank, di), b (di,)}, A_log
+(di, N), D (di,), out_proj: {w (di, d)}}`` (the reference's names and
+layouts), with the reference's deterministic ``A_log = log(1..N)``,
+``dt_proj.b = log(expm1(0.01))``, ``D = 1`` and ``conv_b = 0``.
 
 Tensor parallelism (``TPContext.tp_group`` of N ranks): ``init_params(...,
 tp=(rank, N))`` keeps this rank's shard of each tensor (``shard_axis``):
 ``wq``, ``wk``, ``wv`` (with their biases), ``gate`` and ``up`` by output
 columns (the last axis), ``wo`` and ``down`` by input rows (the
 second-to-last axis: an expert tensor keeps every expert and splits its
-``d_ff``); norms, the router, ``embed`` and ``lm_head`` replicated, so
-every rank computes the full logits, the same bits on every rank, with no
-float collective. The steps then run on the
-rank-local config (``local_cfg``, ``ModelConfig.tp_shard``).
+``d_ff``); a Mamba layer by ``d_inner`` as the reference's ``mamba_specs``
+(``in_x``, ``in_z``, ``conv_w``, ``conv_b``, ``dt_proj``, ``D`` on the last
+axis, ``x_proj``, ``out_proj`` and ``A_log`` by rows); norms, the router,
+``embed`` and ``lm_head`` replicated, so every rank computes the full
+logits, the same bits on every rank, with no float collective. The steps
+then run on the rank-local config (``local_cfg``, ``ModelConfig.tp_shard``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -36,12 +48,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tp import TPContext
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
-    init_cache, paged_attention_chunk, paged_attention_decode, paged_attention_mixed,
+    paged_attention_chunk, paged_attention_decode, paged_attention_mixed,
 )
 from repro_torch.models.common import Initializer, embed, int_scalar, rms_norm, unembed
-from repro_torch.models.transformer import apply_stack, feed_forward
+from repro_torch.models.transformer import (
+    apply_layer, apply_stack, feed_forward, init_layer_cache,
+)
 
-__all__ = ["Model", "torch_dtype", "param_shapes", "shard_axis", "shard_leaf"]
+__all__ = ["Model", "torch_dtype", "param_shapes", "shard_axis", "shard_leaf",
+           "recurrent_layer"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -51,17 +66,24 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise on anything but a pure-attention text decoder with an RMSNorm
-    and, per layer, a SwiGLU or gelu MLP or a MoE of top-k routed experts."""
-    bad = [s for s in cfg.layers if s.kind != "attn"]
+    """Raise on anything but a text decoder of attention and Mamba layers
+    with an RMSNorm and, per layer, a SwiGLU or gelu MLP or a MoE of top-k
+    routed experts."""
+    bad = [s for s in cfg.layers if s.kind not in ("attn", "mamba")]
     moe_ok = not any(s.moe for s in cfg.layers) or 0 < cfg.top_k <= cfg.n_experts
     if (bad or not moe_ok or cfg.encoder_decoder or cfg.frontend is not None
             or cfg.norm != "rmsnorm" or cfg.activation not in ("silu", "gelu")
             or cfg.d_ff <= 0):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves pure-attention decoders with an RMSNorm "
-            f"and a SwiGLU or gelu MLP or a top-k MoE only (SSM/xLSTM, "
+            f"{cfg.name}: the port serves decoders of attention and Mamba layers with "
+            f"an RMSNorm and a SwiGLU or gelu MLP or a top-k MoE only (xLSTM, "
             f"encoder-decoder and vision frontends are not ported yet)")
+
+
+def recurrent_layer(cfg: ModelConfig) -> Optional[Tuple[int, str]]:
+    """(index, kind) of the first non-attention layer of ``cfg``, or None
+    for a pure-attention stack."""
+    return next(((i, sp.kind) for i, sp in enumerate(cfg.layers) if sp.kind != "attn"), None)
 
 
 _NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
@@ -75,7 +97,7 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     def linear(fin, fout, bias=False):
         return {"w": (fin, fout), **({"b": (fout,)} if bias else {})}
 
-    def layer(spec):
+    def attention():
         core = {"wq": linear(d, cfg.q_dim, cfg.qkv_bias),
                 "wk": linear(d, cfg.kv_dim, cfg.qkv_bias),
                 "wv": linear(d, cfg.kv_dim, cfg.qkv_bias),
@@ -83,6 +105,17 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         if cfg.qk_norm:
             core["q_norm"] = {"w": (cfg.head_dim,)}
             core["k_norm"] = {"w": (cfg.head_dim,)}
+        return core
+
+    def mamba():
+        di, N, dtr = cfg.ssm_d_inner, cfg.ssm_d_state, cfg.dt_rank
+        return {"in_x": linear(d, di), "in_z": linear(d, di),
+                "conv_w": (cfg.ssm_d_conv, di), "conv_b": (di,),
+                "x_proj": linear(di, dtr + 2 * N), "dt_proj": linear(dtr, di, True),
+                "A_log": (di, N), "D": (di,), "out_proj": linear(di, d)}
+
+    def layer(spec):
+        core = attention() if spec.kind == "attn" else mamba()
         return {"ln1": {"w": (d,)}, "core": core, "ln2": {"w": (d,)},
                 **({"moe": moe()} if spec.moe else {"mlp": mlp()})}
 
@@ -107,19 +140,25 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return tree
 
 
-_COLUMNS = ("wq", "wk", "wv", "gate", "up")   # column-parallel: sharded by outputs
-_ROWS = ("wo", "down")                        # row-parallel: sharded by inputs
+# column-parallel: sharded by outputs (Mamba's in_x, in_z, dt_proj by d_inner)
+_COLUMNS = ("wq", "wk", "wv", "gate", "up", "in_x", "in_z", "dt_proj")
+# row-parallel: sharded by inputs (Mamba's x_proj and out_proj by d_inner)
+_ROWS = ("wo", "down", "x_proj", "out_proj")
+# the Mamba leaves directly under ``core``, by d_inner (the reference's mamba_specs)
+_MAMBA_LEAVES = {"conv_w": -1, "conv_b": -1, "D": -1, "A_log": -2}
 
 
 def shard_axis(parent: str, key: str) -> Optional[int]:
     """The axis a TP group shards the leaf ``key`` of ``parent`` along
     (``-1`` output columns, ``-2`` input rows: axis 0 of a ``(Fin, Fout)``
-    weight, the ``d_ff`` axis of an expert ``down`` ``(E, d_ff, d)``), or
-    None (replicated)."""
+    weight, the ``d_ff`` axis of an expert ``down`` ``(E, d_ff, d)``, the
+    ``d_inner`` rows of ``A_log``), or None (replicated)."""
     if parent in _COLUMNS and key in ("w", "b"):
         return -1
     if parent in _ROWS and key == "w":
         return -2
+    if parent == "core":
+        return _MAMBA_LEAVES.get(key)
     return None
 
 
@@ -176,9 +215,13 @@ class Model:
                         experts = t.new_empty((node[0], *t.shape))
                     experts[e] = t
                 return experts
-            if key == "b":
+            if parent == "dt_proj" and key == "b":
+                t = init.full(node, math.log(math.expm1(0.01)))
+            elif key == "A_log":   # log(1..N) on every channel
+                t = init.full(node, 1.0).cumsum(-1, dtype=torch.float32).log().to(init.dtype)
+            elif key in ("b", "conv_b"):
                 t = init.zeros(node)
-            elif parent in _NORMS:
+            elif parent in _NORMS or key == "D":
                 t = init.ones(node)
             else:
                 t = init.linear(node, scale=cfg.d_model**-0.5 if parent == "embed" else None)
@@ -207,44 +250,67 @@ class Model:
 
     def _paged_layers(self, ctx: TPContext, params, x: torch.Tensor, state,
                       attend: Callable) -> Tuple[torch.Tensor, Any]:
-        """Every layer over the paged pools of ``state``: ``attend(cfg, core
-        params, h, pool_k, pool_v, window)`` is the step's paged attention
-        (``cfg`` the rank-local config, ``window`` the layer's own
-        ``LayerSpec.window``) and returns (out,
-        pool_k, pool_v); then the layer's MLP or MoE (``feed_forward``).
-        Pools update in place. Returns (x,
-        state)."""
+        """Every layer over ``state``: on an attention layer ``attend(cfg,
+        core params, h, pool_k, pool_v, window)`` is the step's paged
+        attention over the layer's pools (``cfg`` the rank-local config,
+        ``window`` the layer's own ``LayerSpec.window``) and returns (out,
+        pool_k, pool_v), then the layer's MLP or MoE (``feed_forward``); a
+        recurrent layer (decode only: the chunk and mixed steps refuse such
+        stacks first) is the dense layer's one-token step on its slot-batched
+        cache ``state["rec"]``, as the reference's decode step runs it. Pools
+        and recurrent caches update in place (a captured step writes the
+        engine's state). Returns (x, state)."""
         pools_k, pools_v = list(state["pools_k"]), list(state["pools_v"])
+        rec = state.get("rec", [])
         cfg = self.local_cfg(ctx)
+        ai = ri = 0
         for i, spec in enumerate(cfg.layers):
             lp = params["layers"][i]
+            if spec.kind != "attn":
+                x, new = apply_layer(ctx, cfg, spec, lp, x, pos=0, cache=rec[ri], decode=True)
+                for held, t in zip(rec[ri], new):
+                    held.copy_(t)
+                ri += 1
+                continue
             h = rms_norm(x, lp["ln1"]["w"])
-            out, pools_k[i], pools_v[i] = attend(cfg, lp["core"], h, pools_k[i], pools_v[i],
-                                                 spec.window)
+            out, pools_k[ai], pools_v[ai] = attend(cfg, lp["core"], h, pools_k[ai],
+                                                   pools_v[ai], spec.window)
+            ai += 1
             x = x + out
             h = rms_norm(x, lp["ln2"]["w"])
             x = x + feed_forward(ctx, cfg, spec, lp, h)
         return x, {**state, "pools_k": pools_k, "pools_v": pools_v}
 
+    def _attention_only(self, step: str, then: str) -> None:
+        """The reference's refusal of a recurrent stack in the chunk and
+        mixed steps (its pads would fold into the recurrent state)."""
+        bad = recurrent_layer(self.cfg)
+        if bad is not None:
+            raise ValueError(f"{step} requires a pure-attention stack; layer {bad[0]} is "
+                             f"{bad[1]!r} (use {then})")
+
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
                    device: str | torch.device = "cuda", ctx: Optional[TPContext] = None
                    ) -> Dict[str, Any]:
-        """Dense per-layer K/V caches for whole-prompt prefill (this rank's
-        kv heads on a TP group ``ctx``)."""
+        """Dense per-layer caches for whole-prompt prefill: K/V in ``dtype``
+        for attention, a fp32 ``MambaCache`` for Mamba (this rank's kv heads
+        and channels on a TP group ``ctx``)."""
         cfg = self.local_cfg(ctx) if ctx is not None else self.cfg
-        return {"layers": [init_cache(cfg, batch, max_len, dtype, device)
-                           for _ in cfg.layers],
+        return {"layers": [init_layer_cache(cfg, spec, batch, max_len, dtype, device)
+                           for spec in cfg.layers],
                 "pos": 0}
 
     def prefill(self, ctx: TPContext, params, batch, cache, *,
                 last_index=None) -> Tuple[torch.Tensor, Any]:
         """Whole-prompt prefill of ``batch["tokens"]`` (B, S) into ``cache``
-        (written in place); returns (logits (B, V) at ``last_index``, the last
-        position by default, and the cache). The engine right-pads prompts to
-        a length bucket and passes the last real token's index (causal
-        masking hides the pads), an int or a 0-d int32 tensor on the tokens'
-        device (the row is picked on the device, so the call holds no host
-        value of it)."""
+        (K/V written in place; a Mamba layer's cache is its history and
+        comes back as new tensors after the prompt); returns (logits (B, V)
+        at ``last_index``, the last position by default, and the cache). The
+        engine right-pads prompts of a pure-attention stack to a length
+        bucket and passes the last real token's index (causal masking hides
+        the pads; a recurrent stack prefills at the exact length), an int or
+        a 0-d int32 tensor on the tokens' device (the row is picked on the
+        device, so the call holds no host value of it)."""
         tokens = batch["tokens"]
         x = self._embed(ctx, params, tokens)
         x, layer_caches = apply_stack(ctx, self.local_cfg(ctx), params["layers"], x, pos=0,
@@ -261,7 +327,9 @@ class Model:
         ``n_valid`` are ints or 0-d int32 tensors on the tokens' device. Each
         layer attends the slot's paged history plus the chunk, then appends
         the chunk's K/V to the pools (in place). Returns (logits (1, V) at
-        chunk index ``n_valid - 1``, state)."""
+        chunk index ``n_valid - 1``, state). A recurrent stack raises (the
+        reference's ``ValueError``)."""
+        self._attention_only("prefill_chunk", "whole-prompt prefill")
         x = self._embed(ctx, params, tokens)
         x, state = self._paged_layers(
             ctx, params, x, state, lambda cfg, p, h, pk, pv, window: paged_attention_chunk(
@@ -274,7 +342,9 @@ class Model:
                           cache_spec=None) -> Tuple[torch.Tensor, Any]:
         """Batched decode of every slot: tokens (B, 1) int32, tables (B,
         max_blocks) int32, lengths (B,) int32 per-slot write positions.
-        Returns (logits (B, V), state); the pools update in place."""
+        Returns (logits (B, V), state); the pools, and the slot-batched
+        recurrent caches ``state["rec"]`` of a recurrent stack, update in
+        place."""
         x = self._embed(ctx, params, tokens)
         x, state = self._paged_layers(
             ctx, params, x, state, lambda cfg, p, h, pk, pv, window: paged_attention_decode(
@@ -290,7 +360,9 @@ class Model:
         positions / valid / is_decode (T,); slot_starts (n_slots,);
         tables (n_slots, max_blocks); sample_idx (n_slots,) — the flat index
         each slot samples from. Appends every real token's K/V to the pools
-        of ``state`` (in place) and returns (logits (n_slots, V), state)."""
+        of ``state`` (in place) and returns (logits (n_slots, V), state). A
+        recurrent stack raises (the reference's ``ValueError``)."""
+        self._attention_only("mixed_step", "whole-prompt prefill + decode_step_paged")
         x = self._embed(ctx, params, tokens)
         x, state = self._paged_layers(
             ctx, params, x, state, lambda cfg, p, h, pk, pv, window: paged_attention_mixed(

@@ -17,6 +17,15 @@ step). ``prefill_chunk=0`` prefills each prompt whole at admission
 bucket) and inserts it into the slot's blocks, then decodes with the split
 scheduler's batched decode.
 
+A stack with recurrent (Mamba) layers, jamba's, is served whole-prompt
+only, as the reference serves it: right-padding would fold pads into the
+recurrent state, so each prompt prefills at its exact length (one step
+program per length, under the LRU of 8), and the chunked and mixed steps,
+``token_budget`` and the prefix cache are refused with the reference's
+errors. The insert writes the request's attention K/V into its blocks and
+its Mamba caches into its slot's row of ``state["rec"]``; the batched
+decode carries every slot's row.
+
 With ``prefix_cache=True`` full prompt blocks are published in a hash-chain
 index as their chunks land; admission maps matching blocks into the new
 slot's table by reference and prefill resumes at the first non-cached token.
@@ -92,7 +101,7 @@ from repro_torch.serving.errors import (
 from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.kv_cache import (
     BlockAllocator, PrefixIndex, build_mixed_batch, check_cache_spec, init_paged_state,
-    paged_cache_bytes, zero_paged_state,
+    paged_cache_bytes, recurrent_state_bytes, zero_paged_state,
 )
 from repro_torch.serving.graphs import StepProgram, StepPrograms
 from repro_torch.serving.ttft import RequestTiming, ServeStats
@@ -284,12 +293,26 @@ class Engine:
         self._nan_watch = fault_plan is not None and any(
             f.kind == "corrupt" for f in fault_plan.faults)
 
-        # every served model is a pure-attention text decoder (Model raises
-        # otherwise), so chunked prefill is always available
+        # right-padding to a bucket is only sound when every layer is
+        # attention (causal masking hides trailing pads); recurrent layers
+        # fold pads into their state, so those archs prefill at exact length
+        # and cannot take the chunked or mixed steps (the reference's gate;
+        # the port serves no vision prefix or encoder state)
+        self._pad_ok = all(spec.kind == "attn" for spec in self.cfg.layers)
+        if not self._pad_ok and self.kv_shards > 1:
+            raise NotImplementedError(
+                "sequence-sharded pools for a stack with recurrent layers (each kv rank "
+                "would carry its own recurrent state) are not ported yet: see ROADMAP.md "
+                "Queue 1")
         if prefill_chunk is None:
-            prefill_chunk = 2 * block_size
+            prefill_chunk = 2 * block_size if self._pad_ok else 0
         elif prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0 (0 = whole-prompt)")
+        elif prefill_chunk and not self._pad_ok:
+            raise ValueError(
+                "prefill_chunk requires a pure-attention text decoder "
+                "(recurrent/vision/encoder-decoder archs use whole-prompt "
+                "prefill; pass prefill_chunk=0 or leave it unset)")
         self.prefill_chunk = int(prefill_chunk)
         if token_budget is None:
             token_budget = self.prefill_chunk + self.n_slots if self.prefill_chunk else 0
@@ -298,7 +321,8 @@ class Engine:
         elif token_budget and not self.prefill_chunk:
             raise ValueError(
                 "token_budget (the unified mixed-batch step) rides on chunked "
-                "prefill; this engine is whole-prompt (prefill_chunk=0)")
+                "prefill; this engine is whole-prompt (prefill_chunk=0 or a "
+                "non-chunkable architecture)")
         elif token_budget and token_budget < self.n_slots + self.prefill_chunk:
             # one decode token per slot plus one full chunk, so packing only
             # ever places full chunks (chunk boundaries, and therefore which
@@ -315,7 +339,8 @@ class Engine:
         if self.prefix_cache and not self.prefill_chunk:
             raise ValueError(
                 "prefix_cache rides on chunked prefill (matches resume at the first "
-                "non-cached token); this engine is whole-prompt (prefill_chunk=0)")
+                "non-cached token); this engine is whole-prompt (prefill_chunk=0 or a "
+                "non-chunkable architecture)")
         self.persistent_cache = bool(persistent_cache)
         if self.persistent_cache and not self.prefix_cache:
             raise ValueError(
@@ -425,6 +450,11 @@ class Engine:
         (empty when the steps run eagerly)."""
         return self._programs.capture_seconds()
 
+    def rec_state_bytes(self) -> int:
+        """Bytes of the slot-batched recurrent caches this rank holds (0 for
+        a pure-attention stack; ``kv_cache.recurrent_state_bytes``)."""
+        return recurrent_state_bytes(self.cfg, self.n_slots)
+
     def kv_pool_bytes(self, *, per_device: bool = False) -> int:
         """Bytes of the attention KV pools: the pools the engine addresses
         (every rank's kv heads on a TP group), or with ``per_device=True``
@@ -513,15 +543,19 @@ class Engine:
     def _shapes_for(self, prompt_len: int):
         """(length bucket, blocks it fills) of a whole prompt: the smallest
         power-of-two multiple of the block size that holds it, capped at
-        the slot's capacity."""
+        the slot's capacity; a recurrent stack's bucket is the prompt's
+        exact length."""
         cap = self.max_blocks * self.block_size
-        bucket = self.block_size
-        while bucket < prompt_len:
-            bucket *= 2
-        bucket = min(bucket, cap)
-        if bucket < prompt_len:
+        if self._pad_ok:
+            bucket = self.block_size
+            while bucket < prompt_len:
+                bucket *= 2
+            bucket = min(bucket, cap)
+        else:
+            bucket = prompt_len
+        if bucket < prompt_len or bucket > cap:
             raise ValueError(f"prompt ({prompt_len} tokens) exceeds cache capacity ({cap})")
-        return bucket, bucket // self.block_size
+        return bucket, -(-bucket // self.block_size)
 
     def _prefill_for(self, prompt_len: int):
         """(bucket, program, nb) for a whole prompt of this length: the
@@ -537,7 +571,9 @@ class Engine:
         ``cache_dtype``, 1.07 GB for llama2-7b's bf16 at 2048. The buckets
         double (the last capped at the slot's capacity), so together they
         hold less than twice the largest power-of-two bucket plus the capped
-        one. ``paged_cache_bytes`` does not count it."""
+        one. ``paged_cache_bytes`` does not count it. A recurrent stack keys
+        a program per exact prompt length (and its Mamba layers' caches are
+        the program's outputs)."""
         bucket, nb = self._shapes_for(prompt_len)
         model, params, ctx = self.model, self.params, self.ctx
 
@@ -554,17 +590,28 @@ class Engine:
 
         return bucket, self._programs.prefill(bucket, make), nb
 
-    def _insert(self, layer_caches, block_ids: List[int]) -> None:
+    def _insert(self, layer_caches, block_ids: List[int], slot: int) -> None:
         """Scatter a one-request dense prefill cache into the slot's blocks
-        in every layer's pools (in place), through the same row codec and
-        writer as the step appends (MX-quantized per position on wire
-        pools)."""
+        in every attention layer's pools (in place), through the same row
+        codec and writer as the step appends (MX-quantized per position on
+        wire pools; positions past an exact-length prompt's end zero, as the
+        reference pads them), and each Mamba layer's cache into row ``slot``
+        of its ``state["rec"]`` entry (in place)."""
         nb, bs = len(block_ids), self.block_size
         pos = torch.arange(nb * bs, device=self.device)
         blk = torch.tensor(block_ids, dtype=torch.long, device=self.device)[pos // bs]
-        for i, c in enumerate(layer_caches):
+        attn = [c for c, spec in zip(layer_caches, self.cfg.layers) if spec.kind == "attn"]
+        rec = [c for c, spec in zip(layer_caches, self.cfg.layers) if spec.kind != "attn"]
+        for held, c in zip(self._state["rec"], rec):
+            for t, new in zip(held, c):
+                t[slot].copy_(new[0])
+        for i, c in enumerate(attn):
             pk, pv = self._state["pools_k"][i], self._state["pools_v"][i]
-            k_rows, v_rows = pool_rows(c.k[0], c.v[0], pk, self.cache_spec)
+            k, v = c.k[0], c.v[0]
+            if k.shape[0] < nb * bs:   # an exact-length prompt: zero to the block's end
+                k, v = (torch.nn.functional.pad(t, (0, 0, 0, nb * bs - t.shape[0]))
+                        for t in (k, v))
+            k_rows, v_rows = pool_rows(k, v, pk, self.cache_spec)
             if self.ctx.kv_sharded:   # each rank writes the blocks it owns
                 vals = [r.reshape(nb, bs, -1) for r in pool_planes(k_rows, v_rows)]
                 pool_block_write(self.ctx, list(zip(pool_planes(pk, pv), vals)), block_ids)
@@ -870,7 +917,7 @@ class Engine:
         logits, cache = prefill(tokens=tokens, last_index=L - 1)
         self.stats.record_dispatch(2, prefill_tokens=L)  # prefill + insert
         tok = self._sample_one(logits, w)
-        self._insert(cache, ids)
+        self._insert(cache, ids, slot)
         now = time.perf_counter() - self._t0
         w.blocks = ids
         self._tables[slot, :] = 0

@@ -6,7 +6,9 @@ shard).
 Every attention layer owns a block pool ``(n_blocks, block_size, kv_dim)``
 for K and V (dense, or MX wire payload + scales); a slot's logical sequence
 is the concatenation of the blocks its block-table row names. Block 0 is the
-reserved null block that pads and unallocated table entries point at.
+reserved null block that pads and unallocated table entries point at. Every
+Mamba layer owns one slot-batched recurrent cache (``rec``: fp32 conv
+history and state, ``n_slots`` rows), whatever the pools' format.
 
 Block ownership is refcounted (``BlockAllocator``) so automatic prefix
 caching (``PrefixIndex``) can map one block into many block tables: full
@@ -28,7 +30,7 @@ from repro_torch.core.mx import MXCompressed, wire_arrays_shape
 
 __all__ = ["BlockAllocator", "PrefixIndex", "NULL_BLOCK", "MixedBatch",
            "build_mixed_batch", "init_paged_state", "zero_paged_state", "check_cache_spec",
-           "paged_cache_bytes", "attn_layer_count"]
+           "paged_cache_bytes", "recurrent_state_bytes", "attn_layer_count"]
 
 NULL_BLOCK = 0
 
@@ -394,16 +396,20 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_blocks: int, block_size: 
                      dtype: torch.dtype = torch.bfloat16,
                      cache_spec: Optional[KVCacheSpec] = None,
                      device: str | torch.device = "cuda") -> dict:
-    """Device-side cache state: one K and one V pool per attention layer,
-    dense at ``dtype`` or MX wire pairs when ``cache_spec`` is quantized.
-    (``n_slots`` is kept for the reference's signature: dense stacks carry
-    no per-slot recurrent state.)"""
-    del n_slots
+    """Device-side cache state: ``pools_k`` / ``pools_v``, one K and one V
+    pool per attention layer, dense at ``dtype`` or MX wire pairs when
+    ``cache_spec`` is quantized; ``rec``, one slot-batched ``MambaCache`` of
+    ``n_slots`` rows per Mamba layer, in layer order, always fp32 (the
+    reference's ``init_layer_cache`` default: recurrent state is O(slots),
+    not O(tokens)). xLSTM layers raise."""
+    from repro_torch.models.transformer import init_layer_cache
+
     cache_spec = check_cache_spec(cfg, cache_spec)
-    if any(spec.kind != "attn" for spec in cfg.layers):
-        raise NotImplementedError("paged state for recurrent layers is not ported yet")
-    pools_k, pools_v = [], []
-    for _ in cfg.layers:
+    pools_k, pools_v, rec = [], [], []
+    for spec in cfg.layers:
+        if spec.kind != "attn":
+            rec.append(init_layer_cache(cfg, spec, n_slots, 0, device=device))
+            continue
         for pools in (pools_k, pools_v):
             if cache_spec.quantized:
                 pools.append(_wire_pool(n_blocks, block_size, cfg.kv_dim, cache_spec.mx,
@@ -411,17 +417,29 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_blocks: int, block_size: 
             else:
                 pools.append(torch.zeros((n_blocks, block_size, cfg.kv_dim), dtype=dtype,
                                          device=device))
-    return {"pools_k": pools_k, "pools_v": pools_v}
+    return {"pools_k": pools_k, "pools_v": pools_v, "rec": rec}
 
 
 def zero_paged_state(state: dict) -> None:
-    """Zero every pool plane of ``state`` in place: what ``init_paged_state``
-    returns, at the same addresses (a captured step program keeps reading
-    and writing those)."""
+    """Zero every pool plane and recurrent cache of ``state`` in place: what
+    ``init_paged_state`` returns, at the same addresses (a captured step
+    program keeps reading and writing those)."""
     for pool in state["pools_k"] + state["pools_v"]:
         for plane in ((pool.payload, pool.scales) if isinstance(pool, MXCompressed)
                       else (pool,)):
             plane.zero_()
+    for cache in state.get("rec", []):
+        for t in cache:
+            t.zero_()
+
+
+def recurrent_state_bytes(cfg: ModelConfig, n_slots: int) -> int:
+    """Bytes of the slot-batched recurrent caches (``rec``): per Mamba layer
+    and slot, the fp32 conv history ``(d_conv - 1) x d_inner`` and state
+    ``d_inner x N`` (the reference's ``cache_bytes`` Mamba term). Rank-local
+    on a TP group's config."""
+    per_slot = (cfg.ssm_d_conv - 1) * cfg.ssm_d_inner * 4 + cfg.ssm_d_inner * cfg.ssm_d_state * 4
+    return n_slots * per_slot * sum(1 for spec in cfg.layers if spec.kind == "mamba")
 
 
 def paged_cache_bytes(cfg: ModelConfig, n_blocks: int, block_size: int,

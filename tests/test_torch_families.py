@@ -199,13 +199,25 @@ def test_greedy_tokens_identical_to_reference_engine(models, cache,
     assert eng_t.gate_counts["compressed"] > 0 and eng_t.gate_counts["dense"] > 0
 
 
+def mamba_undercount(cfg) -> int:
+    """What the reference's ``param_count`` leaves out of the tree its
+    ``init_params`` builds (ROADMAP Queue 3): per Mamba layer, the dense MLP
+    of a layer without MoE and two of its three ``d_inner`` vectors. 0 for
+    the attention families."""
+    return sum((0 if sp.moe else 3 * cfg.d_model * cfg.d_ff) + 2 * cfg.ssm_d_inner
+               for sp in cfg.layers if sp.kind == "mamba")
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_param_count_matches_reference(arch):
+    """Equal to the reference's count, plus the terms it leaves out of a
+    Mamba layer (jamba), which the port counts."""
     cfg, ref = get_config(arch), j_get_config(arch)
-    assert cfg.param_count() == ref.param_count()
-    assert cfg.active_param_count() == ref.active_param_count()
+    gap = mamba_undercount(cfg)
+    assert cfg.param_count() == ref.param_count() + gap
+    assert cfg.active_param_count() == ref.active_param_count() + gap
     red, red_j = reduced_config(cfg), j_reduced_config(ref)
-    assert red.param_count() == red_j.param_count()
+    assert red.param_count() == red_j.param_count() + mamba_undercount(red)
 
 
 def test_init_params_tree_matches_reference(models):

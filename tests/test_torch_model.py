@@ -143,6 +143,6 @@ def test_init_params_tree_matches_reference(models):
 def test_unported_families_raise():
     cfg = dataclasses.replace(reduced_config(get_config("llama2-7b")),
                               layers=(dataclasses.replace(get_config("llama2-7b").layers[0],
-                                                          kind="mamba"),) * 2)
+                                                          kind="mlstm"),) * 2)
     with pytest.raises(NotImplementedError):
         Model(cfg)

@@ -36,6 +36,17 @@ the port's simulated path and the reference.
   both ranks, to the single-rank engine's and to the reference Engine's,
   and one dense all-reduce per MoE layer per step for the routed experts
   beside the ``wo`` reduction.
+* Reduced jamba (Mamba, Mamba + MoE, attention; 4 query heads over 4 kv
+  heads) in fp32 on the same 2 ranks: each rank holds half of every Mamba
+  layer's d_inner channels (and of its recurrent state), half of every
+  expert's ``d_ff`` and two of the kv heads; a whole-prompt prefill's logits
+  within rel-L2 1e-5 of the single-rank port's, dense and compressed; the
+  whole-prompt engine on fp4 pools, gated, over prompts of two exact
+  lengths: tokens equal on both ranks and to the single-rank engine's
+  (``simulate_tp=2``), and per pass two all-gathers per compressed
+  reduction (``wo``, each Mamba ``out_proj``, each dense ``down``), one
+  all-reduce per dense one, one per Mamba layer for ``x_proj`` and one per
+  MoE layer for the routed experts.
 * Refusals: ``keep_local_fp`` in the engine on the rank path (ROADMAP
   Queue 3 item 11), a TP group with ``simulate_tp`` or with a kv group,
   heads or MLP columns that do not divide; the backend rule;
@@ -146,6 +157,25 @@ def _moe_cases(vocab):
                                   traffic=family_traffic(vocab), gated=True)}
 
 
+def _jamba_models():
+    """Reduced jamba in fp32, 3 layers: [mamba, mamba + MoE, attn]."""
+    cfg_j = fp32_reduced("jamba-v0.1-52b", n_layers=3)
+    cfg_t = dataclasses.replace(reduced_config(get_config("jamba-v0.1-52b"), n_layers=3),
+                                dtype="float32")
+    model_j = JModel(cfg_j)
+    return cfg_t, model_j, model_j.init_params(jax.random.PRNGKey(0)), None, None
+
+
+def _jamba_cases(vocab):
+    """The whole-prompt engine (a recurrent stack's only scheduler) on fp4
+    pools, gated, over prompts of 12 and 20 tokens."""
+    traffic = [(((np.arange(n, dtype=np.int32) * 11 + i) % vocab).astype(np.int32), 4 + i)
+               for i, n in enumerate((12, 20, 12))]
+    return {"jamba-whole-fp4": dict(engine=dict(max_slots=2, max_len=64, block_size=16,
+                                                cache_spec="fp4_e2m1"),
+                                    traffic=traffic, gated=True)}
+
+
 @pytest.fixture(scope="module")
 def ranks4():
     probe = _probe(4)
@@ -167,16 +197,22 @@ def served(models):
     job["moe"] = dict(cfg=moe_cfg, params=jax.tree.map(np.asarray, moe_params_j),
                       cases=_moe_cases(moe_cfg.vocab_size),
                       logit_tokens=(np.arange(80, dtype=np.int32) * 5 + 2) % moe_cfg.vocab_size)
+    jamba_cfg, _, jamba_params_j = _jamba_models()[:3]
+    job["jamba"] = dict(cfg=jamba_cfg, params=jax.tree.map(np.asarray, jamba_params_j),
+                        cases=_jamba_cases(jamba_cfg.vocab_size),
+                        logit_tokens=(np.arange(21, dtype=np.int32) * 3 + 1)
+                        % jamba_cfg.vocab_size)
     ranks = mesh.spawn_ranks(run_rank, 2, job, device="cpu", threads=2, timeout_s=600)
     single = run_tp_cases(None, "cpu", cfg, params_np, job)
     moe = job["moe"]
     single_moe = run_tp_cases(None, "cpu", moe_cfg, moe["params"], moe)
+    single_jamba = run_tp_cases(None, "cpu", jamba_cfg, job["jamba"]["params"], job["jamba"])
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(reference_engine, "jnp", _CopyingJnp())
         reference = {name: _reference(models, case) for name, case in cases.items()}
         reference_moe = {name: _reference(moe_models, case) for name, case in moe["cases"].items()}
     return dict(job=job, ranks=ranks, single=single, reference=reference, single_moe=single_moe,
-                reference_moe=reference_moe)
+                reference_moe=reference_moe, single_jamba=single_jamba)
 
 
 def _ranks(n, ranks4, served):
@@ -530,6 +566,52 @@ def test_moe_engine_tokens_identical_on_ranks(served):
         n_d = s["n_steps"] - n_c
         assert (tp["all_gather"], tp["all_reduce"], tp["all_to_all"]) == (
             2 * L * n_c, L * n_d + L * s["n_steps"], 0), tp
+
+
+def test_jamba_prefill_logits_at_tp2(served):
+    """Reduced jamba on 2 ranks (each with half of every Mamba layer's
+    channels): a whole-prompt prefill's logits within rel-L2 1e-5 of the
+    single-rank port's, dense and compressed (the out-projections'
+    reductions compressed between the ranks, x_proj's all-reduced)."""
+    for name, want in served["single_jamba"]["logits"].items():
+        got = [r["jamba"]["logits"][name] for r in served["ranks"]]
+        assert np.array_equal(got[0], got[1]), name
+        assert np.isfinite(got[0]).all() and got[0].shape == want.shape
+        assert np.linalg.norm(got[0] - want) / np.linalg.norm(want) <= 1e-5, name
+
+
+def test_jamba_engine_tokens_identical_on_ranks(served):
+    """Tokens equal on both ranks and to the single-rank engine's; half the
+    pool bytes per rank; the collectives of every whole-prompt prefill
+    (compressed) and batched decode (dense: the split decode does not
+    compress) pass exact."""
+    case = "jamba-whole-fp4"
+    cfg = served["job"]["jamba"]["cfg"]
+    # compressed per pass: wo or out_proj, and the dense MLP's down (the
+    # routed experts' partial is all-reduced, dense)
+    R = sum(1 + (cfg.n_shared_experts if s.moe else 1) for s in cfg.layers)
+    mamba = sum(s.kind == "mamba" for s in cfg.layers)
+    moe = sum(s.moe for s in cfg.layers)
+    one = served["single_jamba"][case]["runs"][0]
+    assert one["summary"]["n_preemptions"] == 0 and one["gate"] == {"compressed": 0,
+                                                                     "dense": 0}
+    for r in served["ranks"]:
+        c = r["jamba"][case]
+        run = c["runs"][0]
+        assert run["outputs"] == one["outputs"]
+        assert all(o == "ok" for o in run["outcomes"]) and run["finite"]
+        assert {k: run["summary"][k] for k in SUMMARY_KEYS} == \
+            {k: one["summary"][k] for k in SUMMARY_KEYS}
+        assert c["slab_bytes"] == served["single_jamba"][case]["pool_bytes"] // 2
+        assert c["tp_size"] == 2
+        s, tp = run["summary"], run["tp"]
+        n_pre = s["n_dispatches"] - s["n_steps"]     # one prefill + insert per admission
+        n_dec = s["n_steps"]
+        assert n_pre == 2 * len(served["job"]["jamba"]["cases"][case]["traffic"])
+        n_pre //= 2
+        passes = n_pre + n_dec
+        assert (tp["all_gather"], tp["all_reduce"], tp["all_to_all"]) == (
+            2 * R * n_pre, R * n_dec + (mamba + moe) * passes, 0), tp
 
 
 def test_refusals_on_the_rank_path(served):

@@ -5,9 +5,10 @@ processes, and the JAX reference runs in the test process.
 ``run_rank(group, rank, device, job)`` (the ``spawn_ranks`` target) runs the
 collective probe on this rank's partials, then (when the job has them) the
 refusals, one mixed step's logits and every engine case, and the same for
-the job's MoE model (``job["moe"]``); the test process calls
-``run_tp_cases(None, ...)`` and ``mixed_logits`` itself for the port's
-single-rank engine, so both run the same code.
+the job's MoE model (``job["moe"]``) and its Mamba + MoE hybrid
+(``job["jamba"]``: a whole-prompt prefill's logits, since a recurrent stack
+has no mixed step); the test process calls ``run_tp_cases(None, ...)``
+itself for the port's single-rank engine, so both run the same code.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from repro_torch.core.formats import KVCacheSpec
 from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT, CompressionPolicy
 from repro_torch.core.tp import TPContext
 from repro_torch.models.convert import params_from_numpy, shard_params
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, recurrent_layer
 from repro_torch.serving import Engine
 from repro_torch.serving.kv_cache import init_paged_state
 from tests.torch_kv_worker import bits, run_case
@@ -118,6 +119,17 @@ def mixed_logits(model: Model, params, ctx: TPContext, tokens: np.ndarray,
     return logits.float().numpy()
 
 
+def prefill_logits(model: Model, params, ctx: TPContext, tokens: np.ndarray,
+                   cache_spec=None, device="cpu") -> np.ndarray:
+    """Logits of one whole-prompt prefill of ``tokens`` (one request at its
+    exact length; the pools' format plays no part)."""
+    del cache_spec
+    cache = model.init_cache(1, len(tokens), torch.float32, device, ctx=ctx)
+    logits, _ = model.prefill(ctx, params, {"tokens": torch.as_tensor(
+        np.asarray(tokens), dtype=torch.int32, device=device)[None]}, cache)
+    return logits.float().numpy()
+
+
 def _context(group, gated: bool, **policy) -> TPContext:
     """PAPER_DEFAULT (``policy`` fields replaced) or NO_COMPRESSION, over the
     TP group, or over ``simulate_tp=2`` in the single-rank port."""
@@ -137,17 +149,19 @@ def _params(group, cfg, params_np, device):
 
 
 def run_tp_cases(group, device, cfg, params_np, job) -> dict:
-    """One mixed step's logits (dense and compressed) and every engine case
-    of ``job`` on this TP rank of ``group`` (None: the port's single-rank
-    engine, compressed runs over ``simulate_tp=2``). Each engine case also
-    returns the pool bytes this process holds and the TP counters by run."""
+    """One mixed step's logits (dense and compressed; a recurrent stack's
+    whole-prompt prefill instead) and every engine case of ``job`` on this
+    TP rank of ``group`` (None: the port's single-rank engine, compressed
+    runs over ``simulate_tp=2``). Each engine case also returns the pool
+    bytes this process holds and the TP counters by run."""
     model, params = _params(group, cfg, params_np, device)
     out = {"logits": {}}
     tokens = job["logit_tokens"]
+    probe = mixed_logits if recurrent_layer(cfg) is None else prefill_logits
     for name, gated, spec in (("dense", False, None), ("compressed", True, None),
                               ("compressed-fp4", True, "fp4_e2m1")):
-        out["logits"][name] = mixed_logits(model, params, _context(group, gated), tokens,
-                                           cache_spec=spec, device=device)
+        out["logits"][name] = probe(model, params, _context(group, gated), tokens,
+                                    cache_spec=spec, device=device)
     for name, case in job["cases"].items():
         ctx = _context(group, case.get("gated", False))
         res = run_case(model, params, ctx, device, case)
@@ -179,13 +193,14 @@ def _refusals(group, cfg, params_np) -> dict:
 def run_rank(group, rank: int, device, job: dict) -> dict:
     """The ``spawn_ranks`` target: the collective probe, then (when ``job``
     carries a model) the refusals and the engine cases, and those of the
-    MoE model, on this TP rank."""
+    MoE and hybrid models, on this TP rank."""
     out = {"collectives": run_collectives(group, rank, job["probe"]),
            "transport": C.transport(group)}
     if "cfg" in job:
         out["refusals"] = _refusals(group, job["cfg"], job["params"])
         out["cases"] = run_tp_cases(group, device, job["cfg"], job["params"], job)
-    if "moe" in job:
-        m = job["moe"]
-        out["moe"] = run_tp_cases(group, device, m["cfg"], m["params"], m)
+    for key in ("moe", "jamba"):
+        if key in job:
+            m = job[key]
+            out[key] = run_tp_cases(group, device, m["cfg"], m["params"], m)
     return out
