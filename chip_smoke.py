@@ -47,7 +47,14 @@ Phases (any failure exits non-zero):
               window), timed, and the codec at its whole-prompt shapes
               (the TP partials of every row-parallel reduction, a Mamba
               layer's out_proj included, at its three exact prompt
-              lengths, the insert and the decode append); plus a sweep of
+              lengths, the insert and the decode append); pixtral-12b's and
+              whisper-medium's one paged read, the split decode (KV 8, G 4,
+              hd 128 over 556-796 history positions: the 256-patch prefix
+              and 512 text tokens; KV 16, G 1, hd 64), timed, and the codec
+              at their whole-prompt shapes (pixtral's TP partials of 768
+              positions, S = 4 x (768, 5120); whisper's decoder prompt of 64
+              and its encoder's partials, S = 4 x (1500, 1024)), the insert
+              and the decode append; plus a sweep of
               small shapes through every path of the paged kernel (hd 32 to
               256, GQA groups 1, 2, 7, 8, with and without a window); the
               sequence-sharded read (``row_map``, the TPU kernel's
@@ -83,7 +90,9 @@ Phases (any failure exits non-zero):
               budget runs every expert on every token); reduced jamba
               (Mamba, Mamba + MoE, attention) whole-prompt at exact
               lengths on fp32 and fp4 pools and through a preemption,
-              tokens, steps, dispatches and preemptions identical; one
+              tokens, steps, dispatches and preemptions identical; reduced
+              pixtral (G 4, 16 patches) and whisper (2 + 2 layers over 64
+              frames) the same, on random stand-in extra inputs; one
               compressed mixed step on fp4 pools within a stated
               tolerance.
 5. serve    — llama2-7b at full width and depth, random bf16 weights from a
@@ -132,12 +141,23 @@ Phases (any failure exits non-zero):
               prompts of 512, 480 and 448 tokens (one step program per
               exact length, each captured once and replayed), an eager
               twin of the fp4 run whose tokens must equal the graphed
-              run's, and measure_ttft at 512. Each run held as in phase 5 (on graphed steps; a MoE
+              run's, and measure_ttft at 512; pixtral-12b at full depth (40
+              layers), 8 requests of 256 patch embeddings + 512 text
+              tokens, and whisper-medium at full depth (24 encoder + 24
+              decoder layers), 8 requests of 1500 encoder frames + a
+              64-token decoder prompt and 64 new tokens (random stand-in
+              extra inputs, seed 0), each whole-prompt on fp4 and bf16
+              pools (the bf16 run with its split decode compressed too), an
+              eager twin of the fp4 run, and measure_ttft compressed
+              against uncompressed at 512 text tokens (pixtral) and 64
+              decoder tokens over 1500 frames (whisper). Each run held as in phase 5 (on graphed steps; a MoE
               layer's launches count one compressed reduction for ``wo``
               and one per shared expert, a Mamba layer's one for its
-              ``out_proj``; paged reads and pool writes count attention
-              layers only), with its weight GB and peak device memory
-              printed.
+              ``out_proj``, a whisper prefill 120 (the encoder's ``wo`` and
+              ``down``, each decoder layer's two and its cross-attention's
+              ``wo``) and a whisper decode step 72; paged reads and pool
+              writes count attention layers only), with its weight GB and
+              peak device memory printed.
 7. sharded  — llama2-7b at full width and depth on 2 kv ranks (processes
               over gloo, ``file://`` rendezvous) sharing the one card, the
               paged pools sequence-sharded between them (each rank holds half
@@ -268,7 +288,39 @@ FAMILIES = {
     "jamba-v0.1-52b": dict(requests=8, prompt=PROMPT, lengths=(PROMPT, PROMPT - 32, PROMPT - 64),
                            ttft=(512,), runs=("whole/fp4_e2m1", "whole/bf16"),
                            eager=("whole/fp4_e2m1",), geometries=("decode",)),
+    # a vision prefix (256 patch embeddings ahead of 512 text tokens) and an
+    # encoder-decoder (1500 encoder frames, a 64-token decoder prompt, 64 new
+    # tokens) serve whole-prompt only too, text bucketed to powers of two;
+    # ``prompt`` counts text tokens. ``compress_decode`` names the runs whose
+    # split decode compresses its reductions as well (the engine's option)
+    "pixtral-12b": dict(requests=8, prompt=PROMPT, ttft=(512,),
+                        runs=("whole/fp4_e2m1", "whole/bf16"), eager=("whole/fp4_e2m1",),
+                        compress_decode=("whole/bf16",), geometries=("decode",)),
+    "whisper-medium": dict(requests=8, prompt=64, new=64, ttft=(64,),
+                           runs=("whole/fp4_e2m1", "whole/bf16"), eager=("whole/fp4_e2m1",),
+                           compress_decode=("whole/bf16",), geometries=("decode",)),
 }
+
+
+def n_prefix(cfg) -> int:
+    """Positions a vision model's patch embeddings take ahead of the text."""
+    return cfg.n_patches if cfg.frontend == "vision" else 0
+
+
+def stubs(cfg, batch: int):
+    """``Engine.run``'s ``extra_inputs`` for ``batch`` requests of ``cfg``:
+    the random stand-in patch embeddings or encoder frames (seed 0, on the
+    host, in the model's dtype); None for a text decoder."""
+    import torch
+
+    from repro_torch.models.frontends import frontend_stubs
+
+    return frontend_stubs(cfg, batch, 0, getattr(torch, cfg.dtype)) or None
+
+
+def first_rows(extra, n: int = 1):
+    """The first ``n`` rows of every extra input (None stays None)."""
+    return extra and {k: v[:n] for k, v in extra.items()}
 
 
 class SmokeFailure(RuntimeError):
@@ -640,30 +692,36 @@ def codec_sites(cfg, plan):
     """The codec's call sites in a family's serve runs (``FAMILIES``): (rows,
     width, site) of each quantize, dequantize and S = TP dequantize+reduce.
     The row-parallel reductions (``wo``, ``down``, a Mamba layer's
-    ``out_proj``) are d_model wide, the pool writes and the mixed step's K/V
-    round trip kv_dim wide. A whole-prompt family (a recurrent stack) runs
-    no mixed step: its prefill at each exact prompt length, the insert of
-    its K/V and the split decode's append."""
-    d, kv = cfg.d_model, cfg.kv_dim
+    ``out_proj``, a cross-attention's ``wo``) are d_model wide, the pool
+    writes and the mixed step's K/V round trip kv_dim wide. A whole-prompt
+    family (a recurrent stack, a vision prefix, an encoder-decoder) runs no
+    mixed step: its prefill at each prompt length (the vision prefix's
+    positions included), the insert of its K/V, the split decode's append,
+    and an encoder-decoder's encoder over its frames."""
+    d, kv, pre = cfg.d_model, cfg.kv_dim, n_prefix(cfg)
     kinds = {r.split("/")[0] for r in plan["runs"]}
     quant, deq, red = [], [], []
     if kinds - {"split", "whole"}:   # a mixed step runs
         quant = [(TP * T, d, "mixed TP partials"), (T, kv, "mixed pool append, K or V")]
         deq = [(T, kv, "mixed K/V round trip")]
         red = [(T, d, "mixed step")]
-    if "whole" in kinds:   # whole-prompt prefill at each exact length, insert, split decode
+    if "whole" in kinds:   # whole-prompt prefill at each length, insert, split decode
         for n in plan.get("lengths", (plan["prompt"],)):
-            quant += [(TP * n, d, f"whole-prompt TP partials, {n} tokens"),
-                      (n, kv, f"whole-prompt insert, K or V, {n} tokens")]
-            red.append((n, d, f"whole-prompt prefill, {n} tokens"))
+            quant += [(TP * (pre + n), d, f"whole-prompt TP partials, {pre + n} tokens"),
+                      (pre + n, kv, f"whole-prompt insert, K or V, {pre + n} tokens")]
+            red.append((pre + n, d, f"whole-prompt prefill, {pre + n} tokens"))
         quant.append((SLOTS, kv, "split decode append, K or V"))
+        if cfg.encoder_decoder:
+            F = cfg.encoder_seq
+            quant.append((TP * F, d, f"encoder TP partials, {F} frames"))
+            red.append((F, d, f"encoder, {F} frames"))
     if "split" in kinds:
         quant.append((TP * CHUNK, d, "split chunk TP partials"))
         red.append((CHUNK, d, "split chunk"))
     for n in plan["ttft"]:
-        if (TP * n, d, f"whole-prompt TP partials, {n} tokens") not in quant:
-            quant.append((TP * n, d, f"whole-prompt TP partials, {n} tokens"))
-            red.append((n, d, f"whole-prompt prefill, {n} tokens"))
+        if (TP * (pre + n), d, f"whole-prompt TP partials, {pre + n} tokens") not in quant:
+            quant.append((TP * (pre + n), d, f"whole-prompt TP partials, {pre + n} tokens"))
+            red.append((pre + n, d, f"whole-prompt prefill, {pre + n} tokens"))
     if "two_phase" in kinds:
         quant.append((T, d, "two_phase re-quantize of the reduced result"))
         deq.append((T, d, "two_phase second pass"))
@@ -821,22 +879,23 @@ def paged_bound(torch, q, spec, kv_dim, tables, hist, qpos, t_extra, H, hd, wind
     return b_ms, b_by, nbytes
 
 
-def paged_geometries(torch, dev, g, kv_dim, q_dim, prompt):
-    """Pools of 4 slots of ``prompt + NEW`` positions at a family's width
+def paged_geometries(torch, dev, g, kv_dim, q_dim, prompt, new=NEW):
+    """Pools of 4 slots of ``prompt + new`` positions at a family's width
     (bf16 and fp4_e2m1 from one set of random bf16 values) and the paged
     reads its served steps make over them: (geometries, pools, slot
     tables). ``prompt`` P: the mixed step holds slot 0's last 256-token
     chunk at P - 256 .. P - 1 over its history below P - 256, decode rows
     of slots 1-3 at P + 8, P + 18 and P + 28 and a pad of an empty slot;
-    the split scheduler's decode one row per slot at histories P - 212 .. P
-    + 28; its chunk slot 0's last chunk with the chunk as 256 extras."""
+    the split scheduler's decode one row per slot at histories max(P - 212,
+    P / 2) .. P + 28; its chunk slot 0's last chunk with the chunk as 256
+    extras (a prompt shorter than the chunk serves only the split decode)."""
     from repro_torch.core.formats import MXSpec
     from repro_torch.core.mx import MXCompressed
     from repro_torch.kernels import mx_quant
 
     fp4 = MXSpec.make("fp4_e2m1", 32, "e8m0")
     P = prompt
-    max_blocks = (P + NEW) // BS
+    max_blocks = (P + new) // BS
     n_blocks = SLOTS * max_blocks + 1
     slot_tables = torch.arange(1, n_blocks, device=dev, dtype=torch.int32).reshape(SLOTS, -1)
     randn = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
@@ -849,7 +908,7 @@ def paged_geometries(torch, dev, g, kv_dim, q_dim, prompt):
     decoding = [(0, P + 8), (1, P + 15), (2, P + 21), (3, P + 28)]
     mixed_starts = i32([P - CHUNK, P + 8, P + 18, P + 28])
     dec_starts = i32([p for _, p in decoding])
-    lengths = i32([P - 212, P + 8, P + 18, P + 28])
+    lengths = i32([max(P - 212, P // 2), P + 8, P + 18, P + 28])
     chunk_pos = torch.arange(P - CHUNK, P, device=dev, dtype=torch.int32)[None].contiguous()
     geometries = {  # name -> (q, (tables, hist, q_pos, t_extra), timed)
         # the compressed steps: a 256-token chunk + 3 decode rows, and a pad
@@ -1035,7 +1094,8 @@ def phase_paged(torch, dev="cuda"):
     for arch, plan in FAMILIES.items():
         cfg = get_config(arch)
         geos, fpools, _, fextras = paged_geometries(torch, dev, g, cfg.kv_dim, cfg.q_dim,
-                                                    plan["prompt"])
+                                                    n_prefix(cfg) + plan["prompt"],
+                                                    plan.get("new", NEW))
         if "geometries" in plan:
             geos = {k: v for k, v in geos.items() if k in plan["geometries"]}
         windows = sorted({sp.window for sp in cfg.layers if sp.kind == "attn"},
@@ -1268,7 +1328,9 @@ FAMILY_REDUCED = {"qwen2-7b": dict(n_heads=7, n_kv_heads=1),
                   "gemma3-4b": dict(n_heads=2, n_kv_heads=1, head_dim=256),
                   "mixtral-8x22b": dict(n_heads=6, n_kv_heads=1),
                   "llama4-maverick-400b-a17b": dict(n_heads=5, n_kv_heads=1),
-                  "jamba-v0.1-52b": {}}
+                  "jamba-v0.1-52b": {},
+                  "pixtral-12b": dict(n_heads=4, n_kv_heads=1),
+                  "whisper-medium": {}}
 # reduced jamba keeps one layer of each kind of its schedule: Mamba, Mamba +
 # MoE, attention (reduced_config's default 2 layers hold no attention layer)
 REDUCED_LAYERS = {"jamba-v0.1-52b": 3}
@@ -1284,8 +1346,11 @@ def reference_families(torch, dev, base):
     mixed step also over a MOE_BUDGET-token budget (the sort-based dispatch;
     the 18-token budget runs every expert on every token) on both pools;
     a recurrent stack (jamba: Mamba, Mamba + MoE, attention) whole-prompt
-    at exact lengths on dense fp32 and fp4 pools, and through a preemption:
-    greedy tokens, steps and dispatches identical."""
+    at exact lengths on dense fp32 and fp4 pools, and through a preemption;
+    pixtral (G 4, a 16-patch prefix) and whisper (2 encoder layers over 64
+    frames) whole-prompt on dense fp32 and fp4 pools and through a
+    preemption, on random stand-in extra inputs (the same host arrays for
+    both): greedy tokens, steps and dispatches identical."""
     import dataclasses
 
     import numpy as np
@@ -1307,9 +1372,15 @@ def reference_families(torch, dev, base):
         cases = [("mixed", dict(prefill_chunk=16, token_budget=18)),
                  ("mixed fp4", dict(prefill_chunk=16, token_budget=18, cache_spec="fp4_e2m1")),
                  ("split", dict(prefill_chunk=16, token_budget=0))]
+        extra = stubs(cfg, len(traffic))
         if mamba_layers(cfg):   # whole-prompt only, each prompt at its exact length
             cases = [("whole", {}), ("whole fp4", dict(cache_spec="fp4_e2m1")),
                      ("whole evict", dict(n_blocks=4))]
+        elif extra:   # whole-prompt only; a prefix or encoder needs room beside the text
+            cases = [("whole", dict(max_len=96)),
+                     ("whole fp4", dict(max_len=96, cache_spec="fp4_e2m1")),
+                     # a vision prefix holds a block of its own in each slot
+                     ("whole evict", dict(max_len=96, n_blocks=4 + -(-n_prefix(cfg) // 16)))]
         elif moe_layers(cfg):
             cases += [(f"mixed dispatch{fp4}", dict(prefill_chunk=16, token_budget=MOE_BUDGET,
                                                     **({"cache_spec": "fp4_e2m1"} if fp4 else {})))
@@ -1320,11 +1391,12 @@ def reference_families(torch, dev, base):
                  for i in range(2)]
         for case, opts in cases:
             seen = {}
+            reqs_of = evict if case.endswith("evict") else traffic
             for name, params in (("cpu", cpu), ("card", gpu)):
                 eng = Engine(model, params, TPContext(), device=params["embed"]["w"].device,
                              **{**base, **opts})
-                reqs = eng.run([Request(prompt=p.copy(), max_new_tokens=n)
-                                for p, n in (evict if case.endswith("evict") else traffic)])
+                reqs = eng.run([Request(prompt=p.copy(), max_new_tokens=n) for p, n in reqs_of],
+                               extra_inputs=first_rows(extra, len(reqs_of)))
                 s = eng.stats.summary()
                 seen[name] = ([r.output.tolist() for r in reqs], s["n_steps"], s["n_dispatches"],
                               s["n_preemptions"])
@@ -1338,7 +1410,10 @@ def reference_families(torch, dev, base):
                 + (f", {moe_layers(cfg)} MoE layers of {cfg.n_experts} experts top-{cfg.top_k}"
                    if moe_layers(cfg) else "")
                 + (f", layers {[sp.kind for sp in cfg.layers]}, d_inner {cfg.ssm_d_inner}"
-                   if mamba_layers(cfg) else "") + ") fp32 greedy "
+                   if mamba_layers(cfg) else "")
+                + (f", {cfg.n_patches} patches" if cfg.frontend == "vision" else "")
+                + (f", {cfg.n_encoder_layers} encoder layers over {cfg.encoder_seq} frames"
+                   if cfg.encoder_decoder else "") + ") fp32 greedy "
                 f"tokens identical card vs CPU ({sum(map(len, seen['cpu'][0]))} tokens); "
                 f"{seen['card'][1]} steps, {seen['card'][2]} dispatches, {seen['card'][3]} "
                 f"preemptions on both")
@@ -1448,7 +1523,9 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     ``wo`` (a Mamba layer's ``out_proj``) and the MLP's ``down``, or on a
     MoE layer ``wo`` (``out_proj``) and each shared expert's ``down``; the
     routed experts are never compressed, as in the reference outside its
-    expert-parallel island) is one ``mx_quant`` + one ``mx_dequant_reduce``;
+    expert-parallel island; an encoder-decoder's cross-attention ``wo``
+    per decoder layer, and its encoder layers' ``wo`` and ``down`` in a
+    prefill) is one ``mx_quant`` + one ``mx_dequant_reduce``;
     per attention layer (``attn_layers``; a Mamba layer reads no pool) a
     paged step (mixed, chunk or decode) is one ``paged_attention``, fp4
     pools add one ``mx_quant`` each for K and V per write (step append,
@@ -1479,6 +1556,7 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
                                            f"has {len(eng.cfg.layers)}")
     L = attn_layers(eng.cfg)
     R, M = row_reductions(eng.cfg), moe_layers(eng.cfg) + mamba_layers(eng.cfg)
+    R_dec = row_reductions(eng.cfg, decode=True)
     policy = eng.ctx.policy
     two = policy.variant == "two_phase"
     planes = 4 if q else 2
@@ -1501,9 +1579,10 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
         n_dec = sum(1 for _, d in s.step_tokens if d)
         # whole-prompt: prefill + insert each; chunked: the rest are COW forks
         n_whole = 0 if eng.prefill_chunk else (s.n_dispatches - n_chunk - n_dec) // 2
-        comp = ((n_chunk + n_whole) * eng.ctx.policy.enabled
-                + n_dec * eng.ctx_decode.policy.enabled)
-        red, dense = R * comp, R * (n_chunk + n_whole + n_dec - comp)
+        comp_pre = (n_chunk + n_whole) * eng.ctx.policy.enabled
+        comp_dec = n_dec * eng.ctx_decode.policy.enabled
+        red = R * comp_pre + R_dec * comp_dec
+        dense = R * (n_chunk + n_whole - comp_pre) + R_dec * (n_dec - comp_dec)
         passes = n_chunk + n_whole + n_dec
         out = {"mx_quant": red * (k + two) + (L * 2 * (n_chunk + n_dec + n_whole) if q else 0),
                "mx_dequant_reduce": red * k, "mx_dequant": red * two,
@@ -1525,12 +1604,18 @@ def expert_bytes(params) -> int:
                for k in ("up", "gate", "down") for t in _leaves(lp["moe"][k]))
 
 
-def row_reductions(cfg) -> int:
+def row_reductions(cfg, decode: bool = False) -> int:
     """Row-parallel reductions the policy compresses per forward pass of
     ``cfg``: each layer's ``wo`` (a Mamba layer's ``out_proj``), and its
     MLP's ``down`` or its MoE's shared experts' (a mixtral layer 1, a llama4
-    MoE layer 2, a dense layer 2, a jamba MoE layer 1)."""
-    return sum(1 + (cfg.n_shared_experts if sp.moe else 1) for sp in cfg.layers)
+    MoE layer 2, a dense layer 2, a jamba MoE layer 1); an encoder-decoder
+    adds each decoder layer's cross-attention ``wo`` and, in a prefill (not
+    a ``decode`` step), each encoder layer's ``wo`` and ``down`` (whisper:
+    120 a prefill, 72 a decode step; pixtral 80 both)."""
+    n = sum(1 + (cfg.n_shared_experts if sp.moe else 1) for sp in cfg.layers)
+    if cfg.encoder_decoder:
+        n += cfg.n_layers + (0 if decode else 2 * cfg.n_encoder_layers)
+    return n
 
 
 def moe_layers(cfg) -> int:
@@ -1551,9 +1636,10 @@ def attn_layers(cfg) -> int:
 
 
 def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=None,
-              req_kw=None, all_new=True, during=None, new=NEW):
+              req_kw=None, all_new=True, during=None, new=NEW, extra=None):
     """One measured run of ``eng`` (under ``sup`` when given) on
-    ``traffic``, ``new`` tokens a request, with its checks: every request
+    ``traffic`` (with the model's ``extra`` inputs, one row per request,
+    when it takes them), ``new`` tokens a request, with its checks: every request
     at a terminal outcome (``ok`` with ``new`` tokens when ``all_new``), a
     conserved free list with nothing held, finite logits in the last
     attempt, launches equal to the stats' (on sharded pools the exchange's
@@ -1573,7 +1659,8 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
         base = torch.cuda.memory_allocated()
     if warm:   # cuBLAS handles, first launches and captures, outside the count
         plan, eng.fault_plan = eng.fault_plan, None
-        eng.run([Request(prompt=traffic[0].copy(), max_new_tokens=2)])
+        eng.run([Request(prompt=traffic[0].copy(), max_new_tokens=2)],
+                extra_inputs=first_rows(extra))
         eng.fault_plan = plan
         sync()
     reqs = [Request(prompt=p.copy(), max_new_tokens=new, **k)
@@ -1583,7 +1670,7 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
     reset_exchange_counts()
     reset_tp_counts()
     t0 = time.perf_counter()
-    (sup or eng).run(reqs, seed=0)
+    (sup or eng).run(reqs, seed=0, extra_inputs=extra)
     sync()
     wall = time.perf_counter() - t0
     got = launch_counts()
@@ -1740,13 +1827,14 @@ def phase_serve(torch, dev="cuda", cfg=None):
     return runs, totals
 
 
-def ttft_runs(torch, dev, model, params, lens, totals, label="", graphs=True):
+def ttft_runs(torch, dev, model, params, lens, totals, label="", graphs=True, extra=None):
     """``measure_ttft`` at each prompt length of ``lens``, compressed
     (PAPER_DEFAULT over simulate_tp = TP) and uncompressed, launches held to
-    one compressed reduction per row-parallel layer (``row_reductions``) and
-    prefill, on graphed
-    steps (``graphs=False``: eager). Returns {"compressed/n" |
-    "uncompressed/n": result}."""
+    one compressed reduction per row-parallel layer (``row_reductions``: an
+    encoder-decoder's encoder and cross-attention included) and prefill, on
+    graphed steps (``graphs=False``: eager), over the first row of the
+    model's ``extra`` inputs (a vision prefix, encoder frames) when it takes
+    them. Returns {"compressed/n" | "uncompressed/n": result}."""
     from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
     from repro_torch.core.tp import TPContext
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
@@ -1756,11 +1844,11 @@ def ttft_runs(torch, dev, model, params, lens, totals, label="", graphs=True):
     ttft = {}
     for kind, policy in (("compressed", PAPER_DEFAULT), ("uncompressed", NO_COMPRESSION)):
         eng = Engine(model, params, TPContext(policy=policy, simulate_tp=TP), max_slots=1,
-                     max_len=max(lens), block_size=BS, prefill_chunk=0, device=dev,
-                     cuda_graphs=graphs)
+                     max_len=n_prefix(model.cfg) + max(lens), block_size=BS, prefill_chunk=0,
+                     device=dev, cuda_graphs=graphs)
         for n in lens:
             reset_launch_counts()
-            r = eng.measure_ttft(n, iters=TTFT_ITERS)
+            r = eng.measure_ttft(n, iters=TTFT_ITERS, extra_inputs=first_rows(extra))
             got = launch_counts()
             comp = int(policy.enabled)
             expect = {"mx_quant": TTFT_ITERS * R * comp, "mx_dequant": 0,
@@ -1856,7 +1944,7 @@ def fit_depth(torch, dev, cfg, n_blocks, margin_gb=6.0):
     times a dense one). Returns (config, free bytes, bytes needed at full
     depth)."""
     from repro_torch.configs import first_layers
-    from repro_torch.serving.kv_cache import recurrent_state_bytes
+    from repro_torch.serving.kv_cache import cross_state_bytes, recurrent_state_bytes
 
     if dev != "cuda":
         return cfg, None, None
@@ -1866,7 +1954,8 @@ def fit_depth(torch, dev, cfg, n_blocks, margin_gb=6.0):
         prefix = first_layers(cfg, n)
         return (prefix.param_count() * 2
                 + 2 * n_blocks * BS * cfg.kv_dim * 2 * attn_layers(prefix)
-                + recurrent_state_bytes(prefix, SLOTS) + margin_gb * 1e9)
+                + recurrent_state_bytes(prefix, SLOTS) + cross_state_bytes(prefix, SLOTS)
+                + margin_gb * 1e9)
 
     n = cfg.n_layers
     while n > 1 and need(n) > free:
@@ -1879,13 +1968,19 @@ def phase_family(torch, arch, dev="cuda"):
     bf16 weights, its runs under TPContext(PAPER_DEFAULT, simulate_tp=4)
     (``two_phase`` runs under the two_phase variant; ``whole`` runs
     whole-prompt prefill and the split decode, the one scheduler of a
-    recurrent stack, over prompts of the plan's exact ``lengths``: one
-    step program per length, each captured once and replayed) and its
-    measure_ttft lengths; every run held as ``serve_run`` holds it (ok with
-    its token count, finite logits, the free list conserved, exact launch
-    counts). At full depth when it fits the card (``fit_depth``), else at
-    the depth that fits, printed. Prints the weight GB and each run's peak
-    device memory."""
+    recurrent stack, a vision prefix and an encoder-decoder: a recurrent
+    stack over prompts of the plan's exact ``lengths``, one step program per
+    length, the others one per length bucket, each captured once and
+    replayed; ``compress_decode`` runs compress the split decode's
+    reductions too) and its measure_ttft lengths; a vision model's and an
+    encoder-decoder's requests carry random stand-in patch embeddings or
+    encoder frames (``stubs``). Every run held as ``serve_run`` holds it (ok
+    with its token count, finite logits, the free list conserved, exact
+    launch counts: a whisper prefill 120 compressed reductions, its decode
+    step 72, pixtral 80 either way, paged reads one per decoder layer a
+    decode step). At full depth when it fits the card (``fit_depth``), else
+    at the depth that fits, printed. Prints the weight GB and each run's
+    peak device memory."""
     import dataclasses
 
     import numpy as np
@@ -1896,13 +1991,14 @@ def phase_family(torch, arch, dev="cuda"):
     from repro_torch.models.model import Model
     from repro_torch.models.moe import DENSE_MAX_TOKENS, capacity
     from repro_torch.serving import Engine
-    from repro_torch.serving.kv_cache import recurrent_state_bytes
+    from repro_torch.serving.kv_cache import cross_state_bytes, recurrent_state_bytes
 
     plan = FAMILIES[arch]
     full = get_config(arch)
     lengths = plan.get("lengths", (plan["prompt"],))
-    max_len = max(lengths) + NEW
-    n_blocks = SLOTS * (max_len // BS) + 1
+    new = plan.get("new", NEW)
+    max_len = n_prefix(full) + max(lengths) + new
+    n_blocks = SLOTS * (-(-max_len // BS)) + 1
     gc.collect()
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -1945,11 +2041,25 @@ def phase_family(torch, arch, dev="cuda"):
             f"{cfg.dt_rank}, d_conv {cfg.ssm_d_conv}; recurrent state "
             f"{recurrent_state_bytes(cfg, SLOTS) / 1e6:.2f} MB fp32 for {SLOTS} slots; "
             f"whole-prompt prefill at exact lengths {list(lengths)}")
+    if cfg.frontend == "vision":
+        log(f"{arch}: a vision prefix of {cfg.n_patches} patch embeddings (random stand-ins, "
+            f"seed 0) through mm_proj ahead of {list(lengths)} text tokens: "
+            f"{[n_prefix(cfg) + n for n in lengths]} positions a prefill")
+    if cfg.encoder_decoder:
+        log(f"{arch}: {cfg.n_encoder_layers} encoder layers over {cfg.encoder_seq} frames "
+            f"(random stand-ins, seed 0) in each prefill, {cfg.n_layers} decoder layers with "
+            f"cross-attention; per-slot cross K/V "
+            f"{cross_state_bytes(cfg, SLOTS) / 1e6:.2f} MB bf16 for {SLOTS} slots")
+    if cfg.frontend is not None:
+        log(f"{arch}: per pass {row_reductions(cfg)} compressed reductions a prefill, "
+            f"{row_reductions(cfg, decode=True)} a decode step (when it compresses), "
+            f"{attn_layers(cfg)} paged reads a decode step")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, lengths[i % len(lengths)]).astype(np.int32)
                for i in range(plan["requests"])]
+    extra = stubs(cfg, plan["requests"])
     runs, totals = {}, {k: 0 for k in KERNELS}
-    serve = functools.partial(serve_run, torch, dev, runs, totals, L)
+    serve = functools.partial(serve_run, torch, dev, runs, totals, L, new=new, extra=extra)
     kw = dict(max_slots=SLOTS, max_len=max_len, block_size=BS, device=dev)
 
     def engine(run, graphs=True):
@@ -1959,7 +2069,8 @@ def phase_family(torch, arch, dev="cuda"):
         steps = (dict(prefill_chunk=0) if kind == "whole" else
                  dict(prefill_chunk=CHUNK, token_budget=0 if kind == "split" else T))
         return Engine(model, params, TPContext(policy=policy, simulate_tp=TP),
-                      cache_spec=spec, cuda_graphs=graphs, **steps, **kw)
+                      cache_spec=spec, cuda_graphs=graphs,
+                      compress_decode=run in plan.get("compress_decode", ()), **steps, **kw)
 
     for run in plan["runs"]:
         kind = run.split("/")[0]
@@ -1972,17 +2083,21 @@ def phase_family(torch, arch, dev="cuda"):
         if kind == "split":
             check(s["n_dispatches"] > s["n_steps"], f"{arch} {run}: one dispatch per step")
         elif kind == "whole":
+            # one program per exact length (a recurrent stack) or per bucket
+            buckets = {eng._shapes_for(n)[0] for n in lengths}
             captured = sorted(k for k in eng.capture_seconds() if k.startswith("prefill/"))
             check(s["prefill_tokens"] == sum(map(len, prompts))
-                  and eng.prefill_cache_size() == len(set(lengths))
-                  and (dev != "cuda" or captured == sorted(f"prefill/{n}" for n in set(lengths))),
+                  and eng.prefill_cache_size() == len(buckets)
+                  and (dev != "cuda" or captured == sorted(f"prefill/{n}" for n in buckets)),
                   f"{arch} {run}: {s['prefill_tokens']} prompt tokens prefilled, "
-                  f"{eng.prefill_cache_size()} prefill programs {captured}, not one per exact "
-                  f"length {sorted(set(lengths))}")
+                  f"{eng.prefill_cache_size()} prefill programs {captured}, not one per "
+                  f"length bucket {sorted(buckets)}")
             runs[f"{arch} {run}"]["prefill_capture_s"] = {
                 k: v for k, v in eng.capture_seconds().items() if k.startswith("prefill/")}
-            log(f"{arch} {run}: {eng.prefill_cache_size()} whole-prompt programs, one per exact "
-                f"length, each replayed for the later prompts of its length; capture s "
+            log(f"{arch} {run}: {eng.prefill_cache_size()} whole-prompt programs, one per "
+                f"length bucket {sorted(buckets)}, each replayed for the later prompts of its "
+                f"bucket; decode {'compressed' if eng.ctx_decode.policy.enabled else 'dense'}; "
+                f"capture s "
                 + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
                     runs[f'{arch} {run}']['prefill_capture_s'].items())))
         else:
@@ -1995,7 +2110,13 @@ def phase_family(torch, arch, dev="cuda"):
             runs[f"{arch} graphs/{run}"] = graphs_vs_eager(
                 dev, serve, runs, f"{arch} {run}", engine(run, graphs=False), prompts)
     if plan["ttft"]:
-        runs["ttft"] = ttft_runs(torch, dev, model, params, plan["ttft"], totals, f"{arch} ")
+        runs["ttft"] = ttft_runs(torch, dev, model, params, plan["ttft"], totals, f"{arch} ",
+                                 extra=extra)
+        for n in plan["ttft"]:
+            ms = lambda k: runs["ttft"][f"{k}/{n}"]["median_s"] * 1e3
+            log(f"{arch} ttft[{n} tokens]: {ms('compressed'):.3f} ms compressed / "
+                f"{ms('uncompressed'):.3f} ms uncompressed = "
+                f"{ms('compressed') / ms('uncompressed'):.4f}x")
     if "two_phase/fp4_e2m1" in plan["runs"]:
         two, one = runs[f"{arch} two_phase/fp4_e2m1"], runs[f"{arch} mixed/fp4_e2m1"]
         extra = {k: two["launches"][k] - one["launches"][k] for k in ("mx_quant", "mx_dequant")}

@@ -1,6 +1,7 @@
 """Architecture registry of the port: the archs ported so far, dense
 (llama2, internlm2, qwen2, qwen3, gemma3), MoE (mixtral-8x22b,
-llama4-maverick-400b-a17b) and the Mamba + MoE hybrid jamba-v0.1-52b.
+llama4-maverick-400b-a17b), the Mamba + MoE hybrid jamba-v0.1-52b, the
+vision-prefix decoder pixtral-12b and the encoder-decoder whisper-medium.
 ``get_config(arch_id)`` / ``ARCHS`` mirror the reference's API."""
 from __future__ import annotations
 
@@ -13,8 +14,10 @@ from repro_torch.configs.jamba_v01_52b import CONFIG as jamba_v01_52b
 from repro_torch.configs.llama2 import LLAMA2_7B, LLAMA2_13B, LLAMA2_70B
 from repro_torch.configs.llama4_maverick import CONFIG as llama4_maverick
 from repro_torch.configs.mixtral_8x22b import CONFIG as mixtral_8x22b
+from repro_torch.configs.pixtral_12b import CONFIG as pixtral_12b
 from repro_torch.configs.qwen2_7b import CONFIG as qwen2_7b
 from repro_torch.configs.qwen3_32b import CONFIG as qwen3_32b
+from repro_torch.configs.whisper_medium import CONFIG as whisper_medium
 
 ARCHS = {
     "internlm2-1.8b": internlm2_1_8b,
@@ -27,6 +30,8 @@ ARCHS = {
     "mixtral-8x22b": mixtral_8x22b,
     "llama4-maverick-400b-a17b": llama4_maverick,
     "jamba-v0.1-52b": jamba_v01_52b,
+    "pixtral-12b": pixtral_12b,
+    "whisper-medium": whisper_medium,
 }
 
 

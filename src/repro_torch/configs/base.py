@@ -104,25 +104,30 @@ class ModelConfig:
         biases) and Mamba layers (in_x, in_z, conv, x_proj, dt_proj, A_log,
         D, out_proj) as the reference counts them, and each layer's dense
         MLP or MoE (router, ``n_experts`` gated experts of ``d_ff`` columns,
-        ``n_shared_experts`` shared ones). Two terms the reference's count
-        leaves out are counted (ROADMAP.md Queue 3): the dense MLP of a Mamba
-        layer without MoE, which its ``init_layer`` builds
-        (``_has_mlp_sublayer``), and two of a Mamba layer's three
-        ``d_inner`` vectors (``conv_b``, ``dt_proj.b``, ``D``). xLSTM layers
-        and encoder-decoder raise."""
-        if self.encoder_decoder or any(sp.kind not in ("attn", "mamba")
-                                       for sp in self.layers):
+        ``n_shared_experts`` shared ones); an encoder-decoder's encoder
+        layers (attention, MLP, two norms) and each decoder layer's
+        cross-attention, as the reference counts them. Terms the reference's
+        count leaves out are counted (ROADMAP.md Queue 3 items 13 and 14):
+        the dense MLP of a Mamba layer without MoE, which its ``init_layer``
+        builds (``_has_mlp_sublayer``), two of a Mamba layer's three
+        ``d_inner`` vectors (``conv_b``, ``dt_proj.b``, ``D``), a vision
+        model's ``mm_proj`` (``d_model x d_model``), and an
+        encoder-decoder's ``enc_norm`` and the norm of each cross-attention
+        sublayer. xLSTM layers raise."""
+        if any(sp.kind not in ("attn", "mamba") for sp in self.layers):
             raise NotImplementedError(f"{self.name}: param_count covers attention and "
                                       "Mamba layers only")
         d, ff = self.d_model, self.d_ff
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.qkv_bias:
+            attn += self.q_dim + 2 * self.kv_dim
+        dense_mlp = (3 if self.activation == "silu" else 2) * d * ff if ff > 0 else 0
         n = self.vocab_size * d  # embedding
         if not self.tie_embeddings:
             n += self.vocab_size * d
         for spec in self.layers:
             if spec.kind == "attn":
-                n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-                if self.qkv_bias:
-                    n += self.q_dim + 2 * self.kv_dim
+                n += attn
             else:
                 di, N = self.ssm_d_inner, self.ssm_d_state
                 n += d * 2 * di + self.ssm_d_conv * di + di          # in_x, in_z, conv
@@ -132,9 +137,15 @@ class ModelConfig:
             if spec.moe:
                 n += d * self.n_experts  # router
                 n += (self.n_experts + self.n_shared_experts) * 3 * d * ff
-            elif ff > 0:
-                n += (3 if self.activation == "silu" else 2) * d * ff
+            else:
+                n += dense_mlp
             n += 2 * d  # norms
+        if self.frontend == "vision":
+            n += d * d                                               # mm_proj
+        if self.encoder_decoder:
+            n += self.n_encoder_layers * (attn + dense_mlp + 2 * d)  # encoder layers
+            n += d                                                   # enc_norm
+            n += self.n_layers * (attn + d)                          # cross-attention + norm
         return n
 
     def tp_shard(self, n: int) -> "ModelConfig":

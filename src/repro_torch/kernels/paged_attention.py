@@ -89,11 +89,12 @@ def paged_attention_plain(q, pool_k, pool_v, tables, hist_len, q_pos, k_extra=No
     return out.to(out_dtype or q.dtype)
 
 
-def attend_block(q, k, v, q_pos, t_pos, *, window, scale, kv_heads):
-    """Causal masked GQA attention, the reference's ``_attend_block``:
-    q (B, Sq, H, hd); k/v flat (B, T, kv_dim); q_pos (B, Sq); t_pos (B, T).
-    Key t is valid for query s when t_pos <= q_pos (and t_pos > q_pos -
-    window); masked scores are NEG_INF. Returns (B, Sq, H*hd) in v's dtype."""
+def attend_block(q, k, v, q_pos, t_pos, *, window, scale, kv_heads, causal=True):
+    """Masked GQA attention, the reference's ``_attend_block``: q (B, Sq, H,
+    hd); k/v flat (B, T, kv_dim); q_pos (B, Sq); t_pos (B, T). Key t is
+    valid for query s when t_pos <= q_pos (``causal``; else when t_pos >=
+    0), and t_pos > q_pos - window; masked scores are NEG_INF. Returns (B,
+    Sq, H*hd) in v's dtype."""
     B, Sq, H, hd = q.shape
     T = k.shape[1]
     G = H // kv_heads
@@ -103,7 +104,7 @@ def attend_block(q, k, v, q_pos, t_pos, *, window, scale, kv_heads):
     scores = torch.einsum("bsngd,btnd->bnsgt", qg, kh).float() * scale
     tp = t_pos[:, None, :]                                      # (B, 1, T)
     qp = q_pos[:, :, None]                                      # (B, Sq, 1)
-    valid = tp <= qp
+    valid = tp <= qp if causal else (tp >= 0).expand(B, Sq, T)
     if window is not None:
         valid = valid & (tp > qp - window)
     scores = torch.where(valid[:, None, :, None, :], scores,

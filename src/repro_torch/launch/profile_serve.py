@@ -1,7 +1,8 @@
 """Where the time of a serving run goes on the card: the llama2-7b serve of
 ``chip_smoke.py`` (or another ported family, ``--arch``, e.g. qwen2-7b,
-mixtral-8x22b or jamba-v0.1-52b; ``--layers N`` serves the schedule's first
-N layers at full width, for a model whose weights do not fit one card)
+mixtral-8x22b, jamba-v0.1-52b, pixtral-12b or whisper-medium; ``--layers
+N`` serves the schedule's first N layers at full width, for a model whose
+weights do not fit one card)
 under ``torch.profiler``, device kernel time
 summed by layer of the stack (paged attention, MX codec, MoE dispatch,
 GEMMs, the rest), against the run's wall time (the rest is the device's idle
@@ -36,8 +37,13 @@ graphs, captured in the warm-up run); ``:split`` after the spec runs the
 split chunk-then-decode scheduler (``token_budget=0``, chunk 256) instead,
 and ``:eager`` runs eager steps (``cuda_graphs=False``), e.g.
 ``fp4_e2m1,fp4_e2m1:eager,fp4_e2m1:eager,fp4_e2m1`` holds the two in turns.
-A stack with recurrent layers (jamba) runs whole-prompt prefill and the
-split decode, its only scheduler (``prefill_chunk=0``), in every cell.
+A stack with recurrent layers (jamba), a vision model (pixtral-12b) and an
+encoder-decoder (whisper-medium) run whole-prompt prefill and the split
+decode, their only scheduler (``prefill_chunk=0``), in every cell; the
+latter two on random stand-in patch embeddings or encoder frames drawn from
+``--seed`` (``models/frontends.py``), ``--prompt-len`` counting text tokens.
+The encoder's attention and the cross-attention (plain PyTorch einsums and
+softmax) land under GEMM and the rest.
 Writes the tables to ``--out`` as a JSON list as well. Needs a GPU.
 """
 from __future__ import annotations
@@ -54,7 +60,8 @@ import torch
 from repro_torch.configs import first_layers, get_config
 from repro_torch.core.policy import PAPER_DEFAULT
 from repro_torch.core.tp import TPContext
-from repro_torch.models.model import Model, recurrent_layer
+from repro_torch.models.frontends import frontend_stubs
+from repro_torch.models.model import Model, recurrent_layer, torch_dtype
 from repro_torch.serving import Engine, Request
 
 CATEGORIES = (  # (category, substrings of the device kernel's name)
@@ -93,6 +100,7 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32)
                for _ in range(args.requests)]
+    args.extra = frontend_stubs(cfg, args.requests, args.seed, torch_dtype(cfg.dtype)) or None
     results = [profile_cell(model, params, spec, prompts, args)
                for spec in args.cache_spec.split(",")]
     out = pathlib.Path(args.out)
@@ -106,19 +114,23 @@ def profile_cell(model, params, cell, prompts, args):
     cache_spec, *options = cell.split(":")
     if not set(options) <= {"mixed", "split", "eager"}:
         raise ValueError(f"cell {cell!r}: options are 'split' (else mixed) and 'eager'")
-    scheduler = ("whole" if recurrent_layer(cfg) is not None
-                 else "split" if "split" in options else "mixed")
+    whole = recurrent_layer(cfg) is not None or cfg.frontend is not None
+    scheduler = "whole" if whole else "split" if "split" in options else "mixed"
     steps = "eager" if "eager" in options else "graphed"
+    n_prefix = cfg.n_patches if cfg.frontend == "vision" else 0
+    extra = args.extra
     engine = Engine(model, params, TPContext(policy=PAPER_DEFAULT, simulate_tp=4),
-                    max_slots=4, max_len=args.prompt_len + args.new_tokens, block_size=16,
+                    max_slots=4, max_len=n_prefix + args.prompt_len + args.new_tokens,
+                    block_size=16,
                     prefill_chunk=0 if scheduler == "whole" else 256,
                     token_budget=260 if scheduler == "mixed" else 0,
                     cache_spec=cache_spec, cuda_graphs=steps == "graphed")
-    engine.run([Request(prompt=prompts[0].copy(), max_new_tokens=2)])  # warm-up
+    engine.run([Request(prompt=prompts[0].copy(), max_new_tokens=2)],   # warm-up
+               extra_inputs=extra and {k: v[:1] for k, v in extra.items()})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.run([Request(prompt=p.copy(), max_new_tokens=args.new_tokens) for p in prompts],
-               seed=args.seed)
+               seed=args.seed, extra_inputs=extra)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
     plain = engine.stats.summary()
@@ -127,7 +139,7 @@ def profile_cell(model, params, cell, prompts, args):
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         engine.run([Request(prompt=p.copy(), max_new_tokens=args.new_tokens) for p in prompts],
-                   seed=args.seed)
+                   seed=args.seed, extra_inputs=extra)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_cat, by_kernel = collections.Counter(), collections.Counter()

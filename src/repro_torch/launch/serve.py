@@ -28,7 +28,11 @@ state). jamba serves split and whole-prompt only: each prompt prefills at
 its exact length (a recurrent layer would fold pads into its state), so
 ``--prefill-chunk``, ``--token-budget`` and ``--prefix-cache`` are refused
 for it; ``--reduced`` keeps one layer of each kind of its schedule (Mamba,
-Mamba + MoE, attention). ``--layers N`` serves the schedule's first N
+Mamba + MoE, attention). pixtral-12b (a vision prefix: 256 patch
+embeddings ahead of each prompt) and whisper-medium (an encoder-decoder over
+1500 encoder frames) serve whole-prompt too; their extra inputs are random
+stand-ins drawn from ``--seed`` (``models/frontends.py``; nothing is
+downloaded), and the banner says so. ``--layers N`` serves the schedule's first N
 layers at full width (a model whose weights do not fit one card:
 mixtral-8x22b fits about 15 of its 56 layers on an 80 GB H100,
 llama4-maverick 5 of 48, jamba 24 of 32). Runs on the GPU by
@@ -71,7 +75,8 @@ from repro_torch.core.formats import MXSpec
 from repro_torch.core.policy import CompressionPolicy, NO_COMPRESSION
 from repro_torch.core.tp import TPContext
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.frontends import frontend_stubs
+from repro_torch.models.model import Model, torch_dtype
 from repro_torch.serving import Engine, EngineSupervisor, FaultPlan, Request
 
 
@@ -224,10 +229,19 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
                + ("by one all-reduce per Mamba layer" if tp_group is not None
                   else "unsplit (simulate_tp splits only the row-parallel layers)"))
 
+    n_prefix = cfg.n_patches if cfg.frontend == "vision" else 0
+    if cfg.frontend == "vision":
+        print_(f"vision prefix: {n_prefix} patch embeddings (random stand-ins from --seed) "
+               f"through mm_proj ahead of each prompt; whole-prompt prefill")
+    if cfg.encoder_decoder:
+        print_(f"encoder: {cfg.n_encoder_layers} layers over {cfg.encoder_seq} frames (random "
+               f"stand-ins from --seed) in each prefill; {cfg.n_layers} cross-attention "
+               f"sublayers, their wo reduced by the policy; whole-prompt prefill")
+
     params = model.init_params(device=device, seed=args.seed, tp=(ctx.tp_rank, ctx.tp_size))
     fault_plan = FaultPlan.parse(args.fault_plan, seed=args.seed)
     engine = Engine(model, params, ctx, max_slots=args.slots,
-                    max_len=args.prompt_len + args.new_tokens,
+                    max_len=n_prefix + args.prompt_len + args.new_tokens,
                     block_size=args.block_size, cache_spec=args.cache_spec,
                     prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
                     prefix_cache=bool(args.prefix_cache), max_queue=args.max_queue,
@@ -261,15 +275,17 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
                     max_new_tokens=args.new_tokens, temperature=args.temperature,
                     arrival_s=i * args.stagger)
             for i in range(n_req)]
+    extra = frontend_stubs(cfg, n_req, args.seed, dtype=torch_dtype(cfg.dtype)) or None
     # warm-up run, so the report measures serving rather than first-launch
     # set-up, with the fault plan disarmed so that it fires in the measured run
     plan, engine.fault_plan = engine.fault_plan, None
-    engine.run([Request(prompt=reqs[0].prompt.copy(), max_new_tokens=2)])
+    engine.run([Request(prompt=reqs[0].prompt.copy(), max_new_tokens=2)],
+               extra_inputs=extra and {k: v[:1] for k, v in extra.items()})
     engine.fault_plan = plan
     sup = EngineSupervisor(engine) if len(fault_plan) else None
     reset_tp_counts()
     t0 = time.time()
-    out = (sup or engine).run(reqs, seed=args.seed)
+    out = (sup or engine).run(reqs, seed=args.seed, extra_inputs=extra)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.time() - t0

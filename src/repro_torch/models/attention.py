@@ -1,6 +1,7 @@
 """GQA attention with RoPE: the dense self-attention of whole-prompt prefill
-and the three paged geometries of the reference's ``models/attention.py``
-(decode, chunk, mixed token-budget step).
+(causal, or bidirectional for an encoder), the decoder's cross-attention
+over an encoder's K/V, and the three paged geometries of the reference's
+``models/attention.py`` (decode, chunk, mixed token-budget step).
 
 Dense caches are flat ``(B, S_max, kv_dim)``; KV pools are flat
 ``(n_blocks, block_size, kv_dim)`` (dense) or MX wire pairs ``(payload
@@ -78,36 +79,53 @@ def _qkv(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig, positions):
     return q, k.reshape(B, S, cfg.kv_dim), v
 
 
-def _attend(q, k, v, q_pos, t_pos, *, window, scale, kv_heads, chunk: int = _Q_CHUNK):
-    """Causal attention q-chunked as in the reference: q (B, S, H, hd), k/v
-    flat (B, T, kv_dim), q_pos (S,), t_pos (T,); the scores transient stays
-    (B, chunk, H, T). Returns (B, S, H*hd)."""
+def _attend(q, k, v, q_pos, t_pos, *, window, scale, kv_heads, causal: bool = True,
+            chunk: int = _Q_CHUNK):
+    """Attention q-chunked as in the reference: q (B, S, H, hd), k/v flat
+    (B, T, kv_dim), q_pos (S,), t_pos (T,); causal unless ``causal=False``
+    (the encoder, cross-attention); the scores transient stays (B, chunk, H,
+    T). The reference halves ``chunk`` until it divides S (1500 encoder
+    frames: chunks of 4); here the last chunk is the remainder (1024 + 476),
+    the same values per query row in far fewer products. Returns (B, S,
+    H*hd)."""
     B, S = q.shape[:2]
     q_pos, t_pos = q_pos.expand(B, S), t_pos.expand(B, k.shape[1])
+    kw = dict(window=window, scale=scale, kv_heads=kv_heads, causal=causal)
     if S <= chunk:
-        return _attend_block(q, k, v, q_pos, t_pos, window=window, scale=scale,
-                             kv_heads=kv_heads)
-    while S % chunk:
-        chunk //= 2
-    return torch.cat([_attend_block(q[:, i:i + chunk], k, v, q_pos[:, i:i + chunk], t_pos,
-                                    window=window, scale=scale, kv_heads=kv_heads)
+        return _attend_block(q, k, v, q_pos, t_pos, **kw)
+    return torch.cat([_attend_block(q[:, i:i + chunk], k, v, q_pos[:, i:i + chunk], t_pos, **kw)
                       for i in range(0, S, chunk)], dim=1)
 
 
 def attention(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig, *, pos: int,
               cache: Optional[KVCache] = None, window: Optional[int] = None,
-              cross_kv: Optional[KVCache] = None):
-    """Dense causal self-attention over x (B, S, d_model) at positions
-    ``pos + [0, S)``: without a cache (every key is in x), or writing the new
-    K/V into ``cache`` at ``pos`` (in place, cast to the cache's dtype) and
-    attending the whole cache read back at that precision (the reference's
-    prefill). Plain PyTorch on the reference's arithmetic: einsum products,
-    fp32 masked softmax, q-chunked at 1024. Returns (out (B, S, d_model),
-    cache). Cross-attention (``cross_kv``) is not ported."""
-    if cross_kv is not None:
-        raise NotImplementedError("cross-attention is not ported yet (encoder-decoder "
-                                  "models)")
+              causal: bool = True, cross_kv: Optional[KVCache] = None):
+    """Dense self-attention over x (B, S, d_model) at positions ``pos + [0,
+    S)``, causal unless ``causal=False`` (the encoder): without a cache
+    (every key is in x), or writing the new K/V into ``cache`` at ``pos``
+    (in place, cast to the cache's dtype) and attending the whole cache read
+    back at that precision (the reference's prefill). With ``cross_kv``
+    (the encoder's flat K/V, (B, F, kv_dim)) it is the decoder's
+    cross-attention instead: q through ``column_linear`` (``q_norm`` with
+    ``qk_norm``, no RoPE), every encoder position visible, no cache written.
+    Plain PyTorch on the reference's arithmetic: einsum products, fp32
+    masked softmax, q-chunked at 1024. ``wo`` is ``row_linear``, the
+    reduction the policy compresses. Returns (out (B, S, d_model), cache)."""
     B, S = x.shape[:2]
+    if cross_kv is not None:
+        if ctx.tp_size > 1:
+            raise NotImplementedError(
+                "cross-attention on a TP group (encoder-decoder models across ranks) is "
+                "not ported yet: see ROADMAP.md Queue 1")
+        q = column_linear(ctx, x, params["wq"]["w"], params["wq"].get("b"))
+        q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = rms_norm(q, params["q_norm"]["w"])
+        t_pos = torch.arange(cross_kv.k.shape[1], device=x.device, dtype=torch.int32)
+        out = _attend(q, cross_kv.k.to(q.dtype), cross_kv.v.to(q.dtype),
+                      torch.zeros(S, device=x.device, dtype=torch.int32), t_pos, window=None,
+                      scale=cfg.head_dim**-0.5, kv_heads=cfg.n_kv_heads, causal=False)
+        return row_linear(ctx, out, params["wo"]["w"], n_tokens=B * S), cache
     positions = pos + torch.arange(S, device=x.device, dtype=torch.int32)
     q, k_new, v_new = _qkv(ctx, params, x, cfg, positions[None, :])
     if cache is None:
@@ -118,7 +136,8 @@ def attention(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig, *, pos:
         k_all, v_all = cache
         t_pos = torch.arange(k_all.shape[1], device=x.device, dtype=torch.int32)
     out = _attend(q, k_all.to(q.dtype), v_all.to(q.dtype), positions, t_pos,
-                  window=window, scale=cfg.head_dim**-0.5, kv_heads=cfg.n_kv_heads)
+                  window=window, scale=cfg.head_dim**-0.5, kv_heads=cfg.n_kv_heads,
+                  causal=causal)
     y = row_linear(ctx, out, params["wo"]["w"], n_tokens=B * S)
     return y, cache
 

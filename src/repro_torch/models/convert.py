@@ -11,7 +11,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import check_supported, param_shapes, shard_leaf, torch_dtype
+from repro_torch.models.model import (
+    check_supported, check_tp, param_shapes, shard_leaf, torch_dtype,
+)
 
 __all__ = ["params_from_numpy", "shard_params"]
 
@@ -52,7 +54,9 @@ def params_from_numpy(tree, cfg: ModelConfig, device: str | torch.device = "cuda
     ``device`` in the config's dtype. Checks the tree against ``cfg``'s
     (``model.param_shapes``): the layer count, every leaf's shape, biases
     and q/k norms where the config has them, no ``gate`` for a non-gated
-    MLP and no ``lm_head`` for tied embeddings."""
+    MLP and no ``lm_head`` for tied embeddings; a vision model's
+    ``mm_proj``, an encoder-decoder's ``enc_layers``, ``enc_norm`` and
+    ``xattn``."""
     check_supported(cfg)
     dev = resolve_device(device)
     params = _convert(tree, torch_dtype(cfg.dtype), dev, "")
@@ -64,8 +68,10 @@ def shard_params(tree, cfg: ModelConfig, rank: int, n: int):
     """Rank ``rank``'s shard of a numpy parameter tree (reference names and
     layouts) on a TP group of ``n`` ranks, by ``model.shard_axis``, as
     ``Model.init_params(tp=(rank, n))`` keeps it: the n shards put together
-    are the tree. Checks the tree against ``cfg`` first."""
+    are the tree. Checks the tree against ``cfg`` first. A vision prefix or
+    an encoder on a TP group is not ported yet (``NotImplementedError``)."""
     check_supported(cfg)
+    check_tp(cfg, n)
     cfg.tp_shard(n)
     _check_tree(tree, param_shapes(cfg), "")
 

@@ -1,19 +1,35 @@
 """The port's Model for decoders of attention and Mamba layers with dense
-MLP or MoE sublayers: parameter init, the whole-prompt prefill over a dense
-cache, and the three paged serving steps (the reference's
-``Model.init_params``, ``init_cache``, ``prefill``, ``prefill_chunk``,
-``decode_step_paged`` and ``mixed_step``). Other families raise
+MLP or MoE sublayers, with a vision prefix or an encoder: parameter init,
+the whole-prompt prefill over a dense cache, and the three paged serving
+steps (the reference's ``Model.init_params``, ``init_cache``, ``prefill``,
+``prefill_chunk``, ``decode_step_paged`` and ``mixed_step``). xLSTM raises
 ``NotImplementedError``. A stack with Mamba layers (jamba) serves through
 whole-prompt prefill and ``decode_step_paged`` only: the chunk and mixed
 steps raise, as the reference's do, since a recurrent layer would fold a
 chunk's pads into its state.
 
+A vision model (pixtral, ``frontend="vision"``) prefills ``n_patches``
+precomputed patch embeddings through ``mm_proj`` ahead of the text tokens
+(early fusion, not scaled by ``sqrt(d_model)``); its positions count the
+prefix. An encoder-decoder (whisper) runs its bidirectional encoder over
+``encoder_frames`` in the prefill (RoPE over frame positions, as the
+reference's), projects the encoder's output once into each decoder layer's
+cross-attention K/V (``_cross_kv``: no bias, no k-norm, no RoPE) and adds
+a cross-attention sublayer after each decoder layer; the decode step reads
+the per-slot cross K/V from ``state["cross_k"]`` / ``state["cross_v"]``.
+The encoder's ``wo`` and ``down`` and each cross-attention's ``wo`` are
+row-parallel reductions the policy compresses. The chunk and mixed steps
+refuse an encoder-decoder, as the reference's do. Neither runs on a TP
+group yet (``NotImplementedError``).
+
 Parameters are a plain nested dict with the reference's tree and names
 (``embed``, ``layers[i].{ln1, core.{wq, wk, wv, wo, q_norm, k_norm}, ln2,
 mlp.{up, down, gate}}``, ``final_norm``, ``lm_head``) and its layouts
 (linear weights ``(Fin, Fout)`` applied as ``x @ w``, biases ``b``;
-``embed``/``lm_head`` ``(V, d)``). ``param_shapes`` gives the tree a config
-has: q/k/v biases with ``qkv_bias``, ``q_norm``/``k_norm`` with
+``embed``/``lm_head`` ``(V, d)``; a vision model adds ``mm_proj.w (d,
+d)``, an encoder-decoder ``enc_layers[i].{ln1, core, ln2, mlp}``,
+``enc_norm`` and ``xattn[i].{ln, core}``). ``param_shapes`` gives the tree
+a config has: q/k/v biases with ``qkv_bias``, ``q_norm``/``k_norm`` with
 ``qk_norm``, ``gate`` only for the gated (silu) MLP, and no ``lm_head``
 with ``tie_embeddings`` (the logits then read ``embed``). A MoE layer has
 ``moe.{router, up, gate, down, shared0, ...}`` in place of ``mlp``: router
@@ -48,15 +64,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tp import TPContext
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
-    paged_attention_chunk, paged_attention_decode, paged_attention_mixed,
+    KVCache, attention, paged_attention_chunk, paged_attention_decode, paged_attention_mixed,
 )
 from repro_torch.models.common import Initializer, embed, int_scalar, rms_norm, unembed
+from repro_torch.models.mlp import mlp
 from repro_torch.models.transformer import (
     apply_layer, apply_stack, feed_forward, init_layer_cache,
 )
 
 __all__ = ["Model", "torch_dtype", "param_shapes", "shard_axis", "shard_leaf",
-           "recurrent_layer"]
+           "recurrent_layer", "check_supported", "check_tp"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -66,18 +83,28 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise on anything but a text decoder of attention and Mamba layers
-    with an RMSNorm and, per layer, a SwiGLU or gelu MLP or a MoE of top-k
-    routed experts."""
+    """Raise on anything but a decoder of attention and Mamba layers with an
+    RMSNorm and, per layer, a SwiGLU or gelu MLP or a MoE of top-k routed
+    experts; with a vision prefix, or an encoder (with its audio
+    frontend)."""
     bad = [s for s in cfg.layers if s.kind not in ("attn", "mamba")]
     moe_ok = not any(s.moe for s in cfg.layers) or 0 < cfg.top_k <= cfg.n_experts
-    if (bad or not moe_ok or cfg.encoder_decoder or cfg.frontend is not None
-            or cfg.norm != "rmsnorm" or cfg.activation not in ("silu", "gelu")
-            or cfg.d_ff <= 0):
+    front_ok = cfg.frontend == ("audio" if cfg.encoder_decoder else None) or (
+        cfg.frontend == "vision" and not cfg.encoder_decoder)
+    if (bad or not moe_ok or not front_ok or cfg.norm != "rmsnorm"
+            or cfg.activation not in ("silu", "gelu") or cfg.d_ff <= 0):
         raise NotImplementedError(
             f"{cfg.name}: the port serves decoders of attention and Mamba layers with "
-            f"an RMSNorm and a SwiGLU or gelu MLP or a top-k MoE only (xLSTM, "
-            f"encoder-decoder and vision frontends are not ported yet)")
+            f"an RMSNorm and a SwiGLU or gelu MLP or a top-k MoE, with a vision prefix "
+            f"or an audio encoder, only (xLSTM is not ported yet)")
+
+
+def check_tp(cfg: ModelConfig, n: int) -> None:
+    """A vision prefix or an encoder on a TP group is not ported yet."""
+    if n > 1 and (cfg.encoder_decoder or cfg.frontend is not None):
+        raise NotImplementedError(
+            f"{cfg.name} on a TP group of {n} ranks (a vision prefix or an encoder across "
+            f"ranks) is not ported yet: see ROADMAP.md Queue 1")
 
 
 def recurrent_layer(cfg: ModelConfig) -> Optional[Tuple[int, str]]:
@@ -86,7 +113,7 @@ def recurrent_layer(cfg: ModelConfig) -> Optional[Tuple[int, str]]:
     return next(((i, sp.kind) for i, sp in enumerate(cfg.layers) if sp.kind != "attn"), None)
 
 
-_NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+_NORMS = ("ln1", "ln2", "ln", "final_norm", "enc_norm", "q_norm", "k_norm")
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
@@ -137,6 +164,13 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
                             "final_norm": {"w": (d,)}}
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": (cfg.vocab_size, d)}
+    if cfg.frontend == "vision":
+        tree["mm_proj"] = linear(d, d)
+    if cfg.encoder_decoder:
+        tree["enc_layers"] = [{"ln1": {"w": (d,)}, "core": attention(), "ln2": {"w": (d,)},
+                               "mlp": mlp()} for _ in range(cfg.n_encoder_layers)]
+        tree["enc_norm"] = {"w": (d,)}
+        tree["xattn"] = [{"ln": {"w": (d,)}, "core": attention()} for _ in cfg.layers]
     return tree
 
 
@@ -197,6 +231,7 @@ class Model:
             generator = torch.Generator(device=dev).manual_seed(seed)
         cfg = self.cfg
         rank, n = tp
+        check_tp(cfg, n)
         cfg.tp_shard(n)   # raises when the config does not shard over n ranks
         init = Initializer(generator, torch_dtype(cfg.dtype), dev)
 
@@ -234,6 +269,7 @@ class Model:
     def local_cfg(self, ctx: TPContext) -> ModelConfig:
         """The config this process computes with: the rank-local view on a
         TP group (``ModelConfig.tp_shard``), else the config itself."""
+        check_tp(self.cfg, ctx.tp_size)
         return self.cfg.tp_shard(ctx.tp_size)
 
     # ----------------------------------------------------------------- serve
@@ -241,6 +277,43 @@ class Model:
     def _embed(self, ctx: TPContext, params, tokens: torch.Tensor) -> torch.Tensor:
         x = embed(ctx, params["embed"]["w"], tokens)
         return x * torch.tensor(self.cfg.d_model**0.5, dtype=x.dtype)
+
+    def _embed_inputs(self, ctx: TPContext, params, batch) -> torch.Tensor:
+        """The token embeddings of ``batch["tokens"]``, after the projected
+        ``patch_embeds`` of a vision model when the batch has them (early
+        fusion: ``patch_embeds @ mm_proj``, unscaled, ahead of the text)."""
+        x = self._embed(ctx, params, batch["tokens"])
+        if self.cfg.frontend == "vision" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(x.dtype)
+            x = torch.cat([torch.matmul(pe, params["mm_proj"]["w"].to(x.dtype)), x], dim=1)
+        return x
+
+    def _encode(self, ctx: TPContext, params, frames: torch.Tensor) -> torch.Tensor:
+        """The bidirectional encoder over ``frames`` (B, F, d_model): each
+        layer pre-norm attention (RoPE at frame positions 0..F-1, no causal
+        mask) and MLP, then ``enc_norm``."""
+        cfg = self.local_cfg(ctx)
+        x = frames
+        for lp in params["enc_layers"]:
+            h = rms_norm(x, lp["ln1"]["w"])
+            x = x + attention(ctx, lp["core"], h, cfg, pos=0, causal=False)[0]
+            h = rms_norm(x, lp["ln2"]["w"])
+            x = x + mlp(ctx, lp["mlp"], h, cfg)
+        return rms_norm(x, params["enc_norm"]["w"])
+
+    def _cross_kv(self, ctx: TPContext, params, enc_out: torch.Tensor):
+        """Each decoder layer's cross-attention K/V, flat (B, F, kv_dim), from
+        the encoder's output (no bias, no k-norm, no RoPE: the reference's)."""
+        return [KVCache(k=torch.matmul(enc_out, xp["core"]["wk"]["w"].to(enc_out.dtype)),
+                        v=torch.matmul(enc_out, xp["core"]["wv"]["w"].to(enc_out.dtype)))
+                for xp in params["xattn"]]
+
+    @staticmethod
+    def _cross(ctx: TPContext, cfg: ModelConfig, xp, x: torch.Tensor, kv: KVCache
+               ) -> torch.Tensor:
+        """x plus the cross-attention sublayer ``xp`` over the encoder's K/V."""
+        h = rms_norm(x, xp["ln"]["w"])
+        return x + attention(ctx, xp["core"], h, cfg, pos=0, cross_kv=kv)[0]
 
     def _logits(self, ctx: TPContext, params, x: torch.Tensor) -> torch.Tensor:
         """Final norm + unembed of x (N, 1, d_model) -> logits (N, V)."""
@@ -257,9 +330,12 @@ class Model:
         pool_k, pool_v), then the layer's MLP or MoE (``feed_forward``); a
         recurrent layer (decode only: the chunk and mixed steps refuse such
         stacks first) is the dense layer's one-token step on its slot-batched
-        cache ``state["rec"]``, as the reference's decode step runs it. Pools
-        and recurrent caches update in place (a captured step writes the
-        engine's state). Returns (x, state)."""
+        cache ``state["rec"]``, as the reference's decode step runs it. An
+        encoder-decoder (decode only, likewise) adds each layer's
+        cross-attention over the slots' encoder K/V (``state["cross_k"]`` /
+        ``state["cross_v"]``) after the layer. Pools and recurrent caches
+        update in place (a captured step writes the engine's state). Returns
+        (x, state)."""
         pools_k, pools_v = list(state["pools_k"]), list(state["pools_v"])
         rec = state.get("rec", [])
         cfg = self.local_cfg(ctx)
@@ -271,19 +347,26 @@ class Model:
                 for held, t in zip(rec[ri], new):
                     held.copy_(t)
                 ri += 1
-                continue
-            h = rms_norm(x, lp["ln1"]["w"])
-            out, pools_k[ai], pools_v[ai] = attend(cfg, lp["core"], h, pools_k[ai],
-                                                   pools_v[ai], spec.window)
-            ai += 1
-            x = x + out
-            h = rms_norm(x, lp["ln2"]["w"])
-            x = x + feed_forward(ctx, cfg, spec, lp, h)
+            else:
+                h = rms_norm(x, lp["ln1"]["w"])
+                out, pools_k[ai], pools_v[ai] = attend(cfg, lp["core"], h, pools_k[ai],
+                                                       pools_v[ai], spec.window)
+                ai += 1
+                x = x + out
+                h = rms_norm(x, lp["ln2"]["w"])
+                x = x + feed_forward(ctx, cfg, spec, lp, h)
+            if cfg.encoder_decoder:
+                x = self._cross(ctx, cfg, params["xattn"][i], x,
+                                KVCache(k=state["cross_k"][i], v=state["cross_v"][i]))
         return x, {**state, "pools_k": pools_k, "pools_v": pools_v}
 
     def _attention_only(self, step: str, then: str) -> None:
-        """The reference's refusal of a recurrent stack in the chunk and
-        mixed steps (its pads would fold into the recurrent state)."""
+        """The reference's refusals in the chunk and mixed steps: an
+        encoder-decoder (the step threads no encoder state) and a recurrent
+        stack (its pads would fold into the recurrent state)."""
+        if self.cfg.encoder_decoder:
+            raise ValueError(f"{step} does not thread encoder cross-attention; "
+                             f"encoder-decoder models use {then}")
         bad = recurrent_layer(self.cfg)
         if bad is not None:
             raise ValueError(f"{step} requires a pure-attention stack; layer {bad[0]} is "
@@ -310,14 +393,36 @@ class Model:
         bucket and passes the last real token's index (causal masking hides
         the pads; a recurrent stack prefills at the exact length), an int or
         a 0-d int32 tensor on the tokens' device (the row is picked on the
-        device, so the call holds no host value of it)."""
-        tokens = batch["tokens"]
-        x = self._embed(ctx, params, tokens)
-        x, layer_caches = apply_stack(ctx, self.local_cfg(ctx), params["layers"], x, pos=0,
-                                      caches=cache["layers"])
-        i = int_scalar(tokens.shape[1] - 1 if last_index is None else last_index, x.device)
+        device, so the call holds no host value of it).
+
+        A vision model's ``batch["patch_embeds"]`` (B, n_patches, d_model)
+        come first (``cache`` holds ``n_patches + S`` positions and
+        ``last_index`` counts them). An encoder-decoder's
+        ``batch["encoder_frames"]`` (B, F, d_model) go through the encoder,
+        whose per-layer cross K/V the decoder attends after each layer and
+        the cache returns as ``"cross"``."""
+        cfg = self.local_cfg(ctx)
+        x = self._embed_inputs(ctx, params, batch)
+        if cfg.encoder_decoder:
+            cross = self._cross_kv(ctx, params, self._encode(ctx, params,
+                                                             batch["encoder_frames"]))
+            layer_caches = []
+            for i, spec in enumerate(cfg.layers):
+                x, c = apply_layer(ctx, cfg, spec, params["layers"][i], x, pos=0,
+                                   cache=cache["layers"][i])
+                layer_caches.append(c)
+                x = self._cross(ctx, cfg, params["xattn"][i], x, cross[i])
+        else:
+            x, layer_caches = apply_stack(ctx, cfg, params["layers"], x, pos=0,
+                                          caches=cache["layers"])
+        i = int_scalar(x.shape[1] - 1 if last_index is None else last_index, x.device)
         logits = self._logits(ctx, params, x.index_select(1, i.reshape(1)))
-        return logits, {"layers": layer_caches, "pos": tokens.shape[1]}
+        prompt_len = batch["tokens"].shape[1] + (cfg.n_patches if cfg.frontend == "vision"
+                                                 else 0)
+        out = {"layers": layer_caches, "pos": prompt_len}
+        if cfg.encoder_decoder:
+            out["cross"] = cross
+        return logits, out
 
     def prefill_chunk(self, ctx: TPContext, params, tokens, state, table_row, start,
                       n_valid, cache_spec=None) -> Tuple[torch.Tensor, Any]:
@@ -328,7 +433,7 @@ class Model:
         layer attends the slot's paged history plus the chunk, then appends
         the chunk's K/V to the pools (in place). Returns (logits (1, V) at
         chunk index ``n_valid - 1``, state). A recurrent stack raises (the
-        reference's ``ValueError``)."""
+        reference's ``ValueError``), and so does an encoder-decoder."""
         self._attention_only("prefill_chunk", "whole-prompt prefill")
         x = self._embed(ctx, params, tokens)
         x, state = self._paged_layers(
@@ -344,7 +449,8 @@ class Model:
         max_blocks) int32, lengths (B,) int32 per-slot write positions.
         Returns (logits (B, V), state); the pools, and the slot-batched
         recurrent caches ``state["rec"]`` of a recurrent stack, update in
-        place."""
+        place. An encoder-decoder's state holds each slot's cross K/V
+        (``init_paged_state``), which each layer's cross-attention reads."""
         x = self._embed(ctx, params, tokens)
         x, state = self._paged_layers(
             ctx, params, x, state, lambda cfg, p, h, pk, pv, window: paged_attention_decode(
@@ -361,7 +467,8 @@ class Model:
         tables (n_slots, max_blocks); sample_idx (n_slots,) — the flat index
         each slot samples from. Appends every real token's K/V to the pools
         of ``state`` (in place) and returns (logits (n_slots, V), state). A
-        recurrent stack raises (the reference's ``ValueError``)."""
+        recurrent stack raises (the reference's ``ValueError``), and so does
+        an encoder-decoder."""
         self._attention_only("mixed_step", "whole-prompt prefill + decode_step_paged")
         x = self._embed(ctx, params, tokens)
         x, state = self._paged_layers(

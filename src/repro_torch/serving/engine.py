@@ -26,6 +26,19 @@ errors. The insert writes the request's attention K/V into its blocks and
 its Mamba caches into its slot's row of ``state["rec"]``; the batched
 decode carries every slot's row.
 
+A vision model (pixtral) and an encoder-decoder (whisper) are served
+whole-prompt too, as the reference serves them: the chunk and mixed steps
+thread no prefix or encoder state. Their text prompts are bucketed to powers
+of two like any attention stack's. ``run(..., extra_inputs=...)`` gives one
+row per request of the model's extra inputs (``patch_embeds`` (N, n_patches,
+d_model), ``encoder_frames`` (N, encoder_seq, d_model); numpy or host torch
+arrays, cast to the model's dtype), which reach the bucket's prefill
+program with the tokens (again when a preempted request re-prefills). A
+vision prompt's ``n_patches`` prefix positions sit ahead of its text in the
+slot's blocks (``_n_prefix``); an encoder-decoder's insert writes the
+encoder's per-layer cross K/V into the slot's rows of ``state["cross_k"]``
+/ ``state["cross_v"]`` in place, which every decode step reads.
+
 With ``prefix_cache=True`` full prompt blocks are published in a hash-chain
 index as their chunks land; admission maps matching blocks into the new
 slot's table by reference and prefill resumes at the first non-cached token.
@@ -93,6 +106,7 @@ from repro_torch.core.tp import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import pool_planes, pool_rows, write_pool_rows
+from repro_torch.models.frontends import frontend_shapes
 from repro_torch.models.model import Model, torch_dtype
 from repro_torch.serving.errors import (
     OUTCOME_CANCELLED, OUTCOME_OK, OUTCOME_REJECTED, OUTCOME_TIMED_OUT, EngineDead,
@@ -171,6 +185,9 @@ class _Work:
     # the prompt tokens served from shared blocks so far
     hashes: Optional[List[int]] = None
     cached_tokens: int = 0
+    # the request's row of each extra model input (patch embeddings, encoder
+    # frames), handed to its prefill at every admission
+    extra: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     @property
     def done(self) -> bool:
@@ -295,20 +312,24 @@ class Engine:
 
         # right-padding to a bucket is only sound when every layer is
         # attention (causal masking hides trailing pads); recurrent layers
-        # fold pads into their state, so those archs prefill at exact length
-        # and cannot take the chunked or mixed steps (the reference's gate;
-        # the port serves no vision prefix or encoder state)
+        # fold pads into their state, so those archs prefill at exact length.
+        # The chunked and mixed steps need a pure-attention decoder with no
+        # prefix tokens or encoder state threading through them (the
+        # reference's gate): everything else is whole-prompt
         self._pad_ok = all(spec.kind == "attn" for spec in self.cfg.layers)
-        if not self._pad_ok and self.kv_shards > 1:
+        self._n_prefix = self.cfg.n_patches if self.cfg.frontend == "vision" else 0
+        self._extra_shapes = frontend_shapes(self.cfg, 1)
+        chunk_ok = self._pad_ok and not self._extra_shapes
+        if not chunk_ok and self.kv_shards > 1:
             raise NotImplementedError(
                 "sequence-sharded pools for a stack with recurrent layers (each kv rank "
-                "would carry its own recurrent state) are not ported yet: see ROADMAP.md "
-                "Queue 1")
+                "would carry its own recurrent state), a vision prefix or an encoder are "
+                "not ported yet: see ROADMAP.md Queue 1")
         if prefill_chunk is None:
-            prefill_chunk = 2 * block_size if self._pad_ok else 0
+            prefill_chunk = 2 * block_size if chunk_ok else 0
         elif prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0 (0 = whole-prompt)")
-        elif prefill_chunk and not self._pad_ok:
+        elif prefill_chunk and not chunk_ok:
             raise ValueError(
                 "prefill_chunk requires a pure-attention text decoder "
                 "(recurrent/vision/encoder-decoder archs use whole-prompt "
@@ -459,12 +480,12 @@ class Engine:
         """Bytes of the attention KV pools: the pools the engine addresses
         (every rank's kv heads on a TP group), or with ``per_device=True``
         what this rank holds (``1/kv_shards`` of them when sharded, ``1/N``
-        on a TP group of N ranks)."""
+        on a TP group of N ranks). An encoder-decoder's per-slot cross K/V
+        is counted too (``kv_cache.cross_state_bytes``)."""
         b = paged_cache_bytes(self.cfg, self.n_blocks, self.block_size,
-                              dtype_bytes=torch.empty((), dtype=self.cache_dtype)
-                              .element_size(),
+                              dtype_bytes=self.cache_dtype.itemsize,
                               cache_spec=self.cache_spec, kv_shards=self.kv_shards,
-                              per_device=per_device)
+                              per_device=per_device, n_slots=self.n_slots)
         return b if per_device else b * self.tp_size
 
     def logits_finite(self) -> bool:
@@ -541,11 +562,12 @@ class Engine:
     # ------------------------------------------------------- shape bucketing
 
     def _shapes_for(self, prompt_len: int):
-        """(length bucket, blocks it fills) of a whole prompt: the smallest
-        power-of-two multiple of the block size that holds it, capped at
-        the slot's capacity; a recurrent stack's bucket is the prompt's
-        exact length."""
-        cap = self.max_blocks * self.block_size
+        """(text bucket, total prefill positions, blocks they fill) of a
+        whole prompt: the smallest power-of-two multiple of the block size
+        that holds the text, capped at the slot's capacity less a vision
+        prefix; the total adds the prefix. A recurrent stack's bucket is the
+        prompt's exact length."""
+        cap = self.max_blocks * self.block_size - self._n_prefix
         if self._pad_ok:
             bucket = self.block_size
             while bucket < prompt_len:
@@ -555,48 +577,61 @@ class Engine:
             bucket = prompt_len
         if bucket < prompt_len or bucket > cap:
             raise ValueError(f"prompt ({prompt_len} tokens) exceeds cache capacity ({cap})")
-        return bucket, -(-bucket // self.block_size)
+        total = bucket + self._n_prefix
+        return bucket, total, -(-total // self.block_size)
 
     def _prefill_for(self, prompt_len: int):
-        """(bucket, program, nb) for a whole prompt of this length: the
-        bucket's step program (made on first use, an LRU touch after it)
-        takes ``tokens`` (1, bucket) and ``last_index``, runs
-        ``Model.prefill`` over the program's own dense cache of the bucket's
-        length (every position of it written each call) and returns (logits
-        (1, V) at ``last_index``, the layer caches).
+        """(bucket, program, nb) for a whole prompt of this length:
+        the bucket's step program (made on first use, an LRU touch after it)
+        takes ``tokens`` (1, bucket), ``last_index`` and the model's extra
+        inputs (``patch_embeds`` / ``encoder_frames``, one row, in the
+        model's dtype), runs ``Model.prefill`` over the program's own dense
+        cache of ``total`` positions (every position of it written each
+        call) and returns (logits (1, V) at ``last_index``, the layer caches,
+        and an encoder-decoder's per-layer cross K/V).
 
         Each bucket's program holds its dense cache for as long as the
         program lives (up to 8 under the LRU; an evicted one releases it):
-        2 x n_layers x bucket x n_kv_heads x head_dim elements of
+        2 x n_layers x total x n_kv_heads x head_dim elements of
         ``cache_dtype``, 1.07 GB for llama2-7b's bf16 at 2048. The buckets
         double (the last capped at the slot's capacity), so together they
         hold less than twice the largest power-of-two bucket plus the capped
         one. ``paged_cache_bytes`` does not count it. A recurrent stack keys
         a program per exact prompt length (and its Mamba layers' caches are
         the program's outputs)."""
-        bucket, nb = self._shapes_for(prompt_len)
+        bucket, total, nb = self._shapes_for(prompt_len)
         model, params, ctx = self.model, self.params, self.ctx
+        dtype = torch_dtype(self.cfg.dtype)
 
         def make():
-            cache = model.init_cache(1, bucket, self.cache_dtype, self.device, ctx=ctx)
+            cache = model.init_cache(1, total, self.cache_dtype, self.device, ctx=ctx)
 
-            def prefill(tokens, last_index):
-                logits, out = model.prefill(ctx, params, {"tokens": tokens}, cache,
+            def prefill(tokens, last_index, **extra):
+                logits, out = model.prefill(ctx, params, {"tokens": tokens, **extra}, cache,
                                             last_index=last_index)
-                return logits, out["layers"]
+                return logits, out["layers"], out.get("cross")
 
             return prefill, dict(tokens=((1, bucket), torch.int32),
-                                 last_index=((), torch.int32))
+                                 last_index=((), torch.int32),
+                                 **{k: (shape, dtype) for k, shape in self._extra_shapes.items()})
 
         return bucket, self._programs.prefill(bucket, make), nb
 
-    def _insert(self, layer_caches, block_ids: List[int], slot: int) -> None:
+    def _insert(self, layer_caches, cross, block_ids: List[int], slot: int) -> None:
         """Scatter a one-request dense prefill cache into the slot's blocks
         in every attention layer's pools (in place), through the same row
         codec and writer as the step appends (MX-quantized per position on
         wire pools; positions past an exact-length prompt's end zero, as the
-        reference pads them), and each Mamba layer's cache into row ``slot``
-        of its ``state["rec"]`` entry (in place)."""
+        reference pads them), each Mamba layer's cache into row ``slot``
+        of its ``state["rec"]`` entry and an encoder-decoder's cross K/V
+        (``cross``, per layer) into row ``slot`` of ``state["cross_k"]`` /
+        ``state["cross_v"]`` (all in place: a captured decode step reads
+        those addresses)."""
+        if cross is not None:
+            for held_k, held_v, kv in zip(self._state["cross_k"], self._state["cross_v"],
+                                          cross):
+                held_k[slot].copy_(kv.k[0])
+                held_v[slot].copy_(kv.v[0])
         nb, bs = len(block_ids), self.block_size
         pos = torch.arange(nb * bs, device=self.device)
         blk = torch.tensor(block_ids, dtype=torch.long, device=self.device)[pos // bs]
@@ -909,20 +944,22 @@ class Engine:
 
     def _admit(self, w: _Work, slot: int, ids: List[int]) -> None:
         """Whole-prompt admission: prefill the prompt right-padded to its
-        bucket, sample its first token, insert its cache into ``ids``."""
+        bucket (after a vision prefix; with the request's extra inputs),
+        sample its first token, insert its cache into ``ids``."""
         L = len(w.prompt)
         bucket, prefill, nb = self._prefill_for(L)
         tokens = np.zeros((1, bucket), np.int32)
         tokens[0, :L] = w.prompt
-        logits, cache = prefill(tokens=tokens, last_index=L - 1)
+        logits, cache, cross = prefill(tokens=tokens, last_index=self._n_prefix + L - 1,
+                                       **w.extra)
         self.stats.record_dispatch(2, prefill_tokens=L)  # prefill + insert
         tok = self._sample_one(logits, w)
-        self._insert(cache, ids, slot)
+        self._insert(cache, cross, ids, slot)
         now = time.perf_counter() - self._t0
         w.blocks = ids
         self._tables[slot, :] = 0
         self._tables[slot, :nb] = ids
-        self._lengths[slot] = L
+        self._lengths[slot] = self._n_prefix + L
         if w.admitted_t is None:
             w.admitted_t = now
         self._running[slot] = w
@@ -1172,11 +1209,30 @@ class Engine:
 
     # ------------------------------------------------------------------ API
 
-    def run(self, requests: List[Request], *, seed: int = 0) -> List[Request]:
+    def _extras(self, extra_inputs, n: int) -> List[Dict[str, object]]:
+        """The slices ``[i:i+1]`` of the model's extra inputs for the first
+        ``n`` rows (``Model`` needs every one of ``frontend_shapes``; a text
+        decoder takes none), each input checked against its row shape."""
+        given = dict(extra_inputs or {})
+        if set(given) != set(self._extra_shapes):
+            raise ValueError(f"{self.cfg.name}: extra_inputs {sorted(given)}, the model takes "
+                             f"{sorted(self._extra_shapes)} (one row per request)")
+        for k, (_, *row) in self._extra_shapes.items():
+            if tuple(given[k].shape[1:]) != tuple(row) or given[k].shape[0] < n:
+                raise ValueError(f"{self.cfg.name}: extra input {k} of shape "
+                                 f"{tuple(given[k].shape)}, expected ({n}, "
+                                 f"{', '.join(map(str, row))})")
+        return [{k: v[i:i + 1] for k, v in given.items()} for i in range(n)]
+
+    def run(self, requests: List[Request], *, seed: int = 0,
+            extra_inputs: Optional[Dict[str, object]] = None) -> List[Request]:
         """Serve ``requests`` (``arrival_s`` honoured against the run's wall
         clock); returns them with output/ttft/latency/timing filled. With
         ``persistent_cache`` the pools, allocator and prefix index carry over
-        from the previous run."""
+        from the previous run. ``extra_inputs`` are the model's extra inputs
+        with one row per request (a vision model's ``patch_embeds``, an
+        encoder-decoder's ``encoder_frames``; ``models/frontends.py``),
+        sliced per request for its prefill."""
         if self._fresh:
             self._fresh = False          # recover() rebuilt the pools already
         elif self.persistent_cache and self._ran:
@@ -1195,14 +1251,15 @@ class Engine:
             raise ValueError("sequence-sharded pools and TP groups: requests arrive at t=0 "
                              "with no deadline (each rank's clock would admit and expire "
                              "them at its own step)")
+        extras = self._extras(extra_inputs, len(requests))
         for i, r in enumerate(requests):
-            need = len(np.asarray(r.prompt)) + r.max_new_tokens - 1
+            need = self._n_prefix + len(np.asarray(r.prompt)) + r.max_new_tokens - 1
             if need > capacity:
                 raise InvalidRequest(
                     f"request {i}: prompt+decode needs {need} cache positions but "
                     f"max_len={self.max_len} provides {capacity}")
             works.append(_Work(req=r, prompt=np.asarray(r.prompt, np.int32),
-                               arrival=float(r.arrival_s)))
+                               arrival=float(r.arrival_s), extra=extras[i]))
         self._waiting = sorted(works, key=lambda w: w.arrival)
         try:
             while self._waiting or self._running:
@@ -1240,26 +1297,30 @@ class Engine:
                 self._hold_until = 0
         return requests
 
-    def measure_ttft(self, prompt_len: int, *, iters: int = 8) -> Dict[str, float]:
+    def measure_ttft(self, prompt_len: int, *, iters: int = 8,
+                     extra_inputs: Optional[Dict[str, object]] = None) -> Dict[str, float]:
         """Median whole-prompt prefill time at a given prompt length (the
         paper's Table 3 metric), through the bucketed prefill the engine
         serves; the first iteration is dropped as warm-up when there are
         more than one (on the card that iteration captures the bucket's
         graph). Times on the host clock around work that ends in a device
-        synchronize."""
+        synchronize. ``prompt_len`` counts text tokens; a vision model's
+        prefix and an encoder-decoder's encoder run too, on the first row of
+        ``extra_inputs`` (which such a model needs)."""
         prompt = np.random.default_rng(0).integers(
             0, self.cfg.vocab_size, (prompt_len,), dtype=np.int64).astype(np.int32)
         bucket, prefill, _ = self._prefill_for(prompt_len)
+        extra = self._extras(extra_inputs, 1)[0]
         tokens = np.zeros((1, bucket), np.int32)
         tokens[0, :prompt_len] = prompt
         times = []
         for _ in range(iters):
             t0 = time.perf_counter()
-            logits, _cache = prefill(tokens=tokens, last_index=prompt_len - 1)
+            out = prefill(tokens=tokens, last_index=self._n_prefix + prompt_len - 1, **extra)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             times.append(time.perf_counter() - t0)
-            del logits, _cache
+            del out
         if len(times) > 1:
             times = times[1:]
         arr = np.array(times)

@@ -4,9 +4,16 @@ step program once and counts the compiled programs (``decode_cache_size`` /
 captured at its first call and replayed at every later one.
 
 A ``StepProgram`` owns its static inputs: one byte buffer on the device that
-holds every input array at a fixed address. Each call copies the host arrays
-into it with one host-to-device copy, staged through pinned host memory, so
-the arrays are read during the call and may change after it. On the card the
+holds every input array at a fixed address, each input 16-byte aligned. Each
+call copies the host arrays into it with one host-to-device copy, staged
+through pinned host memory, so the arrays are read during the call and may
+change after it. Inputs are int32 or bool (token ids, positions, tables,
+flags), or floating (a vision prefix's patch embeddings, an encoder's
+frames) in the model's dtype: a floating array, numpy or a torch tensor of
+any float dtype, is cast on the host into its staged slice by
+``Tensor.copy_`` (round to nearest even, as a cast on the card rounds), so
+bf16, which numpy lacks, reaches the card as bf16 bits in the same single
+copy. On the card the
 first call runs the step eagerly on a side stream (the warm-up, whose result
 is that call's), then captures the same function over the same buffers; a
 later call replays the graph and returns its static outputs, which the next
@@ -51,7 +58,8 @@ InputSpec = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
 class StepProgram:
     """One step program: ``fn(**inputs)`` over static input buffers, captured
     as a CUDA graph at the first call when ``graphed``. ``inputs`` maps each
-    argument's name to its (shape, dtype), int32 or bool."""
+    argument's name to its (shape, dtype): int32, bool, or a floating dtype
+    (fp32, bf16, fp16)."""
 
     def __init__(self, name: str, fn: Callable[..., Any], inputs: InputSpec,
                  device: torch.device, *, graphed: bool, pool=None):
@@ -66,7 +74,9 @@ class StepProgram:
         self._collectives: Dict[str, float] = {}
         layout, size = {}, 0   # each input's byte range, 16-byte aligned
         for key, (shape, dtype) in inputs.items():
-            nbytes = math.prod(shape) * (1 if dtype == torch.bool else 4)
+            if dtype not in (torch.int32, torch.bool) and not dtype.is_floating_point:
+                raise TypeError(f"step program {name}: input {key} of dtype {dtype}")
+            nbytes = math.prod(shape) * dtype.itemsize
             layout[key] = (size, size + nbytes)
             size += -(-nbytes // _ALIGN) * _ALIGN
         cuda = device.type == "cuda"
@@ -74,12 +84,15 @@ class StepProgram:
         self._dev = torch.zeros_like(self._host, device=device) if cuda else self._host
         host_np = self._host.numpy()
         self.inputs: Dict[str, torch.Tensor] = {}
-        self._staged: Dict[str, np.ndarray] = {}
+        self._staged: Dict[str, Any] = {}   # numpy views (int32, bool), torch (floating)
         for key, (shape, dtype) in inputs.items():
             a, b = layout[key]
             self.inputs[key] = self._dev[a:b].view(dtype).view(shape)
-            self._staged[key] = host_np[a:b].view(
-                np.bool_ if dtype == torch.bool else np.int32).reshape(shape)
+            if dtype.is_floating_point:
+                self._staged[key] = self._host[a:b].view(dtype).view(shape)
+            else:
+                self._staged[key] = host_np[a:b].view(
+                    np.bool_ if dtype == torch.bool else np.int32).reshape(shape)
 
     @property
     def built(self) -> bool:
@@ -92,7 +105,15 @@ class StepProgram:
             raise TypeError(f"step program {self.name}: inputs {sorted(arrays)} != "
                             f"{sorted(self._staged)}")
         for key, a in arrays.items():
-            np.copyto(self._staged[key], a)
+            staged = self._staged[key]
+            if isinstance(staged, torch.Tensor):   # cast on the host, bf16 included
+                src = torch.as_tensor(a)
+                if tuple(src.shape) != tuple(staged.shape):
+                    raise ValueError(f"step program {self.name}: input {key} of shape "
+                                     f"{tuple(src.shape)}, expected {tuple(staged.shape)}")
+                staged.copy_(src)
+            else:
+                np.copyto(staged, a)
         if self._dev is not self._host:
             self._dev.copy_(self._host)
         self.n_calls += 1

@@ -8,7 +8,10 @@ for K and V (dense, or MX wire payload + scales); a slot's logical sequence
 is the concatenation of the blocks its block-table row names. Block 0 is the
 reserved null block that pads and unallocated table entries point at. Every
 Mamba layer owns one slot-batched recurrent cache (``rec``: fp32 conv
-history and state, ``n_slots`` rows), whatever the pools' format.
+history and state, ``n_slots`` rows), whatever the pools' format. An
+encoder-decoder's decoder layers each own the slots' cross-attention K/V
+(``cross_k`` / ``cross_v``: ``(n_slots, encoder_seq, kv_dim)``, dense in the
+pools' dense dtype even beside MX pools, as the reference holds them).
 
 Block ownership is refcounted (``BlockAllocator``) so automatic prefix
 caching (``PrefixIndex``) can map one block into many block tables: full
@@ -30,7 +33,8 @@ from repro_torch.core.mx import MXCompressed, wire_arrays_shape
 
 __all__ = ["BlockAllocator", "PrefixIndex", "NULL_BLOCK", "MixedBatch",
            "build_mixed_batch", "init_paged_state", "zero_paged_state", "check_cache_spec",
-           "paged_cache_bytes", "recurrent_state_bytes", "attn_layer_count"]
+           "paged_cache_bytes", "recurrent_state_bytes", "cross_state_bytes",
+           "attn_layer_count"]
 
 NULL_BLOCK = 0
 
@@ -401,7 +405,9 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_blocks: int, block_size: 
     ``cache_spec`` is quantized; ``rec``, one slot-batched ``MambaCache`` of
     ``n_slots`` rows per Mamba layer, in layer order, always fp32 (the
     reference's ``init_layer_cache`` default: recurrent state is O(slots),
-    not O(tokens)). xLSTM layers raise."""
+    not O(tokens)); for an encoder-decoder, ``cross_k`` / ``cross_v``, one
+    ``(n_slots, encoder_seq, kv_dim)`` tensor of ``dtype`` per decoder
+    layer, on MX pools too (the reference's). xLSTM layers raise."""
     from repro_torch.models.transformer import init_layer_cache
 
     cache_spec = check_cache_spec(cfg, cache_spec)
@@ -417,7 +423,12 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_blocks: int, block_size: 
             else:
                 pools.append(torch.zeros((n_blocks, block_size, cfg.kv_dim), dtype=dtype,
                                          device=device))
-    return {"pools_k": pools_k, "pools_v": pools_v, "rec": rec}
+    state = {"pools_k": pools_k, "pools_v": pools_v, "rec": rec}
+    if cfg.encoder_decoder:
+        for key in ("cross_k", "cross_v"):
+            state[key] = [torch.zeros((n_slots, cfg.encoder_seq, cfg.kv_dim), dtype=dtype,
+                                      device=device) for _ in cfg.layers]
+    return state
 
 
 def zero_paged_state(state: dict) -> None:
@@ -431,6 +442,8 @@ def zero_paged_state(state: dict) -> None:
     for cache in state.get("rec", []):
         for t in cache:
             t.zero_()
+    for t in state.get("cross_k", []) + state.get("cross_v", []):
+        t.zero_()
 
 
 def recurrent_state_bytes(cfg: ModelConfig, n_slots: int) -> int:
@@ -442,18 +455,33 @@ def recurrent_state_bytes(cfg: ModelConfig, n_slots: int) -> int:
     return n_slots * per_slot * sum(1 for spec in cfg.layers if spec.kind == "mamba")
 
 
+def cross_state_bytes(cfg: ModelConfig, n_slots: int, dtype_bytes: int = 2) -> int:
+    """Bytes of an encoder-decoder's per-slot cross K/V (``cross_k`` /
+    ``cross_v``): the reference's ``cache_bytes`` term, 2 x n_layers x
+    n_slots x encoder_seq x kv_dim values of ``dtype_bytes`` (0 for a
+    decoder)."""
+    if not cfg.encoder_decoder:
+        return 0
+    return 2 * cfg.n_layers * n_slots * cfg.encoder_seq * cfg.kv_dim * dtype_bytes
+
+
 def paged_cache_bytes(cfg: ModelConfig, n_blocks: int, block_size: int,
                       dtype_bytes: int = 2,
                       cache_spec: Optional[KVCacheSpec] = None, *,
-                      kv_shards: int = 1, per_device: bool = False) -> int:
+                      kv_shards: int = 1, per_device: bool = False,
+                      n_slots: int = 0) -> int:
     """Bytes held by the paged pools: ``kv_dim * dtype_bytes`` per position
     dense, the wire bytes (packed payload + one scale byte per block) MX.
     The global pools by default; ``per_device=True`` gives what one kv rank
-    holds of ``kv_shards`` (``n_blocks / kv_shards`` blocks)."""
+    holds of ``kv_shards`` (``n_blocks / kv_shards`` blocks). With
+    ``n_slots``, an encoder-decoder's cross K/V of that many slots is
+    counted too (``cross_state_bytes``, dense ``dtype_bytes`` whatever the
+    pools' format); without it the count is the reference's."""
     cache_spec = KVCacheSpec.parse(cache_spec)
     if cache_spec.quantized:
         pos_bytes = cache_spec.mx.wire_bytes(cfg.kv_dim)
     else:
         pos_bytes = cfg.kv_dim * dtype_bytes
     total = 2 * attn_layer_count(cfg) * n_blocks * block_size * pos_bytes
-    return total // kv_shards if per_device else total
+    return ((total // kv_shards if per_device else total)
+            + cross_state_bytes(cfg, n_slots, dtype_bytes))

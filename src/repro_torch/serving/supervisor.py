@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.errors import EngineDead, StepStuck, WireCorruption
@@ -71,14 +71,22 @@ class EngineSupervisor:
         self.events: List[RecoveryEvent] = []
         self.stats = ServeStats()
 
-    def run(self, requests: List[Request], *, seed: int = 0) -> List[Request]:
+    def run(self, requests: List[Request], *, seed: int = 0,
+            extra_inputs: Optional[Dict[str, object]] = None) -> List[Request]:
+        """``extra_inputs`` (one row per request of ``requests``) follow
+        their requests into every replay."""
         self.events = []
         self.stats = ServeStats()
         pending = list(requests)
+        rows = {id(r): i for i, r in enumerate(requests)}
         attempt = 0
         while True:
+            extra = None
+            if extra_inputs is not None:
+                idx = [rows[id(r)] for r in pending]
+                extra = {k: v[idx] for k, v in extra_inputs.items()}
             try:
-                self.engine.run(pending, seed=seed)
+                self.engine.run(pending, seed=seed, extra_inputs=extra)
             except RECOVERABLE as e:
                 t_detect = time.perf_counter()
                 attempt += 1

@@ -208,16 +208,28 @@ def mamba_undercount(cfg) -> int:
                for sp in cfg.layers if sp.kind == "mamba")
 
 
+def frontend_undercount(cfg) -> int:
+    """What the reference's ``param_count`` leaves out of the tree its
+    ``init_params`` builds for a vision prefix or an encoder (ROADMAP Queue
+    3): ``mm_proj`` (d_model x d_model), ``enc_norm`` and each decoder
+    layer's cross-attention norm. 0 for a text decoder."""
+    d = cfg.d_model
+    return ((d * d if cfg.frontend == "vision" else 0)
+            + ((1 + cfg.n_layers) * d if cfg.encoder_decoder else 0))
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_param_count_matches_reference(arch):
     """Equal to the reference's count, plus the terms it leaves out of a
-    Mamba layer (jamba), which the port counts."""
+    Mamba layer (jamba), a vision prefix (pixtral) and an encoder-decoder
+    (whisper), which the port counts."""
     cfg, ref = get_config(arch), j_get_config(arch)
-    gap = mamba_undercount(cfg)
+    gap = mamba_undercount(cfg) + frontend_undercount(cfg)
     assert cfg.param_count() == ref.param_count() + gap
     assert cfg.active_param_count() == ref.active_param_count() + gap
     red, red_j = reduced_config(cfg), j_reduced_config(ref)
-    assert red.param_count() == red_j.param_count() + mamba_undercount(red)
+    assert red.param_count() == (red_j.param_count() + mamba_undercount(red)
+                                 + frontend_undercount(red))
 
 
 def test_init_params_tree_matches_reference(models):

@@ -71,8 +71,9 @@ def warm(eng, cls, prompt):
 
 
 def run_both(models, traffic, *, plan=None, supervised=False, gated=False, req_kw=None,
-             sup_kw=None, warm_up=False, hook=None, **kw):
-    """Serve ``traffic`` on the reference Engine and on the port's with the
+             sup_kw=None, warm_up=False, hook=None, extra_inputs=None, **kw):
+    """Serve ``traffic`` (with the model's ``extra_inputs``, one numpy row
+    per request, when given) on the reference Engine and on the port's with the
     same options and a fault plan parsed from the same string for each,
     under an ``EngineSupervisor`` when ``supervised``, after
     ``hook(engine, requests)`` when given. Asserts outputs,
@@ -94,14 +95,15 @@ def run_both(models, traffic, *, plan=None, supervised=False, gated=False, req_k
         hook(eng_j, reqs_j)
         hook(eng_t, reqs_t)
     sup_j = sup_t = None
+    extra = {"extra_inputs": extra_inputs} if extra_inputs is not None else {}
     if supervised:
         sup_j = JEngineSupervisor(eng_j, **{"backoff_s": 0.0, **(sup_kw or {})})
         sup_t = EngineSupervisor(eng_t, **{"backoff_s": 0.0, **(sup_kw or {})})
-        sup_j.run(reqs_j)
-        sup_t.run(reqs_t)
+        sup_j.run(reqs_j, **extra)
+        sup_t.run(reqs_t, **extra)
     else:
-        eng_j.run(reqs_j)
-        eng_t.run(reqs_t)
+        eng_j.run(reqs_j, **extra)
+        eng_t.run(reqs_t, **extra)
     assert [r.output.tolist() for r in reqs_t] == [r.output.tolist() for r in reqs_j]
     assert [r.outcome for r in reqs_t] == [r.outcome for r in reqs_j]
     assert all(r.outcome in TERMINAL_OUTCOMES for r in reqs_t)

@@ -245,8 +245,9 @@ def test_attention_matches_reference(llama, cache, window):
 
 @pytest.mark.parametrize("window", [None, 8], ids=["global", "window8"])
 def test_q_chunked_attend_matches_reference(window):
-    """``_attend`` over 40 queries in chunks of 16 (halved to 8, a divisor
-    of 40, as in the reference) against 40 keys, GQA 4:2."""
+    """``_attend`` over 40 queries in chunks of 16 (the reference halves the
+    chunk to 8, a divisor of 40; the port runs 16, 16 and 8) against 40
+    keys, GQA 4:2."""
     rng = np.random.default_rng(4)
     q = rng.normal(size=(2, 40, 4, 16)).astype(np.float32)
     k, v = (rng.normal(size=(2, 40, 32)).astype(np.float32) for _ in range(2))
@@ -257,11 +258,14 @@ def test_q_chunked_attend_matches_reference(window):
     _close(got.numpy(), ref, False)
 
 
-def test_cross_attention_raises(llama):
+def test_cross_attention_raises(llama, monkeypatch):
+    """Cross-attention on a TP group is not ported yet (the single-device
+    path is held in ``tests/test_torch_encdec.py``)."""
     cfg, _, _, _, params_t = llama
     x = torch.zeros(1, 4, cfg.d_model)
     core = params_t["layers"][0]["core"]
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setattr(TPContext, "tp_size", property(lambda self: 2))
+    with pytest.raises(NotImplementedError, match="TP group"):
         tattn.attention(TPContext(), core, x, cfg, pos=0,
                         cross_kv=tattn.KVCache(torch.zeros(1, 4, cfg.kv_dim),
                                                torch.zeros(1, 4, cfg.kv_dim)))

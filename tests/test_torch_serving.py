@@ -117,10 +117,12 @@ SUMMARY_KEYS = ("n_steps", "n_dispatches", "prefill_tokens", "decode_tokens", "n
                 "n_compressed_steps", "n_preemptions", "prefill_tokens_skipped")
 
 
-def serve_both(models, traffic, *, gated=False, runs=1, cache_dtype="float32", **kw):
+def serve_both(models, traffic, *, gated=False, runs=1, cache_dtype="float32",
+               extra_inputs=None, **kw):
     """Serve ``traffic`` (``(prompt, max_new_tokens)`` pairs, all arriving
-    at t=0) on the reference Engine and on the port's with the same options,
-    ``runs`` times each on one engine. Asserts, run by run: greedy tokens
+    at t=0; with the model's ``extra_inputs``, one numpy row per request,
+    when given) on the reference Engine and on the port's with the same
+    options, ``runs`` times each on one engine. Asserts, run by run: greedy tokens
     identical, every request ``ok``, gate counts and the summary's
     ``SUMMARY_KEYS`` equal, finite logits, and the free list conserved (every
     block free or parked in the prefix index, none referenced). Returns the
@@ -132,10 +134,11 @@ def serve_both(models, traffic, *, gated=False, runs=1, cache_dtype="float32", *
                    device="cpu", **kw)
     outs = []
     for _ in range(runs):
+        extra = {"extra_inputs": extra_inputs} if extra_inputs is not None else {}
         reqs_j = eng_j.run([JRequest(prompt=p.copy(), max_new_tokens=n, arrival_s=0.0)
-                            for p, n in traffic])
+                            for p, n in traffic], **extra)
         reqs_t = eng_t.run([Request(prompt=p.copy(), max_new_tokens=n, arrival_s=0.0)
-                            for p, n in traffic])
+                            for p, n in traffic], **extra)
         out = [r.output.tolist() for r in reqs_t]
         assert out == [r.output.tolist() for r in reqs_j]
         assert all(r.outcome == "ok" and len(r.output) == n for r, (_, n) in zip(reqs_t, traffic))

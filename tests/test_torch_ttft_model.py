@@ -43,7 +43,8 @@ def test_ttft_breakdown_equals_reference(hw, arch):
     hw_t, hw_j = ttft.HARDWARE[hw], jttft.HARDWARE[hw]
     assert dataclasses.asdict(hw_t) == dataclasses.asdict(hw_j)
     # the compute term reads the port's active parameter count, which holds
-    # what the reference's leaves out of a Mamba layer (0 for the rest;
+    # what the reference's leaves out of a Mamba layer, a vision prefix and
+    # an encoder-decoder (0 for the rest;
     # tests/test_torch_families.py::test_param_count_matches_reference)
     gap = cfg_t.active_param_count() - cfg_j.active_param_count()
     for tp in (2, 4, 8):
@@ -63,8 +64,13 @@ def test_ttft_breakdown_equals_reference(hw, arch):
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_row_reductions_equal_reference(arch):
-    n = ttft._n_row_reductions(get_config(arch))
-    assert n == jttft._n_row_reductions(j_get_config(arch)) == 2 * get_config(arch).n_layers
+    """Two a decoder layer; an encoder-decoder adds each decoder layer's
+    cross-attention ``wo`` and each encoder layer's two (whisper: 120)."""
+    cfg = get_config(arch)
+    n = ttft._n_row_reductions(cfg)
+    enc = cfg.n_layers + 2 * cfg.n_encoder_layers if cfg.encoder_decoder else 0
+    assert n == jttft._n_row_reductions(j_get_config(arch)) == 2 * cfg.n_layers + enc
+    assert arch != "whisper-medium" or n == 120
 
 
 @pytest.mark.parametrize("elem", sorted(J_ELEMENT_FORMATS))
