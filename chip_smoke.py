@@ -634,8 +634,11 @@ def codec_tp(torch, dev, g, fp4, same, timed):
     gathered S = 2 shards, and two_phase's slices: the N destination slices
     (2 T, 2048), the reduction of the 2 received ones, the reduced slice's
     quantize and the 2 gathered slices' dequantize; llama2-13b on 4 ranks,
-    the partial (T, 5120) and its S = 4 shards. Each exact against the plain
-    version and timed."""
+    the partial (T, 5120) and its S = 4 shards; whisper-medium on 2 ranks,
+    the encoder's partial (1500, 1024) of a prefill and its S = 2 shards;
+    pixtral-12b on 2 ranks, the prefix-plus-prompt partial (256 + 64,
+    5120) of the phase's prefill and its S = 2 shards. Each exact against
+    the plain version and timed."""
     from repro_torch.core.mx import MXCompressed
     from repro_torch.kernels import mx_dequant, mx_quant
 
@@ -643,10 +646,15 @@ def codec_tp(torch, dev, g, fp4, same, timed):
         "mx_quant": [(1, T, 4096, "llama2-7b TP 2 partial"),
                      (1, 2 * T, 2048, "llama2-7b TP 2 two_phase destination slices"),
                      (1, T, 2048, "llama2-7b TP 2 two_phase reduced slice"),
-                     (1, T, 5120, "llama2-13b TP 4 partial")],
+                     (1, T, 5120, "llama2-13b TP 4 partial"),
+                     (1, 1500, 1024, "whisper-medium TP 2 encoder partial"),
+                     (1, 256 + SHARD_PROMPT, 5120, "pixtral-12b TP 2 prefix-plus-prompt partial")],
         "mx_dequant_reduce": [(2, T, 4096, "llama2-7b TP 2 gathered shards"),
                               (2, T, 2048, "llama2-7b TP 2 two_phase received slices"),
-                              (4, T, 5120, "llama2-13b TP 4 gathered shards")],
+                              (4, T, 5120, "llama2-13b TP 4 gathered shards"),
+                              (2, 1500, 1024, "whisper-medium TP 2 encoder gathered shards"),
+                              (2, 256 + SHARD_PROMPT, 5120,
+                               "pixtral-12b TP 2 prefix-plus-prompt gathered shards")],
         "mx_dequant": [(1, 2 * T, 2048, "llama2-7b TP 2 two_phase gathered slices")],
     }
     out = {}
@@ -1117,6 +1125,18 @@ def phase_paged(torch, dev="cuda"):
         time_paged(torch, dev, res, label, geos, tpools, textras, heads, heads, hd, None,
                    timed_only=("mixed", "decode"))
         del geos, tpools
+    # one TP rank's heads of the whole-prompt families on 2 ranks, in their
+    # only paged read, the split decode, at the TP phase's prompt length
+    # (SHARD_PROMPT text tokens after pixtral's 256 patches; the decode rows'
+    # histories reach 28 past it): pixtral KV 4 / G 4 / hd 128, whisper's
+    # decoder KV 8 / G 1 / hd 64
+    for arch in ("pixtral-12b", "whisper-medium"):
+        rank = get_config(arch).tp_shard(2)
+        geos, tpools, _, textras = paged_geometries(
+            torch, dev, g, rank.kv_dim, rank.q_dim, n_prefix(rank) + SHARD_PROMPT)
+        time_paged(torch, dev, res, f"{arch} TP2 ", {"decode": geos["decode"]}, tpools, textras,
+                   rank.n_heads, rank.n_kv_heads, rank.head_dim, None)
+        del geos, tpools
     n_sweep = paged_sweep(torch, dev)
     log(f"kernel paged_attention: {n_sweep} small-shape cases through every path match "
         f"the plain version (fp32 / bf16 q; fp32, bf16, fp4, fp6, int8 pools; hd 32-128 at "
@@ -1544,7 +1564,9 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     (two_phase's payload and scales) and ``tp_all_reduce`` (one per dense
     reduction: each row-parallel layer of a dense step; one per MoE layer
     per forward pass for its routed experts, compressed or not; and one per
-    Mamba layer per pass for its ``x_proj`` partial). On sequence-sharded
+    Mamba layer per pass for its ``x_proj`` partial) and
+    ``tp_dense_all_gather`` (a vision model's prefix, one a whole-prompt
+    prefill). On sequence-sharded
     pools (``eng.kv_shards > 1``) the count also holds ``all_reduce``, the
     exchange's: per paged read and per COW fork one for each pool plane of
     each attention layer (K and V; payload and scales of each on fp4
@@ -1574,6 +1596,7 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
                "mx_dequant": red * two + (L * 2 * (n_c + n_d) if q else 0),
                "paged_attention": L * (n_c + n_d)}
         reads, forks = s.n_steps, s.n_dispatches - s.n_steps
+        n_whole = 0
     else:
         n_chunk = sum(1 for p, _ in s.step_tokens if p)
         n_dec = sum(1 for _, d in s.step_tokens if d)
@@ -1593,7 +1616,8 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
         out["all_reduce"] = L * planes * (reads + forks)
     if tp:   # per compressed reduction: payload and scales (per chunk); per dense one
         out.update(tp_all_gather=red * (2 if two else 2 * k), tp_all_to_all=red * 2 * two,
-                   tp_all_reduce=dense + M * passes)
+                   tp_all_reduce=dense + M * passes,
+                   tp_dense_all_gather=n_whole * (eng.cfg.frontend == "vision"))
     return out
 
 
@@ -1680,7 +1704,7 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
         got["all_reduce"] = exchange["all_reduce"]
     if eng.tp_size > 1:
         got.update({f"tp_{c}": collectives[c] for c in ("all_gather", "all_to_all",
-                                                          "all_reduce")})
+                                                          "all_reduce", "dense_all_gather")})
     if stop:
         stop()
     stats = (sup or eng).stats
@@ -1698,7 +1722,8 @@ def serve_run(torch, dev, runs, totals, L, name, eng, traffic, warm=True, sup=No
     if dev == "cuda":  # kernels launch only on the card
         check(got == expect, f"{name}: launches {got} != expected {expect}")
     else:   # the exchanges and the TP collectives run on the CPU too
-        for c in ("all_reduce", "tp_all_gather", "tp_all_to_all", "tp_all_reduce"):
+        for c in ("all_reduce", "tp_all_gather", "tp_all_to_all", "tp_all_reduce",
+                  "tp_dense_all_gather"):
             check(got.get(c) == expect.get(c),
                   f"{name}: {got.get(c)} {c} != expected {expect.get(c)}")
     for k in totals:
@@ -2174,13 +2199,22 @@ SHARD_PROMPT, SHARD_NEW = 64, 8   # its traffic: SLOTS requests of 64 + 8 tokens
 SHARD_CAP_BLOCKS = 17             # the capacity case's pool budget per rank (blocks)
 
 
+def cross_bytes_held(eng) -> int:
+    """Bytes of an encoder-decoder's per-slot cross K/V this process holds
+    for ``eng`` (0 for a decoder)."""
+    return sum(t.numel() * t.element_size()
+               for t in eng._state.get("cross_k", []) + eng._state.get("cross_v", []))
+
+
 def pool_bytes_held(eng) -> int:
-    """Bytes of the pool tensors this process holds for ``eng``."""
+    """Bytes of the pool tensors (and an encoder-decoder's cross K/V, which
+    ``kv_pool_bytes`` counts with them) this process holds for ``eng``."""
     from repro_torch.models.attention import pool_planes
 
-    return sum(p.numel() * p.element_size()
-               for pk, pv in zip(eng._state["pools_k"], eng._state["pools_v"])
-               for p in pool_planes(pk, pv))
+    return cross_bytes_held(eng) + sum(
+        p.numel() * p.element_size()
+        for pk, pv in zip(eng._state["pools_k"], eng._state["pools_v"])
+        for p in pool_planes(pk, pv))
 
 
 def sharded_serve(torch, dev, group, model, params, label):
@@ -2391,8 +2425,17 @@ TP_MODELS = {
     "mixtral-8x22b": (2, ("mixed/fp4_e2m1",), 2),
     # layers 0-4: Mamba, Mamba + MoE twice, then attention (about 14.3 GB)
     "jamba-v0.1-52b": (2, ("whole/fp4_e2m1",), 5),
+    # whole-prompt only, at full width and depth (13.6 GB of weights a rank,
+    # embed and lm_head whole on each):
+    # the 256-patch prefix ahead of each prompt, made whole by one dense
+    # all-gather a prefill
+    "pixtral-12b": (2, ("whole/fp4_e2m1", "ttft"), None),
+    # whole-prompt only, 24 + 24 layers: each prefill runs the encoder over
+    # 1500 frames (48 of its 120 compressed reductions) on the rank's heads
+    "whisper-medium": (2, ("whole/fp4_e2m1", "ttft"), None),
 }
-TP_TTFT = 512          # measure_ttft's prompt tokens in the TP phase
+TP_TTFT = 512          # measure_ttft's prompt tokens in the TP phase (text tokens)
+TP_TTFT_TOKENS = {"whisper-medium": 64}   # a model whose decoder prompts are short
 TP_CUT_LAYERS = 2      # the depth-cut model whose logits are held too
 TP_DENSE_SHARE = 0.25  # dense rank vs simulated logits, at most this share of what
                        # compression moves them
@@ -2426,18 +2469,23 @@ def first_logits(torch, dev, model, params, ctx, prompt):
     """The logits of one mixed step that prefills ``prompt`` (one slot) over
     fresh fp4 pools: the first step of a served run, as fp32 numpy (what a
     rank hands its parent holds no torch tensor: a tensor would travel as
-    a file descriptor that dies with the rank). A recurrent stack (no mixed
-    step) gives its whole-prompt prefill's logits at the exact length."""
+    a file descriptor that dies with the rank). A recurrent stack, a vision
+    prefix or an encoder-decoder (no mixed step) gives its whole-prompt
+    prefill's logits at the exact length, with the first request's extra
+    inputs (``stubs``, the same on every rank)."""
     import numpy as np
 
     from repro_torch.core.formats import KVCacheSpec
     from repro_torch.models.model import recurrent_layer
     from repro_torch.serving import init_paged_state
 
-    if recurrent_layer(model.cfg) is not None:
-        cache = model.init_cache(1, len(prompt), torch.bfloat16, dev, ctx=ctx)
+    extra = stubs(model.cfg, 1)
+    if recurrent_layer(model.cfg) is not None or extra:
+        cache = model.init_cache(1, n_prefix(model.cfg) + len(prompt), torch.bfloat16, dev,
+                                 ctx=ctx)
         tokens = torch.tensor(np.asarray(prompt), device=dev, dtype=torch.int32)[None]
-        logits, _ = model.prefill(ctx, params, {"tokens": tokens}, cache)
+        batch = {"tokens": tokens, **{k: v.to(dev) for k, v in (extra or {}).items()}}
+        logits, _ = model.prefill(ctx, params, batch, cache)
         return logits[0].float().cpu().numpy()
     spec = KVCacheSpec.parse("fp4_e2m1")
     t = len(prompt)
@@ -2472,9 +2520,13 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
     and ``prefix/fp4_e2m1``, the mixed engine with the prefix cache, a cold
     run then a warm one (the engine's prefix cache rides on chunked
     prefill); (e) ``corrupt@3/fp4_e2m1``, supervised; (f) ``ttft``:
-    measure_ttft at TP_TTFT tokens, compressed against uncompressed. Also
-    the first mixed step's logits, compressed and dense. Returns (runs,
-    totals)."""
+    measure_ttft at TP_TTFT text tokens (``TP_TTFT_TOKENS`` for a model
+    with short prompts), compressed against uncompressed. A vision model
+    or an encoder-decoder serves its runs with its extra inputs (``stubs``,
+    drawn from seed 0 on the host: the same on every rank) and is held to
+    one dense all-gather of its prefix a prefill and to 1/n of the cross K/V
+    per rank. Also the first mixed step's logits, compressed and dense.
+    Returns (runs, totals)."""
     import dataclasses
 
     import numpy as np
@@ -2483,20 +2535,23 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
     from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.serving import Engine, EngineSupervisor, FaultPlan
-    from repro_torch.serving.kv_cache import recurrent_state_bytes
+    from repro_torch.serving.kv_cache import cross_state_bytes, recurrent_state_bytes
 
     cfg = model.cfg
     L = cfg.n_layers
+    pre = n_prefix(cfg)
+    extra = stubs(cfg, SLOTS)
+    ttft_len = TP_TTFT_TOKENS.get(cfg.name, TP_TTFT)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, SHARD_PROMPT).astype(np.int32)
                for _ in range(SLOTS)]
     shared = rng.integers(0, cfg.vocab_size, SHARD_PROMPT // 2).astype(np.int32)
     shared_prompts = [np.concatenate([shared, p[SHARD_PROMPT // 2:]]) for p in prompts]
     runs, totals = {}, {k: 0 for k in KERNELS}
-    serve = functools.partial(serve_run, torch, dev, runs, totals, L, new=SHARD_NEW)
+    serve = functools.partial(serve_run, torch, dev, runs, totals, L, new=SHARD_NEW, extra=extra)
     ctx = functools.partial(tp_context, group, n)
     comp = ctx(PAPER_DEFAULT)
-    max_len = SHARD_PROMPT + SHARD_NEW
+    max_len = pre + SHARD_PROMPT + SHARD_NEW
     kw = dict(max_slots=SLOTS, max_len=max_len, block_size=BS, device=dev)
     mixed = dict(kw, prefill_chunk=CHUNK, token_budget=T)
 
@@ -2510,8 +2565,15 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
               and rec * eng.tp_size == recurrent_state_bytes(cfg, eng.n_slots),
               f"{label}{name}: this rank holds {rec} bytes of recurrent state, not 1/"
               f"{eng.tp_size} of {recurrent_state_bytes(cfg, eng.n_slots)}")
+        cross = cross_bytes_held(eng)
+        check(cross == cross_state_bytes(eng.cfg, eng.n_slots)
+              and cross * eng.tp_size == cross_state_bytes(cfg, eng.n_slots)
+              and all(t.shape[-1] == eng.cfg.kv_dim for t in eng._state.get("cross_k", [])),
+              f"{label}{name}: this rank holds {cross} bytes of cross K/V, not 1/"
+              f"{eng.tp_size} of {cross_state_bytes(cfg, eng.n_slots)} at kv_dim "
+              f"{eng.cfg.kv_dim}")
         runs[label + name].update(pool_bytes_held=b, transport=eng.ctx.transport,
-                                  rec_bytes_held=rec)
+                                  rec_bytes_held=rec, cross_bytes_held=cross)
 
     engines = {
         "mixed/fp4_e2m1": lambda: Engine(model, params, comp, cache_spec="fp4_e2m1", **mixed),
@@ -2556,11 +2618,11 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
         elif name == "ttft":
             ttft = {}
             for kind, policy in (("compressed", PAPER_DEFAULT), ("uncompressed", NO_COMPRESSION)):
-                eng = Engine(model, params, ctx(policy), max_slots=1, max_len=TP_TTFT,
+                eng = Engine(model, params, ctx(policy), max_slots=1, max_len=pre + ttft_len,
                              block_size=BS, prefill_chunk=0, device=dev)
                 reset_launch_counts()
                 reset_tp_counts()
-                r = eng.measure_ttft(TP_TTFT, iters=TTFT_ITERS)
+                r = eng.measure_ttft(ttft_len, iters=TTFT_ITERS, extra_inputs=first_rows(extra))
                 got, c = launch_counts(), tp_counts()
                 R = row_reductions(cfg)
                 m = int(policy.enabled) * TTFT_ITERS * R
@@ -2569,19 +2631,21 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
                 if dev == "cuda":
                     check(got == expect, f"{label}ttft/{kind}: launches {got} != {expect}")
                 if eng.tp_size > 1:
-                    want = (2 * m, TTFT_ITERS * (R + moe_layers(cfg) + mamba_layers(cfg)) - m)
-                    check((c["all_gather"], c["all_reduce"]) == want,
+                    want = (2 * m, TTFT_ITERS * (R + moe_layers(cfg) + mamba_layers(cfg)) - m,
+                            TTFT_ITERS * (cfg.frontend == "vision"))
+                    check((c["all_gather"], c["all_reduce"], c["dense_all_gather"]) == want,
                           f"{label}ttft/{kind}: collectives {c} != {want}")
                 for k in totals:
                     totals[k] += got[k]
                 ttft[kind] = dict(r, launches=got, tp=c)
-                log(f"{label}ttft[{TP_TTFT} tokens, {kind}]: median {r['median_s'] * 1e3:.2f} "
+                log(f"{label}ttft[{ttft_len} tokens, {kind}]: median {r['median_s'] * 1e3:.2f} "
                     f"ms, std {r['std_s'] * 1e3:.2f} ms over {r['iters']} prefills; "
                     + (f"{c['all_gather']} all-gathers, {c['all_reduce']} all-reduces, "
+                       f"{c['dense_all_gather']} dense all-gathers, "
                        f"{c['bytes'] / 1e6:.2f} MB sent, {c['seconds'] * 1e3:.1f} ms host "
                        f"({eng.ctx.transport})" if eng.tp_size > 1 else "one process"))
                 del eng
-            runs[label + "ttft"] = ttft
+            runs[label + "ttft"] = dict(ttft, tokens=ttft_len)
     runs[label + "logits"] = {
         "compressed": first_logits(torch, dev, model, params, comp, prompts[0]),
         "dense": first_logits(torch, dev, model, params, ctx(NO_COMPRESSION), prompts[0])}
@@ -2668,7 +2732,11 @@ def phase_tp(torch, card, dev="cuda", cfg=None):
     first 2 layers on 2 ranks, run (a): each rank holds half of every
     expert's ``d_ff`` (its routed-expert bytes half the single-rank
     model's), and one dense all-reduce per MoE layer and step reduces the
-    routed experts. Prints the transport, the collectives
+    routed experts. jamba layers 0-4 on 2 ranks, whole-prompt. pixtral-12b
+    at full width and depth and whisper-medium at full depth (24 + 24
+    layers, 1500 frames) on 2 ranks, whole-prompt and ``measure_ttft``:
+    each rank holds half the cross K/V, pixtral's prefix is one dense
+    all-gather a prefill. Prints the transport, the collectives
     per step, the tokens identical to the simulated run's (counted: bf16
     GEMMs of other shapes round differently, and random weights have near
     ties), and TTFT. (``dev="cpu"`` and a reduced ``cfg`` rehearse it.)"""
@@ -2764,9 +2832,13 @@ def phase_tp(torch, card, dev="cuda", cfg=None):
                 continue
             if case == "ttft":
                 for kind in ("compressed", "uncompressed"):
-                    log(f"tp[{arch}] ttft[{TP_TTFT} tokens, {kind}]: {n} ranks median "
+                    log(f"tp[{arch}] ttft[{rr['tokens']} tokens, {kind}]: {n} ranks median "
                         f"{got[0][kind]['median_s'] * 1e3:.2f} ms ({transport}); "
                         f"simulate_tp={n} in one process {rr[kind]['median_s'] * 1e3:.2f} ms")
+                ratio = lambda t: t["compressed"]["median_s"] / t["uncompressed"]["median_s"]
+                log(f"tp[{arch}] ttft[{rr['tokens']} tokens]: compressed / uncompressed "
+                    f"{ratio(got[0]):.4f} on {n} ranks ({transport}), {ratio(rr):.4f} "
+                    f"simulated in one process")
                 continue
             for i, g in enumerate(got):
                 check(g["outputs"] == got[0]["outputs"],
@@ -2783,7 +2855,13 @@ def phase_tp(torch, card, dev="cuda", cfg=None):
             log(f"tp[{arch}] {case}: tokens identical on {n} ranks; {same} of "
                 f"{len(rr['outputs'])} requests decode the simulated run's tokens; "
                 f"{got[0]['pool_bytes_held'] / 1e6:.2f} MB of pools per rank of "
-                f"{got[0]['pool_mb']:.2f} MB; per step {c['all_gather'] / steps:.1f} "
+                f"{got[0]['pool_mb']:.2f} MB"
+                + (f" ({got[0]['cross_bytes_held'] / 1e6:.2f} MB of it cross K/V)"
+                   if got[0].get("cross_bytes_held") else "")
+                + (f"; {c['dense_all_gather']} dense prefix all-gathers "
+                   f"({c['dense_all_gather_bytes'] / 1e6:.2f} MB)" if c["dense_all_gather"]
+                   else "")
+                + f"; per step {c['all_gather'] / steps:.1f} "
                 f"all-gathers, {c['all_to_all'] / steps:.1f} all-to-alls, "
                 f"{c['all_reduce'] / steps:.1f} all-reduces, {c['bytes'] / steps / 1e6:.3f} MB "
                 f"sent and {c['seconds'] / steps * 1e3:.2f} ms host per rank ({transport}); "

@@ -91,6 +91,12 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def mm_proj_cols(self) -> int:
+        """Output columns of a vision model's ``mm_proj`` this config
+        computes: ``d_model`` (a rank's share on a TP group, ``RankConfig``)."""
+        return self.d_model
+
+    @property
     def q_dim(self) -> int:
         return self.n_heads * self.head_dim
 
@@ -152,15 +158,20 @@ class ModelConfig:
         """The rank-local view of this config on a TP group of ``n`` ranks
         (a ``RankConfig``): ``n_heads / n`` query heads, ``n_kv_heads / n``
         kv heads, ``d_ff / n`` MLP columns and ``ssm_d_inner / n`` Mamba
-        channels; ``head_dim``, ``d_model``, ``dt_rank``, ``ssm_d_state``
-        and the vocabulary unchanged. Rank r holds whole heads, q heads ``[r
-        H/n, (r+1) H/n)`` with their kv heads ``[r KV/n, (r+1) KV/n)``, so q
-        head h keeps kv head ``h // G``, and Mamba channels ``[r di/n, (r+1)
-        di/n)``. Everything sized from the config (the paged pools, the
-        recurrent state, the paged kernel's ``kv_heads``) follows. Raises
-        unless the kv heads and (with Mamba layers) ``d_inner`` divide over
-        the ranks and each rank's ``q_dim`` and ``d_ff`` are multiples of the
-        policies' MX block (32). ``n = 1`` is the config itself."""
+        channels; ``head_dim``, ``d_model``, ``dt_rank``, ``ssm_d_state``,
+        the vocabulary and a vision prefix's or an encoder's fields
+        (``frontend``, ``n_patches``, ``encoder_seq``, ``n_encoder_layers``)
+        unchanged: an encoder layer and a cross-attention shard their heads
+        and MLP columns as a decoder layer does. Rank r holds whole heads, q
+        heads ``[r H/n, (r+1) H/n)`` with their kv heads ``[r KV/n, (r+1)
+        KV/n)``, so q head h keeps kv head ``h // G``, and Mamba channels
+        ``[r di/n, (r+1) di/n)``. Everything sized from the config (the paged
+        pools, the recurrent state, the cross K/V, the paged kernel's
+        ``kv_heads``) follows. Raises unless the kv heads, (with Mamba
+        layers) ``d_inner`` and (with a vision prefix, whose ``mm_proj``
+        shards by output columns) ``d_model`` divide over the ranks and each
+        rank's ``q_dim`` and ``d_ff`` are multiples of the policies' MX block
+        (32). ``n = 1`` is the config itself."""
         if n == 1:
             return self
         block_size = 32
@@ -176,6 +187,8 @@ class ModelConfig:
              self.d_ff % n == 0 and (self.d_ff // n) % block_size == 0),
             (f"ssm_d_inner={self.ssm_d_inner} % {n} != 0",
              not mamba or self.ssm_d_inner % n == 0),
+            (f"d_model={self.d_model} % {n} != 0 (mm_proj's columns)",
+             self.frontend != "vision" or self.d_model % n == 0),
         ) if not ok]
         if n < 1 or bad:
             raise ValueError(f"{self.name} does not shard over {n} TP ranks: "
@@ -183,7 +196,8 @@ class ModelConfig:
         fields = {f.name: getattr(self, f.name) for f in dataclasses.fields(ModelConfig)}
         return RankConfig(**dict(fields, n_heads=self.n_heads // n,
                                  n_kv_heads=self.n_kv_heads // n, d_ff=self.d_ff // n),
-                          ssm_d_inner_local=self.ssm_d_inner // n)
+                          ssm_d_inner_local=self.ssm_d_inner // n,
+                          mm_proj_cols_local=self.d_model // n)
 
     def active_param_count(self) -> int:
         """Params touched per token: a MoE layer counts only its ``top_k``
@@ -196,15 +210,22 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class RankConfig(ModelConfig):
     """A config as one rank of a TP group computes it (``tp_shard``): its
-    ``ssm_d_inner`` is this rank's share of the Mamba channels, which the
-    reference derives from ``d_model`` (kept whole on a rank). A field of
-    its own, so ``ModelConfig`` keeps exactly the reference's fields."""
+    ``ssm_d_inner`` is this rank's share of the Mamba channels and its
+    ``mm_proj_cols`` this rank's columns of a vision model's ``mm_proj``,
+    both of which the reference derives from ``d_model`` (kept whole on a
+    rank). Fields of its own, so ``ModelConfig`` keeps exactly the
+    reference's fields."""
 
     ssm_d_inner_local: int = 0
+    mm_proj_cols_local: int = 0
 
     @property
     def ssm_d_inner(self) -> int:
         return self.ssm_d_inner_local
+
+    @property
+    def mm_proj_cols(self) -> int:
+        return self.mm_proj_cols_local
 
 
 def first_layers(cfg: ModelConfig, n: int) -> ModelConfig:

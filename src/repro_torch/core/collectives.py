@@ -25,17 +25,21 @@ independent, and the sums run in the same order), and every rank the same
 bytes, except under ``keep_local_fp``. ``rank_psum`` is the dense gate
 variant (an all-reduce in the partial's dtype, the reference's
 ``lax.psum``); ``psum_maybe_compressed`` picks one with the policy's
-``min_tokens`` gate, and ``compressed_all_gather`` gathers a tensor in
-compressed form. The codec runs through ``kernels/ops.py``: the
-hand-written kernels on the card, their plain versions on the CPU.
+``min_tokens`` gate, ``compressed_all_gather`` gathers a tensor in
+compressed form, and ``rank_all_gather`` gathers one densely (a vision
+prefix's ``mm_proj`` columns: the all-gather GSPMD inserts for the
+reference's column-parallel ``P(d, model)``, uncompressed there too). The
+codec runs through ``kernels/ops.py``: the hand-written kernels on the
+card, their plain versions on the CPU.
 
 Transport: ``wire`` stages a tensor through host memory when the group is a
 gloo group and the tensor lives on the card (ranks sharing a card), and
 returns it as it is under NCCL (one card per rank) or on the CPU; each
 collective's result goes back to the tensor's device. ``tp_counts`` counts
-the rank collectives (all-gathers, all-to-alls, all-reduces, the bytes this
-rank puts into them and the host seconds they take), ``exchange_counts``
-the sequence-sharded pools' ``masked_owner_psum`` calls.
+the rank collectives (all-gathers, all-to-alls, all-reduces, dense
+all-gathers, the bytes this rank puts into them and the host seconds they
+take), ``exchange_counts`` the sequence-sharded pools' ``masked_owner_psum``
+calls.
 
 Left out (see ROADMAP.md): the straight-through-estimator gradient
 (training) and ``compressed_all_to_all`` (MoE dispatch).
@@ -57,8 +61,8 @@ from repro_torch.core.policy import CompressionPolicy
 from repro_torch.kernels import ops
 
 __all__ = ["compressed_psum", "psum", "psum_maybe_compressed", "rank_compressed_psum",
-           "rank_psum", "compressed_all_gather", "check_stacked", "masked_owner_psum", "wire",
-           "transport",
+           "rank_psum", "rank_all_gather", "compressed_all_gather", "check_stacked",
+           "masked_owner_psum", "wire", "transport",
            "exchange_counts", "reset_exchange_counts", "tp_counts", "reset_tp_counts",
            "recorded_collectives", "add_tp_counts", "reset_downgrade_warnings"]
 
@@ -66,9 +70,11 @@ __all__ = ["compressed_psum", "psum", "psum_maybe_compressed", "rank_compressed_
 # contributes, and host seconds spent in them (each call ends synchronized
 # when staged through the host)
 _EXCHANGE: Dict[str, float] = {"all_reduce": 0, "bytes": 0, "seconds": 0.0}
-# the rank collectives of the TP group since the last reset: calls by kind,
-# the bytes this rank puts into them (its input tensors) and host seconds
-_TP: Dict[str, float] = {"all_gather": 0, "all_to_all": 0, "all_reduce": 0, "bytes": 0,
+# the rank collectives of the TP group since the last reset: calls by kind
+# (``dense_all_gather``: ``rank_all_gather``, with its own bytes), the bytes
+# this rank puts into them all (its input tensors) and host seconds
+_TP: Dict[str, float] = {"all_gather": 0, "all_to_all": 0, "all_reduce": 0,
+                         "dense_all_gather": 0, "dense_all_gather_bytes": 0, "bytes": 0,
                          "seconds": 0.0}
 
 
@@ -84,13 +90,16 @@ def reset_exchange_counts() -> None:
 
 def tp_counts() -> Dict[str, float]:
     """The TP group's collectives since the last reset: ``all_gather``,
-    ``all_to_all``, ``all_reduce`` calls, ``bytes`` this rank put into them
-    and host ``seconds`` (staging included; under NCCL the enqueue only)."""
+    ``all_to_all``, ``all_reduce`` calls (of the compressed and the dense
+    reductions), ``dense_all_gather`` calls (``rank_all_gather``) and the
+    ``dense_all_gather_bytes`` this rank put into them, ``bytes`` this rank
+    put into all of them and host ``seconds`` (staging included; under NCCL
+    the enqueue only)."""
     return dict(_TP)
 
 
 def reset_tp_counts() -> None:
-    _TP.update(all_gather=0, all_to_all=0, all_reduce=0, bytes=0, seconds=0.0)
+    _TP.update({k: 0 for k in _TP})
 
 
 @contextlib.contextmanager
@@ -261,15 +270,15 @@ def _overlap_chunks(f: int, spec: MXSpec, requested: int) -> int:
     return n
 
 
-def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+def _all_gather(t: torch.Tensor, group, kind: str = "all_gather") -> torch.Tensor:
     """``(N, *t.shape)``: every rank's ``t`` in rank order, on ``t``'s
-    device."""
+    device; counted under ``kind``."""
     t0 = time.perf_counter()
     w = wire(t, group)
     n = dist.get_world_size(group)
     out = torch.empty((n, *w.shape), dtype=w.dtype, device=w.device)
     dist.all_gather(list(out.unbind(0)), w, group=group)
-    _count("all_gather", w, t0)
+    _count(kind, w, t0)
     return out.to(t.device)
 
 
@@ -390,6 +399,15 @@ def rank_psum(partial: torch.Tensor, group) -> torch.Tensor:
     dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
     _count("all_reduce", w, t0)
     return w.to(partial.device)
+
+
+def rank_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along the last axis in rank order,
+    moved uncompressed in ``x``'s dtype: a column-parallel output made
+    whole on every rank (one ``dense_all_gather``)."""
+    out = _all_gather(x, group, "dense_all_gather")
+    _TP["dense_all_gather_bytes"] += x.numel() * x.element_size()
+    return torch.cat(out.unbind(0), dim=-1)
 
 
 def compressed_all_gather(x: torch.Tensor, group, spec: MXSpec, *,

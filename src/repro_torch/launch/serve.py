@@ -56,7 +56,12 @@ between them. The group is NCCL when there are at least N cards (rank r on
 (``launch/mesh.py``); the banner names the transport, and the report the
 collectives per step. As with ``--shard-pools``, rank 0 prints and every
 rank must sample the same tokens; ``--tp`` and ``--shard-pools`` do not
-combine yet.
+combine yet. pixtral-12b and whisper-medium run on ``--tp`` ranks too: an
+encoder layer and each cross-attention hold the rank's heads (their ``wo``
+and ``down`` reductions compressed between the ranks) and a vision model's
+``mm_proj`` its output columns, made whole by one dense all-gather a
+prefill; every rank draws the same extra inputs from ``--seed``, and the
+report adds the dense all-gathers and their bytes.
 """
 from __future__ import annotations
 
@@ -304,10 +309,13 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
     print_(f"preemptions: {s['n_preemptions']}")
     if tp_group is not None:
         c, n = tp_counts(), max(s["n_steps"], 1)
+        dense = (f", {c['dense_all_gather']} dense all-gathers of the vision prefix "
+                 f"({c['dense_all_gather_bytes'] / 1e6:.3f} MB)"
+                 if cfg.frontend == "vision" else "")
         print_(f"collectives ({ctx.transport}): {c['all_gather']} all-gathers, "
-               f"{c['all_to_all']} all-to-alls, {c['all_reduce']} all-reduces; per step "
-               f"{c['bytes'] / n / 1e6:.3f} MB sent by rank 0, {c['seconds'] / n * 1e3:.2f} "
-               f"ms host")
+               f"{c['all_to_all']} all-to-alls, {c['all_reduce']} all-reduces{dense}; per "
+               f"step {c['bytes'] / n / 1e6:.3f} MB sent by rank 0, "
+               f"{c['seconds'] / n * 1e3:.2f} ms host")
     print_(f"programs: decode={engine.decode_cache_size()} prefill={engine.prefill_cache_size()} "
            f"({'graphed' if engine.graphed else 'eager'} steps)")
     print_(f"TTFT p50 {s['ttft_p50_s']*1e3:.1f} ms, p90 {s['ttft_p90_s']*1e3:.1f} ms; "

@@ -107,16 +107,14 @@ def attention(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig, *, pos:
     back at that precision (the reference's prefill). With ``cross_kv``
     (the encoder's flat K/V, (B, F, kv_dim)) it is the decoder's
     cross-attention instead: q through ``column_linear`` (``q_norm`` with
-    ``qk_norm``, no RoPE), every encoder position visible, no cache written.
+    ``qk_norm``, no RoPE), every encoder position visible, no cache written;
+    on a TP group ``cfg`` is the rank-local config, q the rank's heads and
+    ``cross_kv`` its kv heads, as in a self-attention.
     Plain PyTorch on the reference's arithmetic: einsum products, fp32
     masked softmax, q-chunked at 1024. ``wo`` is ``row_linear``, the
     reduction the policy compresses. Returns (out (B, S, d_model), cache)."""
     B, S = x.shape[:2]
     if cross_kv is not None:
-        if ctx.tp_size > 1:
-            raise NotImplementedError(
-                "cross-attention on a TP group (encoder-decoder models across ranks) is "
-                "not ported yet: see ROADMAP.md Queue 1")
         q = column_linear(ctx, x, params["wq"]["w"], params["wq"].get("b"))
         q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
         if cfg.qk_norm:

@@ -12,7 +12,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (
-    check_supported, check_tp, param_shapes, shard_leaf, torch_dtype,
+    check_supported, param_shapes, shard_leaf, torch_dtype,
 )
 
 __all__ = ["params_from_numpy", "shard_params"]
@@ -68,10 +68,12 @@ def shard_params(tree, cfg: ModelConfig, rank: int, n: int):
     """Rank ``rank``'s shard of a numpy parameter tree (reference names and
     layouts) on a TP group of ``n`` ranks, by ``model.shard_axis``, as
     ``Model.init_params(tp=(rank, n))`` keeps it: the n shards put together
-    are the tree. Checks the tree against ``cfg`` first. A vision prefix or
-    an encoder on a TP group is not ported yet (``NotImplementedError``)."""
+    are the tree: a vision model's ``mm_proj`` by output columns, an
+    encoder-decoder's ``enc_layers`` and each ``xattn[i].core`` as a decoder
+    layer (``enc_norm`` and the ``xattn`` norms whole). Checks the tree
+    against ``cfg`` first; raises when ``cfg`` does not shard over ``n``
+    ranks (``ModelConfig.tp_shard``)."""
     check_supported(cfg)
-    check_tp(cfg, n)
     cfg.tp_shard(n)
     _check_tree(tree, param_shapes(cfg), "")
 

@@ -19,8 +19,7 @@ a cross-attention sublayer after each decoder layer; the decode step reads
 the per-slot cross K/V from ``state["cross_k"]`` / ``state["cross_v"]``.
 The encoder's ``wo`` and ``down`` and each cross-attention's ``wo`` are
 row-parallel reductions the policy compresses. The chunk and mixed steps
-refuse an encoder-decoder, as the reference's do. Neither runs on a TP
-group yet (``NotImplementedError``).
+refuse an encoder-decoder, as the reference's do.
 
 Parameters are a plain nested dict with the reference's tree and names
 (``embed``, ``layers[i].{ln1, core.{wq, wk, wv, wo, q_norm, k_norm}, ln2,
@@ -50,8 +49,14 @@ second-to-last axis: an expert tensor keeps every expert and splits its
 (``in_x``, ``in_z``, ``conv_w``, ``conv_b``, ``dt_proj``, ``D`` on the last
 axis, ``x_proj``, ``out_proj`` and ``A_log`` by rows); norms, the router,
 ``embed`` and ``lm_head`` replicated, so every rank computes the full
-logits, the same bits on every rank, with no float collective. The steps
-then run on the rank-local config (``local_cfg``, ``ModelConfig.tp_shard``).
+logits, the same bits on every rank, with no float collective. An
+encoder's layers and each cross-attention's ``core`` shard as a decoder
+layer's (the rank's heads; ``enc_norm`` and each ``xattn[i].ln``
+replicated), and a vision model's ``mm_proj`` by output columns (the
+reference's ``P(d, model)``): the prefix is each rank's columns,
+all-gathered densely (``collectives.rank_all_gather``) before the text.
+The steps then run on the rank-local config (``local_cfg``,
+``ModelConfig.tp_shard``).
 """
 from __future__ import annotations
 
@@ -61,7 +66,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.tp import TPContext
+from repro_torch.core.collectives import rank_all_gather
+from repro_torch.core.tp import TPContext, column_linear
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
     KVCache, attention, paged_attention_chunk, paged_attention_decode, paged_attention_mixed,
@@ -73,7 +79,7 @@ from repro_torch.models.transformer import (
 )
 
 __all__ = ["Model", "torch_dtype", "param_shapes", "shard_axis", "shard_leaf",
-           "recurrent_layer", "check_supported", "check_tp"]
+           "recurrent_layer", "check_supported"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -99,14 +105,6 @@ def check_supported(cfg: ModelConfig) -> None:
             f"or an audio encoder, only (xLSTM is not ported yet)")
 
 
-def check_tp(cfg: ModelConfig, n: int) -> None:
-    """A vision prefix or an encoder on a TP group is not ported yet."""
-    if n > 1 and (cfg.encoder_decoder or cfg.frontend is not None):
-        raise NotImplementedError(
-            f"{cfg.name} on a TP group of {n} ranks (a vision prefix or an encoder across "
-            f"ranks) is not ported yet: see ROADMAP.md Queue 1")
-
-
 def recurrent_layer(cfg: ModelConfig) -> Optional[Tuple[int, str]]:
     """(index, kind) of the first non-attention layer of ``cfg``, or None
     for a pure-attention stack."""
@@ -118,7 +116,8 @@ _NORMS = ("ln1", "ln2", "ln", "final_norm", "enc_norm", "q_norm", "k_norm")
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree of ``cfg``, with each leaf's shape (what
-    ``Model.init_params`` draws and ``convert.params_from_numpy`` checks)."""
+    ``Model.init_params`` draws and ``convert.params_from_numpy`` checks);
+    a rank's shapes on a TP group's rank-local config."""
     d, ff = cfg.d_model, cfg.d_ff
 
     def linear(fin, fout, bias=False):
@@ -165,7 +164,7 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": (cfg.vocab_size, d)}
     if cfg.frontend == "vision":
-        tree["mm_proj"] = linear(d, d)
+        tree["mm_proj"] = linear(d, cfg.mm_proj_cols)
     if cfg.encoder_decoder:
         tree["enc_layers"] = [{"ln1": {"w": (d,)}, "core": attention(), "ln2": {"w": (d,)},
                                "mlp": mlp()} for _ in range(cfg.n_encoder_layers)]
@@ -174,8 +173,9 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return tree
 
 
-# column-parallel: sharded by outputs (Mamba's in_x, in_z, dt_proj by d_inner)
-_COLUMNS = ("wq", "wk", "wv", "gate", "up", "in_x", "in_z", "dt_proj")
+# column-parallel: sharded by outputs (Mamba's in_x, in_z, dt_proj by d_inner;
+# a vision model's mm_proj by d_model)
+_COLUMNS = ("wq", "wk", "wv", "gate", "up", "in_x", "in_z", "dt_proj", "mm_proj")
 # row-parallel: sharded by inputs (Mamba's x_proj and out_proj by d_inner)
 _ROWS = ("wo", "down", "x_proj", "out_proj")
 # the Mamba leaves directly under ``core``, by d_inner (the reference's mamba_specs)
@@ -231,7 +231,6 @@ class Model:
             generator = torch.Generator(device=dev).manual_seed(seed)
         cfg = self.cfg
         rank, n = tp
-        check_tp(cfg, n)
         cfg.tp_shard(n)   # raises when the config does not shard over n ranks
         init = Initializer(generator, torch_dtype(cfg.dtype), dev)
 
@@ -269,7 +268,6 @@ class Model:
     def local_cfg(self, ctx: TPContext) -> ModelConfig:
         """The config this process computes with: the rank-local view on a
         TP group (``ModelConfig.tp_shard``), else the config itself."""
-        check_tp(self.cfg, ctx.tp_size)
         return self.cfg.tp_shard(ctx.tp_size)
 
     # ----------------------------------------------------------------- serve
@@ -281,11 +279,16 @@ class Model:
     def _embed_inputs(self, ctx: TPContext, params, batch) -> torch.Tensor:
         """The token embeddings of ``batch["tokens"]``, after the projected
         ``patch_embeds`` of a vision model when the batch has them (early
-        fusion: ``patch_embeds @ mm_proj``, unscaled, ahead of the text)."""
+        fusion: ``patch_embeds @ mm_proj``, unscaled, ahead of the text). On
+        a TP group each rank projects onto its columns of ``mm_proj`` and
+        one dense all-gather makes the prefix whole on every rank."""
         x = self._embed(ctx, params, batch["tokens"])
         if self.cfg.frontend == "vision" and "patch_embeds" in batch:
             pe = batch["patch_embeds"].to(x.dtype)
-            x = torch.cat([torch.matmul(pe, params["mm_proj"]["w"].to(x.dtype)), x], dim=1)
+            pe = column_linear(ctx, pe, params["mm_proj"]["w"])
+            if ctx.tp_group is not None:
+                pe = rank_all_gather(pe, ctx.tp_group)
+            x = torch.cat([pe, x], dim=1)
         return x
 
     def _encode(self, ctx: TPContext, params, frames: torch.Tensor) -> torch.Tensor:
@@ -303,7 +306,9 @@ class Model:
 
     def _cross_kv(self, ctx: TPContext, params, enc_out: torch.Tensor):
         """Each decoder layer's cross-attention K/V, flat (B, F, kv_dim), from
-        the encoder's output (no bias, no k-norm, no RoPE: the reference's)."""
+        the encoder's output (no bias, no k-norm, no RoPE: the reference's);
+        on a TP group the rank's kv heads, from its columns of ``wk`` /
+        ``wv``."""
         return [KVCache(k=torch.matmul(enc_out, xp["core"]["wk"]["w"].to(enc_out.dtype)),
                         v=torch.matmul(enc_out, xp["core"]["wv"]["w"].to(enc_out.dtype)))
                 for xp in params["xattn"]]

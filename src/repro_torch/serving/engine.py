@@ -37,7 +37,12 @@ program with the tokens (again when a preempted request re-prefills). A
 vision prompt's ``n_patches`` prefix positions sit ahead of its text in the
 slot's blocks (``_n_prefix``); an encoder-decoder's insert writes the
 encoder's per-layer cross K/V into the slot's rows of ``state["cross_k"]``
-/ ``state["cross_v"]`` in place, which every decode step reads.
+/ ``state["cross_v"]`` in place, which every decode step reads. On a TP
+group each rank holds its kv heads of that cross state (the rank-local
+``kv_dim``) and writes them at the insert; every rank must be given the
+same ``extra_inputs`` (draw them from one seed, ``frontend_stubs``, never
+from a per-rank generator), since each rank's encoder or prefix computes on
+them.
 
 With ``prefix_cache=True`` full prompt blocks are published in a hash-chain
 index as their chunks land; admission maps matching blocks into the new

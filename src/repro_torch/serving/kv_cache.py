@@ -407,7 +407,9 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_blocks: int, block_size: 
     reference's ``init_layer_cache`` default: recurrent state is O(slots),
     not O(tokens)); for an encoder-decoder, ``cross_k`` / ``cross_v``, one
     ``(n_slots, encoder_seq, kv_dim)`` tensor of ``dtype`` per decoder
-    layer, on MX pools too (the reference's). xLSTM layers raise."""
+    layer, on MX pools too (the reference's). Every size follows ``cfg``:
+    on a TP group's rank-local config, this rank's kv heads of the pools and
+    of the cross K/V. xLSTM layers raise."""
     from repro_torch.models.transformer import init_layer_cache
 
     cache_spec = check_cache_spec(cfg, cache_spec)
@@ -459,7 +461,7 @@ def cross_state_bytes(cfg: ModelConfig, n_slots: int, dtype_bytes: int = 2) -> i
     """Bytes of an encoder-decoder's per-slot cross K/V (``cross_k`` /
     ``cross_v``): the reference's ``cache_bytes`` term, 2 x n_layers x
     n_slots x encoder_seq x kv_dim values of ``dtype_bytes`` (0 for a
-    decoder)."""
+    decoder); one rank's share on a TP group's rank-local config."""
     if not cfg.encoder_decoder:
         return 0
     return 2 * cfg.n_layers * n_slots * cfg.encoder_seq * cfg.kv_dim * dtype_bytes

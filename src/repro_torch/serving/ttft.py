@@ -85,6 +85,9 @@ def ttft_breakdown(cfg: ModelConfig, hw: Hardware, tp: int, batch: int, seq: int
       "gather"    (N-1) x tensor        (the paper's stack)
       "ring"      2 (N-1)/N x tensor    (ring all-reduce / rs+ag)
       "two_phase" 2 (N-1)/N x tensor    on the COMPRESSED payload
+    An encoder-decoder's encoder reductions and compute are sized at the
+    decoder's ``batch * seq`` tokens, not its ``encoder_seq`` frames, as
+    the reference's are (ROADMAP.md Queue 3 item 15).
     """
     tokens = batch * seq
     compute = 2.0 * cfg.active_param_count() * tokens / (tp * hw.peak_flops * hw.mfu)

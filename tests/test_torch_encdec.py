@@ -19,8 +19,9 @@ dense and gated, frames sliced per request; the insert writes each slot's
 cross K/V rows in place (a captured decode step keeps reading those
 addresses); through a preemption and a hard recovery (``die@3`` under the
 supervisor). The refusals: ``prefill_chunk``, ``token_budget``,
-``prefix_cache``, sequence-sharded pools, a TP group, the chunk and mixed
-steps. ``param_count`` counts the tree (the reference's count plus
+``prefix_cache``, sequence-sharded pools, the chunk and mixed steps; on a
+TP group of 2 ranks the rank's shapes, the cross K/V at the rank's kv
+heads. ``param_count`` counts the tree (the reference's count plus
 ``enc_norm`` and each cross-attention's norm).
 """
 

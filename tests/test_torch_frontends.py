@@ -15,8 +15,9 @@ equal the reference Engine's on bf16 and fp4 pools, dense and gated, with
 ``extra_inputs`` sliced per request; through a preemption (the re-prefill
 carries the request's patches) and a hard recovery (``die@3`` under the
 supervisor). The refusals: ``prefill_chunk``, ``token_budget``,
-``prefix_cache``, sequence-sharded pools, a TP group, and extra inputs
-that are missing or of the wrong shape. A bf16 patch input reaches the
+``prefix_cache``, sequence-sharded pools, and extra inputs that are
+missing or of the wrong shape; on a TP group of 2 ranks the rank's shapes
+(``tests/test_torch_tp.py`` serves both families across ranks). A bf16 patch input reaches the
 model as the reference's bf16 values (``StepProgram`` casts on the host).
 ``param_count`` counts the tree (the reference's count plus ``mm_proj``).
 The helpers here serve ``tests/test_torch_encdec.py`` too.
@@ -116,10 +117,21 @@ def leaves(tree) -> int:
     return int(np.prod(tree))
 
 
+def _shapes(tree):
+    """A parameter tree's leaf shapes, in ``param_shapes``' form."""
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shapes(v) for v in tree]
+    return tuple(tree.shape)
+
+
 def check_refusals(models, extra, monkeypatch):
     """The whole-prompt gate's refusals (the reference's errors), sequence-
-    sharded pools and a TP group (not ported), and extra inputs that are
-    missing or of the wrong shape."""
+    sharded pools (not ported), and extra inputs that are missing or of the
+    wrong shape. A TP group of 2 ranks is served: ``init_params(tp=(0, 2))``,
+    ``shard_params`` and an engine on ``tp_size`` 2 give the rank's shapes
+    (of the config with at least 2 kv heads; 1 kv head does not shard)."""
     cfg, _, _, model_t, params_t = models
     kw = dict(WHOLE, device="cpu")
     for opt, msg in ((dict(prefill_chunk=16), "requires a pure-attention"),
@@ -137,16 +149,29 @@ def check_refusals(models, extra, monkeypatch):
         eng.run([Request(prompt=prompt, max_new_tokens=2)], extra_inputs={key: value[:, :3]})
     with pytest.raises(ValueError, match="extra_inputs"):
         eng.measure_ttft(5, iters=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_t.init_params(device="cpu", tp=(0, 2))
-    tree = jax.tree.map(lambda t: t.numpy(), params_t,
-                        is_leaf=lambda t: isinstance(t, torch.Tensor))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shard_params(tree, cfg, 0, 2)
+    if cfg.n_kv_heads % 2:
+        with pytest.raises(ValueError, match="does not shard"):
+            model_t.init_params(device="cpu", tp=(0, 2))
+    tp_cfg = dataclasses.replace(cfg, n_kv_heads=max(cfg.n_kv_heads, 2))
+    local = tp_cfg.tp_shard(2)
+    assert (local.n_heads, local.n_kv_heads, local.d_ff, local.mm_proj_cols) == (
+        tp_cfg.n_heads // 2, tp_cfg.n_kv_heads // 2, tp_cfg.d_ff // 2, tp_cfg.d_model // 2)
+    tp_model = Model(tp_cfg)
+    shard = tp_model.init_params(device="cpu", tp=(0, 2))
+    assert _shapes(shard) == param_shapes(local)
+    to_numpy = lambda tree: jax.tree.map(lambda t: t.numpy(), tree,
+                                         is_leaf=lambda t: isinstance(t, torch.Tensor))
+    np_shard = shard_params(to_numpy(tp_model.init_params(device="cpu")), tp_cfg, 0, 2)
+    assert _shapes(np_shard) == param_shapes(local)
+    for a, b in zip(jax.tree.leaves(np_shard), jax.tree.leaves(to_numpy(shard))):
+        np.testing.assert_array_equal(a, b)
     with monkeypatch.context() as m:
         m.setattr(TPContext, "tp_size", property(lambda self: 2))
-        with pytest.raises(NotImplementedError, match="TP group"):
-            Engine(model_t, params_t, TPContext(), **kw)
+        eng = Engine(tp_model, shard, TPContext(), **kw)
+        assert eng.cfg.n_kv_heads == local.n_kv_heads and eng.tp_size == 2
+        assert eng.kv_pool_bytes() == 2 * eng.kv_pool_bytes(per_device=True)
+        for t in eng._state["pools_k"] + eng._state.get("cross_k", []):
+            assert t.shape[-1] == local.kv_dim
     monkeypatch.setattr(TPContext, "kv_shards", property(lambda self: 2))
     with pytest.raises(NotImplementedError, match="sequence-sharded"):
         Engine(model_t, params_t, TPContext(), **kw)

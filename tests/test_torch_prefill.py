@@ -47,7 +47,7 @@ from repro_torch.core.policy import PAPER_DEFAULT
 from repro_torch.core.tp import TPContext
 from repro_torch.models import attention as tattn
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, shard_leaf
 from tests.conftest import fp32_reduced
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -259,13 +259,26 @@ def test_q_chunked_attend_matches_reference(window):
 
 
 def test_cross_attention_raises(llama, monkeypatch):
-    """Cross-attention on a TP group is not ported yet (the single-device
-    path is held in ``tests/test_torch_encdec.py``)."""
+    """Cross-attention on a TP group no longer raises: each rank attends
+    with its heads (q from its columns of ``wq``, its kv heads of the
+    encoder K/V, the rank-local config) and the ranks' ``wo`` partials sum
+    to the single-rank output (the single-device path is held in
+    ``tests/test_torch_encdec.py``, the ranks in ``tests/test_torch_tp.py``)."""
     cfg, _, _, _, params_t = llama
-    x = torch.zeros(1, 4, cfg.d_model)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(2, 4, cfg.d_model)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(2, 6, cfg.kv_dim)).astype(np.float32))
+            for _ in range(2))
     core = params_t["layers"][0]["core"]
+    full, _ = tattn.attention(TPContext(), core, x, cfg, pos=0, cross_kv=tattn.KVCache(k, v))
     monkeypatch.setattr(TPContext, "tp_size", property(lambda self: 2))
-    with pytest.raises(NotImplementedError, match="TP group"):
-        tattn.attention(TPContext(), core, x, cfg, pos=0,
-                        cross_kv=tattn.KVCache(torch.zeros(1, 4, cfg.kv_dim),
-                                               torch.zeros(1, 4, cfg.kv_dim)))
+    local = cfg.tp_shard(2)
+    w = local.kv_dim
+    total = 0
+    for r in range(2):
+        shard = {name: {key: shard_leaf(t, name, key, r, 2) for key, t in p.items()}
+                 for name, p in core.items()}
+        part, _ = tattn.attention(TPContext(), shard, x, local, pos=0, cross_kv=tattn.KVCache(
+            k[..., r * w:(r + 1) * w], v[..., r * w:(r + 1) * w]))
+        total = total + part
+    _close(total.numpy(), full.numpy(), False)

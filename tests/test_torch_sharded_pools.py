@@ -234,8 +234,9 @@ def _probe_model(probe):
 
 
 def _reference(models, case):
-    """The reference's single-device Engine on one case: per run, outputs,
-    the summary's counts and the recovery events."""
+    """The reference's single-device Engine on one case (with the model's
+    ``case["extra"]`` inputs when given): per run, outputs, the summary's
+    counts and the recovery events."""
     cfg, model_j, params_j, _, _ = models
     kw = dict(case["engine"])
     kw["cache_dtype"] = getattr(jnp, kw.get("cache_dtype", "float32"))
@@ -247,7 +248,7 @@ def _reference(models, case):
         reqs = [JRequest(prompt=np.asarray(p).copy(), max_new_tokens=n, arrival_s=0.0)
                 for p, n in case["traffic"]]
         sup = JEngineSupervisor(eng, backoff_s=0.0) if plan else None
-        (sup or eng).run(reqs)
+        (sup or eng).run(reqs, extra_inputs=case.get("extra"))
         s = (sup or eng).stats.summary()
         runs.append(dict(outputs=[r.output.tolist() for r in reqs],
                          summary={k: s[k] for k in SUMMARY_KEYS},

@@ -11,7 +11,8 @@ the port's simulated path and the reference.
   ``keep_local_fp``, which equals ``total - dequant(quant(own)) + own`` in
   fp32; the downgrade of an indivisible ``two_phase`` warns once or raises
   under ``strict``, as the reference's; the counters count each collective
-  and its bytes; ``compressed_all_gather`` and the dense all-reduce.
+  and its bytes; ``compressed_all_gather``, the dense all-reduce and the
+  dense all-gather (``rank_all_gather``, counted apart).
 * The same collectives against the reference's ``compressed_psum`` under
   ``shard_map`` on 4 host CPU devices (a subprocess, as
   ``tests/test_collectives.py`` runs them), within rel-L2 1e-4: the
@@ -47,6 +48,22 @@ the port's simulated path and the reference.
   reduction (``wo``, each Mamba ``out_proj``, each dense ``down``), one
   all-reduce per dense one, one per Mamba layer for ``x_proj`` and one per
   MoE layer for the routed experts.
+* Reduced pixtral (4 query heads over 2 kv heads, 8 patches) and reduced
+  whisper (2 + 2 layers, 4 heads over 4 kv heads, 24 encoder frames) in
+  fp32 on the same 2 ranks: ``init_params(tp=...)`` and ``shard_params``
+  concatenate to the single-rank tree (``mm_proj`` by its output columns,
+  ``enc_layers`` and each ``xattn[i].core`` as a decoder layer,
+  ``enc_norm`` and the ``xattn`` norms whole); a whole-prompt prefill's
+  logits within rel-L2 1e-5 of the single-rank port's, dense and
+  compressed; the whole-prompt engine on fp4 pools, gated, with the same
+  extra inputs on every rank: tokens, steps and dispatches equal on both
+  ranks, to the single-rank engine (``simulate_tp=2``) and to the
+  reference's ``Engine(simulate_tp=2)``; per prefill two all-gathers per
+  compressed reduction (whisper's encoder ``wo`` and ``down``, each
+  cross-attention's ``wo``, the decoder's ``wo`` and ``down``) and
+  pixtral's one dense all-gather of its prefix, per decode step one
+  all-reduce per reduction; each rank holds half the pools and half the
+  cross K/V, at the rank's ``kv_dim``.
 * Refusals: ``keep_local_fp`` in the engine on the rank path (ROADMAP
   Queue 3 item 11), a TP group with ``simulate_tp`` or with a kv group,
   heads or MLP columns that do not divide; the backend rule;
@@ -79,6 +96,7 @@ from repro_torch.models.convert import shard_params
 from repro_torch.models.model import Model, param_shapes, shard_axis
 from tests.conftest import fp32_reduced
 from tests.test_torch_families import family_traffic
+from tests.test_torch_frontends import WHOLE, stub_arrays, whole_traffic
 from tests.test_torch_serving import SUMMARY_KEYS, _CopyingJnp, parity_traffic
 from tests.test_torch_sharded_pools import _reference
 from tests.torch_tp_worker import run_rank, run_tp_cases
@@ -176,6 +194,37 @@ def _jamba_cases(vocab):
                                     traffic=traffic, gated=True)}
 
 
+# the vision-prefix and encoder-decoder models on 2 ranks: job key -> (arch,
+# overrides of the reduced config: 2 kv heads so they divide, a few patches,
+# 24 encoder frames)
+FRONTENDS = {"pixtral": ("pixtral-12b", dict(n_kv_heads=2, n_patches=8)),
+             "whisper": ("whisper-medium", dict(encoder_seq=24))}
+
+
+def _frontend_models(key):
+    """Reduced pixtral or whisper in fp32: (cfg, reference model, reference
+    params)."""
+    arch, over = FRONTENDS[key]
+    cfg_j = dataclasses.replace(fp32_reduced(arch), **over)
+    cfg_t = dataclasses.replace(reduced_config(get_config(arch)), dtype="float32", **over)
+    model_j = JModel(cfg_j)
+    return cfg_t, model_j, model_j.init_params(jax.random.PRNGKey(0)), None, None
+
+
+def _frontend_job(cfg, params_j):
+    """The rank job of a vision-prefix or encoder-decoder model: a prefill's
+    logits over one request's extra inputs, and the whole-prompt engine on
+    fp4 pools, gated, over prompts of 12, 20, 5 and 30 text tokens with one
+    row of extra inputs each (the same numpy arrays on every rank)."""
+    traffic = whole_traffic(cfg.vocab_size)
+    return dict(cfg=cfg, params=jax.tree.map(np.asarray, params_j),
+                logit_tokens=(np.arange(21, dtype=np.int32) * 5 + 3) % cfg.vocab_size,
+                logit_extra=stub_arrays(cfg, 1, 31),
+                cases={"whole-fp4": dict(engine=dict(WHOLE, cache_spec="fp4_e2m1"),
+                                         traffic=traffic, gated=True,
+                                         extra=stub_arrays(cfg, len(traffic), 32))})
+
+
 @pytest.fixture(scope="module")
 def ranks4():
     probe = _probe(4)
@@ -202,17 +251,25 @@ def served(models):
                         cases=_jamba_cases(jamba_cfg.vocab_size),
                         logit_tokens=(np.arange(21, dtype=np.int32) * 3 + 1)
                         % jamba_cfg.vocab_size)
+    frontend_models = {key: _frontend_models(key) for key in FRONTENDS}
+    for key, (f_cfg, _, f_params_j, _, _) in frontend_models.items():
+        job[key] = _frontend_job(f_cfg, f_params_j)
     ranks = mesh.spawn_ranks(run_rank, 2, job, device="cpu", threads=2, timeout_s=600)
     single = run_tp_cases(None, "cpu", cfg, params_np, job)
     moe = job["moe"]
     single_moe = run_tp_cases(None, "cpu", moe_cfg, moe["params"], moe)
     single_jamba = run_tp_cases(None, "cpu", jamba_cfg, job["jamba"]["params"], job["jamba"])
+    single_frontends = {key: run_tp_cases(None, "cpu", job[key]["cfg"], job[key]["params"],
+                                          job[key]) for key in FRONTENDS}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(reference_engine, "jnp", _CopyingJnp())
         reference = {name: _reference(models, case) for name, case in cases.items()}
         reference_moe = {name: _reference(moe_models, case) for name, case in moe["cases"].items()}
+        reference_frontends = {key: _reference(frontend_models[key], job[key]["cases"]["whole-fp4"])
+                               for key in FRONTENDS}
     return dict(job=job, ranks=ranks, single=single, reference=reference, single_moe=single_moe,
-                reference_moe=reference_moe, single_jamba=single_jamba)
+                reference_moe=reference_moe, single_jamba=single_jamba,
+                single_frontends=single_frontends, reference_frontends=reference_frontends)
 
 
 def _ranks(n, ranks4, served):
@@ -341,6 +398,26 @@ def test_dense_reduction_and_compressed_all_gather(n, ranks4, served):
 
 
 @pytest.mark.parametrize("n", [2, 4])
+def test_rank_all_gather_concatenates_columns(n, ranks4, served):
+    """``rank_all_gather`` (a vision prefix's ``mm_proj`` columns): every
+    rank's partial concatenated along the last axis in rank order, bit for
+    bit, on every rank; counted as one ``dense_all_gather`` with this
+    rank's bytes, and as no reduction's all-gather."""
+    probe, ranks = _ranks(n, ranks4, served)
+    for name in probe["partials"]:
+        x = _stacked(probe, name)
+        want = torch.cat(list(x.unbind(0)), dim=-1)
+        nbytes = x[0].numel() * x.element_size()
+        for r in ranks:
+            got = r["collectives"][name]["dense_all_gather"]
+            assert got["shape"] == tuple(want.shape)
+            np.testing.assert_array_equal(got["y"].reshape(-1), _bits(want).reshape(-1))
+            c = got["counts"]
+            assert (c["dense_all_gather"], c["all_gather"], c["all_reduce"]) == (1, 0, 0)
+            assert c["dense_all_gather_bytes"] == c["bytes"] == nbytes
+
+
+@pytest.mark.parametrize("n", [2, 4])
 def test_two_phase_downgrade_warns_once_or_raises(n, ranks4, served):
     _, ranks = _ranks(n, ranks4, served)
     for r in ranks:
@@ -416,13 +493,12 @@ def _to_numpy(tree):
     return tree.float().numpy()
 
 
-@pytest.mark.parametrize("n", [2, 4])
-def test_sharded_params_concatenate_to_single_rank_tree(n):
+def _sharded_tree_checks(cfg, n):
     """``init_params(tp=(r, n))`` draws the single-rank tree and keeps rank
     r's slice; ``shard_params`` slices a numpy tree the same way; either
     way the n shards put together are the tree, and each shard has the
-    rank-local config's shapes."""
-    cfg = dataclasses.replace(reduced_config(get_config("qwen2-7b")), n_kv_heads=4)
+    rank-local config's shapes. Returns the tree's (parent, key, tensor)
+    leaves."""
     model = Model(cfg)
     full = list(_leaves(model.init_params(device="cpu", seed=3)))
     shards = [list(_leaves(model.init_params(device="cpu", seed=3, tp=(r, n))))
@@ -430,7 +506,7 @@ def test_sharded_params_concatenate_to_single_rank_tree(n):
     np_tree = _to_numpy(model.init_params(device="cpu", seed=3))
     np_shards = [list(_leaves(shard_params(np_tree, cfg, r, n))) for r in range(n)]
     local = list(_leaves(param_shapes(cfg.tp_shard(n))))
-    assert any(k == "b" for _, k, _ in full)   # qwen2's q/k/v biases are sharded too
+    assert len(local) == len(full)
     for i, (parent, key, t) in enumerate(full):
         axis = shard_axis(parent, key)
         parts = [s[i][2] for s in shards]
@@ -443,6 +519,38 @@ def test_sharded_params_concatenate_to_single_rank_tree(n):
         np.testing.assert_array_equal(
             np_parts[0] if axis is None else np.concatenate(np_parts, axis=axis),
             t.float().numpy())
+    return full
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_params_concatenate_to_single_rank_tree(n):
+    """``_sharded_tree_checks`` on qwen2 with 4 kv heads."""
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2-7b")), n_kv_heads=4)
+    full = _sharded_tree_checks(cfg, n)
+    assert any(k == "b" for _, k, _ in full)   # qwen2's q/k/v biases are sharded too
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("arch", ["pixtral-12b", "whisper-medium"])
+def test_frontend_sharded_params_concatenate_to_single_rank_tree(arch, n):
+    """``_sharded_tree_checks`` on reduced pixtral and whisper: ``mm_proj``
+    by its output columns, each encoder layer and each cross-attention's
+    ``core`` as a decoder layer (its heads and MLP columns), ``enc_norm``
+    and the cross-attention norms whole."""
+    cfg = reduced_config(get_config(arch))
+    full = _sharded_tree_checks(cfg, n)
+    tree = param_shapes(cfg)
+    if cfg.frontend == "vision":
+        assert shard_axis("mm_proj", "w") == -1 and "mm_proj" in {p for p, _, _ in full}
+        return
+    per_layer = len(list(_leaves(tree["layers"][0]["core"])))
+    enc = [x for x in _leaves(tree["enc_layers"])]
+    assert len(enc) == cfg.n_encoder_layers * (2 + per_layer + len(list(_leaves(
+        tree["enc_layers"][0]["mlp"]))))
+    sharded = [shard_axis(p, k) for p, k, _ in _leaves(tree["xattn"])]
+    assert sharded.count(None) == cfg.n_layers        # each ln
+    assert sharded.count(-1) == 3 * cfg.n_layers and sharded.count(-2) == cfg.n_layers
+    assert all(shard_axis(p, k) is None for p, k, _ in _leaves(tree["enc_norm"]))
 
 
 def test_configs_that_do_not_shard_are_refused():
@@ -612,6 +720,81 @@ def test_jamba_engine_tokens_identical_on_ranks(served):
         passes = n_pre + n_dec
         assert (tp["all_gather"], tp["all_reduce"], tp["all_to_all"]) == (
             2 * R * n_pre, R * n_dec + (mamba + moe) * passes, 0), tp
+
+
+@pytest.mark.parametrize("key", list(FRONTENDS))
+def test_frontend_prefill_logits_at_tp2(served, key):
+    """Reduced pixtral or whisper on 2 ranks: a whole-prompt prefill's
+    logits (prefix or encoder included) within rel-L2 1e-5 of the
+    single-rank port's, dense and compressed (against ``simulate_tp=2``)."""
+    for name, want in served["single_frontends"][key]["logits"].items():
+        got = [r[key]["logits"][name] for r in served["ranks"]]
+        assert np.array_equal(got[0], got[1]), name
+        assert np.isfinite(got[0]).all() and got[0].shape == want.shape
+        assert np.linalg.norm(got[0] - want) / np.linalg.norm(want) <= 1e-5, name
+
+
+@pytest.mark.parametrize("key", list(FRONTENDS))
+def test_frontend_engine_tokens_identical_on_ranks(served, key):
+    """The whole-prompt engine on fp4 pools, gated, with one row of extra
+    inputs per request: tokens, steps and dispatches equal on both ranks,
+    to the single-rank engine (``simulate_tp=2``) and to the reference
+    Engine (``simulate_tp=2``) on the same numpy weights and inputs."""
+    one = served["single_frontends"][key]["whole-fp4"]["runs"][0]
+    ref = served["reference_frontends"][key][0]
+    assert one["outputs"] == ref["outputs"]
+    assert {k: one["summary"][k] for k in SUMMARY_KEYS} == ref["summary"]
+    for r in served["ranks"]:
+        c = r[key]["whole-fp4"]
+        run = c["runs"][0]
+        assert c["tp_size"] == 2 and c["transport"] == "gloo-staged"
+        assert run["outputs"] == one["outputs"]
+        assert all(o == "ok" for o in run["outcomes"]) and run["finite"]
+        assert {k: run["summary"][k] for k in SUMMARY_KEYS} == ref["summary"]
+        assert run["summary"]["n_preemptions"] == 0
+
+
+@pytest.mark.parametrize("key", list(FRONTENDS))
+def test_frontend_collectives_per_pass(served, key):
+    """Per whole-prompt prefill two all-gathers per compressed reduction
+    (each decoder layer's ``wo`` and ``down``; whisper adds each
+    cross-attention's ``wo`` and each encoder layer's ``wo`` and ``down``)
+    and pixtral one dense all-gather of its prefix (``n_patches`` rows of
+    the rank's ``d_model / 2`` columns); per decode step (2 tokens, under
+    the ``min_tokens`` gate) one all-reduce per reduction; no all-to-all."""
+    cfg = served["job"][key]["cfg"]
+    L = cfg.n_layers
+    r_dec = 2 * L + (L if cfg.encoder_decoder else 0)
+    r_pre = r_dec + (2 * cfg.n_encoder_layers if cfg.encoder_decoder else 0)
+    vision = cfg.frontend == "vision"
+    for r in served["ranks"]:
+        run = r[key]["whole-fp4"]["runs"][0]
+        s, tp = run["summary"], run["tp"]
+        n_pre = s["n_dispatches"] - s["n_steps"]     # one prefill + insert per admission
+        assert n_pre == 2 * len(served["job"][key]["cases"]["whole-fp4"]["traffic"])
+        n_pre //= 2
+        assert (tp["all_gather"], tp["all_reduce"], tp["all_to_all"]) == (
+            2 * r_pre * n_pre, r_dec * s["n_steps"], 0), tp
+        assert tp["dense_all_gather"] == (n_pre if vision else 0)
+        assert tp["dense_all_gather_bytes"] == (
+            n_pre * cfg.n_patches * (cfg.d_model // 2) * 4 if vision else 0)
+
+
+@pytest.mark.parametrize("key", list(FRONTENDS))
+def test_frontend_rank_holds_half_of_pools_and_cross_kv(served, key):
+    """Each rank holds half the single-rank engine's pool bytes and (whisper)
+    half its cross K/V, every tensor at the rank's ``kv_dim``."""
+    cfg = served["job"][key]["cfg"]
+    one = served["single_frontends"][key]["whole-fp4"]
+    assert (one["cross_bytes"] > 0) == cfg.encoder_decoder
+    for r in served["ranks"]:
+        c = r[key]["whole-fp4"]
+        assert c["slab_bytes"] * 2 == one["slab_bytes"]
+        assert c["cross_bytes"] * 2 == one["cross_bytes"]
+        assert c["pool_bytes_per_device"] == c["slab_bytes"] + c["cross_bytes"]
+        assert c["pool_bytes"] == one["pool_bytes"] == 2 * c["pool_bytes_per_device"]
+        if cfg.encoder_decoder:
+            assert c["cross_widths"] == [cfg.kv_dim // 2] and one["cross_widths"] == [cfg.kv_dim]
 
 
 def test_refusals_on_the_rank_path(served):

@@ -73,6 +73,34 @@ def test_row_reductions_equal_reference(arch):
     assert arch != "whisper-medium" or n == 120
 
 
+@pytest.mark.parametrize("hw", sorted(jttft.HARDWARE))
+def test_whisper_encoder_sized_at_decoder_tokens_like_reference(hw):
+    """Both TTFT models size whisper's 48 encoder reductions (and all the
+    compute) at the decoder's ``batch * seq`` tokens, not at its 1500
+    encoder frames: at 64 tokens about 23x too few encoder bytes (ROADMAP
+    Queue 3 item 15). The port keeps the reference's model, so its
+    breakdown equals the reference's (the compute term plus the parameters
+    the reference's count leaves out, as above)."""
+    cfg_t, cfg_j = get_config("whisper-medium"), j_get_config("whisper-medium")
+    hw_t, hw_j = ttft.HARDWARE[hw], jttft.HARDWARE[hw]
+    gap = cfg_t.active_param_count() - cfg_j.active_param_count()
+    tp, batch, seq = 2, 1, 64
+    got = ttft.ttft_breakdown(cfg_t, hw_t, tp, batch, seq, PAPER_DEFAULT.spec)
+    ref = jttft.ttft_breakdown(cfg_j, hw_j, tp, batch, seq, J_PAPER_DEFAULT.spec)
+    extra = 2.0 * gap * batch * seq / (tp * hw_t.peak_flops * hw_t.mfu)
+    for k in ("compute", "total"):
+        ref[k] += extra
+    assert got.keys() == ref.keys() and all(close(got[k], ref[k]) for k in ref)
+    # every one of the 120 reductions moves the wire bytes of 64 decoder
+    # tokens, the encoder's 48 included
+    bits = PAPER_DEFAULT.spec.wire_bits_per_value(cfg_t.d_model)
+    per_red = (tp - 1) * batch * seq * cfg_t.d_model * bits / 8
+    assert close(got["comm"], ttft._n_row_reductions(cfg_t) * per_red / hw_t.link_bw)
+    assert ttft._n_row_reductions(cfg_t) - ttft._n_row_reductions(
+        dataclasses.replace(cfg_t, encoder_decoder=False)) == 72
+    assert 23 < cfg_t.encoder_seq / (batch * seq) < 24
+
+
 @pytest.mark.parametrize("elem", sorted(J_ELEMENT_FORMATS))
 def test_wire_bits_per_value_equals_reference(elem):
     assert sorted(ELEMENT_FORMATS) == sorted(J_ELEMENT_FORMATS)

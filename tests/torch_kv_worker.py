@@ -69,10 +69,11 @@ def _requests(traffic):
 
 def run_case(model, params, ctx: TPContext, device, case: dict) -> dict:
     """One engine case: ``case["runs"]`` runs of ``case["traffic"]`` on one
-    engine (under a supervisor when ``case["plan"]`` is set). Returns by
-    run: tokens, the stats' counts, gate counts, the free lists, the
-    exchange's all-reduces, the TP group's collectives; and the pools this
-    rank holds."""
+    engine (under a supervisor when ``case["plan"]`` is set; with the
+    model's ``case["extra"]`` inputs, one row per request, when given).
+    Returns by run: tokens, the stats' counts, gate counts, the free lists,
+    the exchange's all-reduces, the TP group's collectives; and the pools
+    and an encoder-decoder's cross K/V this rank holds."""
     kw = dict(case["engine"])
     kw["cache_dtype"] = DTYPES[kw.get("cache_dtype", "float32")]
     plan = case.get("plan")
@@ -87,7 +88,7 @@ def run_case(model, params, ctx: TPContext, device, case: dict) -> dict:
         reset_exchange_counts()
         reset_tp_counts()
         try:
-            (sup or eng).run(reqs)
+            (sup or eng).run(reqs, extra_inputs=case.get("extra"))
         except PoolExhausted as e:
             res["runs"].append({"exhausted": str(e)})
             continue
@@ -115,6 +116,9 @@ def run_case(model, params, ctx: TPContext, device, case: dict) -> dict:
     res["slab_rows"] = sorted({p.shape[0] for p in planes})
     res["slab_bytes"] = sum(p.numel() * p.element_size() for p in planes)
     res["planes_per_layer"] = len(planes) // len(eng._state["pools_k"])
+    cross = eng._state.get("cross_k", []) + eng._state.get("cross_v", [])
+    res["cross_bytes"] = sum(t.numel() * t.element_size() for t in cross)
+    res["cross_widths"] = sorted({t.shape[-1] for t in cross})
     return res
 
 

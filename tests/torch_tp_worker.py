@@ -5,13 +5,17 @@ processes, and the JAX reference runs in the test process.
 ``run_rank(group, rank, device, job)`` (the ``spawn_ranks`` target) runs the
 collective probe on this rank's partials, then (when the job has them) the
 refusals, one mixed step's logits and every engine case, and the same for
-the job's MoE model (``job["moe"]``) and its Mamba + MoE hybrid
-(``job["jamba"]``: a whole-prompt prefill's logits, since a recurrent stack
-has no mixed step); the test process calls ``run_tp_cases(None, ...)``
-itself for the port's single-rank engine, so both run the same code.
+the job's MoE model (``job["moe"]``), its Mamba + MoE hybrid
+(``job["jamba"]``), its vision-prefix model (``job["pixtral"]``) and its
+encoder-decoder (``job["whisper"]``); the last three give a whole-prompt
+prefill's logits (no mixed step serves them), the last two with their
+extra inputs (``logit_extra``, and ``extra`` in each engine case). The test
+process calls ``run_tp_cases(None, ...)`` itself for the port's single-rank
+engine, so both run the same code.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 
 import numpy as np
@@ -23,6 +27,7 @@ from repro_torch.core.formats import KVCacheSpec
 from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT, CompressionPolicy
 from repro_torch.core.tp import TPContext
 from repro_torch.models.convert import params_from_numpy, shard_params
+from repro_torch.models.frontends import frontend_shapes
 from repro_torch.models.model import Model, recurrent_layer
 from repro_torch.serving import Engine
 from repro_torch.serving.kv_cache import init_paged_state
@@ -57,6 +62,10 @@ def _reduce_cases(x: torch.Tensor, group) -> dict:
     out["dense"] = dict(y=bits(C.rank_psum(x, group)), counts=C.tp_counts())
     ag = C.compressed_all_gather(x, group, SPEC, overlap_chunks=2)
     out["all_gather"] = dict(y=bits(ag), shape=tuple(ag.shape))
+    C.reset_tp_counts()
+    dense = C.rank_all_gather(x, group)
+    out["dense_all_gather"] = dict(y=bits(dense), shape=tuple(dense.shape),
+                                   counts=C.tp_counts())
     for name, policy, n_tok in (("maybe/compressed", PAPER_DEFAULT, None),
                                 ("maybe/gated", PAPER_DEFAULT, 4),
                                 ("maybe/none", None, None)):
@@ -120,13 +129,17 @@ def mixed_logits(model: Model, params, ctx: TPContext, tokens: np.ndarray,
 
 
 def prefill_logits(model: Model, params, ctx: TPContext, tokens: np.ndarray,
-                   cache_spec=None, device="cpu") -> np.ndarray:
+                   cache_spec=None, device="cpu", extra=None) -> np.ndarray:
     """Logits of one whole-prompt prefill of ``tokens`` (one request at its
-    exact length; the pools' format plays no part)."""
+    exact length, after a vision prefix; the pools' format plays no part)
+    with the model's ``extra`` inputs (numpy, one row)."""
     del cache_spec
-    cache = model.init_cache(1, len(tokens), torch.float32, device, ctx=ctx)
-    logits, _ = model.prefill(ctx, params, {"tokens": torch.as_tensor(
-        np.asarray(tokens), dtype=torch.int32, device=device)[None]}, cache)
+    cfg = model.cfg
+    prefix = cfg.n_patches if cfg.frontend == "vision" else 0
+    cache = model.init_cache(1, prefix + len(tokens), torch.float32, device, ctx=ctx)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in (extra or {}).items()}
+    batch["tokens"] = torch.as_tensor(np.asarray(tokens), dtype=torch.int32, device=device)[None]
+    logits, _ = model.prefill(ctx, params, batch, cache)
     return logits.float().numpy()
 
 
@@ -149,15 +162,19 @@ def _params(group, cfg, params_np, device):
 
 
 def run_tp_cases(group, device, cfg, params_np, job) -> dict:
-    """One mixed step's logits (dense and compressed; a recurrent stack's
-    whole-prompt prefill instead) and every engine case of ``job`` on this
+    """One mixed step's logits (dense and compressed; the whole-prompt
+    prefill of a recurrent stack, a vision prefix or an encoder-decoder
+    instead) and every engine case of ``job`` on this
     TP rank of ``group`` (None: the port's single-rank engine, compressed
     runs over ``simulate_tp=2``). Each engine case also returns the pool
     bytes this process holds and the TP counters by run."""
     model, params = _params(group, cfg, params_np, device)
     out = {"logits": {}}
     tokens = job["logit_tokens"]
-    probe = mixed_logits if recurrent_layer(cfg) is None else prefill_logits
+    if recurrent_layer(cfg) is None and not frontend_shapes(cfg, 1):
+        probe = mixed_logits
+    else:
+        probe = functools.partial(prefill_logits, extra=job.get("logit_extra"))
     for name, gated, spec in (("dense", False, None), ("compressed", True, None),
                               ("compressed-fp4", True, "fp4_e2m1")):
         out["logits"][name] = probe(model, params, _context(group, gated), tokens,
@@ -193,13 +210,14 @@ def _refusals(group, cfg, params_np) -> dict:
 def run_rank(group, rank: int, device, job: dict) -> dict:
     """The ``spawn_ranks`` target: the collective probe, then (when ``job``
     carries a model) the refusals and the engine cases, and those of the
-    MoE and hybrid models, on this TP rank."""
+    MoE, hybrid, vision-prefix and encoder-decoder models, on this TP
+    rank."""
     out = {"collectives": run_collectives(group, rank, job["probe"]),
            "transport": C.transport(group)}
     if "cfg" in job:
         out["refusals"] = _refusals(group, job["cfg"], job["params"])
         out["cases"] = run_tp_cases(group, device, job["cfg"], job["params"], job)
-    for key in ("moe", "jamba"):
+    for key in ("moe", "jamba", "pixtral", "whisper"):
         if key in job:
             m = job[key]
             out[key] = run_tp_cases(group, device, m["cfg"], m["params"], m)
