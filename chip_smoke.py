@@ -54,7 +54,10 @@ Phases (any failure exits non-zero):
               at their whole-prompt shapes (pixtral's TP partials of 768
               positions, S = 4 x (768, 5120); whisper's decoder prompt of 64
               and its encoder's partials, S = 4 x (1500, 1024)), the insert
-              and the decode append; plus a sweep of
+              and the decode append; xlstm-125m's codec (its only kernels:
+              no paged read) at its whole-prompt TP partials (4 T, 768) and
+              S = 4 x (T, 768) at T = 512, 479 and 448, and one TP rank's
+              partial and S = 2 shards at 64 and 512 rows; plus a sweep of
               small shapes through every path of the paged kernel (hd 32 to
               256, GQA groups 1, 2, 7, 8, with and without a window); the
               sequence-sharded read (``row_map``, the TPU kernel's
@@ -92,9 +95,9 @@ Phases (any failure exits non-zero):
               lengths on fp32 and fp4 pools and through a preemption,
               tokens, steps, dispatches and preemptions identical; reduced
               pixtral (G 4, 16 patches) and whisper (2 + 2 layers over 64
-              frames) the same, on random stand-in extra inputs; one
-              compressed mixed step on fp4 pools within a stated
-              tolerance.
+              frames) the same, on random stand-in extra inputs; reduced
+              xlstm (mLSTM, sLSTM) the same; one compressed mixed step on
+              fp4 pools within a stated tolerance.
 5. serve    — llama2-7b at full width and depth, random bf16 weights from a
               seed, TPContext(PAPER_DEFAULT, simulate_tp=4), on graphed steps
               (every step program a CUDA graph, captured at its first call,
@@ -193,7 +196,12 @@ Phases (any failure exits non-zero):
               jamba-v0.1-52b at full width cut to layers 0-4 on 2 ranks,
               (d): each rank holds half of every Mamba layer's channels and
               recurrent state, and one dense all-reduce per Mamba layer
-              and pass reduces x_proj (in fp32). Each rank
+              and pass reduces x_proj (in fp32); xlstm-125m at full depth
+              on 2 ranks, (d) and (f): each rank holds half of every mLSTM
+              layer's channels, heads and state and of every sLSTM FF, the
+              sLSTM gates and state whole, and one dense all-reduce per
+              mLSTM layer and pass reduces its q/k/v/i/f partial (in
+              fp32). Each rank
               holds 1/N of the heads, the MLP columns
               and the pools, and every row-parallel reduction is the
               compressed collective between the ranks (NCCL with a card per
@@ -230,8 +238,9 @@ Phases (any failure exits non-zero):
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --phase
-tp`` builds the kernels and runs phase 9 alone (on a machine with a card
-per rank, over NCCL). Details go to
+tp [arch ...]`` builds the kernels and runs phase 9 alone (on a machine with
+a card per rank, over NCCL), for the named ``TP_MODELS`` or all of them.
+Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -299,6 +308,12 @@ FAMILIES = {
     "whisper-medium": dict(requests=8, prompt=64, new=64, ttft=(64,),
                            runs=("whole/fp4_e2m1", "whole/bf16"), eager=("whole/fp4_e2m1",),
                            compress_decode=("whole/bf16",), geometries=("decode",)),
+    # mLSTM + sLSTM, no attention layer: no pools and no paged read;
+    # whole-prompt at exact lengths (479 is prime: the reference would run it
+    # in 1-token chunks, the port in 128-token chunks and a shorter last one)
+    "xlstm-125m": dict(requests=8, prompt=PROMPT, lengths=(PROMPT, 479, 448), ttft=(512,),
+                       runs=("whole/fp4_e2m1", "whole/bf16"), eager=("whole/fp4_e2m1",),
+                       geometries=()),
 }
 
 
@@ -637,7 +652,9 @@ def codec_tp(torch, dev, g, fp4, same, timed):
     the partial (T, 5120) and its S = 4 shards; whisper-medium on 2 ranks,
     the encoder's partial (1500, 1024) of a prefill and its S = 2 shards;
     pixtral-12b on 2 ranks, the prefix-plus-prompt partial (256 + 64,
-    5120) of the phase's prefill and its S = 2 shards. Each exact against
+    5120) of the phase's prefill and its S = 2 shards; xlstm-125m on 2
+    ranks, the partial (64, 768) of the phase's prompts and (512, 768) of
+    its measure_ttft prefill, and their S = 2 shards. Each exact against
     the plain version and timed."""
     from repro_torch.core.mx import MXCompressed
     from repro_torch.kernels import mx_dequant, mx_quant
@@ -648,13 +665,17 @@ def codec_tp(torch, dev, g, fp4, same, timed):
                      (1, T, 2048, "llama2-7b TP 2 two_phase reduced slice"),
                      (1, T, 5120, "llama2-13b TP 4 partial"),
                      (1, 1500, 1024, "whisper-medium TP 2 encoder partial"),
-                     (1, 256 + SHARD_PROMPT, 5120, "pixtral-12b TP 2 prefix-plus-prompt partial")],
+                     (1, 256 + SHARD_PROMPT, 5120, "pixtral-12b TP 2 prefix-plus-prompt partial"),
+                     (1, SHARD_PROMPT, 768, "xlstm-125m TP 2 prompt partial"),
+                     (1, TP_TTFT, 768, "xlstm-125m TP 2 measure_ttft partial")],
         "mx_dequant_reduce": [(2, T, 4096, "llama2-7b TP 2 gathered shards"),
                               (2, T, 2048, "llama2-7b TP 2 two_phase received slices"),
                               (4, T, 5120, "llama2-13b TP 4 gathered shards"),
                               (2, 1500, 1024, "whisper-medium TP 2 encoder gathered shards"),
                               (2, 256 + SHARD_PROMPT, 5120,
-                               "pixtral-12b TP 2 prefix-plus-prompt gathered shards")],
+                               "pixtral-12b TP 2 prefix-plus-prompt gathered shards"),
+                              (2, SHARD_PROMPT, 768, "xlstm-125m TP 2 prompt gathered shards"),
+                              (2, TP_TTFT, 768, "xlstm-125m TP 2 measure_ttft gathered shards")],
         "mx_dequant": [(1, 2 * T, 2048, "llama2-7b TP 2 two_phase gathered slices")],
     }
     out = {}
@@ -704,10 +725,13 @@ def codec_sites(cfg, plan):
     writes and the mixed step's K/V round trip kv_dim wide. A whole-prompt
     family (a recurrent stack, a vision prefix, an encoder-decoder) runs no
     mixed step: its prefill at each prompt length (the vision prefix's
-    positions included), the insert of its K/V, the split decode's append,
-    and an encoder-decoder's encoder over its frames."""
+    positions included), the insert of its K/V, the split decode's append
+    (neither for a stack without attention: xLSTM's ``down`` and
+    ``ff_down`` are its only call sites), and an encoder-decoder's encoder
+    over its frames."""
     d, kv, pre = cfg.d_model, cfg.kv_dim, n_prefix(cfg)
     kinds = {r.split("/")[0] for r in plan["runs"]}
+    pools = attn_layers(cfg) > 0   # a stack without attention (xLSTM) writes no pool
     quant, deq, red = [], [], []
     if kinds - {"split", "whole"}:   # a mixed step runs
         quant = [(TP * T, d, "mixed TP partials"), (T, kv, "mixed pool append, K or V")]
@@ -715,10 +739,10 @@ def codec_sites(cfg, plan):
         red = [(T, d, "mixed step")]
     if "whole" in kinds:   # whole-prompt prefill at each length, insert, split decode
         for n in plan.get("lengths", (plan["prompt"],)):
-            quant += [(TP * (pre + n), d, f"whole-prompt TP partials, {pre + n} tokens"),
-                      (pre + n, kv, f"whole-prompt insert, K or V, {pre + n} tokens")]
+            quant += [(TP * (pre + n), d, f"whole-prompt TP partials, {pre + n} tokens")]
+            quant += [(pre + n, kv, f"whole-prompt insert, K or V, {pre + n} tokens")] * pools
             red.append((pre + n, d, f"whole-prompt prefill, {pre + n} tokens"))
-        quant.append((SLOTS, kv, "split decode append, K or V"))
+        quant += [(SLOTS, kv, "split decode append, K or V")] * pools
         if cfg.encoder_decoder:
             F = cfg.encoder_seq
             quant.append((TP * F, d, f"encoder TP partials, {F} frames"))
@@ -1101,6 +1125,8 @@ def phase_paged(torch, dev="cuda"):
     # not on the sequence-sharded read it does not serve
     for arch, plan in FAMILIES.items():
         cfg = get_config(arch)
+        if not attn_layers(cfg):   # no paged read (xlstm-125m)
+            continue
         geos, fpools, _, fextras = paged_geometries(torch, dev, g, cfg.kv_dim, cfg.q_dim,
                                                     n_prefix(cfg) + plan["prompt"],
                                                     plan.get("new", NEW))
@@ -1350,7 +1376,8 @@ FAMILY_REDUCED = {"qwen2-7b": dict(n_heads=7, n_kv_heads=1),
                   "llama4-maverick-400b-a17b": dict(n_heads=5, n_kv_heads=1),
                   "jamba-v0.1-52b": {},
                   "pixtral-12b": dict(n_heads=4, n_kv_heads=1),
-                  "whisper-medium": {}}
+                  "whisper-medium": {},
+                  "xlstm-125m": {}}
 # reduced jamba keeps one layer of each kind of its schedule: Mamba, Mamba +
 # MoE, attention (reduced_config's default 2 layers hold no attention layer)
 REDUCED_LAYERS = {"jamba-v0.1-52b": 3}
@@ -1365,8 +1392,9 @@ def reference_families(torch, dev, base):
     prompts of 5 to 48 tokens (two longer than the window); a MoE family's
     mixed step also over a MOE_BUDGET-token budget (the sort-based dispatch;
     the 18-token budget runs every expert on every token) on both pools;
-    a recurrent stack (jamba: Mamba, Mamba + MoE, attention) whole-prompt
-    at exact lengths on dense fp32 and fp4 pools, and through a preemption;
+    a recurrent stack (jamba: Mamba, Mamba + MoE, attention; xlstm: mLSTM,
+    sLSTM) whole-prompt at exact lengths on dense fp32 and fp4 pools, and
+    through a preemption;
     pixtral (G 4, a 16-patch prefix) and whisper (2 encoder layers over 64
     frames) whole-prompt on dense fp32 and fp4 pools and through a
     preemption, on random stand-in extra inputs (the same host arrays for
@@ -1377,7 +1405,7 @@ def reference_families(torch, dev, base):
 
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.core.tp import TPContext
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import Model, recurrent_layer
     from repro_torch.serving import Engine, Request
 
     for arch, over in FAMILY_REDUCED.items():
@@ -1393,7 +1421,7 @@ def reference_families(torch, dev, base):
                  ("mixed fp4", dict(prefill_chunk=16, token_budget=18, cache_spec="fp4_e2m1")),
                  ("split", dict(prefill_chunk=16, token_budget=0))]
         extra = stubs(cfg, len(traffic))
-        if mamba_layers(cfg):   # whole-prompt only, each prompt at its exact length
+        if recurrent_layer(cfg) is not None:   # whole-prompt only, at exact lengths
             cases = [("whole", {}), ("whole fp4", dict(cache_spec="fp4_e2m1")),
                      ("whole evict", dict(n_blocks=4))]
         elif extra:   # whole-prompt only; a prefix or encoder needs room beside the text
@@ -1431,6 +1459,8 @@ def reference_families(torch, dev, base):
                    if moe_layers(cfg) else "")
                 + (f", layers {[sp.kind for sp in cfg.layers]}, d_inner {cfg.ssm_d_inner}"
                    if mamba_layers(cfg) else "")
+                + (f", layers {[sp.kind for sp in cfg.layers]}, mLSTM d_inner "
+                   f"{cfg.mlstm_d_inner}, sLSTM FF {cfg.slstm_ff}" if mlstm_layers(cfg) else "")
                 + (f", {cfg.n_patches} patches" if cfg.frontend == "vision" else "")
                 + (f", {cfg.n_encoder_layers} encoder layers over {cfg.encoder_seq} frames"
                    if cfg.encoder_decoder else "") + ") fp32 greedy "
@@ -1563,8 +1593,9 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     chunk, or of the reduced slice under two_phase), ``tp_all_to_all``
     (two_phase's payload and scales) and ``tp_all_reduce`` (one per dense
     reduction: each row-parallel layer of a dense step; one per MoE layer
-    per forward pass for its routed experts, compressed or not; and one per
-    Mamba layer per pass for its ``x_proj`` partial) and
+    per forward pass for its routed experts, compressed or not; one per
+    Mamba layer per pass for its ``x_proj`` partial and one per mLSTM layer
+    per pass for its q/k/v/i/f partial) and
     ``tp_dense_all_gather`` (a vision model's prefix, one a whole-prompt
     prefill). On sequence-sharded
     pools (``eng.kv_shards > 1``) the count also holds ``all_reduce``, the
@@ -1577,7 +1608,7 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     check(len(eng.cfg.layers) == n_layers, f"expected_launches: {n_layers} layers, the engine "
                                            f"has {len(eng.cfg.layers)}")
     L = attn_layers(eng.cfg)
-    R, M = row_reductions(eng.cfg), moe_layers(eng.cfg) + mamba_layers(eng.cfg)
+    R, M = row_reductions(eng.cfg), dense_reductions(eng.cfg)
     R_dec = row_reductions(eng.cfg, decode=True)
     policy = eng.ctx.policy
     two = policy.variant == "two_phase"
@@ -1632,11 +1663,13 @@ def row_reductions(cfg, decode: bool = False) -> int:
     """Row-parallel reductions the policy compresses per forward pass of
     ``cfg``: each layer's ``wo`` (a Mamba layer's ``out_proj``), and its
     MLP's ``down`` or its MoE's shared experts' (a mixtral layer 1, a llama4
-    MoE layer 2, a dense layer 2, a jamba MoE layer 1); an encoder-decoder
-    adds each decoder layer's cross-attention ``wo`` and, in a prefill (not
-    a ``decode`` step), each encoder layer's ``wo`` and ``down`` (whisper:
-    120 a prefill, 72 a decode step; pixtral 80 both)."""
-    n = sum(1 + (cfg.n_shared_experts if sp.moe else 1) for sp in cfg.layers)
+    MoE layer 2, a dense layer 2, a jamba MoE layer 1); an xLSTM layer's one
+    (an mLSTM ``down``, an sLSTM ``ff_down``: xlstm-125m 12); an
+    encoder-decoder adds each decoder layer's cross-attention ``wo`` and, in
+    a prefill (not a ``decode`` step), each encoder layer's ``wo`` and
+    ``down`` (whisper: 120 a prefill, 72 a decode step; pixtral 80 both)."""
+    n = sum(1 if sp.kind in ("mlstm", "slstm") else 1 + (cfg.n_shared_experts if sp.moe else 1)
+            for sp in cfg.layers)
     if cfg.encoder_decoder:
         n += cfg.n_layers + (0 if decode else 2 * cfg.n_encoder_layers)
     return n
@@ -1652,6 +1685,19 @@ def mamba_layers(cfg) -> int:
     """Mamba layers of ``cfg``: on a TP group each reduces its ``x_proj``
     partial with one dense all-reduce per forward pass."""
     return sum(sp.kind == "mamba" for sp in cfg.layers)
+
+
+def mlstm_layers(cfg) -> int:
+    """mLSTM layers of ``cfg``: on a TP group each reduces its q/k/v/i/f
+    partial with one dense all-reduce per forward pass."""
+    return sum(sp.kind == "mlstm" for sp in cfg.layers)
+
+
+def dense_reductions(cfg) -> int:
+    """The dense all-reduces a forward pass of ``cfg`` makes on a TP group
+    beside its row-parallel reductions: one per MoE layer (routed experts),
+    Mamba layer (``x_proj``) and mLSTM layer (q/k/v/i/f)."""
+    return moe_layers(cfg) + mamba_layers(cfg) + mlstm_layers(cfg)
 
 
 def attn_layers(cfg) -> int:
@@ -2066,6 +2112,14 @@ def phase_family(torch, arch, dev="cuda"):
             f"{cfg.dt_rank}, d_conv {cfg.ssm_d_conv}; recurrent state "
             f"{recurrent_state_bytes(cfg, SLOTS) / 1e6:.2f} MB fp32 for {SLOTS} slots; "
             f"whole-prompt prefill at exact lengths {list(lengths)}")
+    n_mlstm, n_slstm = mlstm_layers(cfg), sum(sp.kind == "slstm" for sp in cfg.layers)
+    if n_mlstm or n_slstm:
+        log(f"{arch}: {n_mlstm} mLSTM and {n_slstm} sLSTM layers of {L} served, no attention "
+            f"layer (no paged pools, no paged read): mLSTM d_inner {cfg.mlstm_d_inner} in "
+            f"{cfg.mlstm_heads} heads, sLSTM {cfg.n_heads} heads and FF {cfg.slstm_ff}; "
+            f"recurrent state {recurrent_state_bytes(cfg, SLOTS) / 1e6:.2f} MB fp32 for "
+            f"{SLOTS} slots; {row_reductions(cfg)} compressed reductions a compressed pass; "
+            f"whole-prompt prefill at exact lengths {list(lengths)}")
     if cfg.frontend == "vision":
         log(f"{arch}: a vision prefix of {cfg.n_patches} patch embeddings (random stand-ins, "
             f"seed 0) through mm_proj ahead of {list(lengths)} text tokens: "
@@ -2150,8 +2204,8 @@ def phase_family(torch, arch, dev="cuda"):
             f"reductions each)")
     runs["config"] = dict(n_layers=L, full_layers=full.n_layers, weights_gb=weights_gb,
                           free_gb=free and free / 1e9, need_gb=need and need / 1e9,
-                          moe_layers=n_moe, mamba_layers=n_mamba,
-                          attn_layers=attn_layers(cfg))
+                          moe_layers=n_moe, mamba_layers=n_mamba, mlstm_layers=n_mlstm,
+                          slstm_layers=n_slstm, attn_layers=attn_layers(cfg))
     return runs, totals
 
 
@@ -2433,6 +2487,10 @@ TP_MODELS = {
     # whole-prompt only, 24 + 24 layers: each prefill runs the encoder over
     # 1500 frames (48 of its 120 compressed reductions) on the rank's heads
     "whisper-medium": (2, ("whole/fp4_e2m1", "ttft"), None),
+    # whole-prompt only, full depth: each rank holds half the mLSTM heads
+    # and the sLSTM FF columns, every sLSTM gate whole; 12 compressed
+    # reductions and 10 dense all-reduces (q/k/v/i/f) a pass
+    "xlstm-125m": (2, ("whole/fp4_e2m1", "ttft"), None),
 }
 TP_TTFT = 512          # measure_ttft's prompt tokens in the TP phase (text tokens)
 TP_TTFT_TOKENS = {"whisper-medium": 64}   # a model whose decoder prompts are short
@@ -2561,10 +2619,13 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
               f"{label}{name}: this rank holds {b} pool bytes, not "
               f"{eng.kv_pool_bytes(per_device=True)} of {eng.kv_pool_bytes()}")
         rec = sum(t.numel() * t.element_size() for c in eng._state["rec"] for t in c)
+        # an sLSTM layer's state is whole on every rank, the rest 1/n
+        whole = 4 * 4 * cfg.d_model * eng.n_slots * sum(sp.kind == "slstm" for sp in cfg.layers)
         check(rec == eng.rec_state_bytes()
-              and rec * eng.tp_size == recurrent_state_bytes(cfg, eng.n_slots),
+              and (rec - whole) * eng.tp_size == recurrent_state_bytes(cfg, eng.n_slots) - whole,
               f"{label}{name}: this rank holds {rec} bytes of recurrent state, not 1/"
-              f"{eng.tp_size} of {recurrent_state_bytes(cfg, eng.n_slots)}")
+              f"{eng.tp_size} of {recurrent_state_bytes(cfg, eng.n_slots) - whole} plus the "
+              f"whole sLSTM state ({whole})")
         cross = cross_bytes_held(eng)
         check(cross == cross_state_bytes(eng.cfg, eng.n_slots)
               and cross * eng.tp_size == cross_state_bytes(cfg, eng.n_slots)
@@ -2631,7 +2692,7 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
                 if dev == "cuda":
                     check(got == expect, f"{label}ttft/{kind}: launches {got} != {expect}")
                 if eng.tp_size > 1:
-                    want = (2 * m, TTFT_ITERS * (R + moe_layers(cfg) + mamba_layers(cfg)) - m,
+                    want = (2 * m, TTFT_ITERS * (R + dense_reductions(cfg)) - m,
                             TTFT_ITERS * (cfg.frontend == "vision"))
                     check((c["all_gather"], c["all_reduce"], c["dense_all_gather"]) == want,
                           f"{label}ttft/{kind}: collectives {c} != {want}")
@@ -2736,7 +2797,9 @@ def phase_tp(torch, card, dev="cuda", cfg=None):
     at full width and depth and whisper-medium at full depth (24 + 24
     layers, 1500 frames) on 2 ranks, whole-prompt and ``measure_ttft``:
     each rank holds half the cross K/V, pixtral's prefix is one dense
-    all-gather a prefill. Prints the transport, the collectives
+    all-gather a prefill. xlstm-125m at full depth on 2 ranks, whole-prompt
+    and ``measure_ttft``: each rank holds half the mLSTM heads and state and
+    the whole sLSTM state. Prints the transport, the collectives
     per step, the tokens identical to the simulated run's (counted: bf16
     GEMMs of other shapes round differently, and random weights have near
     ties), and TTFT. (``dev="cpu"`` and a reduced ``cfg`` rehearse it.)"""
@@ -3084,9 +3147,14 @@ def main() -> int:
 
     load_kernels()
     log(f"build: {build_seconds():.1f} s for {len(KERNELS)} kernels ({builder()} path)")
-    if sys.argv[1:] == ["--phase", "tp"]:
-        # phase 9 alone (a machine with a card per rank runs it over NCCL);
-        # without an argument the script runs every phase
+    if sys.argv[1:3] == ["--phase", "tp"]:
+        # phase 9 alone (a machine with a card per rank runs it over NCCL),
+        # for the TP_MODELS named after it or all of them; without an
+        # argument the script runs every phase
+        unknown = set(sys.argv[3:]) - set(TP_MODELS)
+        check(not unknown, f"--phase tp: not in TP_MODELS: {sorted(unknown)}")
+        for a in [a for a in TP_MODELS if sys.argv[3:] and a not in sys.argv[3:]]:
+            del TP_MODELS[a]
         tp, _ = phase_tp(torch, card)
         print(json.dumps({"ok": True, "phase": "tp", "transport": {a: r["transport"]
                                                                    for a, r in tp.items()},

@@ -1,7 +1,8 @@
 """Architecture registry of the port: the archs ported so far, dense
 (llama2, internlm2, qwen2, qwen3, gemma3), MoE (mixtral-8x22b,
 llama4-maverick-400b-a17b), the Mamba + MoE hybrid jamba-v0.1-52b, the
-vision-prefix decoder pixtral-12b and the encoder-decoder whisper-medium.
+vision-prefix decoder pixtral-12b, the encoder-decoder whisper-medium and
+the recurrent xlstm-125m (mLSTM + sLSTM).
 ``get_config(arch_id)`` / ``ARCHS`` mirror the reference's API."""
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.configs.pixtral_12b import CONFIG as pixtral_12b
 from repro_torch.configs.qwen2_7b import CONFIG as qwen2_7b
 from repro_torch.configs.qwen3_32b import CONFIG as qwen3_32b
 from repro_torch.configs.whisper_medium import CONFIG as whisper_medium
+from repro_torch.configs.xlstm_125m import CONFIG as xlstm_125m
 
 ARCHS = {
     "internlm2-1.8b": internlm2_1_8b,
@@ -32,6 +34,7 @@ ARCHS = {
     "jamba-v0.1-52b": jamba_v01_52b,
     "pixtral-12b": pixtral_12b,
     "whisper-medium": whisper_medium,
+    "xlstm-125m": xlstm_125m,
 }
 
 

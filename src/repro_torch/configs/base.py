@@ -2,10 +2,12 @@
 
 ``ModelConfig`` keeps every field of the reference (so configs read the same
 and ``reduced_config`` shrinks them the same way); the port serves the
-attention and Mamba layer kinds, with dense MLP or MoE sublayers, and its
-model raises on anything else. ``tp_shard`` returns a ``RankConfig``, which
-also carries the rank-local Mamba ``d_inner`` (the reference derives it from
-``d_model``, which a rank keeps whole).
+attention and Mamba layer kinds, with dense MLP or MoE sublayers, and the
+xLSTM kinds (mLSTM, sLSTM). ``tp_shard`` returns a ``RankConfig``, which
+also carries the rank-local Mamba ``d_inner``, mLSTM ``d_inner`` and heads
+and sLSTM FF width (the reference derives them from ``d_model`` and
+``n_heads``, which a rank of an xLSTM stack keeps whole: its sLSTM runs
+every head).
 """
 from __future__ import annotations
 
@@ -91,6 +93,21 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def mlstm_d_inner(self) -> int:
+        """An mLSTM block's inner width (its ``up`` / ``z`` columns)."""
+        return int(self.xlstm_proj_factor * self.d_model)
+
+    @property
+    def mlstm_heads(self) -> int:
+        """An mLSTM block's heads (``dh = mlstm_d_inner / mlstm_heads``)."""
+        return self.n_heads
+
+    @property
+    def slstm_ff(self) -> int:
+        """An sLSTM block's FF columns (``ff_up`` / ``ff_gate``), 4/3 d_model."""
+        return int(4 * self.d_model / 3)
+
+    @property
     def mm_proj_cols(self) -> int:
         """Output columns of a vision model's ``mm_proj`` this config
         computes: ``d_model`` (a rank's share on a TP group, ``RankConfig``)."""
@@ -119,10 +136,15 @@ class ModelConfig:
         ``d_inner`` vectors (``conv_b``, ``dt_proj.b``, ``D``), a vision
         model's ``mm_proj`` (``d_model x d_model``), and an
         encoder-decoder's ``enc_norm`` and the norm of each cross-attention
-        sublayer. xLSTM layers raise."""
-        if any(sp.kind not in ("attn", "mamba") for sp in self.layers):
-            raise NotImplementedError(f"{self.name}: param_count covers attention and "
-                                      "Mamba layers only")
+        sublayer. An xLSTM layer is counted as the tree holds it (ROADMAP.md
+        Queue 3 item 16): an mLSTM block's ``up``, ``z``, ``conv_w``,
+        ``conv_b``, ``wq``/``wk``/``wv``, ``wi``, ``wf`` (with its bias),
+        ``norm`` and ``down``, an sLSTM block's four gates (``wf`` with its
+        bias), four recurrent ``(H, dh, dh)`` matrices, ``norm`` and its three
+        FF matrices, and one norm (``ln1``: an xLSTM layer has no MLP
+        sublayer), where the reference counts two FF matrices and no conv,
+        gate vectors or bias. As for every family, the final norm is not
+        counted."""
         d, ff = self.d_model, self.d_ff
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         if self.qkv_bias:
@@ -132,6 +154,17 @@ class ModelConfig:
         if not self.tie_embeddings:
             n += self.vocab_size * d
         for spec in self.layers:
+            if spec.kind == "mlstm":
+                di, H = self.mlstm_d_inner, self.mlstm_heads
+                n += 2 * d * di + self.xlstm_conv * di + di          # up, z, conv
+                n += 3 * di * di + 2 * di * H + H + di               # q/k/v, i/f, f bias, norm
+                n += di * d + d                                      # down, ln1
+                continue
+            if spec.kind == "slstm":
+                dh, ffs = d // self.n_heads, self.slstm_ff
+                n += 4 * d * d + 4 * self.n_heads * dh * dh + d + d  # gates, r*, f bias, norm
+                n += 3 * d * ffs + d                                 # ff_up/gate/down, ln1
+                continue
             if spec.kind == "attn":
                 n += attn
             else:
@@ -165,18 +198,25 @@ class ModelConfig:
         and MLP columns as a decoder layer does. Rank r holds whole heads, q
         heads ``[r H/n, (r+1) H/n)`` with their kv heads ``[r KV/n, (r+1)
         KV/n)``, so q head h keeps kv head ``h // G``, and Mamba channels
-        ``[r di/n, (r+1) di/n)``. Everything sized from the config (the paged
-        pools, the recurrent state, the cross K/V, the paged kernel's
+        ``[r di/n, (r+1) di/n)``. An xLSTM stack (the reference's
+        ``mlstm_specs`` / ``slstm_specs``) keeps ``n_heads`` whole, since its
+        sLSTM blocks run every head on every rank, and shards the mLSTM
+        ``d_inner`` and heads (``mlstm_d_inner / n`` channels, ``mlstm_heads
+        / n`` heads: rank r's heads are its channels) and the sLSTM FF
+        columns (``slstm_ff / n``). Everything sized from the config (the
+        paged pools, the recurrent state, the cross K/V, the paged kernel's
         ``kv_heads``) follows. Raises unless the kv heads, (with Mamba
         layers) ``d_inner`` and (with a vision prefix, whose ``mm_proj``
         shards by output columns) ``d_model`` divide over the ranks and each
-        rank's ``q_dim`` and ``d_ff`` are multiples of the policies' MX block
-        (32). ``n = 1`` is the config itself."""
+        rank's ``q_dim``, ``d_ff``, mLSTM ``d_inner`` and sLSTM FF width are
+        multiples of the policies' MX block (32). ``n = 1`` is the config
+        itself."""
         if n == 1:
             return self
         block_size = 32
         q_local = self.q_dim // n if self.n_heads % n == 0 else 0
-        mamba = any(sp.kind == "mamba" for sp in self.layers)
+        kinds = {sp.kind for sp in self.layers}
+        local = lambda width: width % n == 0 and (width // n) % block_size == 0
         bad = [why for why, ok in (
             (f"n_kv_heads={self.n_kv_heads} % {n} != 0", self.n_kv_heads % n == 0),
             (f"n_heads={self.n_heads} % {n} != 0", self.n_heads % n == 0),
@@ -184,20 +224,28 @@ class ModelConfig:
              q_local and q_local % block_size == 0),
             (f"the local {'expert ' if self.n_experts else ''}d_ff {self.d_ff}/{n} is not "
              f"a multiple of {block_size}",
-             self.d_ff % n == 0 and (self.d_ff // n) % block_size == 0),
+             local(self.d_ff)),
             (f"ssm_d_inner={self.ssm_d_inner} % {n} != 0",
-             not mamba or self.ssm_d_inner % n == 0),
+             "mamba" not in kinds or self.ssm_d_inner % n == 0),
             (f"d_model={self.d_model} % {n} != 0 (mm_proj's columns)",
              self.frontend != "vision" or self.d_model % n == 0),
+            (f"the local mLSTM d_inner {self.mlstm_d_inner}/{n} is not a multiple of "
+             f"{block_size}", "mlstm" not in kinds or local(self.mlstm_d_inner)),
+            (f"the local sLSTM FF {self.slstm_ff}/{n} is not a multiple of {block_size}",
+             "slstm" not in kinds or local(self.slstm_ff)),
         ) if not ok]
         if n < 1 or bad:
             raise ValueError(f"{self.name} does not shard over {n} TP ranks: "
                              f"{'; '.join(bad) or 'n < 1'}")
         fields = {f.name: getattr(self, f.name) for f in dataclasses.fields(ModelConfig)}
-        return RankConfig(**dict(fields, n_heads=self.n_heads // n,
-                                 n_kv_heads=self.n_kv_heads // n, d_ff=self.d_ff // n),
+        heads = (dict(n_heads=self.n_heads // n, n_kv_heads=self.n_kv_heads // n)
+                 if kinds.isdisjoint(("mlstm", "slstm")) else {})
+        return RankConfig(**dict(fields, d_ff=self.d_ff // n, **heads),
                           ssm_d_inner_local=self.ssm_d_inner // n,
-                          mm_proj_cols_local=self.d_model // n)
+                          mm_proj_cols_local=self.d_model // n,
+                          mlstm_d_inner_local=self.mlstm_d_inner // n,
+                          mlstm_heads_local=self.mlstm_heads // n,
+                          slstm_ff_local=self.slstm_ff // n)
 
     def active_param_count(self) -> int:
         """Params touched per token: a MoE layer counts only its ``top_k``
@@ -210,14 +258,19 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class RankConfig(ModelConfig):
     """A config as one rank of a TP group computes it (``tp_shard``): its
-    ``ssm_d_inner`` is this rank's share of the Mamba channels and its
+    ``ssm_d_inner`` is this rank's share of the Mamba channels, its
     ``mm_proj_cols`` this rank's columns of a vision model's ``mm_proj``,
-    both of which the reference derives from ``d_model`` (kept whole on a
+    its ``mlstm_d_inner`` / ``mlstm_heads`` this rank's mLSTM channels and
+    heads and its ``slstm_ff`` this rank's sLSTM FF columns, all of which
+    the reference derives from ``d_model`` and ``n_heads`` (kept whole on a
     rank). Fields of its own, so ``ModelConfig`` keeps exactly the
     reference's fields."""
 
     ssm_d_inner_local: int = 0
     mm_proj_cols_local: int = 0
+    mlstm_d_inner_local: int = 0
+    mlstm_heads_local: int = 0
+    slstm_ff_local: int = 0
 
     @property
     def ssm_d_inner(self) -> int:
@@ -226,6 +279,18 @@ class RankConfig(ModelConfig):
     @property
     def mm_proj_cols(self) -> int:
         return self.mm_proj_cols_local
+
+    @property
+    def mlstm_d_inner(self) -> int:
+        return self.mlstm_d_inner_local
+
+    @property
+    def mlstm_heads(self) -> int:
+        return self.mlstm_heads_local
+
+    @property
+    def slstm_ff(self) -> int:
+        return self.slstm_ff_local
 
 
 def first_layers(cfg: ModelConfig, n: int) -> ModelConfig:

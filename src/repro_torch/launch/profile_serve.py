@@ -1,6 +1,6 @@
 """Where the time of a serving run goes on the card: the llama2-7b serve of
 ``chip_smoke.py`` (or another ported family, ``--arch``, e.g. qwen2-7b,
-mixtral-8x22b, jamba-v0.1-52b, pixtral-12b or whisper-medium; ``--layers
+mixtral-8x22b, jamba-v0.1-52b, pixtral-12b, whisper-medium or xlstm-125m; ``--layers
 N`` serves the schedule's first N layers at full width, for a model whose
 weights do not fit one card)
 under ``torch.profiler``, device kernel time
@@ -27,7 +27,11 @@ a split chunk or whole-prompt prefill adds one one-row ``index_select``
 (its logits row), and whole-prompt attention its own softmax. A Mamba
 layer's convolution, selective scan and gates (``models/ssm.py``: plain
 PyTorch elementwise ops, concatenations and the scan's ``einsum``, which
-lands under GEMM) fall in the rest ("other").
+lands under GEMM) fall in the rest ("other"). An xLSTM layer's products
+(the projections, the mLSTM chunk's einsums over (L, L) scores and its
+(dh, dh) carry, the sLSTM's per-token batched recurrent product) land
+under GEMM; its scans' elementwise gating, cumulative sums, exponentials
+and the group norms under the rest.
 
 ``--cache-spec`` takes a comma-separated list, e.g. ``fp4_e2m1,bf16,bf16,fp4_e2m1``:
 the cells then run in that order in one process on the same weights, so
@@ -37,7 +41,7 @@ graphs, captured in the warm-up run); ``:split`` after the spec runs the
 split chunk-then-decode scheduler (``token_budget=0``, chunk 256) instead,
 and ``:eager`` runs eager steps (``cuda_graphs=False``), e.g.
 ``fp4_e2m1,fp4_e2m1:eager,fp4_e2m1:eager,fp4_e2m1`` holds the two in turns.
-A stack with recurrent layers (jamba), a vision model (pixtral-12b) and an
+A stack with recurrent layers (jamba, xlstm-125m), a vision model (pixtral-12b) and an
 encoder-decoder (whisper-medium) run whole-prompt prefill and the split
 decode, their only scheduler (``prefill_chunk=0``), in every cell; the
 latter two on random stand-in patch embeddings or encoder frames drawn from

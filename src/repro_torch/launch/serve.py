@@ -24,11 +24,15 @@ collective to chunk (the banner says so). ``--arch`` takes every ported family
 mixtral-8x22b and llama4-maverick-400b-a17b, whose banner adds experts,
 top-k, shared experts, capacity factor and the layers served, and the Mamba +
 MoE hybrid jamba-v0.1-52b, whose banner adds its Mamba layers and recurrent
-state). jamba serves split and whole-prompt only: each prompt prefills at
-its exact length (a recurrent layer would fold pads into its state), so
-``--prefill-chunk``, ``--token-budget`` and ``--prefix-cache`` are refused
-for it; ``--reduced`` keeps one layer of each kind of its schedule (Mamba,
-Mamba + MoE, attention). pixtral-12b (a vision prefix: 256 patch
+state, and xlstm-125m, whose banner adds its mLSTM and sLSTM layers and
+recurrent state). jamba and xlstm serve split and whole-prompt only: each
+prompt prefills at its exact length (a recurrent layer would fold pads into
+its state), so ``--prefill-chunk``, ``--token-budget`` and
+``--prefix-cache`` are refused for them; ``--reduced`` keeps one layer of
+each kind of its schedule (jamba: Mamba, Mamba + MoE, attention; xlstm:
+mLSTM, sLSTM). xlstm-125m has no attention layer, so no paged pools (the
+banner's pool MB is 0; the block allocator still runs, as the reference's
+does). pixtral-12b (a vision prefix: 256 patch
 embeddings ahead of each prompt) and whisper-medium (an encoder-decoder over
 1500 encoder frames) serve whole-prompt too; their extra inputs are random
 stand-ins drawn from ``--seed`` (``models/frontends.py``; nothing is
@@ -234,6 +238,17 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
                + ("by one all-reduce per Mamba layer" if tp_group is not None
                   else "unsplit (simulate_tp splits only the row-parallel layers)"))
 
+    n_xlstm = {k: sum(spec.kind == k for spec in cfg.layers) for k in ("mlstm", "slstm")}
+    if any(n_xlstm.values()):
+        rank = cfg.tp_shard(ctx.tp_size)
+        print_(f"xlstm: {n_xlstm['mlstm']} mLSTM + {n_xlstm['slstm']} sLSTM of {cfg.n_layers} "
+               f"layers served, mLSTM d_inner={rank.mlstm_d_inner} heads={rank.mlstm_heads}, "
+               f"sLSTM heads={cfg.n_heads} FF={rank.slstm_ff} (per rank); down and ff_down "
+               f"reduced by the policy, the mLSTM q/k/v/i/f projection "
+               + ("by one fp32 all-reduce per mLSTM layer" if tp_group is not None
+                  else "unsplit (simulate_tp splits only the row-parallel layers)")
+               + "; no attention layer, no paged pools")
+
     n_prefix = cfg.n_patches if cfg.frontend == "vision" else 0
     if cfg.frontend == "vision":
         print_(f"vision prefix: {n_prefix} patch embeddings (random stand-ins from --seed) "
@@ -259,11 +274,12 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
             f"tokens/chunk)" if engine.token_budget
             else (f"split, chunked {engine.prefill_chunk} tokens/step"
                   if engine.prefill_chunk else "split, whole-prompt"))
-    if n_mamba:
+    recurrent = n_mamba or any(n_xlstm.values())
+    if recurrent:
         step += (" (recurrent layers: each prompt prefills at its exact length, since pads "
                  "would fold into the recurrent state; no chunked or mixed step)")
     rec = (f", recurrent state {engine.rec_state_bytes() / 1e6:.2f} MB fp32 per rank"
-           if n_mamba else "")
+           if recurrent else "")
     print_(f"kv cache: {engine.cache_spec.describe()} "
            f"({engine.kv_pool_bytes() / 1e6:.2f} MB pools, kv_shards={engine.kv_shards}, "
            f"tp={engine.tp_size}, "

@@ -12,7 +12,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (
-    check_supported, param_shapes, shard_leaf, torch_dtype,
+    check_supported, layer_block, param_shapes, shard_leaf, torch_dtype,
 )
 
 __all__ = ["params_from_numpy", "shard_params"]
@@ -70,19 +70,21 @@ def shard_params(tree, cfg: ModelConfig, rank: int, n: int):
     ``Model.init_params(tp=(rank, n))`` keeps it: the n shards put together
     are the tree: a vision model's ``mm_proj`` by output columns, an
     encoder-decoder's ``enc_layers`` and each ``xattn[i].core`` as a decoder
-    layer (``enc_norm`` and the ``xattn`` norms whole). Checks the tree
+    layer (``enc_norm`` and the ``xattn`` norms whole), an xLSTM layer by
+    its block's kind (an sLSTM block whole but its FF). Checks the tree
     against ``cfg`` first; raises when ``cfg`` does not shard over ``n``
     ranks (``ModelConfig.tp_shard``)."""
     check_supported(cfg)
     cfg.tp_shard(n)
     _check_tree(tree, param_shapes(cfg), "")
 
-    def walk(node, key, parent):
+    def walk(node, key, parent, block=None):
         if isinstance(node, dict):
-            return {k: walk(v, k, key) for k, v in node.items()}
+            return {k: walk(v, k, key, block) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [walk(v, key, parent) for v in node]
-        return np.ascontiguousarray(shard_leaf(np.asarray(node), parent, key, rank, n))
+            return [walk(v, key, parent, layer_block(cfg, key, i, block))
+                    for i, v in enumerate(node)]
+        return np.ascontiguousarray(shard_leaf(np.asarray(node), parent, key, rank, n, block))
 
     return walk(tree, "", "")
 

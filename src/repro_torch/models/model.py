@@ -2,11 +2,12 @@
 MLP or MoE sublayers, with a vision prefix or an encoder: parameter init,
 the whole-prompt prefill over a dense cache, and the three paged serving
 steps (the reference's ``Model.init_params``, ``init_cache``, ``prefill``,
-``prefill_chunk``, ``decode_step_paged`` and ``mixed_step``). xLSTM raises
-``NotImplementedError``. A stack with Mamba layers (jamba) serves through
-whole-prompt prefill and ``decode_step_paged`` only: the chunk and mixed
-steps raise, as the reference's do, since a recurrent layer would fold a
-chunk's pads into its state.
+``prefill_chunk``, ``decode_step_paged`` and ``mixed_step``), and for
+stacks of mLSTM and sLSTM layers (xlstm-125m). A stack with recurrent
+layers (jamba's Mamba, xLSTM) serves through whole-prompt prefill and
+``decode_step_paged`` only: the chunk and mixed steps raise, as the
+reference's do, since a recurrent layer would fold a chunk's pads into its
+state.
 
 A vision model (pixtral, ``frontend="vision"``) prefills ``n_patches``
 precomputed patch embeddings through ``mm_proj`` ahead of the text tokens
@@ -38,7 +39,14 @@ d_ff, d)``, and each shared expert a dense MLP's tree. A Mamba layer's
 x_proj: {w (di, dt_rank + 2N)}, dt_proj: {w (dt_rank, di), b (di,)}, A_log
 (di, N), D (di,), out_proj: {w (di, d)}}`` (the reference's names and
 layouts), with the reference's deterministic ``A_log = log(1..N)``,
-``dt_proj.b = log(expm1(0.01))``, ``D = 1`` and ``conv_b = 0``.
+``dt_proj.b = log(expm1(0.01))``, ``D = 1`` and ``conv_b = 0``. An xLSTM
+layer is ``{ln1, core}`` (no second sublayer): an mLSTM ``core`` is ``{up,
+z: {w (d, di)}, conv_w (d_conv, di), conv_b (di,), wq, wk, wv: {w (di,
+di)}, wi: {w (di, H)}, wf: {w (di, H), b (H,)}, norm: {w (di,)}, down: {w
+(di, d)}}``, an sLSTM ``core`` ``{norm: {w (d,)}, wz, wi, wo: {w (d, d)},
+wf: {w (d, d), b (d,)}, rz, ri, rf, ro (H, dh, dh), ff_up, ff_gate: {w (d,
+4d/3)}, ff_down: {w (4d/3, d)}}``, drawn as the reference draws them:
+``wf.b = 3``, ``norm = 1``, ``conv_b = 0``, ``r*`` at scale ``dh**-0.5``.
 
 Tensor parallelism (``TPContext.tp_group`` of N ranks): ``init_params(...,
 tp=(rank, N))`` keeps this rank's shard of each tensor (``shard_axis``):
@@ -55,8 +63,13 @@ layer's (the rank's heads; ``enc_norm`` and each ``xattn[i].ln``
 replicated), and a vision model's ``mm_proj`` by output columns (the
 reference's ``P(d, model)``): the prefix is each rank's columns,
 all-gathered densely (``collectives.rank_all_gather``) before the text.
-The steps then run on the rank-local config (``local_cfg``,
-``ModelConfig.tp_shard``).
+An xLSTM layer shards as the reference's ``mlstm_specs`` / ``slstm_specs``
+(``shard_axis`` with the block's kind: the names collide with attention's):
+an mLSTM block's ``up``, ``z``, ``conv_w``, ``conv_b`` and ``norm`` by
+``d_inner`` and its ``wq``, ``wk``, ``wv``, ``wi``, ``wf.w`` and ``down``
+by input rows; an sLSTM block whole but its FF (``ff_up``, ``ff_gate`` by
+columns, ``ff_down`` by rows). The steps then run on the rank-local config
+(``local_cfg``, ``ModelConfig.tp_shard``).
 """
 from __future__ import annotations
 
@@ -79,7 +92,7 @@ from repro_torch.models.transformer import (
 )
 
 __all__ = ["Model", "torch_dtype", "param_shapes", "shard_axis", "shard_leaf",
-           "recurrent_layer", "check_supported"]
+           "layer_block", "recurrent_layer", "check_supported", "XLSTM_KINDS"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -88,11 +101,22 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+XLSTM_KINDS = ("mlstm", "slstm")
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise on anything but a decoder of attention and Mamba layers with an
     RMSNorm and, per layer, a SwiGLU or gelu MLP or a MoE of top-k routed
-    experts; with a vision prefix, or an encoder (with its audio
-    frontend)."""
+    experts, with a vision prefix, or an encoder (with its audio frontend);
+    or a text decoder of mLSTM and sLSTM layers only, with an RMSNorm and
+    ``d_ff = 0`` (its blocks own their projections)."""
+    if any(s.kind in XLSTM_KINDS for s in cfg.layers):
+        if (any(s.kind not in XLSTM_KINDS or s.moe for s in cfg.layers) or cfg.d_ff
+                or cfg.encoder_decoder or cfg.frontend is not None or cfg.norm != "rmsnorm"):
+            raise NotImplementedError(
+                f"{cfg.name}: the port serves xLSTM layers in a text decoder of mLSTM and "
+                f"sLSTM layers only, with an RMSNorm and d_ff=0")
+        return
     bad = [s for s in cfg.layers if s.kind not in ("attn", "mamba")]
     moe_ok = not any(s.moe for s in cfg.layers) or 0 < cfg.top_k <= cfg.n_experts
     front_ok = cfg.frontend == ("audio" if cfg.encoder_decoder else None) or (
@@ -102,7 +126,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port serves decoders of attention and Mamba layers with "
             f"an RMSNorm and a SwiGLU or gelu MLP or a top-k MoE, with a vision prefix "
-            f"or an audio encoder, only (xLSTM is not ported yet)")
+            f"or an audio encoder, or of xLSTM layers only")
 
 
 def recurrent_layer(cfg: ModelConfig) -> Optional[Tuple[int, str]]:
@@ -111,7 +135,7 @@ def recurrent_layer(cfg: ModelConfig) -> Optional[Tuple[int, str]]:
     return next(((i, sp.kind) for i, sp in enumerate(cfg.layers) if sp.kind != "attn"), None)
 
 
-_NORMS = ("ln1", "ln2", "ln", "final_norm", "enc_norm", "q_norm", "k_norm")
+_NORMS = ("ln1", "ln2", "ln", "final_norm", "enc_norm", "q_norm", "k_norm", "norm")
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
@@ -140,7 +164,29 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
                 "x_proj": linear(di, dtr + 2 * N), "dt_proj": linear(dtr, di, True),
                 "A_log": (di, N), "D": (di,), "out_proj": linear(di, d)}
 
+    def mlstm_core():
+        # a rank's d_inner rows of wq / wk / wv / wi / wf reach every head:
+        # their outputs stay whole (int(pf * d_model) and n_heads, whole on a rank)
+        di, DI, H = cfg.mlstm_d_inner, int(cfg.xlstm_proj_factor * d), cfg.n_heads
+        return {"up": linear(d, di), "z": linear(d, di), "conv_w": (cfg.xlstm_conv, di),
+                "conv_b": (di,), "wq": linear(di, DI), "wk": linear(di, DI),
+                "wv": linear(di, DI), "wi": linear(di, H), "wf": linear(di, H, True),
+                "norm": {"w": (di,)}, "down": linear(di, d)}
+
+    def slstm_core():
+        dh = d // cfg.n_heads
+        core = {"norm": {"w": (d,)}}
+        for g in ("z", "i", "f", "o"):
+            core[f"w{g}"] = linear(d, d, g == "f")
+            core[f"r{g}"] = (cfg.n_heads, dh, dh)
+        core.update(ff_up=linear(d, cfg.slstm_ff), ff_gate=linear(d, cfg.slstm_ff),
+                    ff_down=linear(cfg.slstm_ff, d))
+        return core
+
     def layer(spec):
+        if spec.kind in XLSTM_KINDS:
+            return {"ln1": {"w": (d,)},
+                    "core": mlstm_core() if spec.kind == "mlstm" else slstm_core()}
         core = attention() if spec.kind == "attn" else mamba()
         return {"ln1": {"w": (d,)}, "core": core, "ln2": {"w": (d,)},
                 **({"moe": moe()} if spec.moe else {"mlp": mlp()})}
@@ -180,13 +226,25 @@ _COLUMNS = ("wq", "wk", "wv", "gate", "up", "in_x", "in_z", "dt_proj", "mm_proj"
 _ROWS = ("wo", "down", "x_proj", "out_proj")
 # the Mamba leaves directly under ``core``, by d_inner (the reference's mamba_specs)
 _MAMBA_LEAVES = {"conv_w": -1, "conv_b": -1, "D": -1, "A_log": -2}
+# an xLSTM layer's sharded leaves by (parent, key) (the reference's
+# mlstm_specs / slstm_specs); every other leaf of such a layer is whole
+_XLSTM_AXES = {
+    "mlstm": {("up", "w"): -1, ("z", "w"): -1, ("core", "conv_w"): -1,
+              ("core", "conv_b"): -1, ("norm", "w"): -1, ("wq", "w"): -2, ("wk", "w"): -2,
+              ("wv", "w"): -2, ("wi", "w"): -2, ("wf", "w"): -2, ("down", "w"): -2},
+    "slstm": {("ff_up", "w"): -1, ("ff_gate", "w"): -1, ("ff_down", "w"): -2},
+}
 
 
-def shard_axis(parent: str, key: str) -> Optional[int]:
+def shard_axis(parent: str, key: str, block: Optional[str] = None) -> Optional[int]:
     """The axis a TP group shards the leaf ``key`` of ``parent`` along
     (``-1`` output columns, ``-2`` input rows: axis 0 of a ``(Fin, Fout)``
     weight, the ``d_ff`` axis of an expert ``down`` ``(E, d_ff, d)``, the
-    ``d_inner`` rows of ``A_log``), or None (replicated)."""
+    ``d_inner`` rows of ``A_log``), or None (replicated). Inside an xLSTM
+    layer ``block`` is its kind (``"mlstm"`` / ``"slstm"``), whose names
+    shard otherwise than attention's (``wq`` by rows, ``wo`` whole)."""
+    if block in _XLSTM_AXES:
+        return _XLSTM_AXES[block].get((parent, key))
     if parent in _COLUMNS and key in ("w", "b"):
         return -1
     if parent in _ROWS and key == "w":
@@ -196,10 +254,18 @@ def shard_axis(parent: str, key: str) -> Optional[int]:
     return None
 
 
-def shard_leaf(t, parent: str, key: str, rank: int, n: int):
+def layer_block(cfg: ModelConfig, key: str, index: int, block: Optional[str]) -> Optional[str]:
+    """The ``block`` a tree walk passes on into entry ``index`` of the list
+    ``key``: an xLSTM layer's kind for ``layers[index]``, else ``block``."""
+    if key == "layers" and cfg.layers[index].kind in _XLSTM_AXES:
+        return cfg.layers[index].kind
+    return block
+
+
+def shard_leaf(t, parent: str, key: str, rank: int, n: int, block: Optional[str] = None):
     """Rank ``rank``'s contiguous ``1/n`` of a leaf (a tensor or numpy
     array) along ``shard_axis``; the leaf itself when replicated."""
-    axis = shard_axis(parent, key)
+    axis = shard_axis(parent, key, block)
     if axis is None or n == 1:
         return t
     size = t.shape[axis] // n
@@ -234,14 +300,17 @@ class Model:
         cfg.tp_shard(n)   # raises when the config does not shard over n ranks
         init = Initializer(generator, torch_dtype(cfg.dtype), dev)
 
-        def draw(node, key, parent):
+        def draw(node, key, parent, block=None):
             # linear weights (the embedding scaled by d_model**-0.5), zero
             # biases and unit norms, drawn in the tree's order
             if isinstance(node, dict):
-                return {k: draw(v, k, key) for k, v in node.items()}
+                return {k: draw(v, k, key, block) for k, v in node.items()}
             if isinstance(node, list):
-                return [draw(v, key, parent) for v in node]
-            if len(node) == 3:   # experts: each drawn (and sharded) in turn, in place
+                return [draw(v, key, parent, layer_block(cfg, key, i, block))
+                        for i, v in enumerate(node)]
+            if block == "slstm" and key[0] == "r":   # recurrent (H, dh, dh) at dh**-0.5
+                t = init.linear(node, scale=node[-1]**-0.5)
+            elif len(node) == 3:   # experts: each drawn (and sharded) in turn, in place
                 experts = None
                 for e in range(node[0]):
                     t = draw(node[1:], key, parent)
@@ -249,7 +318,9 @@ class Model:
                         experts = t.new_empty((node[0], *t.shape))
                     experts[e] = t
                 return experts
-            if parent == "dt_proj" and key == "b":
+            elif block is not None and parent == "wf" and key == "b":   # forget bias
+                t = init.full(node, 3.0)
+            elif parent == "dt_proj" and key == "b":
                 t = init.full(node, math.log(math.expm1(0.01)))
             elif key == "A_log":   # log(1..N) on every channel
                 t = init.full(node, 1.0).cumsum(-1, dtype=torch.float32).log().to(init.dtype)
@@ -259,9 +330,9 @@ class Model:
                 t = init.ones(node)
             else:
                 t = init.linear(node, scale=cfg.d_model**-0.5 if parent == "embed" else None)
-            if shard_axis(parent, key) is None or n == 1:
+            if shard_axis(parent, key, block) is None or n == 1:
                 return t
-            return shard_leaf(t, parent, key, rank, n).clone()
+            return shard_leaf(t, parent, key, rank, n, block).clone()
 
         return draw(param_shapes(cfg), "", "")
 
@@ -381,8 +452,9 @@ class Model:
                    device: str | torch.device = "cuda", ctx: Optional[TPContext] = None
                    ) -> Dict[str, Any]:
         """Dense per-layer caches for whole-prompt prefill: K/V in ``dtype``
-        for attention, a fp32 ``MambaCache`` for Mamba (this rank's kv heads
-        and channels on a TP group ``ctx``)."""
+        for attention, a fp32 ``MambaCache``, ``MLSTMCache`` or
+        ``SLSTMCache`` for a recurrent layer (this rank's kv heads, channels
+        and mLSTM heads on a TP group ``ctx``)."""
         cfg = self.local_cfg(ctx) if ctx is not None else self.cfg
         return {"layers": [init_layer_cache(cfg, spec, batch, max_len, dtype, device)
                            for spec in cfg.layers],
@@ -391,7 +463,7 @@ class Model:
     def prefill(self, ctx: TPContext, params, batch, cache, *,
                 last_index=None) -> Tuple[torch.Tensor, Any]:
         """Whole-prompt prefill of ``batch["tokens"]`` (B, S) into ``cache``
-        (K/V written in place; a Mamba layer's cache is its history and
+        (K/V written in place; a recurrent layer's cache is its history and
         comes back as new tensors after the prompt); returns (logits (B, V)
         at ``last_index``, the last position by default, and the cache). The
         engine right-pads prompts of a pure-attention stack to a length

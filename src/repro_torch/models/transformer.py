@@ -1,11 +1,11 @@
-"""Decoder stack of attention and Mamba layers, each with a dense MLP or a
-MoE sublayer (the reference's ``models/transformer.py`` ``apply_layer`` /
-``init_layer_cache`` / ``apply_stack`` for the layer kinds the port serves;
-each attention layer attends within its ``LayerSpec.window``). jamba's Mamba
-layers carry the MLP or MoE sublayer too, as the reference's
+"""Decoder stack of attention, Mamba and xLSTM layers (the reference's
+``models/transformer.py`` ``apply_layer`` / ``init_layer_cache`` /
+``apply_stack``; each attention layer attends within its
+``LayerSpec.window``). An attention or Mamba layer carries a dense MLP or
+MoE sublayer (jamba's Mamba layers too), as the reference's
 ``_has_mlp_sublayer`` gives every attention and Mamba layer one when the
-config has an FFN (the port serves only such configs). xLSTM layers
-raise."""
+config has an FFN; an mLSTM or sLSTM layer owns its projections and has no
+second sublayer and no ``ln2``."""
 from __future__ import annotations
 
 from typing import Any, List, Optional, Tuple
@@ -19,6 +19,7 @@ from repro_torch.models.common import rms_norm
 from repro_torch.models.mlp import mlp
 from repro_torch.models.moe import moe
 from repro_torch.models.ssm import init_mamba_cache, mamba
+from repro_torch.models.xlstm import init_mlstm_cache, init_slstm_cache, mlstm, slstm
 
 __all__ = ["apply_layer", "apply_stack", "feed_forward", "init_layer_cache"]
 
@@ -36,20 +37,24 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int
                      dtype: torch.dtype = torch.bfloat16,
                      device: str | torch.device = "cuda"):
     """A layer's dense serving cache: K/V of ``max_len`` positions in
-    ``dtype`` for attention, a fp32 ``MambaCache`` for Mamba (the
-    reference never passes its dtype on)."""
+    ``dtype`` for attention, a fp32 ``MambaCache``, ``MLSTMCache`` or
+    ``SLSTMCache`` for a recurrent layer (the reference never passes its
+    dtype on)."""
     if spec.kind == "attn":
         return init_cache(cfg, batch, max_len, dtype, device)
-    if spec.kind == "mamba":
-        return init_mamba_cache(cfg, batch, device=device)
-    raise NotImplementedError(f"layer kind {spec.kind!r} is not ported yet")
+    recurrent = {"mamba": init_mamba_cache, "mlstm": init_mlstm_cache,
+                 "slstm": init_slstm_cache}
+    if spec.kind not in recurrent:
+        raise ValueError(spec.kind)
+    return recurrent[spec.kind](cfg, batch, device=device)
 
 
 def apply_layer(ctx: TPContext, cfg: ModelConfig, spec: LayerSpec, params,
                 x: torch.Tensor, *, pos: int, cache: Any = None, decode: bool = False
                 ) -> Tuple[torch.Tensor, Any]:
-    """One pre-norm layer: x + core(norm(x)), attention or Mamba (``decode``:
-    the Mamba one-token state update), then + the MLP or MoE of norm(x)
+    """One pre-norm layer: x + core(norm(x)), attention, Mamba, mLSTM or
+    sLSTM (``decode``: a recurrent block's one-token state update), then
+    for an attention or Mamba layer + the MLP or MoE of norm(x)
     (``feed_forward``). Returns (x, cache). (The reference also returns the
     MoE aux losses, which serving never reads; ``moe(..., aux=True)``
     computes them.)"""
@@ -57,11 +62,15 @@ def apply_layer(ctx: TPContext, cfg: ModelConfig, spec: LayerSpec, params,
     if spec.kind == "attn":
         out, cache = attention(ctx, params["core"], h, cfg, pos=pos, cache=cache,
                                window=spec.window)
-    elif spec.kind == "mamba":
-        out, cache = mamba(ctx, params["core"], h, cfg, cache=cache, decode=decode)
     else:
-        raise NotImplementedError(f"layer kind {spec.kind!r} is not ported yet")
+        blocks = {"mamba": mamba, "mlstm": mlstm, "slstm": slstm}
+        if spec.kind not in blocks:
+            raise ValueError(spec.kind)
+        out, cache = blocks[spec.kind](ctx, params["core"], h, cfg, cache=cache,
+                                       decode=decode)
     x = x + out
+    if spec.kind in ("mlstm", "slstm"):   # the block owns its feed-forward
+        return x, cache
     h = rms_norm(x, params["ln2"]["w"])
     return x + feed_forward(ctx, cfg, spec, params, h), cache
 

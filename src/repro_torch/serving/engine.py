@@ -17,14 +17,18 @@ step). ``prefill_chunk=0`` prefills each prompt whole at admission
 bucket) and inserts it into the slot's blocks, then decodes with the split
 scheduler's batched decode.
 
-A stack with recurrent (Mamba) layers, jamba's, is served whole-prompt
-only, as the reference serves it: right-padding would fold pads into the
-recurrent state, so each prompt prefills at its exact length (one step
-program per length, under the LRU of 8), and the chunked and mixed steps,
-``token_budget`` and the prefix cache are refused with the reference's
-errors. The insert writes the request's attention K/V into its blocks and
-its Mamba caches into its slot's row of ``state["rec"]``; the batched
-decode carries every slot's row.
+A stack with recurrent layers (jamba's Mamba layers, xlstm-125m's mLSTM and
+sLSTM layers) is served whole-prompt only, as the reference serves it:
+right-padding would fold pads into the recurrent state, so each prompt
+prefills at its exact length (one step program per length, under the LRU
+of 8), and the chunked and mixed steps, ``token_budget`` and the prefix
+cache are refused with the reference's errors. The insert writes the
+request's attention K/V into its blocks and its recurrent caches into its
+slot's row of ``state["rec"]``; the batched decode carries every slot's
+row. A stack with no attention layer (xlstm-125m) has no pools, and its
+block allocator, tables and preemptions still run as the reference's do
+(the blocks back nothing); a ``corrupt`` fault then poisons nothing, as
+the reference's poisons pools only.
 
 A vision model (pixtral) and an encoder-decoder (whisper) are served
 whole-prompt too, as the reference serves them: the chunk and mixed steps
@@ -602,7 +606,7 @@ class Engine:
         double (the last capped at the slot's capacity), so together they
         hold less than twice the largest power-of-two bucket plus the capped
         one. ``paged_cache_bytes`` does not count it. A recurrent stack keys
-        a program per exact prompt length (and its Mamba layers' caches are
+        a program per exact prompt length (and its recurrent layers' caches are
         the program's outputs)."""
         bucket, total, nb = self._shapes_for(prompt_len)
         model, params, ctx = self.model, self.params, self.ctx
@@ -627,7 +631,7 @@ class Engine:
         in every attention layer's pools (in place), through the same row
         codec and writer as the step appends (MX-quantized per position on
         wire pools; positions past an exact-length prompt's end zero, as the
-        reference pads them), each Mamba layer's cache into row ``slot``
+        reference pads them), each recurrent layer's cache into row ``slot``
         of its ``state["rec"]`` entry and an encoder-decoder's cross K/V
         (``cross``, per layer) into row ``slot`` of ``state["cross_k"]`` /
         ``state["cross_v"]`` (all in place: a captured decode step reads
@@ -1142,7 +1146,9 @@ class Engine:
         place: scale bytes 255 (2^128, so the block decodes to inf and NaN)
         in MX pools, NaN in dense pools; payload bytes stay. ``block`` -1
         picks the lowest live block (nothing happens when none is live). On
-        sharded pools only the owner of the block writes."""
+        sharded pools only the owner of the block writes. Recurrent state is
+        left as it is, as the reference leaves it (a stack without
+        attention layers has nothing to poison)."""
         if block < 0:
             live = sorted(b for w in self._running.values() for b in w.blocks)
             if not live:

@@ -7,8 +7,10 @@ Every attention layer owns a block pool ``(n_blocks, block_size, kv_dim)``
 for K and V (dense, or MX wire payload + scales); a slot's logical sequence
 is the concatenation of the blocks its block-table row names. Block 0 is the
 reserved null block that pads and unallocated table entries point at. Every
-Mamba layer owns one slot-batched recurrent cache (``rec``: fp32 conv
-history and state, ``n_slots`` rows), whatever the pools' format. An
+recurrent layer owns one slot-batched recurrent cache (``rec``, ``n_slots``
+rows, fp32 whatever the pools' format): a Mamba layer its conv history and
+state, an mLSTM layer its (C, n, m) and conv history, an sLSTM layer its
+(c, n, m, h). An xLSTM stack has no attention layer, so no pools. An
 encoder-decoder's decoder layers each own the slots' cross-attention K/V
 (``cross_k`` / ``cross_v``: ``(n_slots, encoder_seq, kv_dim)``, dense in the
 pools' dense dtype even beside MX pools, as the reference holds them).
@@ -402,14 +404,16 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_blocks: int, block_size: 
                      device: str | torch.device = "cuda") -> dict:
     """Device-side cache state: ``pools_k`` / ``pools_v``, one K and one V
     pool per attention layer, dense at ``dtype`` or MX wire pairs when
-    ``cache_spec`` is quantized; ``rec``, one slot-batched ``MambaCache`` of
-    ``n_slots`` rows per Mamba layer, in layer order, always fp32 (the
-    reference's ``init_layer_cache`` default: recurrent state is O(slots),
-    not O(tokens)); for an encoder-decoder, ``cross_k`` / ``cross_v``, one
-    ``(n_slots, encoder_seq, kv_dim)`` tensor of ``dtype`` per decoder
-    layer, on MX pools too (the reference's). Every size follows ``cfg``:
-    on a TP group's rank-local config, this rank's kv heads of the pools and
-    of the cross K/V. xLSTM layers raise."""
+    ``cache_spec`` is quantized; ``rec``, one slot-batched ``MambaCache``,
+    ``MLSTMCache`` or ``SLSTMCache`` of ``n_slots`` rows per recurrent
+    layer, in layer order, always fp32 (the reference's ``init_layer_cache``
+    default: recurrent state is O(slots), not O(tokens)); for an
+    encoder-decoder, ``cross_k`` / ``cross_v``, one ``(n_slots,
+    encoder_seq, kv_dim)`` tensor of ``dtype`` per decoder layer, on MX
+    pools too (the reference's). Every size follows ``cfg``: on a TP
+    group's rank-local config, this rank's kv heads of the pools and of the
+    cross K/V, and its channels and heads of the recurrent state (an sLSTM
+    layer's whole)."""
     from repro_torch.models.transformer import init_layer_cache
 
     cache_spec = check_cache_spec(cfg, cache_spec)
@@ -434,27 +438,39 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_blocks: int, block_size: 
 
 
 def zero_paged_state(state: dict) -> None:
-    """Zero every pool plane and recurrent cache of ``state`` in place: what
-    ``init_paged_state`` returns, at the same addresses (a captured step
-    program keeps reading and writing those)."""
+    """Put every pool plane and recurrent cache of ``state`` back to what
+    ``init_paged_state`` returns, in place, at the same addresses (a
+    captured step program keeps reading and writing those): zeros, and an
+    xLSTM cache's stabilizer ``m`` at its start value."""
+    from repro_torch.models.xlstm import reset_cache
+
     for pool in state["pools_k"] + state["pools_v"]:
         for plane in ((pool.payload, pool.scales) if isinstance(pool, MXCompressed)
                       else (pool,)):
             plane.zero_()
     for cache in state.get("rec", []):
-        for t in cache:
-            t.zero_()
+        reset_cache(cache)
     for t in state.get("cross_k", []) + state.get("cross_v", []):
         t.zero_()
 
 
 def recurrent_state_bytes(cfg: ModelConfig, n_slots: int) -> int:
-    """Bytes of the slot-batched recurrent caches (``rec``): per Mamba layer
-    and slot, the fp32 conv history ``(d_conv - 1) x d_inner`` and state
-    ``d_inner x N`` (the reference's ``cache_bytes`` Mamba term). Rank-local
-    on a TP group's config."""
-    per_slot = (cfg.ssm_d_conv - 1) * cfg.ssm_d_inner * 4 + cfg.ssm_d_inner * cfg.ssm_d_state * 4
-    return n_slots * per_slot * sum(1 for spec in cfg.layers if spec.kind == "mamba")
+    """Bytes of the slot-batched recurrent caches (``rec``), fp32, per slot:
+    a Mamba layer's conv history ``(d_conv - 1) x d_inner`` and state
+    ``d_inner x N``; an mLSTM layer's ``H x (dh^2 + dh + 1)`` of (C, n, m)
+    and its conv history ``(xlstm_conv - 1) x d_inner``; an sLSTM layer's
+    ``4 x d_model`` of (c, n, m, h) (the reference's ``cache_bytes`` terms).
+    Rank-local on a TP group's config: this rank's Mamba channels, mLSTM
+    heads and channels, and the whole sLSTM state."""
+    def values(kind: str) -> int:
+        if kind == "mamba":
+            return (cfg.ssm_d_conv - 1) * cfg.ssm_d_inner + cfg.ssm_d_inner * cfg.ssm_d_state
+        if kind == "mlstm":
+            di, H = cfg.mlstm_d_inner, cfg.mlstm_heads
+            return H * ((di // H) ** 2 + di // H + 1) + (cfg.xlstm_conv - 1) * di
+        return 4 * cfg.d_model if kind == "slstm" else 0
+
+    return n_slots * 4 * sum(values(spec.kind) for spec in cfg.layers)
 
 
 def cross_state_bytes(cfg: ModelConfig, n_slots: int, dtype_bytes: int = 2) -> int:

@@ -218,18 +218,37 @@ def frontend_undercount(cfg) -> int:
             + ((1 + cfg.n_layers) * d if cfg.encoder_decoder else 0))
 
 
+def xlstm_undercount(cfg) -> int:
+    """What the reference's ``param_count`` leaves out of the tree its
+    ``init_params`` builds for xLSTM layers (ROADMAP Queue 3 item 16), less
+    the second norm it counts for a layer that has one: per mLSTM layer the
+    conv (``conv_w``, ``conv_b``), ``wi``, ``wf`` and its bias, and ``norm``
+    beyond the ``2 d_inner`` it counts; per sLSTM layer the third FF matrix
+    and the forget bias. 0 for the other families."""
+    d, di, H = cfg.d_model, cfg.mlstm_d_inner, cfg.n_heads
+    per = {"mlstm": cfg.xlstm_conv * di + di + 2 * di * H + H + di - 2 * di - d,
+           "slstm": cfg.slstm_ff * d + d + d - d}
+    return sum(per.get(sp.kind, 0) for sp in cfg.layers)
+
+
+def undercount(cfg) -> int:
+    """Every term the port counts and the reference's ``param_count`` does
+    not (ROADMAP Queue 3 items 13, 14 and 16)."""
+    return mamba_undercount(cfg) + frontend_undercount(cfg) + xlstm_undercount(cfg)
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_param_count_matches_reference(arch):
     """Equal to the reference's count, plus the terms it leaves out of a
-    Mamba layer (jamba), a vision prefix (pixtral) and an encoder-decoder
-    (whisper), which the port counts."""
+    Mamba layer (jamba), a vision prefix (pixtral), an encoder-decoder
+    (whisper) and xLSTM layers (xlstm-125m), which the port counts."""
     cfg, ref = get_config(arch), j_get_config(arch)
-    gap = mamba_undercount(cfg) + frontend_undercount(cfg)
+    gap = undercount(cfg)
     assert cfg.param_count() == ref.param_count() + gap
     assert cfg.active_param_count() == ref.active_param_count() + gap
     red, red_j = reduced_config(cfg), j_reduced_config(ref)
-    assert red.param_count() == (red_j.param_count() + mamba_undercount(red)
-                                 + frontend_undercount(red))
+    assert red.param_count() == red_j.param_count() + undercount(red)
+    assert (xlstm_undercount(cfg) > 0) == (arch == "xlstm-125m")
 
 
 def test_init_params_tree_matches_reference(models):

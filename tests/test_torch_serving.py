@@ -118,18 +118,20 @@ SUMMARY_KEYS = ("n_steps", "n_dispatches", "prefill_tokens", "decode_tokens", "n
 
 
 def serve_both(models, traffic, *, gated=False, runs=1, cache_dtype="float32",
-               extra_inputs=None, **kw):
+               extra_inputs=None, ref_kw=None, **kw):
     """Serve ``traffic`` (``(prompt, max_new_tokens)`` pairs, all arriving
     at t=0; with the model's ``extra_inputs``, one numpy row per request,
     when given) on the reference Engine and on the port's with the same
-    options, ``runs`` times each on one engine. Asserts, run by run: greedy tokens
+    options (``ref_kw``: options of the reference Engine alone), ``runs``
+    times each on one engine. Asserts, run by run: greedy tokens
     identical, every request ``ok``, gate counts and the summary's
     ``SUMMARY_KEYS`` equal, finite logits, and the free list conserved (every
     block free or parked in the prefix index, none referenced). Returns the
     two engines and the port's outputs by run."""
     cfg, model_j, params_j, model_t, params_t = models
     ctx_j, ctx_t = contexts(gated)
-    eng_j = JEngine(model_j, params_j, ctx_j, cache_dtype=getattr(jnp, cache_dtype), **kw)
+    eng_j = JEngine(model_j, params_j, ctx_j, cache_dtype=getattr(jnp, cache_dtype), **kw,
+                    **(ref_kw or {}))
     eng_t = Engine(model_t, params_t, ctx_t, cache_dtype=getattr(torch, cache_dtype),
                    device="cpu", **kw)
     outs = []

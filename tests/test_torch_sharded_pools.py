@@ -235,10 +235,11 @@ def _probe_model(probe):
 
 def _reference(models, case):
     """The reference's single-device Engine on one case (with the model's
-    ``case["extra"]`` inputs when given): per run, outputs, the summary's
-    counts and the recovery events."""
+    ``case["extra"]`` inputs when given, and ``case["ref_engine"]``, options
+    of the reference Engine alone): per run, outputs, the summary's counts
+    and the recovery events."""
     cfg, model_j, params_j, _, _ = models
-    kw = dict(case["engine"])
+    kw = dict(case["engine"], **case.get("ref_engine", {}))
     kw["cache_dtype"] = getattr(jnp, kw.get("cache_dtype", "float32"))
     plan = case.get("plan")
     eng = JEngine(model_j, params_j, contexts(case.get("gated", False))[0],

@@ -64,6 +64,21 @@ the port's simulated path and the reference.
   pixtral's one dense all-gather of its prefix, per decode step one
   all-reduce per reduction; each rank holds half the pools and half the
   cross K/V, at the rank's ``kv_dim``.
+* Reduced xlstm at d_model 384 (``[mlstm, slstm]``: mLSTM d_inner 768 in 4
+  heads, sLSTM FF 512; at the default 256 the FF of 341 splits over no
+  group) in fp32 on the same 2 ranks: each rank holds half of the mLSTM
+  channels and heads (``up``, ``z``, conv, ``norm``; the rows of ``wq``,
+  ``wk``, ``wv``, ``wi``, ``wf.w`` and ``down``) and of the sLSTM FF, and
+  every other sLSTM leaf whole; ``init_params(tp=...)`` and
+  ``shard_params`` concatenate to the tree; a whole-prompt prefill's logits
+  within rel-L2 1e-5 of the single-rank port's, dense and compressed; the
+  whole-prompt engine on fp4 pools (none: no attention layer), gated, over
+  prompts of two exact lengths: tokens, steps and dispatches equal on both
+  ranks, to the single-rank engine (``simulate_tp=2``) and to the
+  reference's ``Engine(simulate_tp=2, donate_cache=False)``; per pass two
+  all-gathers per compressed reduction (each mLSTM ``down``, each sLSTM
+  ``ff_down``) and one all-reduce per dense one, plus one all-reduce per
+  mLSTM layer for its q/k/v/i/f partial.
 * Refusals: ``keep_local_fp`` in the engine on the rank path (ROADMAP
   Queue 3 item 11), a TP group with ``simulate_tp`` or with a kv group,
   heads or MLP columns that do not divide; the backend rule;
@@ -93,7 +108,7 @@ from repro_torch.core.policy import PAPER_DEFAULT
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh, serve
 from repro_torch.models.convert import shard_params
-from repro_torch.models.model import Model, param_shapes, shard_axis
+from repro_torch.models.model import Model, layer_block, param_shapes, shard_axis
 from tests.conftest import fp32_reduced
 from tests.test_torch_families import family_traffic
 from tests.test_torch_frontends import WHOLE, stub_arrays, whole_traffic
@@ -194,6 +209,30 @@ def _jamba_cases(vocab):
                                     traffic=traffic, gated=True)}
 
 
+XLSTM_D = 384   # reduced xlstm's width on 2 ranks: mLSTM d_inner 768, sLSTM FF 512
+
+
+def _xlstm_models():
+    """Reduced xlstm in fp32 at d_model 384: [mlstm, slstm]."""
+    cfg_j = fp32_reduced("xlstm-125m", d_model=XLSTM_D)
+    cfg_t = dataclasses.replace(reduced_config(get_config("xlstm-125m"), d_model=XLSTM_D),
+                                dtype="float32")
+    model_j = JModel(cfg_j)
+    return cfg_t, model_j, model_j.init_params(jax.random.PRNGKey(0)), None, None
+
+
+def _xlstm_cases(vocab):
+    """The whole-prompt engine on fp4 pools (an xLSTM stack makes none),
+    gated, over prompts of 12 and 20 tokens; the reference Engine without
+    donating its state (ROADMAP.md Queue 3 item 17)."""
+    traffic = [(((np.arange(n, dtype=np.int32) * 7 + i) % vocab).astype(np.int32), 4 + i)
+               for i, n in enumerate((12, 20, 12))]
+    return {"xlstm-whole-fp4": dict(engine=dict(max_slots=2, max_len=64, block_size=16,
+                                                cache_spec="fp4_e2m1"),
+                                    ref_engine=dict(donate_cache=False),
+                                    traffic=traffic, gated=True)}
+
+
 # the vision-prefix and encoder-decoder models on 2 ranks: job key -> (arch,
 # overrides of the reduced config: 2 kv heads so they divide, a few patches,
 # 24 encoder frames)
@@ -254,6 +293,12 @@ def served(models):
     frontend_models = {key: _frontend_models(key) for key in FRONTENDS}
     for key, (f_cfg, _, f_params_j, _, _) in frontend_models.items():
         job[key] = _frontend_job(f_cfg, f_params_j)
+    xlstm_models = _xlstm_models()
+    xlstm_cfg, _, xlstm_params_j = xlstm_models[:3]
+    job["xlstm"] = dict(cfg=xlstm_cfg, params=jax.tree.map(np.asarray, xlstm_params_j),
+                        cases=_xlstm_cases(xlstm_cfg.vocab_size),
+                        logit_tokens=(np.arange(21, dtype=np.int32) * 5 + 2)
+                        % xlstm_cfg.vocab_size)
     ranks = mesh.spawn_ranks(run_rank, 2, job, device="cpu", threads=2, timeout_s=600)
     single = run_tp_cases(None, "cpu", cfg, params_np, job)
     moe = job["moe"]
@@ -261,15 +306,18 @@ def served(models):
     single_jamba = run_tp_cases(None, "cpu", jamba_cfg, job["jamba"]["params"], job["jamba"])
     single_frontends = {key: run_tp_cases(None, "cpu", job[key]["cfg"], job[key]["params"],
                                           job[key]) for key in FRONTENDS}
+    single_xlstm = run_tp_cases(None, "cpu", xlstm_cfg, job["xlstm"]["params"], job["xlstm"])
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(reference_engine, "jnp", _CopyingJnp())
         reference = {name: _reference(models, case) for name, case in cases.items()}
         reference_moe = {name: _reference(moe_models, case) for name, case in moe["cases"].items()}
         reference_frontends = {key: _reference(frontend_models[key], job[key]["cases"]["whole-fp4"])
                                for key in FRONTENDS}
+        reference_xlstm = _reference(xlstm_models, job["xlstm"]["cases"]["xlstm-whole-fp4"])
     return dict(job=job, ranks=ranks, single=single, reference=reference, single_moe=single_moe,
                 reference_moe=reference_moe, single_jamba=single_jamba,
-                single_frontends=single_frontends, reference_frontends=reference_frontends)
+                single_frontends=single_frontends, reference_frontends=reference_frontends,
+                single_xlstm=single_xlstm, reference_xlstm=reference_xlstm)
 
 
 def _ranks(n, ranks4, served):
@@ -493,6 +541,22 @@ def _to_numpy(tree):
     return tree.float().numpy()
 
 
+def _leaf_blocks(cfg):
+    """The block kind ``shard_axis`` reads (``layer_block``: an xLSTM layer's
+    kind, else None) of every leaf of ``cfg``'s tree, in ``_leaves``
+    order."""
+    def walk(tree, key, block):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from walk(v, k, block)
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from walk(v, key, layer_block(cfg, key, i, block))
+        else:
+            yield block
+    return list(walk(param_shapes(cfg), "", None))
+
+
 def _sharded_tree_checks(cfg, n):
     """``init_params(tp=(r, n))`` draws the single-rank tree and keeps rank
     r's slice; ``shard_params`` slices a numpy tree the same way; either
@@ -506,9 +570,10 @@ def _sharded_tree_checks(cfg, n):
     np_tree = _to_numpy(model.init_params(device="cpu", seed=3))
     np_shards = [list(_leaves(shard_params(np_tree, cfg, r, n))) for r in range(n)]
     local = list(_leaves(param_shapes(cfg.tp_shard(n))))
-    assert len(local) == len(full)
+    blocks = _leaf_blocks(cfg)
+    assert len(local) == len(full) == len(blocks)
     for i, (parent, key, t) in enumerate(full):
-        axis = shard_axis(parent, key)
+        axis = shard_axis(parent, key, blocks[i])
         parts = [s[i][2] for s in shards]
         assert all(tuple(p.shape) == local[i][2] for p in parts), (parent, key)
         if axis is None:
@@ -551,6 +616,23 @@ def test_frontend_sharded_params_concatenate_to_single_rank_tree(arch, n):
     assert sharded.count(None) == cfg.n_layers        # each ln
     assert sharded.count(-1) == 3 * cfg.n_layers and sharded.count(-2) == cfg.n_layers
     assert all(shard_axis(p, k) is None for p, k, _ in _leaves(tree["enc_norm"]))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_xlstm_sharded_params_concatenate_to_single_rank_tree(n):
+    """``_sharded_tree_checks`` on reduced xlstm at d_model 384: the mLSTM
+    leaves by d_inner (``up``, ``z``, conv, ``norm`` by columns; ``wq``,
+    ``wk``, ``wv``, ``wi``, ``wf.w``, ``down`` by rows, as the reference's
+    ``mlstm_specs``), the sLSTM FF (``ff_up``, ``ff_gate`` by columns,
+    ``ff_down`` by rows), every other sLSTM leaf whole."""
+    cfg = reduced_config(get_config("xlstm-125m"), d_model=XLSTM_D)
+    full = _sharded_tree_checks(cfg, n)
+    blocks = _leaf_blocks(cfg)
+    slstm = [(p, k) for (p, k, _), b in zip(full, blocks) if b == "slstm"
+             and shard_axis(p, k, b) is None]
+    assert len(slstm) == 11   # ln1, norm, four gates, the forget bias, four r*
+    assert [shard_axis(p, k, b) for (p, k, _), b in zip(full, blocks)
+            if b == "mlstm"].count(-2) == 6
 
 
 def test_configs_that_do_not_shard_are_refused():
@@ -720,6 +802,64 @@ def test_jamba_engine_tokens_identical_on_ranks(served):
         passes = n_pre + n_dec
         assert (tp["all_gather"], tp["all_reduce"], tp["all_to_all"]) == (
             2 * R * n_pre, R * n_dec + (mamba + moe) * passes, 0), tp
+
+
+def test_xlstm_prefill_logits_at_tp2(served):
+    """Reduced xlstm on 2 ranks (each with half of the mLSTM heads and of the
+    sLSTM FF): a whole-prompt prefill's logits within rel-L2 1e-5 of the
+    single-rank port's, dense and compressed (``down`` and ``ff_down``
+    compressed between the ranks; the q/k/v/i/f partial all-reduced in
+    fp32)."""
+    for name, want in served["single_xlstm"]["logits"].items():
+        got = [r["xlstm"]["logits"][name] for r in served["ranks"]]
+        assert np.array_equal(got[0], got[1]), name
+        assert np.isfinite(got[0]).all() and got[0].shape == want.shape
+        assert np.linalg.norm(got[0] - want) / np.linalg.norm(want) <= 1e-5, name
+
+
+def test_xlstm_rank_holds_its_shard_and_the_whole_slstm(served):
+    """Each rank's mLSTM core holds half the channels and every row-sharded
+    weight's half of its rows; the sLSTM core's gates, recurrent matrices
+    and norm have the single-rank shapes, its FF half the columns."""
+    one_m, one_s = served["single_xlstm"]["core_shapes"]
+    for r in served["ranks"]:
+        m, s = r["xlstm"]["core_shapes"]
+        assert m["up"]["w"] == (one_m["up"]["w"][0], one_m["up"]["w"][1] // 2)
+        assert m["wq"]["w"] == (one_m["wq"]["w"][0] // 2, one_m["wq"]["w"][1])
+        assert m["wf"]["b"] == one_m["wf"]["b"] and m["down"]["w"][0] * 2 == one_m["down"]["w"][0]
+        for k in ("wz", "wi", "wf", "wo", "rz", "ri", "rf", "ro", "norm"):
+            assert s[k] == one_s[k], k
+        assert s["ff_up"]["w"][1] * 2 == one_s["ff_up"]["w"][1] == 512
+        assert s["ff_down"]["w"][0] * 2 == one_s["ff_down"]["w"][0]
+
+
+def test_xlstm_engine_tokens_identical_on_ranks(served):
+    """Tokens, steps and dispatches equal on both ranks, to the single-rank
+    engine (``simulate_tp=2``) and to the reference Engine; no pools; the
+    collectives of every whole-prompt prefill (compressed: ``down`` and
+    ``ff_down``) and batched decode (dense) exact, with one dense
+    all-reduce per mLSTM layer and pass for its q/k/v/i/f partial."""
+    case = "xlstm-whole-fp4"
+    cfg = served["job"]["xlstm"]["cfg"]
+    R, M = cfg.n_layers, sum(s.kind == "mlstm" for s in cfg.layers)
+    one = served["single_xlstm"][case]["runs"][0]
+    ref = served["reference_xlstm"][0]
+    assert one["outputs"] == ref["outputs"]
+    assert {k: one["summary"][k] for k in SUMMARY_KEYS} == ref["summary"]
+    for r in served["ranks"]:
+        c = r["xlstm"][case]
+        run = c["runs"][0]
+        assert run["outputs"] == one["outputs"]
+        assert all(o == "ok" for o in run["outcomes"]) and run["finite"]
+        assert {k: run["summary"][k] for k in SUMMARY_KEYS} == ref["summary"]
+        assert c["slab_bytes"] == c["pool_bytes"] == 0 and c["tp_size"] == 2
+        s, tp = run["summary"], run["tp"]
+        n_pre = s["n_dispatches"] - s["n_steps"]     # one prefill + insert per admission
+        assert n_pre == 2 * len(served["job"]["xlstm"]["cases"][case]["traffic"])
+        n_pre //= 2
+        passes = n_pre + s["n_steps"]
+        assert (tp["all_gather"], tp["all_reduce"], tp["all_to_all"]) == (
+            2 * R * n_pre, R * s["n_steps"] + M * passes, 0), tp
 
 
 @pytest.mark.parametrize("key", list(FRONTENDS))

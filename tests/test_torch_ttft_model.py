@@ -27,6 +27,7 @@ from repro_torch.core.formats import ELEMENT_FORMATS, MXSpec
 from repro_torch.core.policy import PAPER_DEFAULT
 from repro_torch.launch import ttft_table
 from repro_torch.serving import ttft
+from tests.test_torch_families import undercount
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKS = (8, 16, 32, 64, 128, 256)
@@ -43,10 +44,11 @@ def test_ttft_breakdown_equals_reference(hw, arch):
     hw_t, hw_j = ttft.HARDWARE[hw], jttft.HARDWARE[hw]
     assert dataclasses.asdict(hw_t) == dataclasses.asdict(hw_j)
     # the compute term reads the port's active parameter count, which holds
-    # what the reference's leaves out of a Mamba layer, a vision prefix and
-    # an encoder-decoder (0 for the rest;
+    # what the reference's leaves out of a Mamba layer, a vision prefix, an
+    # encoder-decoder and xLSTM layers, and nothing else (0 for the rest;
     # tests/test_torch_families.py::test_param_count_matches_reference)
     gap = cfg_t.active_param_count() - cfg_j.active_param_count()
+    assert gap == undercount(cfg_t)
     for tp in (2, 4, 8):
         extra = lambda tokens: 2.0 * gap * tokens / (tp * hw_t.peak_flops * hw_t.mfu)
         for spec_t, spec_j in ((None, None), (PAPER_DEFAULT.spec, J_PAPER_DEFAULT.spec)):
@@ -64,13 +66,17 @@ def test_ttft_breakdown_equals_reference(hw, arch):
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_row_reductions_equal_reference(arch):
-    """Two a decoder layer; an encoder-decoder adds each decoder layer's
-    cross-attention ``wo`` and each encoder layer's two (whisper: 120)."""
+    """Two a decoder layer, one an xLSTM layer (mLSTM ``down``, sLSTM
+    ``ff_down``: xlstm-125m 12); an encoder-decoder adds each decoder
+    layer's cross-attention ``wo`` and each encoder layer's two (whisper:
+    120)."""
     cfg = get_config(arch)
     n = ttft._n_row_reductions(cfg)
     enc = cfg.n_layers + 2 * cfg.n_encoder_layers if cfg.encoder_decoder else 0
-    assert n == jttft._n_row_reductions(j_get_config(arch)) == 2 * cfg.n_layers + enc
+    per_layer = sum(1 if sp.kind in ("mlstm", "slstm") else 2 for sp in cfg.layers)
+    assert n == jttft._n_row_reductions(j_get_config(arch)) == per_layer + enc
     assert arch != "whisper-medium" or n == 120
+    assert arch != "xlstm-125m" or n == 12
 
 
 @pytest.mark.parametrize("hw", sorted(jttft.HARDWARE))

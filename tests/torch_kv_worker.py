@@ -115,7 +115,7 @@ def run_case(model, params, ctx: TPContext, device, case: dict) -> dict:
               for p in pool_planes(pk, pv)]
     res["slab_rows"] = sorted({p.shape[0] for p in planes})
     res["slab_bytes"] = sum(p.numel() * p.element_size() for p in planes)
-    res["planes_per_layer"] = len(planes) // len(eng._state["pools_k"])
+    res["planes_per_layer"] = len(planes) // max(1, len(eng._state["pools_k"]))
     cross = eng._state.get("cross_k", []) + eng._state.get("cross_v", [])
     res["cross_bytes"] = sum(t.numel() * t.element_size() for t in cross)
     res["cross_widths"] = sorted({t.shape[-1] for t in cross})

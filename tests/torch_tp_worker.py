@@ -6,10 +6,12 @@ processes, and the JAX reference runs in the test process.
 collective probe on this rank's partials, then (when the job has them) the
 refusals, one mixed step's logits and every engine case, and the same for
 the job's MoE model (``job["moe"]``), its Mamba + MoE hybrid
-(``job["jamba"]``), its vision-prefix model (``job["pixtral"]``) and its
-encoder-decoder (``job["whisper"]``); the last three give a whole-prompt
-prefill's logits (no mixed step serves them), the last two with their
-extra inputs (``logit_extra``, and ``extra`` in each engine case). The test
+(``job["jamba"]``), its vision-prefix model (``job["pixtral"]``), its
+encoder-decoder (``job["whisper"]``) and its xLSTM stack (``job["xlstm"]``);
+the last four give a whole-prompt prefill's logits (no mixed step serves
+them), pixtral and whisper with their extra inputs (``logit_extra``, and
+``extra`` in each engine case). Each model also reports the shapes of
+every layer's ``core`` this rank holds (``core_shapes``). The test
 process calls ``run_tp_cases(None, ...)`` itself for the port's single-rank
 engine, so both run the same code.
 """
@@ -169,7 +171,9 @@ def run_tp_cases(group, device, cfg, params_np, job) -> dict:
     runs over ``simulate_tp=2``). Each engine case also returns the pool
     bytes this process holds and the TP counters by run."""
     model, params = _params(group, cfg, params_np, device)
-    out = {"logits": {}}
+    shapes = lambda node: ({k: shapes(v) for k, v in node.items()} if isinstance(node, dict)
+                           else tuple(node.shape))
+    out = {"logits": {}, "core_shapes": [shapes(lp["core"]) for lp in params["layers"]]}
     tokens = job["logit_tokens"]
     if recurrent_layer(cfg) is None and not frontend_shapes(cfg, 1):
         probe = mixed_logits
@@ -210,14 +214,14 @@ def _refusals(group, cfg, params_np) -> dict:
 def run_rank(group, rank: int, device, job: dict) -> dict:
     """The ``spawn_ranks`` target: the collective probe, then (when ``job``
     carries a model) the refusals and the engine cases, and those of the
-    MoE, hybrid, vision-prefix and encoder-decoder models, on this TP
-    rank."""
+    MoE, hybrid, vision-prefix, encoder-decoder and xLSTM models, on this
+    TP rank."""
     out = {"collectives": run_collectives(group, rank, job["probe"]),
            "transport": C.transport(group)}
     if "cfg" in job:
         out["refusals"] = _refusals(group, job["cfg"], job["params"])
         out["cases"] = run_tp_cases(group, device, job["cfg"], job["params"], job)
-    for key in ("moe", "jamba", "pixtral", "whisper"):
+    for key in ("moe", "jamba", "pixtral", "whisper", "xlstm"):
         if key in job:
             m = job[key]
             out[key] = run_tp_cases(group, device, m["cfg"], m["params"], m)
