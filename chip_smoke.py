@@ -179,15 +179,22 @@ Phases (any failure exits non-zero):
               Prints the exchange's MB and ms per step and TPOT p50 sharded
               against replicated (one card, gloo, host-staged: not NVLink)
               and each rank's peak device memory. Sharded engines run eager
-              steps (a graph cannot hold the host-staged exchange).
+              steps (a graph cannot hold the host-staged exchange). Then
+              jamba-v0.1-52b's layers 0-4 (its first attention layer is
+              layer 4) and xlstm-125m at full depth, whole-prompt on fp4
+              pools, on the same 2 ranks (``KV_STACKS``): tokens identical
+              to the replicated engine's, half the attention pools and the
+              whole recurrent state per rank.
 9. tp       — tensor parallelism across ranks (``phase_tp``, after phase 7):
-              llama2-7b at full width and depth on 2 ranks, (a) mixed on
+              llama2-7b at full width on its first 16 layers on 2
+              ranks, (a) mixed on
               fp4 pools under PAPER_DEFAULT, (b) mixed on bf16 pools under
               two_phase, (c) split on bf16 pools with overlap_chunks=4, (d)
               whole-prompt prefill on fp4 pools, and the prefix cache on fp4
               pools cold then warm, (e) corrupt@3 supervised on fp4 pools,
               (f) measure_ttft at 512 tokens, compressed and uncompressed;
-              llama2-13b (Table 3's 13b) at full width and depth on 4 ranks,
+              llama2-13b (Table 3's 13b) at full width on its first 10
+              layers on 4 ranks,
               (a) and (f); mixtral-8x22b at full width cut to 2 layers on 2
               ranks, (a): each rank holds half of every expert's d_ff (its
               routed-expert bytes held to half), and one dense all-reduce
@@ -219,6 +226,26 @@ Phases (any failure exits non-zero):
               the same partials (gather, two_phase). Prints the transport,
               the collectives, MB and host ms per step, the requests whose
               tokens equal the simulated run's, TPOT and TTFT.
+10. dp      — data-parallel ranks and the MoE expert-parallel island
+              (``phase_dp``, after phase 9): mixtral-8x22b at full width on
+              the layers four ranks' shards fit (``grid_depth``: 13 of 56
+              with 84 GB free) and llama4-maverick on its first 2 layers,
+              each on a 2 x 2 data x model grid of ranks sharing the card
+              (gloo, host-staged, eager steps): each rank holds its model
+              rank's half of the heads and of the d_ff of its data rank's
+              half of the experts. The split scheduler over 128 slots, 8
+              requests of 64 + 8 tokens on fp4 pools, compressed
+              (PAPER_DEFAULT, the decode compressed too), dense, and
+              compressed with compressed all-to-alls: every decode step
+              runs the island in each MoE layer (its down partials reduced
+              by the paper's compressed collective), chunks never do.
+              Held: the four ranks' tokens identical, launches and
+              collectives exact per rank, island entries = MoE layers x
+              decode steps (a run that never enters it fails), a quarter
+              of the routed experts' bytes per rank. Prints the island's
+              down, all-to-all and data all-gather MB per decode step
+              against the dense run's, and TPOT. ``--phase dp [arch ...]``
+              runs it alone (NCCL and graphed steps with a card per rank).
 8. graphs   — (run right after phase 5, on its weights and prompts) an eager
               twin (``cuda_graphs=False``) of phase 5's graphed mixed fp4 and
               bf16, split bf16 and whole-prompt fp4 runs: greedy tokens
@@ -239,7 +266,8 @@ Phases (any failure exits non-zero):
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --phase
 tp [arch ...]`` builds the kernels and runs phase 9 alone (on a machine with
-a card per rank, over NCCL), for the named ``TP_MODELS`` or all of them.
+a card per rank, over NCCL), for the named ``TP_MODELS`` or all of them;
+``--phase dp [arch ...]`` phase 10 likewise (``DP_MODELS``).
 Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -654,8 +682,14 @@ def codec_tp(torch, dev, g, fp4, same, timed):
     pixtral-12b on 2 ranks, the prefix-plus-prompt partial (256 + 64,
     5120) of the phase's prefill and its S = 2 shards; xlstm-125m on 2
     ranks, the partial (64, 768) of the phase's prompts and (512, 768) of
-    its measure_ttft prefill, and their S = 2 shards. Each exact against
-    the plain version and timed."""
+    its measure_ttft prefill, and their S = 2 shards; at one rank of the dp
+    phase's 2 x 2 grid (``DP_MODELS``), the island's ``down`` partial (dp,
+    E/dp, C, d) of a DP_SLOTS-row decode step (mixtral (160, 6144), llama4
+    (128, 5120); under ``compress_all_to_all`` its dispatch and combine
+    tensors are the same shape, quantized and dequantized), its S = 2
+    gathered shards and the dequantize of a received all-to-all. Each exact
+    against the plain version and timed."""
+    from repro_torch.configs import get_config
     from repro_torch.core.mx import MXCompressed
     from repro_torch.kernels import mx_dequant, mx_quant
 
@@ -667,7 +701,10 @@ def codec_tp(torch, dev, g, fp4, same, timed):
                      (1, 1500, 1024, "whisper-medium TP 2 encoder partial"),
                      (1, 256 + SHARD_PROMPT, 5120, "pixtral-12b TP 2 prefix-plus-prompt partial"),
                      (1, SHARD_PROMPT, 768, "xlstm-125m TP 2 prompt partial"),
-                     (1, TP_TTFT, 768, "xlstm-125m TP 2 measure_ttft partial")],
+                     (1, TP_TTFT, 768, "xlstm-125m TP 2 measure_ttft partial")]
+        + [(1, island_rows(get_config(a)), get_config(a).d_model,
+            f"{a} 2 x 2 grid island down partial (dp, E/dp, C, d), also the "
+            f"compress_all_to_all dispatch and combine tensor") for a in DP_MODELS],
         "mx_dequant_reduce": [(2, T, 4096, "llama2-7b TP 2 gathered shards"),
                               (2, T, 2048, "llama2-7b TP 2 two_phase received slices"),
                               (4, T, 5120, "llama2-13b TP 4 gathered shards"),
@@ -675,8 +712,13 @@ def codec_tp(torch, dev, g, fp4, same, timed):
                               (2, 256 + SHARD_PROMPT, 5120,
                                "pixtral-12b TP 2 prefix-plus-prompt gathered shards"),
                               (2, SHARD_PROMPT, 768, "xlstm-125m TP 2 prompt gathered shards"),
-                              (2, TP_TTFT, 768, "xlstm-125m TP 2 measure_ttft gathered shards")],
-        "mx_dequant": [(1, 2 * T, 2048, "llama2-7b TP 2 two_phase gathered slices")],
+                              (2, TP_TTFT, 768, "xlstm-125m TP 2 measure_ttft gathered shards")]
+        + [(2, island_rows(get_config(a)), get_config(a).d_model,
+            f"{a} 2 x 2 grid island down gathered shards") for a in DP_MODELS],
+        "mx_dequant": [(1, 2 * T, 2048, "llama2-7b TP 2 two_phase gathered slices")]
+        + [(1, island_rows(get_config(a)), get_config(a).d_model,
+            f"{a} 2 x 2 grid island compress_all_to_all received tensor (dp, E/dp, C, d)")
+           for a in DP_MODELS],
     }
     out = {}
     for name, rows in sites.items():
@@ -1601,8 +1643,18 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
     pools (``eng.kv_shards > 1``) the count also holds ``all_reduce``, the
     exchange's: per paged read and per COW fork one for each pool plane of
     each attention layer (K and V; payload and scales of each on fp4
-    pools)."""
+    pools). On a ``data x model`` grid (``eng.dp_size > 1``) a split decode
+    step whose slot width meets the island gate (``moe.uses_island``) runs
+    the expert-parallel island in each MoE layer: under ``ctx_decode``'s
+    policy its ``down`` reduction is one more compressed reduction (one
+    ``mx_quant`` + one ``mx_dequant_reduce`` per chunk, two all-gathers
+    per chunk) or one dense all-reduce, and under ``compress_all_to_all``
+    its two all-to-alls add two ``mx_quant`` and two ``mx_dequant``; any
+    other pass of a MoE layer whose data rank holds a share of the experts
+    sums their partials with two dense all-reduces (model group, data
+    group)."""
     from repro_torch.core.collectives import _overlap_chunks
+    from repro_torch.models.moe import uses_island
 
     q, s = eng.cache_spec.quantized, stats
     check(len(eng.cfg.layers) == n_layers, f"expected_launches: {n_layers} layers, the engine "
@@ -1627,7 +1679,7 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
                "mx_dequant": red * two + (L * 2 * (n_c + n_d) if q else 0),
                "paged_attention": L * (n_c + n_d)}
         reads, forks = s.n_steps, s.n_dispatches - s.n_steps
-        n_whole = 0
+        n_whole = n_dec = 0
     else:
         n_chunk = sum(1 for p, _ in s.step_tokens if p)
         n_dec = sum(1 for _, d in s.step_tokens if d)
@@ -1643,11 +1695,24 @@ def expected_launches(eng, stats, n_layers: int) -> dict:
                "paged_attention": L * (n_chunk + n_dec)}
         reads = n_chunk + n_dec
         forks = s.n_dispatches - reads - 2 * n_whole
+    # the island: split decode steps of a grid whose slot width meets its gate
+    moe_l, dp = moe_layers(eng.cfg), eng.dp_size
+    island = (moe_l * n_dec if not eng.token_budget and moe_l
+              and uses_island(eng.cfg, dp, eng.n_slots, eng.n_slots) else 0)
+    dec_policy = eng.ctx_decode.policy
+    isl_c = island * dec_policy.enabled * dec_policy.compress_tp_reduce
+    isl_a2a = island * dec_policy.enabled * dec_policy.compress_all_to_all
+    out["mx_quant"] += isl_c * k + 2 * isl_a2a
+    out["mx_dequant_reduce"] += isl_c * k
+    out["mx_dequant"] += 2 * isl_a2a
+    sharded = dp > 1 and eng.cfg.n_experts % dp == 0
+    moe_ar = (moe_l * passes - island) * (1 + sharded) + island - isl_c
     if eng.kv_shards > 1:
         out["all_reduce"] = L * planes * (reads + forks)
     if tp:   # per compressed reduction: payload and scales (per chunk); per dense one
-        out.update(tp_all_gather=red * (2 if two else 2 * k), tp_all_to_all=red * 2 * two,
-                   tp_all_reduce=dense + M * passes,
+        out.update(tp_all_gather=(red + isl_c) * (2 if two else 2 * k),
+                   tp_all_to_all=red * 2 * two,
+                   tp_all_reduce=dense + (M - moe_l) * passes + moe_ar,
                    tp_dense_all_gather=n_whole * (eng.cfg.frontend == "vision"))
     return out
 
@@ -2346,10 +2411,52 @@ def sharded_serve(torch, dev, group, model, params, label):
     return runs, totals
 
 
-def _sharded_rank(group, rank, dev, cfg):
+# the whole-prompt stacks of phase 7 -> layers served (None: all): jamba's
+# layers 0-4 hold its first attention layer (so its pools shard), and both
+# ranks hold the whole model on the one card
+KV_STACKS = {"jamba-v0.1-52b": 5, "xlstm-125m": None}
+
+
+def sharded_whole(torch, dev, group, model, params, label):
+    """A whole-prompt stack's run on this kv rank of ``group`` (None: the
+    replicated engine it is held to): ``whole/fp4_e2m1`` under
+    PAPER_DEFAULT over simulate_tp = 4, SLOTS requests of SHARD_PROMPT +
+    SHARD_NEW tokens, held as ``serve_run`` holds it. Each rank holds half
+    of the attention pools (none for a stack without attention) and the
+    whole recurrent state. Returns (runs, totals)."""
+    import numpy as np
+
+    from repro_torch.core.policy import PAPER_DEFAULT
+    from repro_torch.core.tp import TPContext
+    from repro_torch.serving import Engine
+    from repro_torch.serving.kv_cache import recurrent_state_bytes
+
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, SHARD_PROMPT).astype(np.int32)
+               for _ in range(SLOTS)]
+    runs, totals = {}, {k: 0 for k in KERNELS}
+    eng = Engine(model, params, TPContext(policy=PAPER_DEFAULT, simulate_tp=TP, kv_group=group),
+                 max_slots=SLOTS, max_len=SHARD_PROMPT + SHARD_NEW, block_size=BS,
+                 prefill_chunk=0, cache_spec="fp4_e2m1", device=dev)
+    name = f"{label}{cfg.name} whole/fp4_e2m1"
+    serve_run(torch, dev, runs, totals, cfg.n_layers, name, eng, prompts, new=SHARD_NEW)
+    b = pool_bytes_held(eng)
+    rec = sum(t.numel() * t.element_size() for c in eng._state["rec"] for t in c)
+    check(b == eng.kv_pool_bytes(per_device=True) == eng.kv_pool_bytes() // eng.kv_shards
+          and rec == recurrent_state_bytes(cfg, SLOTS),
+          f"{name}: this rank holds {b} pool bytes of {eng.kv_pool_bytes()} and {rec} bytes "
+          f"of recurrent state, not 1/{eng.kv_shards} and the whole "
+          f"{recurrent_state_bytes(cfg, SLOTS)}")
+    runs[name].update(pool_bytes_held=b, rec_bytes_held=rec)
+    return runs, totals
+
+
+def _sharded_rank(group, rank, dev, cfg, stacks):
     """One kv rank of ``phase_sharded``: open the kernels the parent built,
-    draw ``cfg``'s seed-0 weights, serve ``sharded_serve``'s runs. Only
-    rank 0 prints."""
+    draw ``cfg``'s seed-0 weights, serve ``sharded_serve``'s runs, then
+    each whole-prompt stack of ``stacks`` (arch -> config) in turn
+    (``sharded_whole``). Only rank 0 prints."""
     import torch
 
     from repro_torch.kernels.build import load_kernels
@@ -2365,11 +2472,22 @@ def _sharded_rank(group, rank, dev, cfg):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     runs, totals = sharded_serve(torch, dev.type, group, model, params, "sharded ")
-    return dict(runs=runs, totals=totals, device=str(dev),
-                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    for arch, scfg in stacks.items():
+        del model, params
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        model = Model(scfg)
+        params = model.init_params(device=dev, seed=0)
+        r, t = sharded_whole(torch, dev.type, group, model, params, "sharded ")
+        runs.update(r)
+        for k in totals:
+            totals[k] += t[k]
+    return dict(runs=runs, totals=totals, device=str(dev), peak_gb=peak)
 
 
-def phase_sharded(torch, card, dev="cuda", cfg=None):
+def phase_sharded(torch, card, dev="cuda", cfg=None, stack_cfgs=None):
     """llama2-7b at full width and depth on KV_RANKS kv ranks sharing the one
     card (processes over gloo; the exchange is staged through the host), its
     runs held to the replicated engine's in this process on the same weights
@@ -2380,10 +2498,15 @@ def phase_sharded(torch, card, dev="cuda", cfg=None):
     replicated engine admits, which must refuse it. Prints the exchange's
     bytes and ms per step, TPOT p50 sharded against replicated, and each
     rank's peak device memory. (``dev="cpu"`` and a reduced ``cfg``
-    rehearse it on the CPU.)"""
+    rehearse it on the CPU, with ``stack_cfgs`` giving the whole-prompt
+    stacks' reduced configs by arch, or False for none.) Then
+    jamba-v0.1-52b's layers 0-4 and xlstm-125m at full depth
+    (``KV_STACKS``), whole-prompt on fp4 pools (``sharded_whole``), on the
+    same 2 ranks: tokens identical to the replicated engine's, half the
+    pool bytes and the whole recurrent state per rank."""
     import numpy as np
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import first_layers, get_config
     from repro_torch.core.policy import PAPER_DEFAULT
     from repro_torch.core.tp import TPContext
     from repro_torch.launch.mesh import spawn_ranks
@@ -2421,9 +2544,26 @@ def phase_sharded(torch, card, dev="cuda", cfg=None):
     if cuda:
         torch.cuda.empty_cache()
 
+    # the whole-prompt stacks, replicated in this process first
+    if stack_cfgs is None:
+        stacks = {arch: first_layers(get_config(arch), n or 0) for arch, n in KV_STACKS.items()}
+    else:
+        stacks = dict(stack_cfgs or {})
+    for arch, scfg in stacks.items():
+        smodel = Model(scfg)
+        sparams = smodel.init_params(device=dev, seed=0)
+        r, t = sharded_whole(torch, dev, None, smodel, sparams, "replicated ")
+        rep.update(r)
+        for k in totals:
+            totals[k] += t[k]
+        del smodel, sparams
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
-    ranks = spawn_ranks(_sharded_rank, KV_RANKS, cfg, device=dev, timeout_s=900,
-                           threads=0 if cuda else 2)
+    ranks = spawn_ranks(_sharded_rank, KV_RANKS, cfg, stacks, device=dev, timeout_s=900,
+                        threads=0 if cuda else 2)
     wall = time.perf_counter() - t0
     log(f"sharded: {KV_RANKS} kv ranks on {card} over gloo (exchange staged through host "
         f"memory: one card, not NVLink), {wall:.1f} s with start-up")
@@ -2473,9 +2613,12 @@ def phase_sharded(torch, card, dev="cuda", cfg=None):
 # schedule's first N at full width); traffic as phase 7's: SLOTS requests of
 # SHARD_PROMPT + SHARD_NEW tokens
 TP_MODELS = {
+    # llama2 at full width on its first 16 and 10 layers: each layer repeats
+    # the same reductions, and a step staged through host memory pays per
+    # layer (the script's time limit)
     "llama2-7b": (2, ("mixed/fp4_e2m1", "two_phase/bf16", "split-overlap4/bf16",
-                      "whole/fp4_e2m1", "prefix/fp4_e2m1", "corrupt@3/fp4_e2m1", "ttft"), None),
-    "llama2-13b": (4, ("mixed/fp4_e2m1", "ttft"), None),
+                      "whole/fp4_e2m1", "prefix/fp4_e2m1", "corrupt@3/fp4_e2m1", "ttft"), 16),
+    "llama2-13b": (4, ("mixed/fp4_e2m1", "ttft"), 10),
     "mixtral-8x22b": (2, ("mixed/fp4_e2m1",), 2),
     # layers 0-4: Mamba, Mamba + MoE twice, then attention (about 14.3 GB)
     "jamba-v0.1-52b": (2, ("whole/fp4_e2m1",), 5),
@@ -2776,8 +2919,8 @@ def rel_l2(a, b) -> float:
 
 def phase_tp(torch, card, dev="cuda", cfg=None):
     """Tensor parallelism across ranks (``TP_MODELS``): llama2-7b at full
-    width and depth on 2 ranks, runs (a)-(f) of ``tp_serve``; llama2-13b
-    on 4 ranks, runs (a) and (f). Each model's single-rank engine over
+    width on its first 16 layers on 2 ranks, runs (a)-(f) of ``tp_serve``;
+    llama2-13b on its first 10 on 4 ranks, runs (a) and (f). Each model's single-rank engine over
     ``simulate_tp = n`` runs first in this process on the same seed-0
     weights and prompts and is freed; then n ranks (spawned processes:
     NCCL with a card each, else gloo with the exchanges staged through host
@@ -2946,6 +3089,249 @@ def phase_tp(torch, card, dev="cuda", cfg=None):
                        for r in ranks],
             peak_gb=[r["peak_gb"] for r in ranks], weight_gb=ranks[0]["weight_gb"])
     log(f"tp: card {card}")
+    return out, totals
+
+
+# ------------------------------------------------------------------------- dp
+
+DP_GRID = (2, 2)   # (data, model) ranks on the one card: make_host_mesh(data=2, model=2)
+DP_SLOTS = 128     # the split decode's batch: above 64 and even, so it enters the island
+# the dp phase's models -> layers served (None: the depth ``grid_depth`` finds)
+DP_MODELS = {"mixtral-8x22b": None, "llama4-maverick-400b-a17b": 2}
+DP_RUNS = ("compressed", "dense", "compressed-a2a")   # the island's policies, in order
+CONTEXT_GB = 0.6   # a process's CUDA context and allocator slack on the card
+
+
+def dp_policy(run):
+    """PAPER_DEFAULT, NO_COMPRESSION, or PAPER_DEFAULT with compressed
+    all-to-alls."""
+    import dataclasses
+
+    from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
+
+    if run == "dense":
+        return NO_COMPRESSION
+    return dataclasses.replace(PAPER_DEFAULT, compress_all_to_all=run == "compressed-a2a")
+
+
+def island_rows(cfg) -> int:
+    """Rows of the island's ``down`` partial (dp, E/dp, C, d) at one rank of
+    the dp phase: dp x E/dp x the capacity of DP_SLOTS / dp tokens."""
+    from repro_torch.models.moe import capacity
+
+    return cfg.n_experts * capacity(cfg, DP_SLOTS // DP_GRID[0])
+
+
+def grid_rank_bytes(cfg) -> int:
+    """bf16 bytes of the weights one rank of the DP_GRID holds: its TP
+    shard of its data rank's experts (``param_shapes`` of the rank-local
+    config)."""
+    from repro_torch.models.model import param_shapes
+
+    return 2 * sum(math.prod(shape) for shape in
+                   _leaves(param_shapes(cfg.tp_shard(DP_GRID[1], DP_GRID[0]))))
+
+
+def grid_depth(torch, dev, cfg, margin_gb=8.0):
+    """The largest prefix of ``cfg``'s schedule whose weights on the
+    DP_GRID's ranks (``grid_rank_bytes`` each), their pools and CUDA
+    contexts and ``margin_gb`` fit the card's free memory (``cfg`` itself
+    on the CPU). Returns (config, free bytes)."""
+    from repro_torch.configs import first_layers
+
+    if dev != "cuda":
+        return cfg, None
+    free = torch.cuda.mem_get_info()[0]
+    ranks = DP_GRID[0] * DP_GRID[1]
+    blocks = DP_SLOTS * (-(-(SHARD_PROMPT + SHARD_NEW) // BS)) + 1
+
+    def need(n):
+        prefix = first_layers(cfg, n)
+        pools = 2 * blocks * BS * cfg.kv_dim // DP_GRID[1] * 2 * attn_layers(prefix)
+        return ranks * (grid_rank_bytes(prefix) + pools + CONTEXT_GB * 1e9) + margin_gb * 1e9
+
+    n = cfg.n_layers
+    while n > 1 and need(n) > free:
+        n -= 1
+    return first_layers(cfg, n), free
+
+
+def dp_serve(torch, dev, grid, model, params):
+    """The dp phase's runs of ``model`` on this rank of the grid: the split
+    scheduler with DP_SLOTS slots on fp4 pools, SLOTS requests of
+    SHARD_PROMPT + SHARD_NEW tokens, under each policy of DP_RUNS (the
+    decode compressed too when the policy is), each held as ``serve_run``
+    holds it (launches and collectives exact, the island's included).
+    Returns (runs, totals); each run adds its decode steps and the island's
+    counters."""
+    import numpy as np
+
+    from repro_torch.core.tp import TPContext
+    from repro_torch.serving import Engine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, SHARD_PROMPT).astype(np.int32)
+               for _ in range(2 * SLOTS)]
+    runs, totals = {}, {k: 0 for k in KERNELS}
+    for run in DP_RUNS:
+        policy = dp_policy(run)
+        ctx = TPContext(policy=policy, tp_group=grid.tp_group, dp_group=grid.dp_group)
+        eng = Engine(model, params, ctx, max_slots=DP_SLOTS, max_len=SHARD_PROMPT + SHARD_NEW,
+                     block_size=BS, prefill_chunk=CHUNK, token_budget=0, cache_spec="fp4_e2m1",
+                     compress_decode=policy.enabled, device=dev)
+        name = f"dp {run}"
+        serve_run(torch, dev, runs, totals, cfg.n_layers, name, eng, prompts, new=SHARD_NEW)
+        runs[name]["n_decode_steps"] = sum(1 for _, d in eng.stats.step_tokens if d)
+        runs[name]["transport"] = eng.ctx.transport
+        runs[name]["pool_bytes_held"] = pool_bytes_held(eng)
+        del eng
+    return runs, totals
+
+
+def _dp_rank(grid, rank, dev, cfg):
+    """One rank of ``phase_dp``'s grid: open the kernels the parent built,
+    draw its shard of ``cfg``'s seed-0 weights (its model rank's columns of
+    its data rank's experts), serve ``dp_serve``'s runs. Only rank 0
+    prints."""
+    import torch
+
+    from repro_torch.kernels.build import load_kernels
+    from repro_torch.models.model import Model
+
+    _QUIET[0] = rank != 0
+    cuda = dev.type == "cuda"
+    if cuda:
+        load_kernels(build=False)
+    model = Model(cfg)
+    params = model.init_params(device=dev, seed=0, tp=(grid.tp_rank, grid.tp),
+                               dp=(grid.dp_rank, grid.dp))
+    weight_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    runs, totals = dp_serve(torch, dev.type, grid, model, params)
+    return dict(runs=runs, totals=totals, device=str(dev), weight_gb=weight_gb,
+                expert_bytes=expert_bytes(params), grid=(grid.dp_rank, grid.tp_rank),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+
+
+def phase_dp(torch, card, dev="cuda", cfg=None):
+    """Data-parallel ranks and the MoE expert-parallel island (``DP_MODELS``):
+    each model at full width on a 2 x 2 ``data x model`` grid of ranks
+    (``spawn_ranks(..., tp=2)``; with one card the ranks share it over
+    gloo, every exchange staged through host memory, eager steps; with a
+    card per rank NCCL and graphed steps), mixtral-8x22b on
+    the largest prefix of its schedule the four ranks' shards fit
+    (``grid_depth``) and llama4-maverick on its first 2 layers (a dense
+    layer, then a MoE layer of 128 experts); each rank holds its model
+    rank's half of the heads and of every expert's ``d_ff`` for its data
+    rank's half of the experts. The split scheduler with DP_SLOTS slots
+    serves SLOTS x 2 requests of SHARD_PROMPT + SHARD_NEW tokens on fp4
+    pools under each of DP_RUNS: every decode step (DP_SLOTS rows in 2
+    groups) runs the island in each MoE layer, whose ``down`` partials are
+    reduced by the paper's compressed collective under PAPER_DEFAULT
+    (compressed, compressed-a2a: the decode compresses too) and whose
+    dispatch and combine all-to-alls are compressed under
+    ``compress_all_to_all``; chunks (one batch row) sum the experts'
+    partials densely. Held: the four ranks' tokens identical in every run,
+    launches and collectives exact per rank (``expected_launches``), the
+    island entered in every MoE layer of every decode step (a run without
+    an island entry fails), each rank holding a quarter of the routed
+    experts' bytes. Prints per step the island's ``down`` bytes, the
+    all-to-alls' and the data all-gather's bytes against the dense run's,
+    and TPOT. (``dev="cpu"`` and a reduced ``cfg`` rehearse it.)"""
+    from repro_torch.configs import first_layers, get_config
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cuda = dev == "cuda"
+    totals = {k: 0 for k in KERNELS}
+    out = {}
+    dp, tp = DP_GRID
+    for arch, layers in DP_MODELS.items():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        full = cfg or get_config(arch)
+        if layers:
+            mcfg, free = first_layers(full, layers), None
+        else:
+            mcfg, free = grid_depth(torch, dev, full)
+        moe_l = moe_layers(mcfg)
+        esize = 2 if mcfg.dtype == "bfloat16" else 4
+        whole_experts = esize * moe_l * mcfg.n_experts * 3 * mcfg.d_model * mcfg.d_ff
+        log(f"dp[{arch}]: {mcfg.n_layers} of {full.n_layers} layers ({moe_l} MoE) at d_model "
+            f"{mcfg.d_model} on a {dp} x {tp} data x model grid of ranks ({card})"
+            + (f"; {free / 1e9:.1f} GB free, {grid_rank_bytes(mcfg) / 1e9:.2f} GB of weights a "
+               f"rank" if free else ""))
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_dp_rank, dp * tp, mcfg, device=dev, timeout_s=900,
+                            threads=0 if cuda else 1, tp=tp)
+        wall = time.perf_counter() - t0
+        check([r["grid"] for r in ranks] == [(d, m) for d in range(dp) for m in range(tp)],
+              f"dp[{arch}]: ranks sit at {[r['grid'] for r in ranks]} on the grid")
+        for i, r in enumerate(ranks):
+            check(r["expert_bytes"] * dp * tp == whole_experts,
+                  f"dp[{arch}]: rank {i} holds {r['expert_bytes']} routed-expert bytes, not "
+                  f"1/{dp * tp} of {whole_experts}")
+            for k in totals:
+                totals[k] += r["totals"][k]
+        transport = ranks[0]["runs"]["dp dense"]["transport"]
+        where = ("NCCL, one card per rank, graphed steps" if transport == "nccl" else
+                 "gloo, exchanges staged through host memory, eager steps"
+                 + (", the ranks share one card, not NVLink" if cuda else ""))
+        log(f"dp[{arch}]: {dp * tp} ranks ({where}), {wall:.1f} s with start-up; "
+            f"{ranks[0]['weight_gb']:.2f} GB of weights a "
+            f"rank, {ranks[0]['expert_bytes'] / 1e9:.2f} GB of it routed experts (1/{dp * tp} "
+            f"of {whole_experts / 1e9:.2f} GB)")
+        dense = ranks[0]["runs"]["dp dense"]
+        for run in DP_RUNS:
+            got = [r["runs"][f"dp {run}"] for r in ranks]
+            for i, g in enumerate(got):
+                check(g["outputs"] == got[0]["outputs"],
+                      f"dp[{arch}] {run}: rank {i}'s tokens differ from rank 0's")
+            g = got[0]
+            c, n_dec = g["tp"], g["n_decode_steps"]
+            steps = max(g["summary"]["n_steps"], 1)
+            check(n_dec > 0 and c["island"] == moe_l * n_dec > 0,
+                  f"dp[{arch}] {run}: {c['island']} island entries in {n_dec} decode steps of "
+                  f"{moe_l} MoE layers")
+            check(c["dp_all_gather"] == c["island"]
+                  and c["compressed_all_to_all"] == 2 * c["island"] * (run == "compressed-a2a")
+                  and c["dense_all_to_all"] == 2 * c["island"] * (run != "compressed-a2a"),
+                  f"dp[{arch}] {run}: collectives {c}")
+            if run != "dense":
+                check(c["island_down_bytes"] < dense["tp"]["island_down_bytes"],
+                      f"dp[{arch}] {run}: the island's down reductions sent "
+                      f"{c['island_down_bytes']} bytes, the dense run's "
+                      f"{dense['tp']['island_down_bytes']}")
+            a2a = c["compressed_all_to_all_bytes"] + c["dense_all_to_all_bytes"]
+            a2a_d = dense["tp"]["dense_all_to_all_bytes"]
+            per = lambda b: b / max(n_dec, 1) / 1e6
+            log(f"dp[{arch}] {run}: tokens identical on {dp * tp} ranks; {c['island']} island "
+                f"entries ({moe_l} MoE layers x {n_dec} decode steps of {DP_SLOTS} rows); per "
+                f"decode step a rank sent {per(c['island_down_bytes']):.3f} MB in the "
+                f"island's down reductions (dense {per(dense['tp']['island_down_bytes']):.3f}), "
+                f"{per(a2a):.3f} MB in its all-to-alls (dense {per(a2a_d):.3f}), "
+                f"{per(c['dp_all_gather_bytes']):.3f} MB in data all-gathers (dense "
+                f"{per(dense['tp']['dp_all_gather_bytes']):.3f}); all collectives "
+                f"{c['bytes'] / steps / 1e6:.3f} MB and {c['seconds'] / steps * 1e3:.2f} ms host "
+                f"per step; TPOT p50 {g['summary']['tpot_p50_s'] * 1e3:.2f} ms; launches "
+                f"{g['launches']}")
+            same = sum(a == b for a, b in zip(g["outputs"], dense["outputs"]))
+            g["same_as_dense"] = same
+            if run != "dense":
+                log(f"dp[{arch}] {run}: {same} of {len(g['outputs'])} requests decode the "
+                    f"dense run's tokens")
+        for i, r in enumerate(ranks):
+            log(f"dp[{arch}]: rank {i} ({r['device']}) peak device memory "
+                + (f"{r['peak_gb']:.2f} GB" if cuda else "not measured (no card)"))
+        out[arch] = dict(layers=mcfg.n_layers, moe_layers=moe_l, wall_s=wall,
+                         transport=transport, weight_gb=ranks[0]["weight_gb"],
+                         island_rows=island_rows(mcfg),
+                         runs={run: ranks[0]["runs"][f"dp {run}"] for run in DP_RUNS},
+                         peak_gb=[r["peak_gb"] for r in ranks])
+    log(f"dp: card {card}")
     return out, totals
 
 
@@ -3161,6 +3547,21 @@ def main() -> int:
                           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:3] == ["--phase", "dp"]:
+        # the dp phase alone, for the DP_MODELS named after it or all of them
+        unknown = set(sys.argv[3:]) - set(DP_MODELS)
+        check(not unknown, f"--phase dp: not in DP_MODELS: {sorted(unknown)}")
+        for a in [a for a in DP_MODELS if sys.argv[3:] and a not in sys.argv[3:]]:
+            del DP_MODELS[a]
+        dp, _ = phase_dp(torch, card)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_dp.json").write_text(json.dumps({"card": card, "dp": dp},
+                                                               indent=1, default=str))
+        print(json.dumps({"ok": True, "phase": "dp",
+                          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}}))
+        return 0
     info = phase_kernels(torch)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3178,6 +3579,9 @@ def main() -> int:
     tp, tp_totals = phase_tp(torch, card)
     for k in totals:
         totals[k] += tp_totals[k]
+    dp, dp_totals = phase_dp(torch, card)
+    for k in totals:
+        totals[k] += dp_totals[k]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=totals[n],
@@ -3196,7 +3600,7 @@ def main() -> int:
         for r in info["paged_attention"]["geometries"]]
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_seconds(), "builder": builder(), "kernels": info,
-         "serve": runs, "families": families, "sharded": sharded, "tp": tp,
+         "serve": runs, "families": families, "sharded": sharded, "tp": tp, "dp": dp,
          "launches": totals,
          "ttft_model": ttft_model},
         indent=1, default=str))

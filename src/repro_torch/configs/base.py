@@ -114,6 +114,12 @@ class ModelConfig:
         return self.d_model
 
     @property
+    def local_experts(self) -> int:
+        """Routed experts whose weights this config holds: ``n_experts``
+        (a data rank's ``n_experts / dp`` on a data group, ``RankConfig``)."""
+        return self.n_experts
+
+    @property
     def q_dim(self) -> int:
         return self.n_heads * self.head_dim
 
@@ -187,9 +193,12 @@ class ModelConfig:
             n += self.n_layers * (attn + d)                          # cross-attention + norm
         return n
 
-    def tp_shard(self, n: int) -> "ModelConfig":
-        """The rank-local view of this config on a TP group of ``n`` ranks
-        (a ``RankConfig``): ``n_heads / n`` query heads, ``n_kv_heads / n``
+    def tp_shard(self, n: int, dp: int = 1) -> "ModelConfig":
+        """The rank-local view of this config on a TP group of ``n`` ranks,
+        in one of ``dp`` data ranks of a ``data x model`` grid (a
+        ``RankConfig``): ``n_experts / dp`` routed experts when ``dp``
+        divides them (the reference's expert-parallel ``moe_specs``), else
+        every expert; ``n_heads / n`` query heads, ``n_kv_heads / n``
         kv heads, ``d_ff / n`` MLP columns and ``ssm_d_inner / n`` Mamba
         channels; ``head_dim``, ``d_model``, ``dt_rank``, ``ssm_d_state``,
         the vocabulary and a vision prefix's or an encoder's fields
@@ -209,9 +218,11 @@ class ModelConfig:
         layers) ``d_inner`` and (with a vision prefix, whose ``mm_proj``
         shards by output columns) ``d_model`` divide over the ranks and each
         rank's ``q_dim``, ``d_ff``, mLSTM ``d_inner`` and sLSTM FF width are
-        multiples of the policies' MX block (32). ``n = 1`` is the config
-        itself."""
-        if n == 1:
+        multiples of the policies' MX block (32). With ``n = 1`` and no
+        experts split over data ranks it is the config itself."""
+        experts = (self.n_experts // dp if dp > 1 and self.n_experts
+                   and self.n_experts % dp == 0 else self.n_experts)
+        if n == 1 and experts == self.n_experts:
             return self
         block_size = 32
         q_local = self.q_dim // n if self.n_heads % n == 0 else 0
@@ -245,7 +256,7 @@ class ModelConfig:
                           mm_proj_cols_local=self.d_model // n,
                           mlstm_d_inner_local=self.mlstm_d_inner // n,
                           mlstm_heads_local=self.mlstm_heads // n,
-                          slstm_ff_local=self.slstm_ff // n)
+                          slstm_ff_local=self.slstm_ff // n, local_experts_n=experts)
 
     def active_param_count(self) -> int:
         """Params touched per token: a MoE layer counts only its ``top_k``
@@ -263,14 +274,20 @@ class RankConfig(ModelConfig):
     its ``mlstm_d_inner`` / ``mlstm_heads`` this rank's mLSTM channels and
     heads and its ``slstm_ff`` this rank's sLSTM FF columns, all of which
     the reference derives from ``d_model`` and ``n_heads`` (kept whole on a
-    rank). Fields of its own, so ``ModelConfig`` keeps exactly the
-    reference's fields."""
+    rank), and its ``local_experts`` the routed experts of this data rank.
+    Fields of its own, so ``ModelConfig`` keeps exactly the reference's
+    fields."""
 
     ssm_d_inner_local: int = 0
     mm_proj_cols_local: int = 0
     mlstm_d_inner_local: int = 0
     mlstm_heads_local: int = 0
     slstm_ff_local: int = 0
+    local_experts_n: int = 0
+
+    @property
+    def local_experts(self) -> int:
+        return self.local_experts_n
 
     @property
     def ssm_d_inner(self) -> int:

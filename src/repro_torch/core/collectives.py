@@ -32,17 +32,25 @@ reference's column-parallel ``P(d, model)``, uncompressed there too). The
 codec runs through ``kernels/ops.py``: the hand-written kernels on the
 card, their plain versions on the CPU.
 
+The MoE expert-parallel island (``models/moe.py``, over a data group):
+``compressed_all_to_all`` moves its dispatch and combine tensors in MX form
+(the reference's ``collectives.py:343-363``: quantize along the last axis,
+all-to-all the payload and the scales, dequantize), ``dense_all_to_all``
+moves them in their own dtype, and ``dp_all_gather`` puts the data ranks'
+row groups back together after the combine.
+
 Transport: ``wire`` stages a tensor through host memory when the group is a
 gloo group and the tensor lives on the card (ranks sharing a card), and
 returns it as it is under NCCL (one card per rank) or on the CPU; each
 collective's result goes back to the tensor's device. ``tp_counts`` counts
 the rank collectives (all-gathers, all-to-alls, all-reduces, dense
 all-gathers, the bytes this rank puts into them and the host seconds they
-take), ``exchange_counts`` the sequence-sharded pools' ``masked_owner_psum``
-calls.
+take; the island's all-to-alls, data all-gathers and entries under keys of
+their own), ``exchange_counts`` the sequence-sharded pools'
+``masked_owner_psum`` calls.
 
 Left out (see ROADMAP.md): the straight-through-estimator gradient
-(training) and ``compressed_all_to_all`` (MoE dispatch).
+(training).
 """
 from __future__ import annotations
 
@@ -62,7 +70,8 @@ from repro_torch.kernels import ops
 
 __all__ = ["compressed_psum", "psum", "psum_maybe_compressed", "rank_compressed_psum",
            "rank_psum", "rank_all_gather", "compressed_all_gather", "check_stacked",
-           "masked_owner_psum", "wire", "transport",
+           "masked_owner_psum", "wire", "transport", "compressed_all_to_all",
+           "dense_all_to_all", "dp_all_gather", "count_island",
            "exchange_counts", "reset_exchange_counts", "tp_counts", "reset_tp_counts",
            "recorded_collectives", "add_tp_counts", "reset_downgrade_warnings"]
 
@@ -70,12 +79,19 @@ __all__ = ["compressed_psum", "psum", "psum_maybe_compressed", "rank_compressed_
 # contributes, and host seconds spent in them (each call ends synchronized
 # when staged through the host)
 _EXCHANGE: Dict[str, float] = {"all_reduce": 0, "bytes": 0, "seconds": 0.0}
-# the rank collectives of the TP group since the last reset: calls by kind
-# (``dense_all_gather``: ``rank_all_gather``, with its own bytes), the bytes
-# this rank puts into them all (its input tensors) and host seconds
+# the rank collectives of the TP and data groups since the last reset: calls
+# by kind (``dense_all_gather``: ``rank_all_gather``; the MoE island's
+# ``compressed_all_to_all`` / ``dense_all_to_all`` and ``dp_all_gather``, each
+# with its own bytes), the bytes this rank puts into them all (its input
+# tensors) and host seconds; ``island``: MoE layers that ran the
+# expert-parallel island, ``island_down_bytes`` what their ``down``
+# reductions sent
 _TP: Dict[str, float] = {"all_gather": 0, "all_to_all": 0, "all_reduce": 0,
-                         "dense_all_gather": 0, "dense_all_gather_bytes": 0, "bytes": 0,
-                         "seconds": 0.0}
+                         "dense_all_gather": 0, "dense_all_gather_bytes": 0,
+                         "compressed_all_to_all": 0, "compressed_all_to_all_bytes": 0,
+                         "dense_all_to_all": 0, "dense_all_to_all_bytes": 0,
+                         "dp_all_gather": 0, "dp_all_gather_bytes": 0,
+                         "island": 0, "island_down_bytes": 0, "bytes": 0, "seconds": 0.0}
 
 
 def exchange_counts() -> Dict[str, float]:
@@ -89,12 +105,16 @@ def reset_exchange_counts() -> None:
 
 
 def tp_counts() -> Dict[str, float]:
-    """The TP group's collectives since the last reset: ``all_gather``,
-    ``all_to_all``, ``all_reduce`` calls (of the compressed and the dense
-    reductions), ``dense_all_gather`` calls (``rank_all_gather``) and the
-    ``dense_all_gather_bytes`` this rank put into them, ``bytes`` this rank
-    put into all of them and host ``seconds`` (staging included; under NCCL
-    the enqueue only)."""
+    """The TP and data groups' collectives since the last reset:
+    ``all_gather``, ``all_to_all``, ``all_reduce`` calls (of the compressed
+    and the dense reductions), ``dense_all_gather`` calls
+    (``rank_all_gather``) and the ``dense_all_gather_bytes`` this rank put
+    into them; the MoE island's ``compressed_all_to_all`` and
+    ``dense_all_to_all`` calls and ``dp_all_gather`` calls, each with its
+    ``*_bytes``, and its entries (``island``) with the bytes its ``down``
+    reductions sent (``island_down_bytes``); ``bytes`` this rank put into
+    all of them and host ``seconds`` (staging included; under NCCL the
+    enqueue only)."""
     return dict(_TP)
 
 
@@ -130,6 +150,13 @@ def _count(kind: str, t: torch.Tensor, t0: float) -> None:
     _TP[kind] += 1
     _TP["bytes"] += t.numel() * t.element_size()
     _TP["seconds"] += time.perf_counter() - t0
+
+
+def count_island(down_bytes: int) -> None:
+    """One MoE layer ran the expert-parallel island; its ``down`` reduction
+    sent ``down_bytes``."""
+    _TP["island"] += 1
+    _TP["island_down_bytes"] += down_bytes
 
 
 def transport(group) -> str:
@@ -282,14 +309,19 @@ def _all_gather(t: torch.Tensor, group, kind: str = "all_gather") -> torch.Tenso
     return out.to(t.device)
 
 
-def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+def _all_to_all(t: torch.Tensor, group, kind: Optional[str] = "all_to_all") -> torch.Tensor:
     """``t`` ``(N, ...)``: slice i goes to rank i; returns ``(N, ...)`` whose
-    slice j came from rank j."""
+    slice j came from rank j. Counted under ``kind`` (None: only its bytes
+    and seconds; the caller counts the call)."""
     t0 = time.perf_counter()
     w = wire(t, group)
     out = torch.empty_like(w)
     dist.all_to_all_single(out, w, group=group)
-    _count("all_to_all", w, t0)
+    if kind is None:
+        _TP["bytes"] += w.numel() * w.element_size()
+        _TP["seconds"] += time.perf_counter() - t0
+    else:
+        _count(kind, w, t0)
     return out.to(t.device)
 
 
@@ -420,6 +452,42 @@ def compressed_all_gather(x: torch.Tensor, group, spec: MXSpec, *,
     outs = [ops.mx_dequantize(w, spec, out_dtype=x.dtype)
             for w in _gather_staged(comps, group)]
     return outs[0] if n_chunks == 1 else torch.cat(outs, dim=-1)
+
+
+def compressed_all_to_all(x: torch.Tensor, group, spec: MXSpec) -> torch.Tensor:
+    """The MoE island's compressed exchange (the reference's
+    ``compressed_all_to_all`` with ``split_axis = concat_axis = 0``): ``x``
+    ``(N, ..., F)``, slice i for rank i, quantized along the last axis; the
+    payload and the scales go through one ``all_to_all_single`` each and the
+    received ``(N, ..., F)`` (slice j from rank j) is dequantized to
+    ``x``'s dtype. Counted as one ``compressed_all_to_all`` with the bytes
+    of both."""
+    comp = ops.mx_quantize(x, spec)
+    before = _TP["bytes"]
+    recv = MXCompressed(_all_to_all(comp.payload, group, None),
+                        _all_to_all(comp.scales, group, None))
+    _TP["compressed_all_to_all"] += 1
+    _TP["compressed_all_to_all_bytes"] += _TP["bytes"] - before
+    return ops.mx_dequantize(recv, spec, out_dtype=x.dtype)
+
+
+def dense_all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """The MoE island's exchange in ``x``'s own dtype: ``x`` ``(N, ...)``,
+    slice i for rank i; returns slice j from rank j. One
+    ``dense_all_to_all``."""
+    before = _TP["bytes"]
+    out = _all_to_all(x, group, "dense_all_to_all")
+    _TP["dense_all_to_all_bytes"] += _TP["bytes"] - before
+    return out
+
+
+def dp_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every data rank's rows ``x`` ``(M, ...)`` stacked in rank order,
+    ``(N * M, ...)``, moved in ``x``'s dtype: the island's row groups made
+    whole on every rank (one ``dp_all_gather``)."""
+    out = _all_gather(x, group, "dp_all_gather")
+    _TP["dp_all_gather_bytes"] += x.numel() * x.element_size()
+    return out.reshape(-1, *x.shape[1:])
 
 
 def psum_maybe_compressed(partials: torch.Tensor,

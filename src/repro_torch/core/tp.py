@@ -27,6 +27,15 @@ the row-parallel reductions the paper compresses:
 The two are exclusive, and a TP group does not compose with a kv group yet
 (the reference's ``kv x model`` mesh; ROADMAP.md): such a context raises.
 
+Data-parallel ranks (the reference's ``data`` mesh axis): ``dp_group`` is a
+``torch.distributed`` group of the ``dp_size`` ranks that hold the same TP
+shard (one column of a ``data x model`` grid; ``tp_group`` is its row). Every
+data rank runs the whole engine on the same requests and computes every row
+outside the MoE layers; a MoE layer that meets the reference's island gate
+splits its tokens into ``dp_size`` groups, and data rank g routes group g
+through its ``E / dp_size`` experts (``models/moe.py``). A data group does
+not compose with a kv group either.
+
 Sequence-sharded pools (the reference's kv mesh axis): ``TPContext.kv_group``
 is a ``torch.distributed`` process group of ``kv_shards`` ranks, each of
 which runs the whole model and holds a contiguous slab of ``per_shard =
@@ -67,17 +76,19 @@ class TPContext:
                              # contractions into N quantized partial sums
     kv_group: Any = None     # torch.distributed ProcessGroup of the kv ranks
     tp_group: Any = None     # torch.distributed ProcessGroup of the TP ranks
+    dp_group: Any = None     # torch.distributed ProcessGroup of the data ranks
 
     def __post_init__(self):
-        if self.tp_group is not None and self.simulate_tp > 1:
+        ranks = self.tp_group is not None or self.dp_group is not None
+        if ranks and self.simulate_tp > 1:
             raise ValueError(
-                f"simulate_tp={self.simulate_tp} with a tp_group: a context either "
-                f"simulates TP on one card or runs it across ranks, not both")
-        if self.tp_group is not None and self.kv_group is not None:
+                f"simulate_tp={self.simulate_tp} with a tp_group or dp_group: a context "
+                f"either simulates TP on one card or runs it across ranks, not both")
+        if ranks and self.kv_group is not None:
             raise ValueError(
-                "a tp_group with a kv_group (sequence-sharded pools under tensor "
-                "parallelism, the reference's kv x model mesh) is not ported yet: "
-                "see ROADMAP.md Queue 1")
+                "a tp_group or dp_group with a kv_group (sequence-sharded pools on a "
+                "data x model grid, the reference's kv x data x model mesh) is not "
+                "ported yet: see ROADMAP.md Queue 1 item 1 (tp x kv)")
 
     @property
     def kv_shards(self) -> int:
@@ -104,10 +115,21 @@ class TPContext:
         return dist.get_rank(self.tp_group) if self.tp_group is not None else 0
 
     @property
+    def dp_size(self) -> int:
+        """Ranks of the data group (1 without one)."""
+        return dist.get_world_size(self.dp_group) if self.dp_group is not None else 1
+
+    @property
+    def dp_rank(self) -> int:
+        """This process's rank in ``dp_group`` (0 without one)."""
+        return dist.get_rank(self.dp_group) if self.dp_group is not None else 0
+
+    @property
     def transport(self) -> Optional[str]:
         """How the group of ranks moves bytes: ``"nccl"`` or
         ``"gloo-staged"`` (``launch/mesh.py``); None without a group."""
-        group = self.tp_group if self.tp_group is not None else self.kv_group
+        group = next((g for g in (self.tp_group, self.dp_group, self.kv_group)
+                      if g is not None), None)
         return None if group is None else transport(group)
 
     def without_compression(self) -> "TPContext":

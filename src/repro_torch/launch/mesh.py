@@ -1,8 +1,13 @@
 """Groups of ranks: the port's counterpart of the reference's meshes (a mesh
 axis there, a ``torch.distributed`` process group of ranks here). One group
-kind serves both of the port's axes: the kv group of sequence-sharded paged
-pools (``TPContext.kv_group``) and the tensor-parallel group
-(``TPContext.tp_group``).
+kind serves the port's axes: the kv group of sequence-sharded paged pools
+(``TPContext.kv_group``), the tensor-parallel group (``TPContext.tp_group``)
+and, on a ``data x model`` grid (``spawn_ranks(..., tp=M)``: the
+reference's ``make_host_mesh(data=D, model=M)``), the data group
+(``TPContext.dp_group``): rank ``r = d * M + m`` sits in row d (its model
+group, ranks ``d*M .. d*M + M - 1``) and column m (its data group, ranks
+``m, M + m, ...``); ``init_group`` makes one ``new_group`` per row and per
+column, and a one-rank row or column is no group (None).
 
 Each rank is one process. Every rank calls ``init_group`` with the same
 ``init_method`` (a ``file://`` path or ``tcp://localhost:<port>``) and its
@@ -24,6 +29,7 @@ Nothing switches transport after a failure: a collective that fails raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import multiprocessing
 import os
@@ -38,7 +44,7 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["backend_for", "init_group", "spawn_ranks"]
+__all__ = ["Grid", "backend_for", "init_group", "spawn_ranks"]
 
 
 GROUP_TIMEOUT_S = 300.0   # a collective that waits longer raises instead of hanging
@@ -53,13 +59,43 @@ def backend_for(world: int, device: str | torch.device) -> str:
     return "gloo"
 
 
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This rank's place on a ``data x model`` grid of ``dp * tp`` ranks:
+    its model group (``tp_group``, its row; None when ``tp == 1``) and its
+    data group (``dp_group``, its column; None when ``dp == 1``), and its
+    rank in each."""
+
+    tp_group: Any
+    dp_group: Any
+    tp: int
+    dp: int
+    tp_rank: int
+    dp_rank: int
+
+
+def _grid(world: int, rank: int, tp: int) -> Grid:
+    """The rows and columns of a grid of ``world`` ranks, ``tp`` wide: every
+    rank makes every group, in the same order (``new_group`` is collective)."""
+    if tp < 1 or world % tp:
+        raise ValueError(f"a grid of {world} ranks has no rows of {tp}")
+    dp = world // tp
+    rows = [dist.new_group(list(range(d * tp, (d + 1) * tp))) if tp > 1 else None
+            for d in range(dp)]
+    cols = [dist.new_group(list(range(m, world, tp))) if dp > 1 else None
+            for m in range(tp)]
+    d, m = divmod(rank, tp)
+    return Grid(tp_group=rows[d], dp_group=cols[m], tp=tp, dp=dp, tp_rank=m, dp_rank=d)
+
+
 def init_group(world: int, rank: int, init_method: str,
-               device: str = "cuda") -> Tuple[Any, torch.device]:
+               device: str = "cuda", tp: int = 0) -> Tuple[Any, torch.device]:
     """Join a group of ``world`` ranks as ``rank``: initialise
     ``torch.distributed`` with the backend ``backend_for`` picks and return
-    (the group, this rank's device). The device is ``cuda:rank`` under
-    NCCL, ``cuda:(rank % device_count)`` under gloo (raising when there is
-    no card), or the CPU when ``device="cpu"``."""
+    (the group, this rank's device); with ``tp`` > 0, (this rank's ``Grid``
+    on a ``data x model`` grid ``tp`` wide, the device). The device is
+    ``cuda:rank`` under NCCL, ``cuda:(rank % device_count)`` under gloo
+    (raising when there is no card), or the CPU when ``device="cpu"``."""
     if world < 2:
         raise ValueError(f"a group needs at least 2 ranks, got {world}")
     if not 0 <= rank < world:
@@ -71,15 +107,15 @@ def init_group(world: int, rank: int, init_method: str,
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
-    return dist.group.WORLD, dev
+    return (_grid(world, rank, tp) if tp else dist.group.WORLD), dev
 
 
 def _rank_entry(rank: int, fn: Callable, world: int, init_method: str, device: str,
-                threads: int, args: tuple, results) -> None:
+                threads: int, tp: int, args: tuple, results) -> None:
     try:
         if threads:
             torch.set_num_threads(threads)
-        group, dev = init_group(world, rank, init_method, device=device)
+        group, dev = init_group(world, rank, init_method, device=device, tp=tp)
         try:
             out = fn(group, rank, dev, *args)
         finally:
@@ -90,11 +126,12 @@ def _rank_entry(rank: int, fn: Callable, world: int, init_method: str, device: s
 
 
 def spawn_ranks(fn: Callable, world: int, *args, device: str = "cuda", threads: int = 0,
-                timeout_s: float = 900.0) -> List[Any]:
+                timeout_s: float = 900.0, tp: int = 0) -> List[Any]:
     """Run ``fn(group, rank, device, *args)`` on ``world`` ranks, each a new
     process (``spawn``) that joins one group (``init_group``; ``file://``
     rendezvous in a new temporary directory), and return what each rank
-    returned, by rank. ``fn`` and ``args`` must pickle, and ``fn`` must live
+    returned, by rank. With ``tp`` > 0 the ranks form a ``data x model``
+    grid ``tp`` wide and ``fn`` gets its ``Grid`` in place of the group. ``fn`` and ``args`` must pickle, and ``fn`` must live
     in a module the ranks can import. ``threads`` > 0 sets each rank's torch
     threads. A rank that raises or dies, or no answer from every rank
     within ``timeout_s``, stops every rank and raises here (with the rank's
@@ -104,7 +141,7 @@ def spawn_ranks(fn: Callable, world: int, *args, device: str = "cuda", threads: 
     with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_entry,
-                             args=(r, fn, world, init, device, threads, args, results))
+                             args=(r, fn, world, init, device, threads, tp, args, results))
                  for r in range(world)]
         for p in procs:
             p.start()

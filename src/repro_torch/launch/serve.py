@@ -66,6 +66,20 @@ and ``down`` reductions compressed between the ranks) and a vision model's
 ``mm_proj`` its output columns, made whole by one dense all-gather a
 prefill; every rank draws the same extra inputs from ``--seed``, and the
 report adds the dense all-gathers and their bytes.
+
+``--dp D`` with ``--tp M`` serves on a ``data x model`` grid of ``D x M``
+ranks (the reference's ``make_host_mesh(data=D, model=M)``; rank ``d * M +
+m``): each row is a TP group, each column a data group. Every rank runs the
+engine on the same requests with its TP shard of the weights and of the
+pools (replicated over the data ranks); a MoE model's data rank holds ``E /
+D`` experts when D divides E, and a MoE call of more than 64 tokens in D
+groups of whole batch rows runs the expert-parallel island, its ``down``
+reductions reduced as the split decode's context says (the engine's
+default: uncompressed). In the engine that is the split scheduler's decode
+with ``--slots`` above 64 and divisible by D, so give ``--token-budget
+0``. The report adds the island's entries and the bytes of its reductions,
+all-to-alls and data all-gathers per step. ``--dp`` does not
+combine with ``--shard-pools`` or ``--simulate-tp``.
 """
 from __future__ import annotations
 
@@ -113,6 +127,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor parallelism over this many ranks (processes; NCCL with "
                          "a card per rank, else gloo staged through host memory)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ranks: with --tp M, a data x model grid of dp x M "
+                         "ranks (the MoE expert-parallel island across the data ranks)")
     ap.add_argument("--min-prefill-fraction", type=float, default=0.5,
                     help="per-step compression gate: a step runs compressed only "
                          "when at least this fraction of its real tokens are prefill")
@@ -158,24 +175,27 @@ def main(argv=None):
     1`` (None, the tokens of each rank's requests, by rank)."""
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
-    if args.tp > 1 and args.shard_pools > 1:
-        raise ValueError("--tp with --shard-pools (the kv x model mesh) is not ported yet")
-    if args.tp > 1 and args.simulate_tp:
-        raise ValueError("--tp runs tensor parallelism across ranks; --simulate-tp "
+    if (args.tp > 1 or args.dp > 1) and args.shard_pools > 1:
+        raise ValueError("--tp or --dp with --shard-pools (the kv x data x model mesh) is not "
+                         "ported yet")
+    if (args.tp > 1 or args.dp > 1) and args.simulate_tp:
+        raise ValueError("--tp and --dp run tensor parallelism across ranks; --simulate-tp "
                          "simulates it on one device: give one of them")
-    ranks = max(args.tp, args.shard_pools)
+    ranks = max(args.tp * args.dp, args.shard_pools)
+    kind = "grid" if args.dp > 1 else ("tp" if args.tp > 1 else "kv")
     if ranks > 1:
         if args.stagger or args.deadline_ms or args.ttft_deadline_ms:
-            raise ValueError("--shard-pools and --tp run every rank's scheduler in lockstep: "
-                             "--stagger and deadlines read each rank's own clock")
+            raise ValueError("--shard-pools, --tp and --dp run every rank's scheduler in "
+                             "lockstep: --stagger and deadlines read each rank's own clock")
         if device.type == "cuda":
             load_kernels()   # one build, before the ranks load it
         # on the CPU the ranks share its cores: no rank takes them all
         threads = 0 if device.type == "cuda" else max(1, (os.cpu_count() or 2) // ranks)
-        outs = spawn_ranks(_serve_rank, ranks, args, device=device.type, threads=threads)
+        outs = spawn_ranks(_serve_rank, ranks, args, device=device.type, threads=threads,
+                           tp=args.tp if args.dp > 1 else 0)
         if any(o != outs[0] for o in outs[1:]):
-            raise RuntimeError(f"{'tp' if args.tp > 1 else 'kv'} ranks sampled different tokens")
-        print(f"{'tp' if args.tp > 1 else 'kv'} ranks: all {ranks} sampled identical tokens")
+            raise RuntimeError(f"{kind} ranks sampled different tokens")
+        print(f"{kind} ranks: all {ranks} sampled identical tokens")
         return None, outs
     return _serve(args, device)
 
@@ -185,16 +205,19 @@ def _serve_rank(group, rank: int, device: torch.device, args) -> list:
     built, serve, return the requests' tokens."""
     if device.type == "cuda":
         load_kernels(build=False)
-    if args.tp > 1:
+    if args.dp > 1:   # a Grid: this rank's row and column
+        _, out = _serve(args, device, tp_group=group.tp_group, dp_group=group.dp_group)
+    elif args.tp > 1:
         _, out = _serve(args, device, tp_group=group)
     else:
         _, out = _serve(args, device, kv_group=group)
     return [r.output.tolist() for r in out]
 
 
-def _serve(args, device: torch.device, kv_group=None, tp_group=None):
-    """The serving run of ``main`` on ``device`` (on one rank of ``kv_group``
-    or ``tp_group`` when given: only rank 0 prints)."""
+def _serve(args, device: torch.device, kv_group=None, tp_group=None, dp_group=None):
+    """The serving run of ``main`` on ``device`` (on one rank of ``kv_group``,
+    ``tp_group`` or a grid's ``tp_group`` and ``dp_group`` when given: only
+    rank 0 prints)."""
     full = get_config(args.arch)
     # reduced: at least one layer of each kind the schedule has (jamba: 3)
     kinds = len({(sp.kind, sp.moe, sp.window is not None) for sp in full.layers})
@@ -205,14 +228,17 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
         spec=MXSpec.make("fp4_e2m1", 32, "e8m0"), variant=args.variant,
         min_prefill_fraction=args.min_prefill_fraction,
         overlap_chunks=args.overlap_chunks)
-    simulate = 0 if tp_group is not None else (4 if args.simulate_tp is None
-                                               else args.simulate_tp)
-    ctx = TPContext(policy=policy, simulate_tp=simulate, kv_group=kv_group, tp_group=tp_group)
-    print_ = print if ctx.kv_rank == 0 and ctx.tp_rank == 0 else (lambda *a, **k: None)
+    ranked = tp_group is not None or dp_group is not None
+    simulate = 0 if ranked else (4 if args.simulate_tp is None else args.simulate_tp)
+    ctx = TPContext(policy=policy, simulate_tp=simulate, kv_group=kv_group, tp_group=tp_group,
+                    dp_group=dp_group)
+    print_ = (print if ctx.kv_rank == 0 and ctx.tp_rank == 0 and ctx.dp_rank == 0
+              else (lambda *a, **k: None))
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     variant = policy.variant if policy.enabled else "none"
-    if tp_group is not None:
-        tp = f"tp={ctx.tp_size} transport={ctx.transport}"
+    if ranked:
+        tp = (f"tp={ctx.tp_size}" + (f" dp={ctx.dp_size}" if dp_group is not None else "")
+              + f" transport={ctx.transport}")
         if ctx.transport == "gloo-staged" and device.type == "cuda":
             tp += " (ranks share a card: exchanges staged through host memory, eager steps)"
         ignored = f" overlap_chunks={args.overlap_chunks}" if args.overlap_chunks != 1 else ""
@@ -228,7 +254,12 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
                f"shared={cfg.n_shared_experts} capacity_factor={cfg.capacity_factor}; "
                f"{n_moe} MoE of {cfg.n_layers} layers served (of {full.n_layers} in the "
                f"config); routed experts reduced "
-               + ("by one all-reduce per MoE layer" if tp_group is not None
+               + (f"in the expert-parallel island over {ctx.dp_size} data ranks "
+                  f"({cfg.tp_shard(1, ctx.dp_size).local_experts} experts a data rank) on "
+                  f"calls of more than 64 tokens in {ctx.dp_size} groups, else by dense "
+                  f"all-reduces"
+                  if dp_group is not None else
+                  "by one all-reduce per MoE layer" if tp_group is not None
                   else "unsplit (simulate_tp splits only the row-parallel layers)"))
     n_mamba = sum(spec.kind == "mamba" for spec in cfg.layers)
     if n_mamba:
@@ -258,7 +289,8 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
                f"stand-ins from --seed) in each prefill; {cfg.n_layers} cross-attention "
                f"sublayers, their wo reduced by the policy; whole-prompt prefill")
 
-    params = model.init_params(device=device, seed=args.seed, tp=(ctx.tp_rank, ctx.tp_size))
+    params = model.init_params(device=device, seed=args.seed, tp=(ctx.tp_rank, ctx.tp_size),
+                               dp=(ctx.dp_rank, ctx.dp_size))
     fault_plan = FaultPlan.parse(args.fault_plan, seed=args.seed)
     engine = Engine(model, params, ctx, max_slots=args.slots,
                     max_len=n_prefix + args.prompt_len + args.new_tokens,
@@ -323,7 +355,7 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
         print_(f"prefix cache: {s['prefill_tokens_skipped']} prompt tokens skipped "
                f"(hit rate {s['prefix_hit_rate']:.2f})")
     print_(f"preemptions: {s['n_preemptions']}")
-    if tp_group is not None:
+    if ranked:
         c, n = tp_counts(), max(s["n_steps"], 1)
         dense = (f", {c['dense_all_gather']} dense all-gathers of the vision prefix "
                  f"({c['dense_all_gather_bytes'] / 1e6:.3f} MB)"
@@ -332,6 +364,15 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None):
                f"{c['all_to_all']} all-to-alls, {c['all_reduce']} all-reduces{dense}; per "
                f"step {c['bytes'] / n / 1e6:.3f} MB sent by rank 0, "
                f"{c['seconds'] / n * 1e3:.2f} ms host")
+        if dp_group is not None:
+            print_(f"island: {c['island']} entries ({c['island'] / n:.2f} per step); per step "
+                   f"{c['island_down_bytes'] / n / 1e6:.3f} MB of down reductions, "
+                   f"{c['compressed_all_to_all_bytes'] / n / 1e6:.3f} MB in "
+                   f"{c['compressed_all_to_all']} compressed and "
+                   f"{c['dense_all_to_all_bytes'] / n / 1e6:.3f} MB in "
+                   f"{c['dense_all_to_all']} dense all-to-alls, "
+                   f"{c['dp_all_gather_bytes'] / n / 1e6:.3f} MB in {c['dp_all_gather']} "
+                   f"data all-gathers, sent by rank 0")
     print_(f"programs: decode={engine.decode_cache_size()} prefill={engine.prefill_cache_size()} "
            f"({'graphed' if engine.graphed else 'eager'} steps)")
     print_(f"TTFT p50 {s['ttft_p50_s']*1e3:.1f} ms, p90 {s['ttft_p90_s']*1e3:.1f} ms; "

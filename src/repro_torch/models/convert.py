@@ -12,7 +12,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (
-    check_supported, layer_block, param_shapes, shard_leaf, torch_dtype,
+    check_supported, expert_range, is_expert_leaf, layer_block, param_shapes, shard_leaf,
+    torch_dtype,
 )
 
 __all__ = ["params_from_numpy", "shard_params"]
@@ -64,19 +65,30 @@ def params_from_numpy(tree, cfg: ModelConfig, device: str | torch.device = "cuda
     return params
 
 
-def shard_params(tree, cfg: ModelConfig, rank: int, n: int):
+def shard_params(tree, cfg: ModelConfig, rank: int, n: int, *, dp_rank: int = 0,
+                 dp: int = 1):
     """Rank ``rank``'s shard of a numpy parameter tree (reference names and
-    layouts) on a TP group of ``n`` ranks, by ``model.shard_axis``, as
-    ``Model.init_params(tp=(rank, n))`` keeps it: the n shards put together
-    are the tree: a vision model's ``mm_proj`` by output columns, an
-    encoder-decoder's ``enc_layers`` and each ``xattn[i].core`` as a decoder
-    layer (``enc_norm`` and the ``xattn`` norms whole), an xLSTM layer by
-    its block's kind (an sLSTM block whole but its FF). Checks the tree
-    against ``cfg`` first; raises when ``cfg`` does not shard over ``n``
-    ranks (``ModelConfig.tp_shard``)."""
+    layouts) on a TP group of ``n`` ranks, in data rank ``dp_rank`` of
+    ``dp`` (a ``data x model`` grid), by ``model.shard_axis``, as
+    ``Model.init_params(tp=(rank, n), dp=(dp_rank, dp))`` keeps it: the n
+    shards put together are the tree: a vision model's ``mm_proj`` by output
+    columns, an encoder-decoder's ``enc_layers`` and each ``xattn[i].core``
+    as a decoder layer (``enc_norm`` and the ``xattn`` norms whole), an
+    xLSTM layer by its block's kind (an sLSTM block whole but its FF); a
+    MoE's routed experts cut to the data rank's ``E / dp`` when dp divides
+    E (``model.expert_range``, the reference's ``moe_specs``), so the data
+    ranks' expert slices put together along the expert axis are the TP
+    shard. Checks the tree against ``cfg`` first; raises when ``cfg`` does
+    not shard over ``n`` ranks (``ModelConfig.tp_shard``)."""
     check_supported(cfg)
     cfg.tp_shard(n)
     _check_tree(tree, param_shapes(cfg), "")
+    lo, hi = expert_range(cfg, dp_rank, dp)
+
+    def leaf(a, key, parent, block):
+        if is_expert_leaf(parent, key, a.ndim):
+            a = a[lo:hi]
+        return np.ascontiguousarray(shard_leaf(a, parent, key, rank, n, block))
 
     def walk(node, key, parent, block=None):
         if isinstance(node, dict):
@@ -84,7 +96,7 @@ def shard_params(tree, cfg: ModelConfig, rank: int, n: int):
         if isinstance(node, (list, tuple)):
             return [walk(v, key, parent, layer_block(cfg, key, i, block))
                     for i, v in enumerate(node)]
-        return np.ascontiguousarray(shard_leaf(np.asarray(node), parent, key, rank, n, block))
+        return leaf(np.asarray(node), key, parent, block)
 
     return walk(tree, "", "")
 

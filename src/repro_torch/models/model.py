@@ -68,8 +68,12 @@ An xLSTM layer shards as the reference's ``mlstm_specs`` / ``slstm_specs``
 an mLSTM block's ``up``, ``z``, ``conv_w``, ``conv_b`` and ``norm`` by
 ``d_inner`` and its ``wq``, ``wk``, ``wv``, ``wi``, ``wf.w`` and ``down``
 by input rows; an sLSTM block whole but its FF (``ff_up``, ``ff_gate`` by
-columns, ``ff_down`` by rows). The steps then run on the rank-local config
-(``local_cfg``, ``ModelConfig.tp_shard``).
+columns, ``ff_down`` by rows). On a data group of dp ranks
+(``init_params(..., dp=(r, dp))``) a MoE's ``up``, ``gate`` and ``down``
+keep data rank r's ``E / dp`` experts when dp divides E (``expert_range``;
+every expert otherwise); every other leaf is whole on each data rank. The
+steps then run on the rank-local config (``local_cfg``,
+``ModelConfig.tp_shard``).
 """
 from __future__ import annotations
 
@@ -91,7 +95,8 @@ from repro_torch.models.transformer import (
     apply_layer, apply_stack, feed_forward, init_layer_cache,
 )
 
-__all__ = ["Model", "torch_dtype", "param_shapes", "shard_axis", "shard_leaf",
+__all__ = ["Model", "torch_dtype", "param_shapes", "shard_axis", "shard_leaf", "expert_range",
+           "is_expert_leaf",
            "layer_block", "recurrent_layer", "check_supported", "XLSTM_KINDS"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -198,9 +203,9 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         return mlp_p
 
     def moe():
-        E = cfg.n_experts
-        p = {"router": {"w": (d, E)}, "up": {"w": (E, d, ff)}, "gate": {"w": (E, d, ff)},
-             "down": {"w": (E, ff, d)}}
+        E, El = cfg.n_experts, cfg.local_experts
+        p = {"router": {"w": (d, E)}, "up": {"w": (El, d, ff)}, "gate": {"w": (El, d, ff)},
+             "down": {"w": (El, ff, d)}}
         p.update({f"shared{i}": mlp() for i in range(cfg.n_shared_experts)})
         return p
 
@@ -262,6 +267,21 @@ def layer_block(cfg: ModelConfig, key: str, index: int, block: Optional[str]) ->
     return block
 
 
+def expert_range(cfg: ModelConfig, dp_rank: int, dp: int) -> Tuple[int, int]:
+    """The routed experts ``[first, last)`` data rank ``dp_rank`` of ``dp``
+    holds: ``n_experts / dp`` of them in order when ``dp`` divides them (the
+    reference's expert-parallel ``moe_specs``), else every expert."""
+    El = cfg.tp_shard(1, dp).local_experts
+    first = dp_rank * El if El < cfg.n_experts else 0
+    return first, first + El
+
+
+def is_expert_leaf(parent: str, key: str, ndim: int) -> bool:
+    """Whether a leaf is a routed-expert tensor (``up``, ``gate``, ``down``
+    of a MoE, ``(E, ...)``), which a data rank holds its experts of."""
+    return ndim == 3 and parent in ("up", "gate", "down") and key == "w"
+
+
 def shard_leaf(t, parent: str, key: str, rank: int, n: int, block: Optional[str] = None):
     """Rank ``rank``'s contiguous ``1/n`` of a leaf (a tensor or numpy
     array) along ``shard_axis``; the leaf itself when replicated."""
@@ -281,7 +301,8 @@ class Model:
 
     def init_params(self, generator: Optional[torch.Generator] = None,
                     device: str | torch.device = "cuda", *, seed: int = 0,
-                    tp: Tuple[int, int] = (0, 1)) -> Dict[str, Any]:
+                    tp: Tuple[int, int] = (0, 1),
+                    dp: Tuple[int, int] = (0, 1)) -> Dict[str, Any]:
         """Random weights from ``generator`` (default: a fresh generator on
         ``device`` seeded with ``seed``), drawn on ``device`` in the config's
         dtype. Runs on the card unless ``device="cpu"``. With ``tp=(rank,
@@ -298,6 +319,7 @@ class Model:
         cfg = self.cfg
         rank, n = tp
         cfg.tp_shard(n)   # raises when the config does not shard over n ranks
+        lo, hi = expert_range(cfg, *dp)
         init = Initializer(generator, torch_dtype(cfg.dtype), dev)
 
         def draw(node, key, parent, block=None):
@@ -314,9 +336,11 @@ class Model:
                 experts = None
                 for e in range(node[0]):
                     t = draw(node[1:], key, parent)
+                    if not lo <= e < hi:   # another data rank's expert
+                        continue
                     if experts is None:
-                        experts = t.new_empty((node[0], *t.shape))
-                    experts[e] = t
+                        experts = t.new_empty((hi - lo, *t.shape))
+                    experts[e - lo] = t
                 return experts
             elif block is not None and parent == "wf" and key == "b":   # forget bias
                 t = init.full(node, 3.0)
@@ -338,8 +362,9 @@ class Model:
 
     def local_cfg(self, ctx: TPContext) -> ModelConfig:
         """The config this process computes with: the rank-local view on a
-        TP group (``ModelConfig.tp_shard``), else the config itself."""
-        return self.cfg.tp_shard(ctx.tp_size)
+        TP group and a data group (``ModelConfig.tp_shard``), else the
+        config itself."""
+        return self.cfg.tp_shard(ctx.tp_size, ctx.dp_size)
 
     # ----------------------------------------------------------------- serve
 

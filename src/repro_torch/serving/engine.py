@@ -94,7 +94,23 @@ ranks, each rank runs this engine on the same requests and holds
 N). Every rank makes the same host decisions (admission, allocation,
 preemption, prefix hits and sampling are deterministic), the steps exchange
 the blocks they read over the group, and every rank samples the same
-tokens.
+tokens. Only the attention pools shard, as the reference pins only them to
+its kv axis: a whole-prompt stack's per-slot state (jamba's and xLSTM's
+``state["rec"]``, whisper's cross K/V) is whole on every kv rank, the same
+on each since every rank runs the same steps, and a vision prefix's blocks
+shard like any other. A stack with no pools (xlstm-125m) shards nothing.
+
+Data-parallel ranks: with a ``TPContext`` whose ``dp_group`` holds N ranks
+(with its ``tp_group``, one row of a ``data x model`` grid), each rank runs
+this engine on the same requests in lockstep with the pools of its TP
+shard, replicated over the data ranks, and computes every row outside the
+MoE layers; a MoE call that meets the island gate (``moe.uses_island``:
+more than 64 tokens in ``N`` groups of whole batch rows, ``E % N == 0``)
+runs the expert-parallel island across the data ranks. In the engine that
+is the split scheduler's batched decode when ``max_slots`` exceeds 64 and
+divides by N (its batch is the slot width, whatever the active count); a
+chunk, a whole-prompt prefill or a mixed step is one batch row and never
+enters it.
 """
 from __future__ import annotations
 
@@ -289,11 +305,13 @@ class Engine:
         self.kv_shards = ctx.kv_shards
         if self.n_blocks % self.kv_shards:
             self.n_blocks += self.kv_shards - self.n_blocks % self.kv_shards
-        if ((self.kv_shards > 1 or self.tp_size > 1)
-                and (deadline_s or deadline_ttft_s or step_timeout_s)):
+        self.dp_size = ctx.dp_size
+        self._lockstep = self.kv_shards > 1 or self.tp_size > 1 or self.dp_size > 1
+        if self._lockstep and (deadline_s or deadline_ttft_s or step_timeout_s):
             raise ValueError(
-                "sequence-sharded pools and TP groups run every rank's scheduler in "
-                "lockstep; deadlines and the step watchdog read each rank's own clock")
+                "sequence-sharded pools, TP groups and data groups run every rank's "
+                "scheduler in lockstep; deadlines and the step watchdog read each rank's "
+                "own clock")
         self.cache_dtype = cache_dtype or torch.bfloat16
         self.cache_spec = check_cache_spec(self.cfg, cache_spec)
         self.stats = ServeStats()
@@ -329,11 +347,6 @@ class Engine:
         self._n_prefix = self.cfg.n_patches if self.cfg.frontend == "vision" else 0
         self._extra_shapes = frontend_shapes(self.cfg, 1)
         chunk_ok = self._pad_ok and not self._extra_shapes
-        if not chunk_ok and self.kv_shards > 1:
-            raise NotImplementedError(
-                "sequence-sharded pools for a stack with recurrent layers (each kv rank "
-                "would carry its own recurrent state), a vision prefix or an encoder are "
-                "not ported yet: see ROADMAP.md Queue 1")
         if prefill_chunk is None:
             prefill_chunk = 2 * block_size if chunk_ok else 0
         elif prefill_chunk < 0:
@@ -399,12 +412,12 @@ class Engine:
         # no host-staged exchange inside a step
         self.graphed = (bool(cuda_graphs) and self.device.type == "cuda"
                         and self.kv_shards == 1 and ctx.transport != "gloo-staged")
-        if self.graphed and ctx.tp_group is not None:
-            # NCCL sets its communicator up at its first collective, which
-            # must not happen inside a capture
-            torch.distributed.all_reduce(torch.zeros(1, device=self.device),
-                                         group=ctx.tp_group)
-            torch.cuda.synchronize(self.device)
+        for group in (ctx.tp_group, ctx.dp_group):
+            if self.graphed and group is not None:
+                # NCCL sets its communicator up at its first collective, which
+                # must not happen inside a capture
+                torch.distributed.all_reduce(torch.zeros(1, device=self.device), group=group)
+                torch.cuda.synchronize(self.device)
         self._programs = StepPrograms(self.device, graphed=self.graphed)
         self._state = None
         self._ran = False
@@ -1156,6 +1169,8 @@ class Engine:
             block = live[0]
         if self.ctx.kv_sharded:
             q = self.cache_spec.quantized
+            if not self._state["pools_k"]:
+                return
             pool_block_fill(self.ctx, [(p.scales if q else p, 255 if q else float("nan"))
                                        for p in self._state["pools_k"] + self._state["pools_v"]],
                             block)
@@ -1257,11 +1272,11 @@ class Engine:
         self._t0 = time.perf_counter()
         capacity = self.max_blocks * self.block_size
         works = []
-        if ((self.kv_shards > 1 or self.tp_size > 1)
-                and any(r.arrival_s or r.deadline_s or r.deadline_ttft_s for r in requests)):
-            raise ValueError("sequence-sharded pools and TP groups: requests arrive at t=0 "
-                             "with no deadline (each rank's clock would admit and expire "
-                             "them at its own step)")
+        if self._lockstep and any(r.arrival_s or r.deadline_s or r.deadline_ttft_s
+                                  for r in requests):
+            raise ValueError("sequence-sharded pools, TP groups and data groups: requests "
+                             "arrive at t=0 with no deadline (each rank's clock would admit "
+                             "and expire them at its own step)")
         extras = self._extras(extra_inputs, len(requests))
         for i, r in enumerate(requests):
             need = self._n_prefix + len(np.asarray(r.prompt)) + r.max_new_tokens - 1

@@ -494,7 +494,8 @@ def paged_cache_bytes(cfg: ModelConfig, n_blocks: int, block_size: int,
     holds of ``kv_shards`` (``n_blocks / kv_shards`` blocks). With
     ``n_slots``, an encoder-decoder's cross K/V of that many slots is
     counted too (``cross_state_bytes``, dense ``dtype_bytes`` whatever the
-    pools' format); without it the count is the reference's."""
+    pools' format; whole on every kv rank, so ``per_device`` counts all of
+    it); without it the count is the reference's."""
     cache_spec = KVCacheSpec.parse(cache_spec)
     if cache_spec.quantized:
         pos_bytes = cache_spec.mx.wire_bytes(cfg.kv_dim)

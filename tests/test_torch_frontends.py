@@ -127,9 +127,9 @@ def _shapes(tree):
 
 
 def check_refusals(models, extra, monkeypatch):
-    """The whole-prompt gate's refusals (the reference's errors), sequence-
-    sharded pools (not ported), and extra inputs that are missing or of the
-    wrong shape. A TP group of 2 ranks is served: ``init_params(tp=(0, 2))``,
+    """The whole-prompt gate's refusals (the reference's errors), an
+    engine on sequence-sharded pools (half the blocks, the cross K/V whole),
+    and extra inputs that are missing or of the wrong shape. A TP group of 2 ranks is served: ``init_params(tp=(0, 2))``,
     ``shard_params`` and an engine on ``tp_size`` 2 give the rank's shapes
     (of the config with at least 2 kv heads; 1 kv head does not shard)."""
     cfg, _, _, model_t, params_t = models
@@ -172,9 +172,13 @@ def check_refusals(models, extra, monkeypatch):
         assert eng.kv_pool_bytes() == 2 * eng.kv_pool_bytes(per_device=True)
         for t in eng._state["pools_k"] + eng._state.get("cross_k", []):
             assert t.shape[-1] == local.kv_dim
+    # sequence-sharded pools are served: each rank holds half the pool
+    # blocks and the cross K/V whole
     monkeypatch.setattr(TPContext, "kv_shards", property(lambda self: 2))
-    with pytest.raises(NotImplementedError, match="sequence-sharded"):
-        Engine(model_t, params_t, TPContext(), **kw)
+    eng = Engine(model_t, params_t, TPContext(), **kw)
+    assert eng.kv_shards == 2 and eng.n_blocks % 2 == 0
+    assert all(t.shape[0] == eng.n_blocks // 2 for t in eng._state["pools_k"])
+    assert all(t.shape[0] == eng.n_slots for t in eng._state.get("cross_k", []))
 
 
 @pytest.fixture(scope="module")

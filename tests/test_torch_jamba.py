@@ -310,7 +310,8 @@ def test_preemption_identical_to_reference_engine(models, reference_copies_host_
 
 def test_refusals(models, monkeypatch):
     """The reference's errors for the chunked path on a recurrent stack, and
-    sequence-sharded pools (not ported for it)."""
+    an engine on sequence-sharded pools (half the blocks, the recurrent state
+    whole)."""
     cfg, model_j, params_j, model_t, params_t = models
     kw = dict(JAMBA_ENGINE, device="cpu")
     for extra, msg in ((dict(prefill_chunk=16), "requires a pure-attention"),
@@ -323,9 +324,14 @@ def test_refusals(models, monkeypatch):
                               None, None, 0, 4)
     with pytest.raises(ValueError, match="mixed_step requires a pure-attention"):
         model_t.mixed_step(TPContext(), params_t, *([None] * 9))
+    # sequence-sharded pools are served: half the pool blocks on a rank, the
+    # recurrent state of every slot whole
     monkeypatch.setattr(TPContext, "kv_shards", property(lambda self: 2))
-    with pytest.raises(NotImplementedError, match="sequence-sharded"):
-        Engine(model_t, params_t, TPContext(), **kw)
+    eng = Engine(model_t, params_t, TPContext(), **kw)
+    assert eng.kv_shards == 2 and eng.n_blocks % 2 == 0
+    assert all(t.shape[0] == eng.n_blocks // 2 for t in eng._state["pools_k"])
+    assert eng.rec_state_bytes() == sum(t.numel() * t.element_size()
+                                        for c in eng._state["rec"] for t in c)
 
 
 def test_param_count_at_full_size():

@@ -21,6 +21,16 @@
   read. At a fixed per-rank pool budget the sharded engine serves a prompt
   at least 1.9x longer than the replicated one admits, and the replicated
   engine refuses it.
+* The whole-prompt stacks on the same 2 kv ranks: reduced jamba (Mamba,
+  Mamba + MoE, attention), xlstm-125m (mLSTM, sLSTM: no pools), whisper
+  (encoder-decoder, 24 encoder frames) and pixtral (an 8-patch vision
+  prefix), whole-prompt on fp4 pools under the gated ``simulate_tp=2``
+  policy: greedy tokens and counts identical on both ranks and to the
+  reference's single-device ``Engine`` (built with ``donate_cache=False``
+  for the sLSTM stack, ROADMAP.md Queue 3 item 17); each rank holds half of
+  the attention pools (pixtral's prefix blocks among them) and the whole
+  recurrent state and cross K/V; only the decode steps' paged reads
+  exchange blocks.
 * ``launch/serve.py --shard-pools 2`` on the CPU.
 
 Reduced internlm2-1.8b in fp32 on the CPU, every request at t=0, the
@@ -30,6 +40,7 @@ ranks import torch and the port only (``tests/torch_kv_worker.py``).
 TF32 is off for torch matmuls.
 """
 import collections
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +50,7 @@ import torch
 
 import repro.serving.engine as reference_engine
 from repro.configs import get_config as jget_config
+from repro.models.model import Model as JModel
 from repro.serving import BlockAllocator as JBlockAllocator
 from repro.serving import Engine as JEngine
 from repro.serving import EngineSupervisor as JEngineSupervisor
@@ -46,11 +58,14 @@ from repro.serving import FaultPlan as JFaultPlan
 from repro.serving import Request as JRequest
 from repro.serving.kv_cache import PrefixIndex as JPrefixIndex
 from repro.serving.kv_cache import paged_cache_bytes as jpaged_cache_bytes
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.core.formats import KVCacheSpec
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.serving import BlockAllocator, PrefixIndex, paged_cache_bytes
+from repro_torch.serving.kv_cache import cross_state_bytes, recurrent_state_bytes
+from tests.conftest import fp32_reduced
+from tests.test_torch_frontends import stub_arrays
 from tests.test_torch_serving import (  # noqa: F401 (fixture)
     SUMMARY_KEYS, _CopyingJnp, contexts, models, parity_traffic,
 )
@@ -181,6 +196,39 @@ def _cases(vocab):
     }
 
 
+# the whole-prompt stacks: key -> (arch, overrides of the reduced config)
+STACKS = {"jamba": ("jamba-v0.1-52b", dict(n_layers=3)), "xlstm": ("xlstm-125m", {}),
+          "whisper": ("whisper-medium", dict(encoder_seq=24)),
+          "pixtral": ("pixtral-12b", dict(n_patches=8))}
+
+
+def _stack_models(arch, over):
+    """(port cfg, reference model, reference params, None, None) of a
+    reduced fp32 whole-prompt stack."""
+    n = over.get("n_layers")
+    rest = {k: v for k, v in over.items() if k != "n_layers"}
+    cfg_j = dataclasses.replace(fp32_reduced(arch, **({"n_layers": n} if n else {})), **rest)
+    cfg_t = dataclasses.replace(reduced_config(get_config(arch), **({"n_layers": n} if n else {})),
+                                dtype="float32", **rest)
+    model_j = JModel(cfg_j)
+    return cfg_t, model_j, model_j.init_params(jax.random.PRNGKey(0)), None, None
+
+
+def _stack_case(key, cfg):
+    """The whole-prompt engine (the stack's only scheduler) on fp4 pools,
+    gated, over prompts of 12, 20 and 12 tokens, with one row of extra
+    inputs each for a vision prefix or an encoder-decoder."""
+    traffic = [(((np.arange(n, dtype=np.int32) * 7 + i) % cfg.vocab_size).astype(np.int32),
+                4 + i) for i, n in enumerate((12, 20, 12))]
+    case = dict(engine=dict(max_slots=2, max_len=64, block_size=16, cache_spec="fp4_e2m1"),
+                traffic=traffic, gated=True)
+    if key == "xlstm":
+        case["ref_engine"] = dict(donate_cache=False)   # ROADMAP.md Queue 3 item 17
+    if key in ("whisper", "pixtral"):
+        case["extra"] = stub_arrays(cfg, len(traffic), 33)
+    return case
+
+
 def _probe():
     """Global planes of 8 blocks x 4 positions (uint8 wire bytes with scale
     byte 255, bf16 and fp32 with -0.0, infinities and NaN payloads), the
@@ -267,7 +315,11 @@ def served(models):
     cases = _cases(cfg.vocab_size)
     params_np = jax.tree.map(np.asarray, params_j)
     probe = _probe()
-    job = dict(cfg=cfg, params=params_np, cases=cases, probe=probe)
+    stack_models = {k: _stack_models(*v) for k, v in STACKS.items()}
+    stacks = {k: dict(cfg=m[0], params=jax.tree.map(np.asarray, m[2]),
+                      cases={"whole-fp4": _stack_case(k, m[0])})
+              for k, m in stack_models.items()}
+    job = dict(cfg=cfg, params=params_np, cases=cases, probe=probe, stacks=stacks)
     ranks = spawn_ranks(run_rank, KV, job, device="cpu", threads=2, timeout_s=600)
     # the replicated port engine; a 9-block pool (the per-rank budget) must
     # refuse the long prompt
@@ -277,8 +329,10 @@ def served(models):
         mp.setattr(reference_engine, "jnp", _CopyingJnp())
         reference = {name: _reference(models, case) for name, case in cases.items()
                      if name != "capacity"}
+        stack_reference = {k: _reference(stack_models[k], m["cases"]["whole-fp4"])
+                           for k, m in stacks.items()}
     return dict(cases=cases, probe=probe, ranks=ranks, replicated=replicated,
-                reference=reference)
+                reference=reference, stacks=stacks, stack_reference=stack_reference)
 
 
 @pytest.mark.parametrize("op", ["psum", "exchange", "scatter", "write", "fill", "copy"])
@@ -386,6 +440,41 @@ def test_sharded_long_context_capacity(served):
         assert c["pool_bytes_per_device"] == refused["pool_bytes_per_device"]
         assert c["runs"][0]["outputs"] == rep["outputs"] and len(rep["outputs"][0]) == 4
         assert c["runs"][0]["max_resident_ctx"] >= long_s
+
+
+@pytest.mark.parametrize("key", sorted(STACKS))
+def test_whole_prompt_stack_on_kv_ranks(served, key):
+    """A whole-prompt stack on 2 kv ranks: tokens, outcomes and counts equal
+    on both ranks and to the reference's single-device Engine; each rank
+    holds half of the attention pools (none for xlstm), the whole
+    recurrent state and the whole cross K/V; the exchange runs once per
+    pool plane of each attention layer per decode step (the whole-prompt
+    insert writes its owned blocks without one)."""
+    cfg = served["stacks"][key]["cfg"]
+    ref = served["stack_reference"][key][0]
+    L = sum(sp.kind == "attn" for sp in cfg.layers)
+    for r in served["ranks"]:
+        c = r["stacks"][key]["whole-fp4"]
+        run = c["runs"][0]
+        assert run["outputs"] == ref["outputs"]
+        assert all(o == "ok" for o in run["outcomes"]) and run["finite"]
+        assert {k: run["summary"][k] for k in SUMMARY_KEYS} == ref["summary"]
+        assert run["n_free"] + run["n_cached"] == c["n_blocks"] - 1 and run["owners_ok"]
+        assert c["kv_shards"] == KV and c["n_blocks"] % KV == 0
+        if L:
+            assert c["slab_rows"] == [c["n_blocks"] // KV]
+            assert c["planes_per_layer"] == 4
+        assert c["slab_bytes"] * KV == paged_cache_bytes(cfg, c["n_blocks"], 16,
+                                                         cache_spec="fp4_e2m1")
+        assert c["rec_bytes"] == recurrent_state_bytes(cfg, 2)
+        assert c["cross_bytes"] == cross_state_bytes(cfg, 2, 4)
+        assert c["pool_bytes_per_device"] == c["slab_bytes"] + c["cross_bytes"]
+        n_dec = sum(1 for _, d in run["step_tokens"] if d)
+        assert run["exchange"] == L * 4 * n_dec, (key, run["exchange"])
+    if key == "xlstm":
+        assert served["ranks"][0]["stacks"][key]["whole-fp4"]["slab_bytes"] == 0
+    else:
+        assert served["ranks"][0]["stacks"][key]["whole-fp4"]["runs"][0]["exchange"] > 0
 
 
 def test_serve_cli_shard_pools_on_cpu(capfd):

@@ -3,9 +3,10 @@ module imports torch and the port only, never jax or ``repro``: the ranks
 are spawned processes, and the JAX reference runs in the test process.
 
 ``run_rank(group, rank, device, job)`` (the ``spawn_ranks`` target)
-runs the pool-op probe and then every engine case of ``job``; the test
-process calls ``run_cases(None, "cpu", ...)`` itself for the replicated
-engine, so both run the same code.
+runs the pool-op probe and then every engine case of ``job`` and of its
+whole-prompt stacks (``job["stacks"]``); the test process calls
+``run_cases(None, "cpu", ...)`` itself for the replicated engine, so both
+run the same code.
 """
 from __future__ import annotations
 
@@ -72,8 +73,9 @@ def run_case(model, params, ctx: TPContext, device, case: dict) -> dict:
     engine (under a supervisor when ``case["plan"]`` is set; with the
     model's ``case["extra"]`` inputs, one row per request, when given).
     Returns by run: tokens, the stats' counts, gate counts, the free lists,
-    the exchange's all-reduces, the TP group's collectives; and the pools
-    and an encoder-decoder's cross K/V this rank holds."""
+    the exchange's all-reduces, the TP group's collectives; and the pools,
+    an encoder-decoder's cross K/V and the recurrent state this rank
+    holds."""
     kw = dict(case["engine"])
     kw["cache_dtype"] = DTYPES[kw.get("cache_dtype", "float32")]
     plan = case.get("plan")
@@ -118,6 +120,8 @@ def run_case(model, params, ctx: TPContext, device, case: dict) -> dict:
     res["planes_per_layer"] = len(planes) // max(1, len(eng._state["pools_k"]))
     cross = eng._state.get("cross_k", []) + eng._state.get("cross_v", [])
     res["cross_bytes"] = sum(t.numel() * t.element_size() for t in cross)
+    res["rec_bytes"] = sum(t.numel() * t.element_size() for c in eng._state.get("rec", [])
+                           for t in c)
     res["cross_widths"] = sorted({t.shape[-1] for t in cross})
     return res
 
@@ -138,6 +142,9 @@ def run_cases(group, device, cfg, params_np, cases) -> dict:
 
 def run_rank(group, rank: int, device, job: dict) -> dict:
     """The ``spawn_ranks`` target: the pool-op probe, then the engine
-    cases of ``job``, on this kv rank."""
+    cases of ``job``, and those of each whole-prompt stack of
+    ``job["stacks"]``, on this kv rank."""
     return {"pool_ops": run_pool_ops(group, rank, job["probe"]),
-            "cases": run_cases(group, device, job["cfg"], job["params"], job["cases"])}
+            "cases": run_cases(group, device, job["cfg"], job["params"], job["cases"]),
+            "stacks": {k: run_cases(group, device, m["cfg"], m["params"], m["cases"])
+                       for k, m in job.get("stacks", {}).items()}}

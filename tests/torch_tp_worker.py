@@ -14,9 +14,17 @@ them), pixtral and whisper with their extra inputs (``logit_extra``, and
 every layer's ``core`` this rank holds (``core_shapes``). The test
 process calls ``run_tp_cases(None, ...)`` itself for the port's single-rank
 engine, so both run the same code.
+
+``run_grid_rank(grid, rank, device, job)`` is what each rank of
+``tests/test_torch_data_parallel.py``'s 2 x 2 ``data x model`` grid runs
+(``spawn_ranks(..., tp=2)``): the ``compressed_all_to_all`` probe over its
+data group, one MoE layer of each model of ``job["moe"]`` on every input
+under every policy of ``POLICIES``, and the engine cases of
+``job["engine"]``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import warnings
 
@@ -31,6 +39,7 @@ from repro_torch.core.tp import TPContext
 from repro_torch.models.convert import params_from_numpy, shard_params
 from repro_torch.models.frontends import frontend_shapes
 from repro_torch.models.model import Model, recurrent_layer
+from repro_torch.models.moe import moe
 from repro_torch.serving import Engine
 from repro_torch.serving.kv_cache import init_paged_state
 from tests.torch_kv_worker import bits, run_case
@@ -226,3 +235,79 @@ def run_rank(group, rank: int, device, job: dict) -> dict:
             m = job[key]
             out[key] = run_tp_cases(group, device, m["cfg"], m["params"], m)
     return out
+
+
+# ------------------------------------------------- the data x model grid
+
+# the island's policies: dense, the paper's compressed reduction, and the
+# compressed reduction with compressed all-to-alls
+POLICIES = {"dense": NO_COMPRESSION, "compressed": PAPER_DEFAULT,
+            "compressed-a2a": dataclasses.replace(PAPER_DEFAULT, compress_all_to_all=True)}
+
+
+def grid_context(grid, policy) -> TPContext:
+    return TPContext(policy=policy, tp_group=grid.tp_group, dp_group=grid.dp_group)
+
+
+def rank_params(grid, cfg, params_np):
+    """This grid rank's parameters: its TP shard of its data rank's
+    experts."""
+    tree = shard_params(params_np, cfg, grid.tp_rank, grid.tp, dp_rank=grid.dp_rank, dp=grid.dp)
+    return params_from_numpy(tree, cfg.tp_shard(grid.tp, grid.dp), "cpu")
+
+
+def run_grid_a2a(grid, probe: dict) -> dict:
+    """``compressed_all_to_all`` of this rank's probe tensor (``(dp, ...)``,
+    slice i for data rank i) over its data group: the received bytes and
+    the counters."""
+    x = torch.from_numpy(probe[grid.dp_rank * grid.tp + grid.tp_rank].copy())
+    C.reset_tp_counts()
+    y = C.compressed_all_to_all(x, grid.dp_group, PAPER_DEFAULT.spec)
+    return dict(y=bits(y), dtype=str(y.dtype), shape=tuple(y.shape), counts=C.tp_counts())
+
+
+def run_grid_moe(grid, m: dict) -> dict:
+    """One MoE layer (``m["layer"]``) of ``m["cfg"]`` on every input of
+    ``m["inputs"]`` and a whole-prompt prefill of the rows of
+    ``m["tokens"]``, under every policy of ``POLICIES``: outputs and logits
+    (fp32 numpy) and counters by (input or ``"prefill"``, policy), and the
+    expert rows this rank holds."""
+    cfg = m["cfg"]
+    params = rank_params(grid, cfg, m["params"])
+    lp = params["layers"][m["layer"]]["moe"]
+    local = cfg.tp_shard(grid.tp, grid.dp)
+    out = {"experts_held": tuple(lp["up"]["w"].shape)}
+    for name, x in m["inputs"].items():
+        for pname, policy in POLICIES.items():
+            C.reset_tp_counts()
+            y, _ = moe(grid_context(grid, policy), lp, torch.from_numpy(x), local)
+            out[name, pname] = dict(y=y.numpy().copy(), counts=C.tp_counts())
+    model, tokens = Model(cfg), torch.from_numpy(m.get("tokens", np.zeros((0, 0), np.int32)))
+    for pname, policy in (POLICIES.items() if tokens.numel() else ()):
+        ctx = grid_context(grid, policy)
+        C.reset_tp_counts()
+        logits, _ = model.prefill(ctx, params, {"tokens": tokens},
+                                  model.init_cache(*tokens.shape, torch.float32, "cpu", ctx=ctx))
+        out["prefill", pname] = dict(y=logits.numpy().copy(), counts=C.tp_counts())
+    return out
+
+
+def run_grid_engine(grid, e: dict) -> dict:
+    """Every engine case of ``e`` on this grid rank (``run_case``), under
+    the case's policy."""
+    cfg = e["cfg"]
+    model, params = Model(cfg), rank_params(grid, cfg, e["params"])
+    return {name: run_case(model, params, grid_context(grid, POLICIES[case["policy"]]), "cpu",
+                           case)
+            for name, case in e["cases"].items()}
+
+
+def run_grid_rank(grid, rank: int, device, job: dict) -> dict:
+    """The ``spawn_ranks(..., tp=2)`` target of
+    ``tests/test_torch_data_parallel.py``: the ``compressed_all_to_all``
+    probe, the MoE layers and the engine cases on this rank of the 2 x 2
+    ``data x model`` grid."""
+    return {"grid": (grid.dp_rank, grid.tp_rank, grid.dp, grid.tp),
+            "a2a": run_grid_a2a(grid, job["a2a"]),
+            "moe": {k: run_grid_moe(grid, m) for k, m in job["moe"].items()},
+            "engine": run_grid_engine(grid, job["engine"])}
