@@ -68,7 +68,9 @@ Phases (any failure exits non-zero):
               the plain version, mixed and split decode timed; one TP
               rank's shapes: paged attention at 16 and 10 heads
               (llama2-7b on 2 ranks, llama2-13b on 4) in every served
-              geometry, mixed and split decode timed, and the codec at the
+              geometry, mixed and split decode timed, llama2-7b's 16 heads
+              also over the virtual pool (``row_map``: a kv x model rank's
+              read), and the codec at the
               rank's partial, its gathered S = 2 and S = 4 shards and the
               two_phase slices. Prints
               each kernel's
@@ -246,6 +248,35 @@ Phases (any failure exits non-zero):
               down, all-to-all and data all-gather MB per decode step
               against the dense run's, and TPOT. ``--phase dp [arch ...]``
               runs it alone (NCCL and graphed steps with a card per rank).
+11. kvtp    — sequence-sharded pools on TP rows and on the data x model grid
+              (``phase_kvtp``, after phase 10; the reference's ``kv x data x
+              model`` mesh, ``make_kv_mesh``): llama2-7b at full width cut to
+              its first 4 layers on kv 2 x model 2 ranks sharing the card
+              over gloo (host-staged exchanges, eager steps). Each rank holds
+              half the blocks of the pools of its half of the kv heads
+              (1/4 of the pool bytes) and its row's half of the weights (the
+              same on both kv ranks); every pool plane's exchange, scatter,
+              COW copy and fault fill runs over the kv group of its model
+              position, the compressed reductions over its row. Every rank
+              serves mixed and split on fp4 pools under PAPER_DEFAULT, the
+              prefix cache on bf16 pools twice (the warm run's COW forks over
+              the kv group) and the capacity case, first with replicated pools
+              (its row alone) and then sharded: tokens identical on the four
+              ranks and to each row's replicated run, launches, exchange
+              all-reduces and row collectives exact, the pool bytes held 1/4
+              of the whole; at the per-rank budget of 17 blocks the sharded
+              row serves a 525-token prompt the replicated row refuses. A
+              ``kvtp[...]`` line per run prints the extents, the transport,
+              the exchange's MB and host ms per step, the pool bytes a rank
+              holds and TPOT sharded against replicated. Paged attention at
+              16 local kv heads (G 1) over the virtual pool (``row_map``) is
+              held and timed in phase 3. ``--phase kvtp [arch ...]`` runs it
+              alone: llama2-7b at full depth on kv 2 x model 2 (over NCCL with
+              four cards, one a rank) and mixtral-8x22b on kv 2 x
+              data 2 x model 2 (8 ranks on one card over gloo, at the depth
+              ``grid_depth`` finds for them), whose split decode over 128
+              slots enters the MoE island in every layer; its tokens and
+              island counts are held to the same ranks' replicated run.
 8. graphs   — (run right after phase 5, on its weights and prompts) an eager
               twin (``cuda_graphs=False``) of phase 5's graphed mixed fp4 and
               bf16, split bf16 and whole-prompt fp4 runs: greedy tokens
@@ -267,7 +298,8 @@ The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --phase
 tp [arch ...]`` builds the kernels and runs phase 9 alone (on a machine with
 a card per rank, over NCCL), for the named ``TP_MODELS`` or all of them;
-``--phase dp [arch ...]`` phase 10 likewise (``DP_MODELS``).
+``--phase dp [arch ...]`` phase 10 likewise (``DP_MODELS``), ``--phase kvtp
+[arch ...]`` phase 11 (``KVTP_MODELS``, at full depth).
 Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -1192,6 +1224,9 @@ def phase_paged(torch, dev="cuda"):
                                                     PROMPT)
         time_paged(torch, dev, res, label, geos, tpools, textras, heads, heads, hd, None,
                    timed_only=("mixed", "decode"))
+        if heads == 16:   # the sequence-sharded read of a kv x model rank (the kvtp phase)
+            time_paged(torch, dev, res, label, geos, tpools, textras, heads, heads, hd, None,
+                       timed_only=("mixed", "decode"), row_map=True)
         del geos, tpools
     # one TP rank's heads of the whole-prompt families on 2 ranks, in their
     # only paged read, the split decode, at the TP phase's prompt length
@@ -2325,17 +2360,6 @@ def cross_bytes_held(eng) -> int:
                for t in eng._state.get("cross_k", []) + eng._state.get("cross_v", []))
 
 
-def pool_bytes_held(eng) -> int:
-    """Bytes of the pool tensors (and an encoder-decoder's cross K/V, which
-    ``kv_pool_bytes`` counts with them) this process holds for ``eng``."""
-    from repro_torch.models.attention import pool_planes
-
-    return cross_bytes_held(eng) + sum(
-        p.numel() * p.element_size()
-        for pk, pv in zip(eng._state["pools_k"], eng._state["pools_v"])
-        for p in pool_planes(pk, pv))
-
-
 def sharded_serve(torch, dev, group, model, params, label):
     """The sequence-sharded phase's runs of ``model`` on this kv rank of
     ``group`` (None: the replicated engine they are held to), each held as
@@ -2368,7 +2392,7 @@ def sharded_serve(torch, dev, group, model, params, label):
     kw = dict(max_slots=SLOTS, max_len=max_len, block_size=BS, prefill_chunk=CHUNK, device=dev)
 
     def held(name, eng):
-        b = pool_bytes_held(eng)
+        b = eng.pool_bytes_held()
         check(b == eng.kv_pool_bytes(per_device=True) == eng.kv_pool_bytes() // eng.kv_shards,
               f"{label}{name}: this rank holds {b} pool bytes, not "
               f"{eng.kv_pool_bytes(per_device=True)} of {eng.kv_pool_bytes()}")
@@ -2441,7 +2465,7 @@ def sharded_whole(torch, dev, group, model, params, label):
                  prefill_chunk=0, cache_spec="fp4_e2m1", device=dev)
     name = f"{label}{cfg.name} whole/fp4_e2m1"
     serve_run(torch, dev, runs, totals, cfg.n_layers, name, eng, prompts, new=SHARD_NEW)
-    b = pool_bytes_held(eng)
+    b = eng.pool_bytes_held()
     rec = sum(t.numel() * t.element_size() for c in eng._state["rec"] for t in c)
     check(b == eng.kv_pool_bytes(per_device=True) == eng.kv_pool_bytes() // eng.kv_shards
           and rec == recurrent_state_bytes(cfg, SLOTS),
@@ -2757,7 +2781,7 @@ def tp_serve(torch, dev, group, n, model, params, runs_wanted, label):
     mixed = dict(kw, prefill_chunk=CHUNK, token_budget=T)
 
     def held(name, eng):
-        b = pool_bytes_held(eng)
+        b = eng.pool_bytes_held()
         check(b == eng.kv_pool_bytes(per_device=True) == eng.kv_pool_bytes() // eng.tp_size,
               f"{label}{name}: this rank holds {b} pool bytes, not "
               f"{eng.kv_pool_bytes(per_device=True)} of {eng.kv_pool_bytes()}")
@@ -3132,22 +3156,24 @@ def grid_rank_bytes(cfg) -> int:
                    _leaves(param_shapes(cfg.tp_shard(DP_GRID[1], DP_GRID[0]))))
 
 
-def grid_depth(torch, dev, cfg, margin_gb=8.0):
+def grid_depth(torch, dev, cfg, margin_gb=8.0, kv=1):
     """The largest prefix of ``cfg``'s schedule whose weights on the
-    DP_GRID's ranks (``grid_rank_bytes`` each), their pools and CUDA
-    contexts and ``margin_gb`` fit the card's free memory (``cfg`` itself
-    on the CPU). Returns (config, free bytes)."""
+    DP_GRID's ranks (``grid_rank_bytes`` each), on ``kv`` such grids (a kv
+    x data x model grid: the same weights on each, 1/kv of the pools), their
+    pools and CUDA contexts and ``margin_gb`` fit the card's free memory
+    (every rank on the one card; ``cfg`` itself on the CPU). Returns
+    (config, free bytes)."""
     from repro_torch.configs import first_layers
 
     if dev != "cuda":
         return cfg, None
     free = torch.cuda.mem_get_info()[0]
-    ranks = DP_GRID[0] * DP_GRID[1]
+    ranks = kv * DP_GRID[0] * DP_GRID[1]
     blocks = DP_SLOTS * (-(-(SHARD_PROMPT + SHARD_NEW) // BS)) + 1
 
     def need(n):
         prefix = first_layers(cfg, n)
-        pools = 2 * blocks * BS * cfg.kv_dim // DP_GRID[1] * 2 * attn_layers(prefix)
+        pools = 2 * blocks * BS * cfg.kv_dim // DP_GRID[1] * 2 * attn_layers(prefix) // kv
         return ranks * (grid_rank_bytes(prefix) + pools + CONTEXT_GB * 1e9) + margin_gb * 1e9
 
     n = cfg.n_layers
@@ -3184,7 +3210,7 @@ def dp_serve(torch, dev, grid, model, params):
         serve_run(torch, dev, runs, totals, cfg.n_layers, name, eng, prompts, new=SHARD_NEW)
         runs[name]["n_decode_steps"] = sum(1 for _, d in eng.stats.step_tokens if d)
         runs[name]["transport"] = eng.ctx.transport
-        runs[name]["pool_bytes_held"] = pool_bytes_held(eng)
+        runs[name]["pool_bytes_held"] = eng.pool_bytes_held()
         del eng
     return runs, totals
 
@@ -3332,6 +3358,281 @@ def phase_dp(torch, card, dev="cuda", cfg=None):
                          runs={run: ranks[0]["runs"][f"dp {run}"] for run in DP_RUNS},
                          peak_gb=[r["peak_gb"] for r in ranks])
     log(f"dp: card {card}")
+    return out, totals
+
+
+# ------------------------------------------------------------------------ kvtp
+
+# the kvtp phase's models -> ((kv, data, model) extents, runs, layers served:
+# None for all, 0 for the depth ``grid_depth`` finds for the grid's ranks);
+# traffic as phase 7's: SLOTS requests of SHARD_PROMPT + SHARD_NEW tokens
+KVTP_MODELS = {
+    "llama2-7b": ((2, 1, 2), ("mixed/fp4_e2m1", "split/fp4_e2m1", "prefix/bf16",
+                              "capacity/fp4_e2m1"), None),
+    "mixtral-8x22b": ((2, 2, 2), ("island/fp4_e2m1",), 0),
+}
+# the default run's kvtp piece: llama2-7b on kv 2 x model 2 ranks sharing the
+# one card over gloo, cut to its first KVTP_DEFAULT_LAYERS layers (a step
+# staged through host memory pays per layer: the script's time limit)
+KVTP_DEFAULT, KVTP_DEFAULT_LAYERS = "llama2-7b", 4
+KVTP_MARGIN_GB = 16.0   # grid_depth's margin for the 8-rank grid (8 GB ran out)
+
+
+def kvtp_context(grid, policy, sharded):
+    """``policy`` over this rank's row (and column), with its kv group when
+    ``sharded``, else with replicated pools."""
+    from repro_torch.core.tp import TPContext
+
+    return TPContext(policy=policy, tp_group=grid.tp_group, dp_group=grid.dp_group,
+                     kv_group=grid.kv_group if sharded else None)
+
+
+def kvtp_serve(torch, dev, grid, model, params, runs_wanted, sharded):
+    """The kvtp phase's runs of ``model`` on this rank of ``grid``, with
+    its pools sharded over its kv group (``sharded``) or replicated over it
+    (its row and column alone, the anchor), each held as ``serve_run``
+    holds it (launches, the exchange's all-reduces and the row's collectives
+    exact): ``mixed/fp4_e2m1`` and ``split/fp4_e2m1`` under PAPER_DEFAULT;
+    ``prefix/bf16``, the prefix cache on bf16 pools run twice (the warm run
+    forks each request's tail block: a copy-on-write over the kv group);
+    ``capacity/fp4_e2m1``, one prompt as long as 2 x SHARD_CAP_BLOCKS
+    blocks hold, with pools of 2 x SHARD_CAP_BLOCKS blocks (replicated,
+    also the refusal of SHARD_CAP_BLOCKS blocks, the per-rank budget);
+    ``island/fp4_e2m1``, the split scheduler over DP_SLOTS slots, the
+    decode compressed too (a MoE model's island). Each engine's pools held
+    in this process are ``kv_pool_bytes(per_device=True)``. Returns (runs,
+    totals), run names prefixed with the mode."""
+    import numpy as np
+
+    from repro_torch.core.policy import PAPER_DEFAULT
+    from repro_torch.serving import Engine, PoolExhausted, Request
+
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, SHARD_PROMPT).astype(np.int32)
+               for _ in range(2 * SLOTS)]
+    long_s = (2 * SHARD_CAP_BLOCKS - 1) * BS - 4 + 1
+    long_prompt = [rng.integers(0, cfg.vocab_size, long_s).astype(np.int32)]
+    label = "sharded " if sharded else "replicated "
+    runs, totals = {}, {k: 0 for k in KERNELS}
+    serve = functools.partial(serve_run, torch, dev, runs, totals, cfg.n_layers, new=SHARD_NEW)
+    comp = kvtp_context(grid, PAPER_DEFAULT, sharded)
+    max_len = SHARD_PROMPT + SHARD_NEW
+    kw = dict(max_slots=SLOTS, max_len=max_len, block_size=BS, prefill_chunk=CHUNK, device=dev)
+    cap = dict(max_slots=1, max_len=(2 * SHARD_CAP_BLOCKS - 1) * BS, block_size=BS,
+               prefill_chunk=CHUNK, cache_spec="fp4_e2m1", device=dev)
+
+    def held(name, eng):
+        b = eng.pool_bytes_held()
+        n = eng.kv_shards * eng.tp_size
+        check(b == eng.kv_pool_bytes(per_device=True) == eng.kv_pool_bytes() // n,
+              f"kvtp {label}{name}: this rank holds {b} pool bytes, not 1/{n} of "
+              f"{eng.kv_pool_bytes()}")
+        runs[label + name].update(pool_bytes_held=b, n_blocks=eng.n_blocks,
+                                  transport=eng.ctx.transport)
+
+    for name in runs_wanted:
+        if name in ("mixed/fp4_e2m1", "split/fp4_e2m1"):
+            eng = Engine(model, params, comp, token_budget=T if name[0] == "m" else 0,
+                         cache_spec="fp4_e2m1", **kw)
+            serve(label + name, eng, prompts[:SLOTS])
+            held(name, eng)
+        elif name == "prefix/bf16":
+            eng = Engine(model, params, comp, token_budget=T, cache_spec="bf16",
+                         prefix_cache=True, persistent_cache=True,
+                         n_blocks=2 * SLOTS * (-(-max_len // BS)) + 2, **kw)
+            for run in ("run1", "run2"):
+                s = serve(f"{label}{name}/{run}", eng, prompts[:SLOTS], warm=False)[0]
+                held(f"{name}/{run}", eng)
+            check(s["n_dispatches"] - s["n_steps"] == SLOTS,
+                  f"kvtp {label}{name}: {s['n_dispatches'] - s['n_steps']} COW forks, not "
+                  f"{SLOTS}")
+        elif name == "capacity/fp4_e2m1":
+            eng = Engine(model, params, comp, n_blocks=2 * SHARD_CAP_BLOCKS, **cap)
+            serve(label + name, eng, long_prompt, new=4)
+            held(name, eng)
+            runs[label + name]["prompt_tokens"] = long_s
+            if not sharded:   # the per-rank budget replicated refuses the prompt
+                del eng
+                eng = Engine(model, params, comp, n_blocks=SHARD_CAP_BLOCKS, **cap)
+                try:
+                    eng.run([Request(prompt=long_prompt[0].copy(), max_new_tokens=4)])
+                    refused = False
+                except PoolExhausted:
+                    refused = True
+                check(refused, f"kvtp: a replicated engine of {SHARD_CAP_BLOCKS} blocks "
+                      f"admitted a {long_s}-token prompt")
+                runs[label + name]["budget_bytes"] = eng.pool_bytes_held()
+        elif name == "island/fp4_e2m1":
+            eng = Engine(model, params, comp, max_slots=DP_SLOTS, max_len=max_len,
+                         block_size=BS, prefill_chunk=CHUNK, token_budget=0,
+                         cache_spec="fp4_e2m1", compress_decode=True, device=dev)
+            serve(label + name, eng, prompts)
+            held(name, eng)
+            runs[label + name]["n_decode_steps"] = sum(1 for _, d in eng.stats.step_tokens if d)
+        del eng
+    return runs, totals
+
+
+def _kvtp_rank(grid, rank, dev, cfg, runs_wanted):
+    """One rank of ``phase_kvtp``'s grid: open the kernels the parent built,
+    draw its (data, model) position's shard of ``cfg``'s seed-0 weights
+    (the same on every kv rank), serve ``kvtp_serve``'s runs with
+    replicated pools and then with sharded ones. Only rank 0 prints."""
+    import torch
+
+    from repro_torch.kernels.build import load_kernels
+    from repro_torch.models.model import Model
+
+    _QUIET[0] = rank != 0
+    cuda = dev.type == "cuda"
+    if cuda:
+        load_kernels(build=False)
+    model = Model(cfg)
+    params = model.init_params(device=dev, seed=0, tp=(grid.tp_rank, grid.tp),
+                               dp=(grid.dp_rank, grid.dp))
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    runs, totals = {}, {k: 0 for k in KERNELS}
+    for sharded in (False, True):
+        r, t = kvtp_serve(torch, dev.type, grid, model, params, runs_wanted, sharded)
+        runs.update(r)
+        for k in totals:
+            totals[k] += t[k]
+    return dict(runs=runs, totals=totals, device=str(dev), weight_bytes=weight_bytes,
+                grid=(grid.kv_rank, grid.dp_rank, grid.tp_rank),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+
+
+def phase_kvtp(torch, card, dev="cuda", cfg=None, models=None, layers=None):
+    """Sequence-sharded pools on TP rows and on the data x model grid
+    (``KVTP_MODELS``, or the archs of ``models``): each model at full width
+    on a ``kv x data x model`` grid of ranks (``spawn_ranks(..., tp=M,
+    kv=K)``, the reference's ``make_kv_mesh``; NCCL with a card per rank,
+    else gloo with every exchange staged through host memory and eager
+    steps), llama2-7b on kv 2 x model 2 at full depth (``layers`` overrides
+    a model's depth: the default run cuts it to KVTP_DEFAULT_LAYERS) and
+    mixtral-8x22b on kv 2 x data 2 x model 2 at the depth the eight ranks'
+    shards fit (``grid_depth``). Every rank serves ``kvtp_serve``'s runs
+    first with replicated pools (its row and column alone) and then with
+    its pools sharded over its kv group. Held: the weights a rank holds
+    the same on every kv rank; every rank's tokens identical to rank 0's
+    and each rank's sharded tokens to its own replicated run's; the
+    recoveries and (mixtral) the island's entries and collectives equal
+    between the modes, the island entered in every MoE layer of every
+    decode step; a rank holding 1/(K*M) of the pool bytes and 1/K of its
+    replicated row's per block; launches and collectives exact per rank;
+    at the per-rank budget of SHARD_CAP_BLOCKS blocks the sharded row
+    serves a prompt at least 1.9x longer than the replicated row admits,
+    which refuses it. Prints a ``kvtp[...]`` line per run with the
+    extents, the transport, the exchange's MB and host ms per step, the
+    pool bytes per rank and TPOT sharded against replicated. (``dev="cpu"``
+    and a reduced ``cfg`` rehearse it.)"""
+    from repro_torch.configs import first_layers, get_config
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cuda = dev == "cuda"
+    totals = {k: 0 for k in KERNELS}
+    out = {}
+    for arch in models or KVTP_MODELS:
+        (kv, dp, tp), runs_wanted, depth = KVTP_MODELS[arch]
+        depth = (layers or {}).get(arch, depth)
+        world = kv * dp * tp
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        full = cfg or get_config(arch)
+        free = None
+        if depth == 0 and cfg is None:
+            # eight processes drawing their shards at once: their fp32
+            # transients need more room than the dp phase's four
+            mcfg, free = grid_depth(torch, dev, full, margin_gb=KVTP_MARGIN_GB, kv=kv)
+        else:
+            mcfg = first_layers(full, depth or 0)
+        log(f"kvtp[{arch}]: {mcfg.n_layers} of {full.n_layers} layers at d_model "
+            f"{mcfg.d_model} on a kv {kv} x data {dp} x model {tp} grid of {world} ranks "
+            f"({card})" + (f"; {free / 1e9:.1f} GB free" if free else ""))
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_kvtp_rank, world, mcfg, runs_wanted, device=dev, timeout_s=900,
+                            threads=0 if cuda else 1, tp=tp, kv=kv)
+        wall = time.perf_counter() - t0
+        check([r["grid"] for r in ranks] == [(k, d, m) for k in range(kv) for d in range(dp)
+                                             for m in range(tp)],
+              f"kvtp[{arch}]: ranks sit at {[r['grid'] for r in ranks]}")
+        plane = dp * tp
+        for i, r in enumerate(ranks):
+            check(r["weight_bytes"] == ranks[i % plane]["weight_bytes"],
+                  f"kvtp[{arch}]: rank {i} holds {r['weight_bytes']} weight bytes, its kv "
+                  f"group's rank 0 {ranks[i % plane]['weight_bytes']}")
+            for k in totals:
+                totals[k] += r["totals"][k]
+        transport = ranks[0]["runs"]["sharded " + runs_wanted[0]]["transport"]
+        where = ("NCCL, one card per rank" if transport == "nccl" else
+                 "gloo, exchanges staged through host memory, eager steps"
+                 + (", ranks sharing a card, not NVLink" if cuda else ""))
+        log(f"kvtp[{arch}]: {world} ranks ({where}), {wall:.1f} s with start-up; "
+            f"{ranks[0]['weight_bytes'] / 1e9:.2f} GB of weights a rank")
+        res = {}
+        for name in [n for n in ranks[0]["runs"] if n.startswith("sharded ")]:
+            case = name.split(" ", 1)[1]
+            sh = [r["runs"][name] for r in ranks]
+            rep = [r["runs"]["replicated " + case] for r in ranks]
+            for i, (x, y) in enumerate(zip(sh, rep)):
+                check(x["outputs"] == sh[0]["outputs"] and x["outputs"] == y["outputs"],
+                      f"kvtp[{arch}] {case}: rank {i}'s tokens differ from rank 0's or from "
+                      f"its replicated run's")
+                check(x.get("events") == y.get("events"),
+                      f"kvtp[{arch}] {case}: rank {i}'s recoveries differ")
+                check(x["pool_bytes_held"] * kv * tp == x["pool_bytes"]
+                      and x["pool_bytes_held"] * kv * y["n_blocks"]
+                      == y["pool_bytes_held"] * x["n_blocks"],
+                      f"kvtp[{arch}] {case}: rank {i} holds {x['pool_bytes_held']} pool bytes "
+                      f"of {x['pool_bytes']}, its replicated run {y['pool_bytes_held']}")
+                island = ("island", "island_down_bytes", "compressed_all_to_all_bytes",
+                          "dense_all_to_all_bytes", "dp_all_gather_bytes", "all_gather",
+                          "all_reduce")
+                check({k: x["tp"][k] for k in island} == {k: y["tp"][k] for k in island},
+                      f"kvtp[{arch}] {case}: rank {i}'s row and island collectives "
+                      f"{x['tp']} differ from its replicated run's {y['tp']}")
+            x, y = sh[0], rep[0]
+            s, ex = x["summary"], x["exchange"]
+            steps = max(s["n_steps"], 1)
+            if case.startswith("island"):
+                n_dec, L_moe = x["n_decode_steps"], moe_layers(mcfg)
+                check(x["tp"]["island"] == L_moe * n_dec > 0,
+                      f"kvtp[{arch}] {case}: {x['tp']['island']} island entries in {n_dec} "
+                      f"decode steps of {L_moe} MoE layers")
+            if case == "capacity/fp4_e2m1":
+                long_s, long_r = x["prompt_tokens"], (SHARD_CAP_BLOCKS - 1) * BS - 4 + 1
+                check(x["pool_bytes_held"] == y["budget_bytes"] and long_s / long_r >= 1.9,
+                      f"kvtp[{arch}] capacity: {x['pool_bytes_held']} pool bytes a rank "
+                      f"against a budget of {y['budget_bytes']}; {long_s} / {long_r} tokens")
+                log(f"kvtp[{arch}] capacity: at {x['pool_bytes_held'] / 1e6:.2f} MB of fp4 "
+                    f"pools a rank the sharded row served a {long_s}-token prompt with the "
+                    f"tokens of a replicated row of twice the blocks; a replicated row at that "
+                    f"budget admits {long_r} at most ({long_s / long_r:.2f}x) and refused it")
+            x["tokens_equal"] = True
+            log(f"kvtp[{arch}] {case}: tokens identical on {world} ranks and to each row's "
+                f"replicated run; kv {kv} x data {dp} x model {tp} over {transport}; exchange "
+                f"{ex['all_reduce']} all-reduces ({x['expected'].get('all_reduce')} expected), "
+                f"{ex['bytes'] / steps / 1e6:.3f} MB and {ex['seconds'] / steps * 1e3:.2f} ms "
+                f"host per step; {x['pool_bytes_held'] / 1e6:.2f} MB of pools a rank "
+                f"(1/{kv * tp} of {x['pool_mb']:.2f} MB); row collectives "
+                f"{x['tp']['bytes'] / steps / 1e6:.3f} MB and {x['tp']['seconds'] / steps * 1e3:.2f}"
+                f" ms host per step" + (f"; {x['tp']['island']} island entries"
+                                        if x['tp']['island'] else "")
+                + f"; TPOT p50 {s['tpot_p50_s'] * 1e3:.2f} ms sharded vs "
+                f"{y['summary']['tpot_p50_s'] * 1e3:.2f} ms replicated")
+            res[case] = dict(sharded=x, replicated=y)
+        for i, r in enumerate(ranks):
+            log(f"kvtp[{arch}]: rank {i} ({r['device']}) peak device memory "
+                + (f"{r['peak_gb']:.2f} GB" if cuda else "not measured (no card)"))
+        out[arch] = dict(extents=(kv, dp, tp), layers=mcfg.n_layers, wall_s=wall,
+                         transport=transport, weight_bytes=ranks[0]["weight_bytes"], runs=res,
+                         peak_gb=[r["peak_gb"] for r in ranks])
+    log(f"kvtp: card {card}")
     return out, totals
 
 
@@ -3547,6 +3848,21 @@ def main() -> int:
                           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:3] == ["--phase", "kvtp"]:
+        # the kvtp phase alone (llama2-7b over NCCL on a machine with four
+        # cards), for the KVTP_MODELS named after it or all of them
+        unknown = set(sys.argv[3:]) - set(KVTP_MODELS)
+        check(not unknown, f"--phase kvtp: not in KVTP_MODELS: {sorted(unknown)}")
+        kvtp, _ = phase_kvtp(torch, card, models=sys.argv[3:] or None)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_kvtp.json").write_text(json.dumps({"card": card, "kvtp": kvtp},
+                                                                 indent=1, default=str))
+        print(json.dumps({"ok": True, "phase": "kvtp",
+                          "transport": {a: r["transport"] for a, r in kvtp.items()},
+                          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:3] == ["--phase", "dp"]:
         # the dp phase alone, for the DP_MODELS named after it or all of them
         unknown = set(sys.argv[3:]) - set(DP_MODELS)
@@ -3582,6 +3898,10 @@ def main() -> int:
     dp, dp_totals = phase_dp(torch, card)
     for k in totals:
         totals[k] += dp_totals[k]
+    kvtp, kvtp_totals = phase_kvtp(torch, card, models=[KVTP_DEFAULT],
+                                   layers={KVTP_DEFAULT: KVTP_DEFAULT_LAYERS})
+    for k in totals:
+        totals[k] += kvtp_totals[k]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=totals[n],
@@ -3601,6 +3921,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_seconds(), "builder": builder(), "kernels": info,
          "serve": runs, "families": families, "sharded": sharded, "tp": tp, "dp": dp,
+         "kvtp": kvtp,
          "launches": totals,
          "ttft_model": ttft_model},
         indent=1, default=str))

@@ -24,8 +24,7 @@ the row-parallel reductions the paper compresses:
   ``fused_mlp`` is their composition. ``transport`` says how the group
   moves bytes (``launch/mesh.py``).
 
-The two are exclusive, and a TP group does not compose with a kv group yet
-(the reference's ``kv x model`` mesh; ROADMAP.md): such a context raises.
+The two are exclusive.
 
 Data-parallel ranks (the reference's ``data`` mesh axis): ``dp_group`` is a
 ``torch.distributed`` group of the ``dp_size`` ranks that hold the same TP
@@ -33,8 +32,7 @@ shard (one column of a ``data x model`` grid; ``tp_group`` is its row). Every
 data rank runs the whole engine on the same requests and computes every row
 outside the MoE layers; a MoE layer that meets the reference's island gate
 splits its tokens into ``dp_size`` groups, and data rank g routes group g
-through its ``E / dp_size`` experts (``models/moe.py``). A data group does
-not compose with a kv group either.
+through its ``E / dp_size`` experts (``models/moe.py``).
 
 Sequence-sharded pools (the reference's kv mesh axis): ``TPContext.kv_group``
 is a ``torch.distributed`` process group of ``kv_shards`` ranks, each of
@@ -45,6 +43,17 @@ communication-free (a rank drops the rows it does not own); the read side
 exchanges exactly the blocks a step's tables name (``pool_exchange``, one
 ``masked_owner_psum`` per pool plane). Pool ops update the local slabs in
 place and return them, so call sites read like the reference's.
+
+The three groups compose into the reference's ``kv x data x model`` mesh
+(``launch/mesh.py``): a kv group is then the K ranks of one (data, model)
+position, and every pool plane a rank holds is its TP-local slab
+``(per_shard, bs, width / M)``, since the engine sizes its pools from the
+rank-local config (the rank's kv heads: the reference's ``P(kv, None, m)``
+split of the plane's width). The pool ops see only the slab, so each
+plane's exchange runs over the kv group of the rank's position, while the
+row-parallel reductions stay on the row and the MoE island on the data
+group. Two groups of one context share exactly this rank; a context whose
+groups share more (the same group twice, say) raises.
 """
 from __future__ import annotations
 
@@ -84,11 +93,16 @@ class TPContext:
             raise ValueError(
                 f"simulate_tp={self.simulate_tp} with a tp_group or dp_group: a context "
                 f"either simulates TP on one card or runs it across ranks, not both")
-        if ranks and self.kv_group is not None:
-            raise ValueError(
-                "a tp_group or dp_group with a kv_group (sequence-sharded pools on a "
-                "data x model grid, the reference's kv x data x model mesh) is not "
-                "ported yet: see ROADMAP.md Queue 1 item 1 (tp x kv)")
+        groups = [(name, set(dist.get_process_group_ranks(g)))
+                  for name, g in (("tp_group", self.tp_group), ("dp_group", self.dp_group),
+                                  ("kv_group", self.kv_group)) if g is not None]
+        for i, (a, ra) in enumerate(groups):
+            for b, rb in groups[i + 1:]:
+                if len(ra & rb) > 1:
+                    raise ValueError(
+                        f"{a} and {b} overlap in ranks {sorted(ra & rb)}: on a kv x data x "
+                        f"model grid two groups of a rank share that rank alone "
+                        f"(launch/mesh.py spawn_ranks(..., tp=M, kv=K))")
 
     @property
     def kv_shards(self) -> int:

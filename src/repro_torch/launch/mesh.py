@@ -2,12 +2,17 @@
 axis there, a ``torch.distributed`` process group of ranks here). One group
 kind serves the port's axes: the kv group of sequence-sharded paged pools
 (``TPContext.kv_group``), the tensor-parallel group (``TPContext.tp_group``)
-and, on a ``data x model`` grid (``spawn_ranks(..., tp=M)``: the
-reference's ``make_host_mesh(data=D, model=M)``), the data group
-(``TPContext.dp_group``): rank ``r = d * M + m`` sits in row d (its model
-group, ranks ``d*M .. d*M + M - 1``) and column m (its data group, ranks
-``m, M + m, ...``); ``init_group`` makes one ``new_group`` per row and per
-column, and a one-rank row or column is no group (None).
+and the data group (``TPContext.dp_group``). ``spawn_ranks(..., tp=M,
+kv=K)`` lays ``K x D x M`` ranks out on the reference's ``("kv", "data",
+"model")`` mesh (``make_kv_mesh``; ``make_host_mesh(data=D, model=M)`` when
+K is 1): rank ``r = k*D*M + d*M + m`` sits in row (k, d) (its model group,
+the M ranks of its plane k and data rank d), column (k, m) (its data group,
+ranks ``k*D*M + m + d'*M``) and kv group (d, m) (the K ranks of its (data,
+model) position, ``d*M + m + k'*D*M``). ``init_group`` makes one
+``new_group`` per row, then per column, then per kv group, in that order on
+every rank (``new_group`` is collective); a one-rank group is no group
+(None), and K = 1 makes the grid and the numbering of a ``data x model``
+grid.
 
 Each rank is one process. Every rank calls ``init_group`` with the same
 ``init_method`` (a ``file://`` path or ``tcp://localhost:<port>``) and its
@@ -61,10 +66,11 @@ def backend_for(world: int, device: str | torch.device) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """This rank's place on a ``data x model`` grid of ``dp * tp`` ranks:
-    its model group (``tp_group``, its row; None when ``tp == 1``) and its
-    data group (``dp_group``, its column; None when ``dp == 1``), and its
-    rank in each."""
+    """This rank's place on a ``kv x data x model`` grid of ``kv * dp * tp``
+    ranks: its model group (``tp_group``, its row; None when ``tp == 1``),
+    its data group (``dp_group``, its column; None when ``dp == 1``) and
+    its kv group (``kv_group``, the ranks of its (data, model) position;
+    None when ``kv == 1``), and its rank in each."""
 
     tp_group: Any
     dp_group: Any
@@ -72,28 +78,39 @@ class Grid:
     dp: int
     tp_rank: int
     dp_rank: int
+    kv_group: Any = None
+    kv: int = 1
+    kv_rank: int = 0
 
 
-def _grid(world: int, rank: int, tp: int) -> Grid:
-    """The rows and columns of a grid of ``world`` ranks, ``tp`` wide: every
-    rank makes every group, in the same order (``new_group`` is collective)."""
-    if tp < 1 or world % tp:
-        raise ValueError(f"a grid of {world} ranks has no rows of {tp}")
-    dp = world // tp
-    rows = [dist.new_group(list(range(d * tp, (d + 1) * tp))) if tp > 1 else None
-            for d in range(dp)]
-    cols = [dist.new_group(list(range(m, world, tp))) if dp > 1 else None
-            for m in range(tp)]
-    d, m = divmod(rank, tp)
-    return Grid(tp_group=rows[d], dp_group=cols[m], tp=tp, dp=dp, tp_rank=m, dp_rank=d)
+def _grid(world: int, rank: int, tp: int, kv: int = 1) -> Grid:
+    """The rows, columns and kv groups of a grid of ``world`` ranks, ``tp``
+    wide and ``kv`` planes deep: every rank makes every group, in the same
+    order (``new_group`` is collective, and ranks that made them in other
+    orders would wait on each other)."""
+    if tp < 1 or kv < 1 or world % (tp * kv):
+        raise ValueError(f"a grid of {world} ranks has no {kv} planes of rows of {tp}")
+    dp = world // (tp * kv)
+    plane = dp * tp
+    rows = [dist.new_group([k * plane + d * tp + m for m in range(tp)]) if tp > 1 else None
+            for k in range(kv) for d in range(dp)]
+    cols = [dist.new_group([k * plane + d * tp + m for d in range(dp)]) if dp > 1 else None
+            for k in range(kv) for m in range(tp)]
+    kvs = [dist.new_group([k * plane + p for k in range(kv)]) if kv > 1 else None
+           for p in range(plane)]
+    k, p = divmod(rank, plane)
+    d, m = divmod(p, tp)
+    return Grid(tp_group=rows[k * dp + d], dp_group=cols[k * tp + m], tp=tp, dp=dp,
+                tp_rank=m, dp_rank=d, kv_group=kvs[p], kv=kv, kv_rank=k)
 
 
 def init_group(world: int, rank: int, init_method: str,
-               device: str = "cuda", tp: int = 0) -> Tuple[Any, torch.device]:
+               device: str = "cuda", tp: int = 0, kv: int = 0) -> Tuple[Any, torch.device]:
     """Join a group of ``world`` ranks as ``rank``: initialise
     ``torch.distributed`` with the backend ``backend_for`` picks and return
-    (the group, this rank's device); with ``tp`` > 0, (this rank's ``Grid``
-    on a ``data x model`` grid ``tp`` wide, the device). The device is
+    (the group, this rank's device); with ``tp`` or ``kv`` > 0, (this rank's
+    ``Grid`` on a ``kv x data x model`` grid ``tp`` wide (1 when 0) and
+    ``kv`` planes deep (1 when 0), the device). The device is
     ``cuda:rank`` under NCCL, ``cuda:(rank % device_count)`` under gloo
     (raising when there is no card), or the CPU when ``device="cpu"``."""
     if world < 2:
@@ -107,15 +124,15 @@ def init_group(world: int, rank: int, init_method: str,
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
-    return (_grid(world, rank, tp) if tp else dist.group.WORLD), dev
+    return (_grid(world, rank, max(tp, 1), max(kv, 1)) if tp or kv else dist.group.WORLD), dev
 
 
 def _rank_entry(rank: int, fn: Callable, world: int, init_method: str, device: str,
-                threads: int, tp: int, args: tuple, results) -> None:
+                threads: int, tp: int, kv: int, args: tuple, results) -> None:
     try:
         if threads:
             torch.set_num_threads(threads)
-        group, dev = init_group(world, rank, init_method, device=device, tp=tp)
+        group, dev = init_group(world, rank, init_method, device=device, tp=tp, kv=kv)
         try:
             out = fn(group, rank, dev, *args)
         finally:
@@ -126,12 +143,13 @@ def _rank_entry(rank: int, fn: Callable, world: int, init_method: str, device: s
 
 
 def spawn_ranks(fn: Callable, world: int, *args, device: str = "cuda", threads: int = 0,
-                timeout_s: float = 900.0, tp: int = 0) -> List[Any]:
+                timeout_s: float = 900.0, tp: int = 0, kv: int = 0) -> List[Any]:
     """Run ``fn(group, rank, device, *args)`` on ``world`` ranks, each a new
     process (``spawn``) that joins one group (``init_group``; ``file://``
     rendezvous in a new temporary directory), and return what each rank
-    returned, by rank. With ``tp`` > 0 the ranks form a ``data x model``
-    grid ``tp`` wide and ``fn`` gets its ``Grid`` in place of the group. ``fn`` and ``args`` must pickle, and ``fn`` must live
+    returned, by rank. With ``tp`` or ``kv`` > 0 the ranks form a ``kv x
+    data x model`` grid ``tp`` wide and ``kv`` planes deep (``init_group``)
+    and ``fn`` gets its ``Grid`` in place of the group. ``fn`` and ``args`` must pickle, and ``fn`` must live
     in a module the ranks can import. ``threads`` > 0 sets each rank's torch
     threads. A rank that raises or dies, or no answer from every rank
     within ``timeout_s``, stops every rank and raises here (with the rank's
@@ -141,7 +159,7 @@ def spawn_ranks(fn: Callable, world: int, *args, device: str = "cuda", threads: 
     with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_rank_entry,
-                             args=(r, fn, world, init, device, threads, tp, args, results))
+                             args=(r, fn, world, init, device, threads, tp, kv, args, results))
                  for r in range(world)]
         for p in procs:
             p.start()

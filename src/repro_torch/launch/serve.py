@@ -59,8 +59,7 @@ between them. The group is NCCL when there are at least N cards (rank r on
 ``cuda:r``), else gloo with every exchange staged through host memory
 (``launch/mesh.py``); the banner names the transport, and the report the
 collectives per step. As with ``--shard-pools``, rank 0 prints and every
-rank must sample the same tokens; ``--tp`` and ``--shard-pools`` do not
-combine yet. pixtral-12b and whisper-medium run on ``--tp`` ranks too: an
+rank must sample the same tokens. pixtral-12b and whisper-medium run on ``--tp`` ranks too: an
 encoder layer and each cross-attention hold the rank's heads (their ``wo``
 and ``down`` reductions compressed between the ranks) and a vision model's
 ``mm_proj`` its output columns, made whole by one dense all-gather a
@@ -79,7 +78,19 @@ default: uncompressed). In the engine that is the split scheduler's decode
 with ``--slots`` above 64 and divisible by D, so give ``--token-budget
 0``. The report adds the island's entries and the bytes of its reductions,
 all-to-alls and data all-gathers per step. ``--dp`` does not
-combine with ``--shard-pools`` or ``--simulate-tp``.
+combine with ``--simulate-tp``.
+
+``--shard-pools K`` with ``--tp M`` (and ``--dp D``) serves on the
+reference's ``kv x data x model`` mesh of ``K x D x M`` ranks (its
+``make_kv_mesh``; rank ``k*D*M + d*M + m``, ``launch/mesh.py``): each rank
+holds ``1/K`` of the blocks of the pools of its kv heads, every pool
+plane's exchange runs over the kv group of its (data, model) position, the
+compressed reductions over its row and the MoE island over its data group.
+The banner names the three extents; the report adds the exchange's
+all-reduces and MB per step, and prints the pool bytes a rank holds (summed
+over its tensors) beside the reference's ``paged_cache_bytes(per_device=
+True)`` on the whole config, which divides by the kv shards only and so
+reads M times the bytes a rank holds (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -91,7 +102,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import load_kernels
-from repro_torch.core.collectives import reset_tp_counts, tp_counts
+from repro_torch.core.collectives import (
+    exchange_counts, reset_exchange_counts, reset_tp_counts, tp_counts,
+)
 from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.configs import first_layers, get_config, reduced_config
 from repro_torch.core.formats import MXSpec
@@ -100,7 +113,9 @@ from repro_torch.core.tp import TPContext
 from repro_torch.device import resolve_device
 from repro_torch.models.frontends import frontend_stubs
 from repro_torch.models.model import Model, torch_dtype
-from repro_torch.serving import Engine, EngineSupervisor, FaultPlan, Request
+from repro_torch.serving import (
+    Engine, EngineSupervisor, FaultPlan, Request, paged_cache_bytes,
+)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -175,14 +190,13 @@ def main(argv=None):
     1`` (None, the tokens of each rank's requests, by rank)."""
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
-    if (args.tp > 1 or args.dp > 1) and args.shard_pools > 1:
-        raise ValueError("--tp or --dp with --shard-pools (the kv x data x model mesh) is not "
-                         "ported yet")
     if (args.tp > 1 or args.dp > 1) and args.simulate_tp:
         raise ValueError("--tp and --dp run tensor parallelism across ranks; --simulate-tp "
                          "simulates it on one device: give one of them")
-    ranks = max(args.tp * args.dp, args.shard_pools)
-    kind = "grid" if args.dp > 1 else ("tp" if args.tp > 1 else "kv")
+    ranks = args.tp * args.dp * args.shard_pools
+    # a Grid for the data x model and kv x data x model meshes; one group else
+    grid = args.dp > 1 or (args.shard_pools > 1 and args.tp > 1)
+    kind = "grid" if grid else ("tp" if args.tp > 1 else "kv")
     if ranks > 1:
         if args.stagger or args.deadline_ms or args.ttft_deadline_ms:
             raise ValueError("--shard-pools, --tp and --dp run every rank's scheduler in "
@@ -192,7 +206,8 @@ def main(argv=None):
         # on the CPU the ranks share its cores: no rank takes them all
         threads = 0 if device.type == "cuda" else max(1, (os.cpu_count() or 2) // ranks)
         outs = spawn_ranks(_serve_rank, ranks, args, device=device.type, threads=threads,
-                           tp=args.tp if args.dp > 1 else 0)
+                           tp=args.tp if grid else 0,
+                           kv=args.shard_pools if grid else 0)
         if any(o != outs[0] for o in outs[1:]):
             raise RuntimeError(f"{kind} ranks sampled different tokens")
         print(f"{kind} ranks: all {ranks} sampled identical tokens")
@@ -201,12 +216,14 @@ def main(argv=None):
 
 
 def _serve_rank(group, rank: int, device: torch.device, args) -> list:
-    """One rank of ``--shard-pools`` or ``--tp``: load the kernels the parent
-    built, serve, return the requests' tokens."""
+    """One rank of ``--shard-pools``, ``--tp`` or a grid: load the kernels
+    the parent built, serve, return the requests' tokens."""
     if device.type == "cuda":
         load_kernels(build=False)
-    if args.dp > 1:   # a Grid: this rank's row and column
-        _, out = _serve(args, device, tp_group=group.tp_group, dp_group=group.dp_group)
+    if args.dp > 1 or (args.shard_pools > 1 and args.tp > 1):
+        # a Grid: this rank's row, column and kv group
+        _, out = _serve(args, device, tp_group=group.tp_group, dp_group=group.dp_group,
+                        kv_group=group.kv_group)
     elif args.tp > 1:
         _, out = _serve(args, device, tp_group=group)
     else:
@@ -216,8 +233,8 @@ def _serve_rank(group, rank: int, device: torch.device, args) -> list:
 
 def _serve(args, device: torch.device, kv_group=None, tp_group=None, dp_group=None):
     """The serving run of ``main`` on ``device`` (on one rank of ``kv_group``,
-    ``tp_group`` or a grid's ``tp_group`` and ``dp_group`` when given: only
-    rank 0 prints)."""
+    ``tp_group`` or a grid's ``tp_group``, ``dp_group`` and ``kv_group``
+    when given: only rank 0 prints)."""
     full = get_config(args.arch)
     # reduced: at least one layer of each kind the schedule has (jamba: 3)
     kinds = len({(sp.kind, sp.moe, sp.window is not None) for sp in full.layers})
@@ -238,6 +255,7 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None, dp_group=No
     variant = policy.variant if policy.enabled else "none"
     if ranked:
         tp = (f"tp={ctx.tp_size}" + (f" dp={ctx.dp_size}" if dp_group is not None else "")
+              + (f" kv={ctx.kv_shards}" if kv_group is not None else "")
               + f" transport={ctx.transport}")
         if ctx.transport == "gloo-staged" and device.type == "cuda":
             tp += " (ranks share a card: exchanges staged through host memory, eager steps)"
@@ -312,11 +330,20 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None, dp_group=No
                  "would fold into the recurrent state; no chunked or mixed step)")
     rec = (f", recurrent state {engine.rec_state_bytes() / 1e6:.2f} MB fp32 per rank"
            if recurrent else "")
+    held = (f", {engine.pool_bytes_held() / 1e6:.2f} MB held" if engine.kv_shards > 1 else "")
+    if engine.kv_shards > 1 and engine.tp_size > 1:
+        # the reference's MB/device on this mesh: the whole config's pools over
+        # the kv shards alone (its pools are split over model too)
+        ref = paged_cache_bytes(cfg, engine.n_blocks, engine.block_size,
+                                dtype_bytes=engine.cache_dtype.itemsize,
+                                cache_spec=engine.cache_spec, kv_shards=engine.kv_shards,
+                                per_device=True)
+        held += f"; the reference's paged_cache_bytes(per_device=True) {ref / 1e6:.2f} MB"
     print_(f"kv cache: {engine.cache_spec.describe()} "
            f"({engine.kv_pool_bytes() / 1e6:.2f} MB pools, kv_shards={engine.kv_shards}, "
            f"tp={engine.tp_size}, "
-           f"{engine.kv_pool_bytes(per_device=True) / 1e6:.2f} MB per rank{rec}); step: {step}; "
-           f"prefix cache: {'on' if engine.prefix_cache else 'off'}")
+           f"{engine.kv_pool_bytes(per_device=True) / 1e6:.2f} MB per rank{held}{rec}); "
+           f"step: {step}; prefix cache: {'on' if engine.prefix_cache else 'off'}")
 
     n_req = args.requests or args.slots
     rng = np.random.default_rng(args.seed)
@@ -337,6 +364,7 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None, dp_group=No
     engine.fault_plan = plan
     sup = EngineSupervisor(engine) if len(fault_plan) else None
     reset_tp_counts()
+    reset_exchange_counts()
     t0 = time.time()
     out = (sup or engine).run(reqs, seed=args.seed, extra_inputs=extra)
     if device.type == "cuda":
@@ -373,6 +401,11 @@ def _serve(args, device: torch.device, kv_group=None, tp_group=None, dp_group=No
                    f"{c['dense_all_to_all']} dense all-to-alls, "
                    f"{c['dp_all_gather_bytes'] / n / 1e6:.3f} MB in {c['dp_all_gather']} "
                    f"data all-gathers, sent by rank 0")
+    if ctx.kv_sharded:
+        e, n = exchange_counts(), max(s["n_steps"], 1)
+        print_(f"kv exchange ({ctx.transport}): {e['all_reduce']} all-reduces "
+               f"over {ctx.kv_shards} kv ranks; per step {e['bytes'] / n / 1e6:.3f} MB from "
+               f"rank 0, {e['seconds'] / n * 1e3:.2f} ms host")
     print_(f"programs: decode={engine.decode_cache_size()} prefill={engine.prefill_cache_size()} "
            f"({'graphed' if engine.graphed else 'eager'} steps)")
     print_(f"TTFT p50 {s['ttft_p50_s']*1e3:.1f} ms, p90 {s['ttft_p90_s']*1e3:.1f} ms; "

@@ -19,6 +19,9 @@ kernel's ``row_map`` addressing (decode: ``arange(B)``; chunk: ``zeros(1)``;
 mixed: ``slot_ids``, one region per slot); its appends go to the owning
 rank only (``_sharded_append``). The read order against the append is the
 replicated path's: decode reads after its write, chunk and mixed before.
+On a TP row too (the ``kv x model`` mesh) the pools hold the rank's kv
+heads, so the virtual pool and the ``row_map`` read are those of its own
+heads, and ``ctx.kv_group`` is the kv group of its model position.
 """
 from __future__ import annotations
 

@@ -99,6 +99,14 @@ its kv axis: a whole-prompt stack's per-slot state (jamba's and xLSTM's
 ``state["rec"]``, whisper's cross K/V) is whole on every kv rank, the same
 on each since every rank runs the same steps, and a vision prefix's blocks
 shard like any other. A stack with no pools (xlstm-125m) shards nothing.
+With a ``tp_group`` (and a ``dp_group``) too, the rank sits on the
+reference's ``kv x data x model`` mesh: it holds ``n_blocks / N`` blocks of
+the pools of its kv heads, each pool plane's exchange, the scatters, the
+copy-on-write fork and the corruption fault run over the kv group of its
+(data, model) position, the row-parallel reductions over its row and the
+MoE island over its data group, and every one of the grid's ranks runs the
+scheduler in lockstep. The recurrent state and the cross K/V hold the
+rank's heads (split over the row) and are whole over the kv group.
 
 Data-parallel ranks: with a ``TPContext`` whose ``dp_group`` holds N ranks
 (with its ``tp_group``, one row of a ``data x model`` grid), each rank runs
@@ -412,7 +420,7 @@ class Engine:
         # no host-staged exchange inside a step
         self.graphed = (bool(cuda_graphs) and self.device.type == "cuda"
                         and self.kv_shards == 1 and ctx.transport != "gloo-staged")
-        for group in (ctx.tp_group, ctx.dp_group):
+        for group in (ctx.tp_group, ctx.dp_group, ctx.kv_group):
             if self.graphed and group is not None:
                 # NCCL sets its communicator up at its first collective, which
                 # must not happen inside a capture
@@ -502,13 +510,21 @@ class Engine:
         """Bytes of the attention KV pools: the pools the engine addresses
         (every rank's kv heads on a TP group), or with ``per_device=True``
         what this rank holds (``1/kv_shards`` of them when sharded, ``1/N``
-        on a TP group of N ranks). An encoder-decoder's per-slot cross K/V
-        is counted too (``kv_cache.cross_state_bytes``)."""
+        on a TP group of N ranks, ``1/(kv_shards * N)`` on both). An
+        encoder-decoder's per-slot cross K/V is counted too
+        (``kv_cache.cross_state_bytes``)."""
         b = paged_cache_bytes(self.cfg, self.n_blocks, self.block_size,
                               dtype_bytes=self.cache_dtype.itemsize,
                               cache_spec=self.cache_spec, kv_shards=self.kv_shards,
                               per_device=per_device, n_slots=self.n_slots)
         return b if per_device else b * self.tp_size
+
+    def pool_bytes_held(self) -> int:
+        """Bytes of the pool tensors (every plane of every layer) and of an
+        encoder-decoder's cross K/V that this process holds, summed over
+        the tensors themselves."""
+        cross = self._state.get("cross_k", []) + self._state.get("cross_v", [])
+        return sum(t.numel() * t.element_size() for t in self._pool_planes() + cross)
 
     def logits_finite(self) -> bool:
         """Whether every step of the last run produced finite logits in every

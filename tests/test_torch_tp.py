@@ -80,9 +80,10 @@ the port's simulated path and the reference.
   ``ff_down``) and one all-reduce per dense one, plus one all-reduce per
   mLSTM layer for its q/k/v/i/f partial.
 * Refusals: ``keep_local_fp`` in the engine on the rank path (ROADMAP
-  Queue 3 item 11), a TP group with ``simulate_tp`` or with a kv group,
-  heads or MLP columns that do not divide; the backend rule;
-  ``launch/serve.py --tp 2`` on the CPU.
+  Queue 3 item 11), a TP group with ``simulate_tp`` or with a kv group
+  that overlaps it, heads or MLP columns that do not divide; the backend
+  rule; ``launch/serve.py --tp 2`` on the CPU, and with ``--shard-pools 2``
+  (a kv x model grid of 4 ranks).
 
 One spawn of 4 ranks (collectives only) and one of 2 ranks (everything)
 per module; the ranks import torch and the port only
@@ -942,7 +943,7 @@ def test_refusals_on_the_rank_path(served):
         m = r["refusals"]
         assert m["keep_local_fp"] and "Queue 3 item 11" in m["keep_local_fp"]
         assert m["simulate_tp"] and "simulate_tp=2" in m["simulate_tp"]
-        assert m["kv_group"] and "not ported yet" in m["kv_group"]
+        assert m["kv_group"] and "tp_group and kv_group overlap in ranks [0, 1]" in m["kv_group"]
 
 
 def test_backend_rule(monkeypatch):
@@ -956,7 +957,8 @@ def test_backend_rule(monkeypatch):
 def test_serve_cli_tp_on_cpu(capfd):
     """``launch/serve.py --tp 2`` on the CPU: rank 0's banner names the
     group and its transport, the report its collectives, and both ranks
-    sample the tokens of ``--simulate-tp 2``."""
+    sample the tokens of ``--simulate-tp 2``; with ``--shard-pools 2`` too,
+    all 4 ranks of the kv x model grid sample them."""
     argv = ["--reduced", "--device", "cpu", "--slots", "2", "--requests", "3", "--prompt-len",
             "40", "--new-tokens", "3", "--cache-spec", "fp4_e2m1"]
     _, out = serve.main(argv + ["--simulate-tp", "2"])
@@ -967,7 +969,10 @@ def test_serve_cli_tp_on_cpu(capfd):
     assert engine is None and ranks == [simulated, simulated]
     assert "tp=2 transport=gloo-staged overlap_chunks=2" in text
     assert "collectives (gloo-staged):" in text and "tp ranks: all 2 sampled identical" in text
-    with pytest.raises(ValueError, match="not ported"):
-        serve.main(argv + ["--tp", "2", "--shard-pools", "2"])
+    capfd.readouterr()
+    engine, ranks = serve.main(argv + ["--tp", "2", "--shard-pools", "2"])
+    text = capfd.readouterr().out
+    assert engine is None and ranks == [simulated] * 4
+    assert "tp=2 kv=2 transport=gloo-staged" in text and "grid ranks: all 4 sampled identical" in text
     with pytest.raises(ValueError, match="give one of them"):
         serve.main(argv + ["--tp", "2", "--simulate-tp", "2"])

@@ -21,6 +21,14 @@ engine, so both run the same code.
 data group, one MoE layer of each model of ``job["moe"]`` on every input
 under every policy of ``POLICIES``, and the engine cases of
 ``job["engine"]``.
+
+``run_kvtp_rank(grid, rank, device, job)`` is what each rank of
+``tests/test_torch_kv_tp.py``'s ``kv x data x model`` grids runs
+(``spawn_ranks(..., tp=2, kv=2)``): for each model of ``job["models"]`` its
+engine cases with replicated pools (``kv_group=None``: this rank's plane is
+a ``data x model`` grid of its own) and then with the pools sharded over
+its kv group, the weights this rank holds, and (``probes``) two mixed steps'
+logits and the exchanged virtual pool in both modes.
 """
 from __future__ import annotations
 
@@ -35,8 +43,9 @@ import torch.distributed as dist
 from repro_torch.core import collectives as C
 from repro_torch.core.formats import KVCacheSpec
 from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT, CompressionPolicy
-from repro_torch.core.tp import TPContext
+from repro_torch.core.tp import TPContext, pool_exchange
 from repro_torch.models.convert import params_from_numpy, shard_params
+from repro_torch.models.attention import pool_planes
 from repro_torch.models.frontends import frontend_shapes
 from repro_torch.models.model import Model, recurrent_layer
 from repro_torch.models.moe import moe
@@ -203,7 +212,7 @@ def run_tp_cases(group, device, cfg, params_np, job) -> dict:
 
 def _refusals(group, cfg, params_np) -> dict:
     """The rank path's refusals, by message: keep_local_fp in the engine, a
-    TP group with simulate_tp or with a kv group."""
+    TP group with simulate_tp or with a kv group that overlaps it."""
     model, params = _params(group, cfg, params_np, "cpu")
     msgs = {}
     for name, make in (
@@ -311,3 +320,80 @@ def run_grid_rank(grid, rank: int, device, job: dict) -> dict:
             "a2a": run_grid_a2a(grid, job["a2a"]),
             "moe": {k: run_grid_moe(grid, m) for k, m in job["moe"].items()},
             "engine": run_grid_engine(grid, job["engine"])}
+
+
+# ----------------------------------------------- the kv x data x model grid
+
+
+def kv_grid_context(grid, policy, sharded: bool) -> TPContext:
+    """``policy`` over this rank's row and column, with its kv group when
+    ``sharded`` (else replicated pools)."""
+    return TPContext(policy=policy, tp_group=grid.tp_group, dp_group=grid.dp_group,
+                     kv_group=grid.kv_group if sharded else None)
+
+
+def two_chunk_probe(model: Model, params, ctx: TPContext, probe: dict) -> dict:
+    """Two mixed steps of one slot over fresh pools of ``probe["n_blocks"]``
+    blocks (this rank's ``1/kv_shards`` of them, of its kv heads): the
+    prompt's first chunk from position 0, then its second, which reads the
+    first from the pools through table row ``probe["table"]`` (blocks on
+    every kv rank). Returns both steps' logits and every pool plane's
+    blocks of that row after the second step (``pool_exchange`` when
+    sharded, the pool's rows when replicated), as bytes."""
+    cfg = model.local_cfg(ctx)
+    spec = KVCacheSpec.parse(probe["cache_spec"])
+    tokens, table = probe["tokens"], probe["table"]
+    c, bs = len(tokens) // 2, 16
+    state = init_paged_state(cfg, 2, probe["n_blocks"] // ctx.kv_shards, bs, torch.float32,
+                             cache_spec=spec, device="cpu")
+    tables = torch.zeros((2, len(table)), dtype=torch.int32)
+    tables[0] = torch.as_tensor(table, dtype=torch.int32)
+    i32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32)
+    logits = []
+    for start in (0, c):
+        out, state = model.mixed_step(
+            ctx, params, i32(tokens[start:start + c])[None], state,
+            slot_ids=i32(np.zeros(c)), positions=i32(np.arange(start, start + c)),
+            valid=torch.ones(c, dtype=torch.bool), is_decode=torch.zeros(c, dtype=torch.bool),
+            slot_starts=i32([start, 0]), tables=tables, sample_idx=i32([c - 1, 0]),
+            cache_spec=spec)
+        logits.append(bits(out))
+    planes = [p for pk, pv in zip(state["pools_k"], state["pools_v"])
+              for p in pool_planes(pk, pv)]
+    row = tables[:1]
+    virtual = (pool_exchange(ctx, planes, row) if ctx.kv_sharded
+               else [p[row.reshape(-1).long()] for p in planes])
+    return dict(logits=logits, virtual=[bits(v) for v in virtual],
+                widths=[p.shape[-1] for p in planes], slab_rows=planes[0].shape[0])
+
+
+def run_kvtp_rank(grid, rank: int, device, job: dict) -> dict:
+    """The ``spawn_ranks(..., tp=2, kv=2)`` target of
+    ``tests/test_torch_kv_tp.py``: this rank's place on the grid, then for
+    each model of ``job["models"]`` the bytes of the weights it holds, its
+    engine cases (``run_case``) under each mode the case names
+    (``"replicated"``: ``kv_group=None``; ``"sharded"``) and policy
+    (``POLICIES``), and each of the model's ``probes`` in both modes; and
+    the refusal of a context whose groups overlap."""
+    out = {"grid": (grid.kv_rank, grid.dp_rank, grid.tp_rank, grid.kv, grid.dp, grid.tp)}
+    for key, m in job["models"].items():
+        cfg = m["cfg"]
+        model, params = Model(cfg), rank_params(grid, cfg, m["params"])
+        held = lambda node: (sum(held(v) for v in node.values()) if isinstance(node, dict)
+                             else sum(held(v) for v in node) if isinstance(node, list)
+                             else node.numel() * node.element_size())
+        res = {"weight_bytes": held(params)}
+        for mode in ("replicated", "sharded"):
+            res[mode] = {name: run_case(model, params, kv_grid_context(
+                grid, POLICIES[case["policy"]], mode == "sharded"), device, case)
+                for name, case in m["cases"].items() if mode in case["modes"]}
+            for name, probe in m.get("probes", {}).items():
+                ctx = kv_grid_context(grid, POLICIES[probe["policy"]], mode == "sharded")
+                res[mode][f"probe/{name}"] = two_chunk_probe(model, params, ctx, probe)
+        out[key] = res
+    try:   # a context whose groups share more than this rank
+        TPContext(tp_group=grid.tp_group, kv_group=grid.tp_group)
+        out["overlap"] = None
+    except ValueError as e:
+        out["overlap"] = str(e)
+    return out
