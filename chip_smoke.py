@@ -70,9 +70,12 @@ Phases (any failure exits non-zero):
               (llama2-7b on 2 ranks, llama2-13b on 4) in every served
               geometry, mixed and split decode timed, llama2-7b's 16 heads
               also over the virtual pool (``row_map``: a kv x model rank's
-              read), and the codec at the
+              read), mixtral-8x22b's kv 2 x data 2 x model 2 rank (24 heads
+              over 4 kv heads, G 6) likewise, and the codec at the
               rank's partial, its gathered S = 2 and S = 4 shards and the
-              two_phase slices. Prints
+              two_phase slices, and at a training step's partials (8 x 256
+              tokens: internlm2-1.8b TP 2, llama2-7b TP 4) and their
+              gathered shards. Prints
               each kernel's
               device time (CUDA events around back-to-back launches) at every
               shape the served steps launch it, bytes moved and bound, and
@@ -293,6 +296,29 @@ Phases (any failure exits non-zero):
               uncompressed. Then the analytic TTFT model's H100 constants
               fitted on this run (``launch/ttft_table.fit_h100``) and its
               codec term against the measured one (``one_card_check``).
+
+12. train  — training (``phase_train``, after phase 11): internlm2-1.8b at
+              full width and depth (24 layers, vocab 258: the reference
+              launch/train.py's default), bf16 weights and fp32 AdamW moments
+              on the one card, 20 steps of 8 x 256 corpus tokens
+              (uncompressed: one card has no reduction between ranks):
+              every loss finite, the last 5 steps' mean below the first 5's;
+              prints step ms p50 against the matmul bound, tokens/s, peak
+              memory and the AdamW update's device ms against its bytes
+              bound. Then the same width on its first 4 layers on 2 TP ranks
+              sharing the card (gloo, host-staged), every row-parallel
+              reduction compressed (PAPER_DEFAULT) with the
+              straight-through backward, 3 steps: losses equal on both
+              ranks, replicated weights bit-equal after the steps, the first
+              loss within rel 1e-4 of the one-card simulate_tp=2 forward and
+              more than that from the dense first loss, 2
+              quantize and 2 dequantize+sum launches per layer a step and
+              none in the backward, 4 all-gathers per layer forward, 2
+              backward all-reduces per layer and one optimizer all-reduce a
+              step, the compressed gradient's cosine with the dense one above
+              0.7. ``--phase train [arch ...]`` runs ``TRAIN_MODELS``
+              (internlm2-1.8b on 2 ranks, llama2-7b on 4, full depth) over
+              NCCL with a card per rank, compressed against dense step ms.
 
 The line before the last is the JSON ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --phase
@@ -714,7 +740,9 @@ def codec_tp(torch, dev, g, fp4, same, timed):
     pixtral-12b on 2 ranks, the prefix-plus-prompt partial (256 + 64,
     5120) of the phase's prefill and its S = 2 shards; xlstm-125m on 2
     ranks, the partial (64, 768) of the phase's prompts and (512, 768) of
-    its measure_ttft prefill, and their S = 2 shards; at one rank of the dp
+    its measure_ttft prefill, and their S = 2 shards; a training step's
+    partial (8 x 256 tokens) on internlm2-1.8b TP 2 (2048, 2048) and
+    llama2-7b TP 4 (2048, 4096) and their gathered shards; at one rank of the dp
     phase's 2 x 2 grid (``DP_MODELS``), the island's ``down`` partial (dp,
     E/dp, C, d) of a DP_SLOTS-row decode step (mixtral (160, 6144), llama4
     (128, 5120); under ``compress_all_to_all`` its dispatch and combine
@@ -733,7 +761,9 @@ def codec_tp(torch, dev, g, fp4, same, timed):
                      (1, 1500, 1024, "whisper-medium TP 2 encoder partial"),
                      (1, 256 + SHARD_PROMPT, 5120, "pixtral-12b TP 2 prefix-plus-prompt partial"),
                      (1, SHARD_PROMPT, 768, "xlstm-125m TP 2 prompt partial"),
-                     (1, TP_TTFT, 768, "xlstm-125m TP 2 measure_ttft partial")]
+                     (1, TP_TTFT, 768, "xlstm-125m TP 2 measure_ttft partial"),
+                     (1, TRAIN_BATCH * TRAIN_SEQ, 2048, "internlm2-1.8b TP 2 training partial"),
+                     (1, TRAIN_BATCH * TRAIN_SEQ, 4096, "llama2-7b TP 4 training partial")]
         + [(1, island_rows(get_config(a)), get_config(a).d_model,
             f"{a} 2 x 2 grid island down partial (dp, E/dp, C, d), also the "
             f"compress_all_to_all dispatch and combine tensor") for a in DP_MODELS],
@@ -744,7 +774,11 @@ def codec_tp(torch, dev, g, fp4, same, timed):
                               (2, 256 + SHARD_PROMPT, 5120,
                                "pixtral-12b TP 2 prefix-plus-prompt gathered shards"),
                               (2, SHARD_PROMPT, 768, "xlstm-125m TP 2 prompt gathered shards"),
-                              (2, TP_TTFT, 768, "xlstm-125m TP 2 measure_ttft gathered shards")]
+                              (2, TP_TTFT, 768, "xlstm-125m TP 2 measure_ttft gathered shards"),
+                              (2, TRAIN_BATCH * TRAIN_SEQ, 2048,
+                               "internlm2-1.8b TP 2 training gathered shards"),
+                              (4, TRAIN_BATCH * TRAIN_SEQ, 4096,
+                               "llama2-7b TP 4 training gathered shards")]
         + [(2, island_rows(get_config(a)), get_config(a).d_model,
             f"{a} 2 x 2 grid island down gathered shards") for a in DP_MODELS],
         "mx_dequant": [(1, 2 * T, 2048, "llama2-7b TP 2 two_phase gathered slices")]
@@ -1228,6 +1262,19 @@ def phase_paged(torch, dev="cuda"):
             time_paged(torch, dev, res, label, geos, tpools, textras, heads, heads, hd, None,
                        timed_only=("mixed", "decode"), row_map=True)
         del geos, tpools
+    # one rank of mixtral-8x22b's kv 2 x data 2 x model 2 grid (the kvtp
+    # phase's --phase kvtp grid): its model rank's 24 query heads over 4 kv
+    # heads (G 6, hd 128) under the 4096 window, at phase 5's prompt length;
+    # the table walk and the sequence-sharded read, mixed and split decode
+    # timed
+    rank = get_config("mixtral-8x22b").tp_shard(2)
+    window = next(sp.window for sp in rank.layers if sp.kind == "attn")
+    geos, tpools, _, textras = paged_geometries(torch, dev, g, rank.kv_dim, rank.q_dim, PROMPT)
+    for rm in (False, True):
+        time_paged(torch, dev, res, "mixtral-8x22b kv2 x data2 x model2 ", geos, tpools, textras,
+                   rank.n_heads, rank.n_kv_heads, rank.head_dim, window,
+                   timed_only=("mixed", "decode"), row_map=rm)
+    del geos, tpools
     # one TP rank's heads of the whole-prompt families on 2 ranks, in their
     # only paged read, the split decode, at the TP phase's prompt length
     # (SHARD_PROMPT text tokens after pixtral's 256 patches; the decode rows'
@@ -3361,6 +3408,7 @@ def phase_dp(torch, card, dev="cuda", cfg=None):
     return out, totals
 
 
+
 # ------------------------------------------------------------------------ kvtp
 
 # the kvtp phase's models -> ((kv, data, model) extents, runs, layers served:
@@ -3800,6 +3848,381 @@ def ttft_fit(info, ttft):
     return dict(fit=fit, one_card=one_card)
 
 
+# ---------------------------------------------------------------------- train
+
+TRAIN_ARCH = "internlm2-1.8b"   # the reference launch/train.py's default
+TRAIN_STEPS = 20                # one card, full depth
+TRAIN_BATCH, TRAIN_SEQ = 8, 256  # the reference launch/train.py's defaults
+TRAIN_TP_LAYERS = 4             # the 2-rank run sharing the one card (gloo, host-staged)
+TRAIN_TP_STEPS = 3
+TRAIN_MODELS = {"internlm2-1.8b": 2, "llama2-7b": 4}   # --phase train: TP ranks, full depth
+TRAIN_NCCL_STEPS = 6
+TRAIN_COSINE = 0.7              # compressed vs dense gradient (tests/test_collectives.py's bound)
+TRAIN_LOSS_REL = 1e-4           # the ranks' first loss vs the one-card simulate_tp=n forward
+                                # (about 10x under the compression's own effect on it, which
+                                # the ranks' dense first loss must show beyond this limit)
+
+
+def train_cfg(arch, layers=0):
+    """``arch`` at full width on its first ``layers`` layers (all: 0), vocab
+    258 (the byte tokenizer's, as the reference's launch/train.py sets it)."""
+    import dataclasses
+
+    from repro_torch.configs import first_layers, get_config
+
+    return dataclasses.replace(first_layers(get_config(arch), layers), vocab_size=258)
+
+
+def train_batches(n):
+    """The first ``n`` global batches (TRAIN_BATCH x TRAIN_SEQ) the corpus
+    pipeline draws with seed 0, as numpy (what a rank receives)."""
+    from repro_torch.data import Batches, corpus_tokens
+
+    b = Batches(corpus_tokens(4_000_000), TRAIN_BATCH, TRAIN_SEQ, seed=0, device="cpu")
+    return [{k: v.numpy() for k, v in b.next().items()} for _ in range(n)]
+
+
+def train_opt(steps):
+    from repro_torch.training import AdamWConfig
+
+    # the reference's launch/train.py schedule
+    return AdamWConfig(lr=3e-4, warmup_steps=min(50, steps // 10 + 1), total_steps=steps)
+
+
+def train_flops(cfg) -> float:
+    """Matmul operations of one step: 6 per parameter per token."""
+    from repro_torch.models.model import param_shapes
+
+    return 6.0 * sum(math.prod(s) for s in _leaves(param_shapes(cfg))) * TRAIN_BATCH * TRAIN_SEQ
+
+
+def adamw_bytes(n_params: int, wbytes: int = 2) -> float:
+    """What the AdamW update must move: the weight, its gradient and both
+    fp32 moments read, the weight and the moments written."""
+    return n_params * (2 * wbytes + wbytes + 2 * 4 * 2)
+
+
+def timed_steps(torch, dev, step, state, batches):
+    """Run ``step`` over ``batches``; (state, losses, host ms of each step
+    from its start to a synchronize after it, the last metrics)."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    losses, ms, metrics = [], [], None
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, ms, metrics
+
+
+def train_one_card(torch, dev, card, totals):
+    """internlm2-1.8b at full width and depth on one card: TRAIN_STEPS AdamW
+    steps on the corpus (uncompressed: one card has no reduction between
+    ranks, as the reference's single-device context). Held: every loss
+    finite, the mean of the last 5 below the mean of the first 5. Prints
+    step ms p50 against the bound, tokens/s, peak memory and the AdamW
+    update's device ms against its bound."""
+    from repro_torch.core.tp import TPContext
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.models.model import Model
+    from repro_torch.training import adamw_update, init_train_state, make_train_step
+    from repro_torch.training.optimizer import leaves, rebuild
+
+    cfg = train_cfg(TRAIN_ARCH)
+    model = Model(cfg)
+    d = torch.device(dev)
+    batches = [{k: torch.from_numpy(v).to(d) for k, v in b.items()}
+               for b in train_batches(TRAIN_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, device=dev, seed=0)
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    opt = train_opt(TRAIN_STEPS)
+    step = make_train_step(model, TPContext(), opt)
+    reset_launch_counts()
+    state, losses, ms, _ = timed_steps(torch, d, step, state, batches)
+    launched = launch_counts()
+    for k in totals:
+        totals[k] += launched[k]
+    check(all(math.isfinite(x) for x in losses), f"train[one card]: a loss is not finite: "
+          f"{losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"train[one card]: the loss did not fall: first 5 mean {first:.4f}, "
+          f"last 5 mean {last:.4f}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    p50 = sorted(ms[1:])[len(ms[1:]) // 2]
+    flops = train_flops(cfg)
+    step_bound, _ = bound(0, flops, BF16_OPS_PER_S)
+
+    # the AdamW update alone on a step's gradients: CUDA events around 3
+    # back-to-back updates after a warm one (the card waits wherever the
+    # host's enqueue is slower), beside the host's enqueue time
+    params = state["params"]
+    flat = leaves(params)
+    loss, _ = model.loss(TPContext(), params, batches[0])
+    tree = rebuild(params, list(torch.autograd.grad(loss, flat)))
+    del loss
+    with torch.no_grad():
+        adamw_update(opt, params, tree, state["opt"])
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            adamw_update(opt, params, tree, state["opt"])
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / 3
+        b.record()
+        b.synchronize()
+        opt_ms = a.elapsed_time(b) / 3
+    opt_bound, opt_by = bound(adamw_bytes(n_params), 0, BF16_OPS_PER_S)
+    del tree
+    res = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params, steps=TRAIN_STEPS,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses, step_ms=ms, step_ms_p50=p50,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3), peak_gb=peak,
+               step_bound_ms=step_bound, step_flops=flops, adamw_ms=opt_ms,
+               adamw_enqueue_ms=enqueue_ms, adamw_bound_ms=opt_bound, adamw_bound_by=opt_by,
+               launches=launched)
+    log(f"train[{cfg.name}] one card ({card}): {cfg.n_layers} layers d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params bf16, {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} corpus tokens: loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 5 mean "
+        f"{first:.4f}, last 5 mean {last:.4f}); step p50 {p50:.2f} ms (first step "
+        f"{ms[0]:.1f} ms; bound {step_bound:.2f} ms at {flops / 1e12:.2f} TFLOP bf16), "
+        f"{res['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GB; the AdamW update "
+        f"{opt_ms:.3f} ms between events ({enqueue_ms:.3f} ms host enqueue; bound "
+        f"{opt_bound:.3f} ms, {adamw_bytes(n_params) / 1e9:.1f} GB); kernels launched "
+        f"{launched}")
+    del state, params, flat, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _grad_dots(torch, grads_a, grads_b, sharded, group):
+    """(a . b, |a|^2, |b|^2) over the whole model: the TP-sharded leaves'
+    sums over the group, each replicated leaf once."""
+    from repro_torch.core.collectives import rank_sum_scalar
+
+    part = torch.zeros(3, dtype=torch.float64, device=grads_a[0].device)
+    whole = torch.zeros_like(part)
+    for a, b, s in zip(grads_a, grads_b, sharded):
+        a, b = a.double(), b.double()
+        v = torch.stack([(a * b).sum(), (a * a).sum(), (b * b).sum()])
+        if s:
+            part += v
+        else:
+            whole += v
+    return (rank_sum_scalar(part, group) + whole).tolist()
+
+
+def _train_rank(group, rank, dev, cfg, batches_np, steps, runs):
+    """One TP rank of the training phase: its seed-0 shard; the dense and the
+    compressed gradient of the first batch (forward and backward launches
+    counted apart; their cosine over the whole model); then ``steps`` train
+    steps under each policy of ``runs`` from the same weights, each with
+    its losses, step ms, kernel launches and collectives, and a digest of
+    every replicated leaf after the steps. Only rank 0 prints."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.collectives import reset_tp_counts, tp_counts, transport
+    from repro_torch.core.policy import NO_COMPRESSION, PAPER_DEFAULT
+    from repro_torch.core.tp import TPContext
+    from repro_torch.kernels.build import launch_counts, load_kernels, reset_launch_counts
+    from repro_torch.models.model import Model
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.train_step import sharded_leaves
+
+    _QUIET[0] = rank != 0
+    cuda = dev.type == "cuda"
+    if cuda:
+        load_kernels(build=False)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n = dist.get_world_size(group)
+    model = Model(cfg)
+    sharded = sharded_leaves(model, n)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in batches_np]
+    policies = {"compressed": PAPER_DEFAULT, "dense": NO_COMPRESSION}
+    ctx = {k: TPContext(policy=p, tp_group=group) for k, p in policies.items()}
+
+    params = model.init_params(device=dev, seed=0, tp=(rank, n))
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    loss_d, _ = model.loss(ctx["dense"], params, batches[0])
+    g_dense = torch.autograd.grad(loss_d, flat)
+    sync()
+    reset_launch_counts()
+    loss_c, _ = model.loss(ctx["compressed"], params, batches[0])
+    sync()
+    forward = launch_counts()
+    g_comp = torch.autograd.grad(loss_c, flat)
+    sync()
+    backward = {k: v - forward[k] for k, v in launch_counts().items()}
+    ab, aa, bb = _grad_dots(torch, g_comp, g_dense, sharded, group)
+    cosine = ab / math.sqrt(aa * bb)
+    first = dict(loss_compressed=float(loss_c.detach()), loss_dense=float(loss_d.detach()),
+                 cosine=cosine,
+                 forward=forward, backward=backward)
+    del g_dense, g_comp, loss_c, loss_d
+    for p in flat:
+        p.requires_grad_(False)
+
+    out = {}
+    for name in runs:
+        state = init_train_state(model, model.init_params(device=dev, seed=0, tp=(rank, n)))
+        step = make_train_step(model, ctx[name], train_opt(steps))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        reset_tp_counts()
+        state, losses, ms, _ = timed_steps(torch, dev, step, state, batches[:steps])
+        digest = hashlib.sha256()
+        for t, s in zip(leaves(state["params"]), sharded):
+            if not s:
+                digest.update(t.detach().cpu().view(torch.int16).numpy().tobytes())
+        out[name] = dict(losses=losses, step_ms=ms, launches=launch_counts(),
+                         collectives=tp_counts(), replicated=digest.hexdigest(),
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+        del state, step
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return dict(first=first, runs=out, transport=transport(group), device=str(dev))
+
+
+def train_ranks(torch, card, arch, n, layers, steps, runs, totals, dev="cuda"):
+    """``arch`` at full width on ``layers`` layers (all: 0) on ``n`` TP ranks
+    (``spawn_ranks``: NCCL with a card each, else gloo sharing the card),
+    every row-parallel reduction compressed (PAPER_DEFAULT) with the
+    straight-through backward. Held: losses equal on every rank and
+    replicated weights bit-equal after the steps; the first compressed loss
+    within TRAIN_LOSS_REL of the one-card ``simulate_tp=n`` forward on the
+    same seed-0 weights and batch, and further than that from the dense
+    first loss; kernel launches exact (2 quantize and 2
+    dequantize+sum per layer a step, none in the backward); per step 4
+    all-gathers per layer forward, 2 backward all-reduces per layer and the
+    optimizer's one; the compressed gradient's cosine with the dense one
+    above TRAIN_COSINE."""
+    from repro_torch.core.policy import PAPER_DEFAULT
+    from repro_torch.core.tp import TPContext
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    from repro_torch.models.model import Model
+
+    cfg = train_cfg(arch, layers)
+    L = cfg.n_layers
+    batches = train_batches(steps)
+    # the one-card simulate_tp=n forward the ranks' first loss is held to
+    model = Model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init_params(device=dev, seed=0)
+    with torch.no_grad():
+        b0 = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+        sim = float(model.loss(TPContext(policy=PAPER_DEFAULT, simulate_tp=n), params, b0)[0])
+        sim_dense = float(model.loss(TPContext(), params, b0)[0])
+    del params, b0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_train_rank, n, cfg, batches, steps, runs, device=dev,
+                        timeout_s=900, threads=0 if dev == "cuda" else 2)
+    wall = time.perf_counter() - t0
+    transport = ranks[0]["transport"]
+    check(transport == ("nccl" if backend_for(n, dev) == "nccl" else "gloo-staged"),
+          f"train[{arch}]: transport {transport}")
+    tag = f"train[{arch} tp {n}, {L} layers]"
+    first = ranks[0]["first"]
+    want_fwd = {"mx_quant": 2 * L, "mx_dequant_reduce": 2 * L, "mx_dequant": 0,
+                "paged_attention": 0}
+    for i, r in enumerate(ranks):
+        f = r["first"]
+        check(f["forward"] == want_fwd, f"{tag}: rank {i}'s compressed forward launched "
+              f"{f['forward']}, not {want_fwd}")
+        check(not any(f["backward"].values()), f"{tag}: rank {i}'s backward launched "
+              f"{f['backward']}")
+        check(f["loss_compressed"] == first["loss_compressed"],
+              f"{tag}: rank {i}'s first loss differs from rank 0's")
+    rel = abs(first["loss_compressed"] - sim) / abs(sim)
+    check(rel <= TRAIN_LOSS_REL, f"{tag}: first compressed loss {first['loss_compressed']:.5f} "
+          f"vs the one-card simulate_tp={n} forward {sim:.5f} (rel {rel:.3g} > "
+          f"{TRAIN_LOSS_REL})")
+    moved = abs(first["loss_compressed"] - first["loss_dense"]) / abs(first["loss_dense"])
+    check(moved > TRAIN_LOSS_REL, f"{tag}: the codec moved the first loss by rel {moved:.3g} "
+          f"(compressed {first['loss_compressed']:.5f}, dense {first['loss_dense']:.5f}), not "
+          f"more than {TRAIN_LOSS_REL}")
+    check(first["cosine"] > TRAIN_COSINE, f"{tag}: compressed vs dense gradient cosine "
+          f"{first['cosine']:.4f} <= {TRAIN_COSINE}")
+    res = dict(arch=arch, ranks=n, layers=L, transport=transport, wall_s=wall, steps=steps,
+               simulated_loss=sim, simulated_dense_loss=sim_dense, first=first,
+               runs=[r["runs"] for r in ranks])
+    for name in runs:
+        got = [r["runs"][name] for r in ranks]
+        for i, g in enumerate(got):
+            check(g["losses"] == got[0]["losses"], f"{tag} {name}: rank {i}'s losses "
+                  f"{g['losses']} differ from rank 0's {got[0]['losses']}")
+            check(g["replicated"] == got[0]["replicated"],
+                  f"{tag} {name}: rank {i}'s replicated weights differ from rank 0's")
+            check(all(math.isfinite(x) for x in g["losses"]), f"{tag} {name}: a loss is not "
+                  f"finite: {g['losses']}")
+            c = g["collectives"]
+            if name == "compressed":
+                want = {k: v * steps for k, v in want_fwd.items()}
+                check(g["launches"] == want, f"{tag}: rank {i} launched {g['launches']} in "
+                      f"{steps} steps, not {want}")
+                check(c["all_gather"] == 4 * L * steps and c["all_reduce"] == 0,
+                      f"{tag}: rank {i}'s forward collectives {c}")
+                for k in totals:
+                    totals[k] += g["launches"][k]
+            else:
+                check(not any(g["launches"].values()) and c["all_reduce"] == 2 * L * steps,
+                      f"{tag} dense: rank {i} launched {g['launches']}, collectives {c}")
+            check(c["backward_all_reduce"] == 2 * L * steps and c["grad_all_reduce"] == steps,
+                  f"{tag} {name}: rank {i}'s backward and optimizer all-reduces {c}")
+        g = got[0]
+        p50 = sorted(g["step_ms"][1:])[len(g["step_ms"][1:]) // 2]
+        g["step_ms_p50"] = p50
+        c = g["collectives"]
+        log(f"{tag} {name} on {card} over {transport}: losses {g['losses'][0]:.4f} -> "
+            f"{g['losses'][-1]:.4f} equal on {n} ranks, replicated weights bit-equal; step p50 "
+            f"{p50:.2f} ms (first {g['step_ms'][0]:.1f} ms), {TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.0f} "
+            f"tokens/s; per step per rank {c['all_gather'] / steps:.0f} all-gathers and "
+            f"{c['all_reduce'] / steps:.0f} all-reduces forward ({c['bytes'] / steps / 1e6:.2f} "
+            f"MB), {c['backward_all_reduce'] / steps:.0f} backward all-reduces "
+            f"({c['backward_bytes'] / steps / 1e6:.2f} MB), {c['grad_all_reduce'] / steps:.0f} "
+            f"optimizer all-reduce; host {c['seconds'] / steps * 1e3:.1f} ms in forward "
+            f"collectives; kernels {g['launches']}; peak "
+            + (f"{g['peak_gb']:.2f} GB" if g["peak_gb"] is not None else "not measured"))
+    log(f"{tag}: first compressed loss {first['loss_compressed']:.5f} vs one-card "
+        f"simulate_tp={n} forward {sim:.5f} (rel {rel:.3g}; moved rel {moved:.3g} from dense "
+        f"{first['loss_dense']:.5f}; one-card dense "
+        f"{sim_dense:.5f}); forward launches {first['forward']}, backward none; compressed vs "
+        f"dense gradient cosine {first['cosine']:.4f} (bound {TRAIN_COSINE}); {wall:.1f} s with "
+        f"start-up")
+    if "dense" in runs:
+        pc = res["runs"][0]["compressed"]["step_ms_p50"]
+        pd = res["runs"][0]["dense"]["step_ms_p50"]
+        log(f"{tag}: step p50 compressed / dense {pc:.2f} / {pd:.2f} ms = {pc / pd:.4f}")
+    return res
+
+
+def phase_train(torch, card, dev="cuda"):
+    """Training (after phase 11): internlm2-1.8b at full width and depth on
+    the one card (``train_one_card``), then at full width on its first
+    TRAIN_TP_LAYERS layers on 2 TP ranks sharing the card (gloo), compressed
+    (``train_ranks``). Returns (results, kernel launches)."""
+    totals = {k: 0 for k in KERNELS}
+    out = {"one_card": train_one_card(torch, dev, card, totals)}
+    out["tp"] = train_ranks(torch, card, TRAIN_ARCH, 2, TRAIN_TP_LAYERS, TRAIN_TP_STEPS,
+                            ("compressed",), totals, dev=dev)
+    return out, totals
+
 # ------------------------------------------------------------------------ main
 
 
@@ -3863,6 +4286,27 @@ def main() -> int:
                           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:3] == ["--phase", "train"]:
+        # training on TP ranks alone, NCCL with a card per rank: each of
+        # TRAIN_MODELS (or those named) at full depth, compressed and dense
+        unknown = set(sys.argv[3:]) - set(TRAIN_MODELS)
+        check(not unknown, f"--phase train: not in TRAIN_MODELS: {sorted(unknown)}")
+        train = {}
+        for arch, n in TRAIN_MODELS.items():
+            if sys.argv[3:] and arch not in sys.argv[3:]:
+                continue
+            check(torch.cuda.device_count() >= n, f"--phase train {arch}: {n} ranks need "
+                  f"{n} cards, found {torch.cuda.device_count()}")
+            train[arch] = train_ranks(torch, card, arch, n, 0, TRAIN_NCCL_STEPS,
+                                      ("compressed", "dense"), {k: 0 for k in KERNELS})
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_train.json").write_text(json.dumps(
+            {"card": card, "train": train}, indent=1, default=str))
+        print(json.dumps({"ok": True, "phase": "train",
+                          "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:3] == ["--phase", "dp"]:
         # the dp phase alone, for the DP_MODELS named after it or all of them
         unknown = set(sys.argv[3:]) - set(DP_MODELS)
@@ -3902,6 +4346,9 @@ def main() -> int:
                                    layers={KVTP_DEFAULT: KVTP_DEFAULT_LAYERS})
     for k in totals:
         totals[k] += kvtp_totals[k]
+    train, train_totals = phase_train(torch, card)
+    for k in totals:
+        totals[k] += train_totals[k]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=totals[n],
@@ -3921,7 +4368,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_seconds(), "builder": builder(), "kernels": info,
          "serve": runs, "families": families, "sharded": sharded, "tp": tp, "dp": dp,
-         "kvtp": kvtp,
+         "kvtp": kvtp, "train": train,
          "launches": totals,
          "ttft_model": ttft_model},
         indent=1, default=str))

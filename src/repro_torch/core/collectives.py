@@ -49,8 +49,23 @@ take; the island's all-to-alls, data all-gathers and entries under keys of
 their own), ``exchange_counts`` the sequence-sharded pools'
 ``masked_owner_psum`` calls.
 
-Left out (see ROADMAP.md): the straight-through-estimator gradient
-(training).
+Training (the backward of each rank collective a forward calls; each is a
+``torch.autograd.Function`` when the input needs a gradient, and the plain
+forward otherwise): ``rank_compressed_psum`` is the reference's
+straight-through estimator (``collectives.py:283-298``): every variant's
+backward returns the output cotangent unchanged, cast to the partial's
+dtype, with no collective (the codec runs on detached tensors, so its
+kernels never see the backward). ``rank_psum``'s backward is the identity,
+right wherever replicated code reads the reduced output; ``rank_all_gather``
+takes this rank's slice of the cotangent. ``copy_to_group`` is the identity
+forward whose backward all-reduces the gradient over the group: the
+reduction GSPMD inserts where a replicated activation feeds a rank's shard
+of a weight. ``rank_sum_scalar`` and ``dp_mean`` are the optimizer's (the
+global norm over a TP group, the gradient average over a data group).
+``tp_counts`` counts the backward's all-reduces (``backward_all_reduce``,
+``backward_bytes``) and the optimizer's (``grad_all_reduce``,
+``grad_bytes``) apart from the forward's, and ``bytes`` holds the forward's
+only.
 """
 from __future__ import annotations
 
@@ -73,7 +88,8 @@ __all__ = ["compressed_psum", "psum", "psum_maybe_compressed", "rank_compressed_
            "masked_owner_psum", "wire", "transport", "compressed_all_to_all",
            "dense_all_to_all", "dp_all_gather", "count_island",
            "exchange_counts", "reset_exchange_counts", "tp_counts", "reset_tp_counts",
-           "recorded_collectives", "add_tp_counts", "reset_downgrade_warnings"]
+           "recorded_collectives", "add_tp_counts", "reset_downgrade_warnings",
+           "copy_to_group", "rank_sum_scalar", "dp_mean"]
 
 # masked_owner_psum calls since the last reset: all-reduces, bytes each rank
 # contributes, and host seconds spent in them (each call ends synchronized
@@ -91,7 +107,9 @@ _TP: Dict[str, float] = {"all_gather": 0, "all_to_all": 0, "all_reduce": 0,
                          "compressed_all_to_all": 0, "compressed_all_to_all_bytes": 0,
                          "dense_all_to_all": 0, "dense_all_to_all_bytes": 0,
                          "dp_all_gather": 0, "dp_all_gather_bytes": 0,
-                         "island": 0, "island_down_bytes": 0, "bytes": 0, "seconds": 0.0}
+                         "island": 0, "island_down_bytes": 0, "bytes": 0, "seconds": 0.0,
+                         "backward_all_reduce": 0, "backward_bytes": 0,
+                         "grad_all_reduce": 0, "grad_bytes": 0}
 
 
 def exchange_counts() -> Dict[str, float]:
@@ -114,7 +132,10 @@ def tp_counts() -> Dict[str, float]:
     ``*_bytes``, and its entries (``island``) with the bytes its ``down``
     reductions sent (``island_down_bytes``); ``bytes`` this rank put into
     all of them and host ``seconds`` (staging included; under NCCL the
-    enqueue only)."""
+    enqueue only); in training the backward's all-reduces
+    (``backward_all_reduce``, ``backward_bytes``: ``copy_to_group``) and the
+    optimizer's (``grad_all_reduce``, ``grad_bytes``), which ``bytes`` leaves
+    out."""
     return dict(_TP)
 
 
@@ -146,9 +167,9 @@ def add_tp_counts(record: Dict[str, float]) -> None:
         _TP[k] += n
 
 
-def _count(kind: str, t: torch.Tensor, t0: float) -> None:
+def _count(kind: str, t: torch.Tensor, t0: float, bytes_key: str = "bytes") -> None:
     _TP[kind] += 1
-    _TP["bytes"] += t.numel() * t.element_size()
+    _TP[bytes_key] += t.numel() * t.element_size()
     _TP["seconds"] += time.perf_counter() - t0
 
 
@@ -255,6 +276,99 @@ def psum(partials: torch.Tensor) -> torch.Tensor:
     for i in range(1, partials.shape[0]):
         total = total + partials[i].float()
     return total.to(partials.dtype)
+
+
+# ------------------------------------------------------------------ autograd
+
+
+def _needs_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _PassThrough(torch.autograd.Function):
+    """``fn(partial)`` forward (a reduction on a detached partial); the
+    backward hands the cotangent back unchanged, cast to the partial's
+    dtype, with no collective: the reference's STE for the compressed
+    reduction, the identity for the dense one."""
+
+    @staticmethod
+    def forward(ctx, partial, fn):
+        ctx.dtype = partial.dtype
+        return fn(partial)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+class _GatherLast(torch.autograd.Function):
+    """``rank_all_gather`` forward; backward: this rank's slice of the last
+    axis of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.width, ctx.rank = x.shape[-1], dist.get_rank(group)
+        return rank_all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.width
+        return g[..., lo:lo + ctx.width].contiguous(), None
+
+
+def _all_reduce_counted(g: torch.Tensor, group, kind: str, bytes_key: str) -> torch.Tensor:
+    """A new tensor: the sum of ``g`` over ``group`` in ``g``'s dtype
+    (staged through host memory under gloo on the card), counted under
+    ``kind`` with its bytes under ``bytes_key``."""
+    t0 = time.perf_counter()
+    w = wire(g, group)
+    if w is g:
+        w = w.clone()
+    dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
+    _count(kind, w, t0, bytes_key)
+    return w.to(g.device)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; backward: the gradient summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_reduce_counted(g.contiguous(), ctx.group, "backward_all_reduce",
+                                    "backward_bytes"), None)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself forward; in backward, the gradient of ``x`` summed over
+    ``group`` with one all-reduce in its dtype (``backward_all_reduce``).
+    A replicated tensor that feeds each rank's shard of a weight gets only
+    that shard's share of its gradient on each rank; this sums the shares.
+    ``x`` unchanged when it needs no gradient or there is no group."""
+    if group is None or not _needs_grad(x):
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def rank_sum_scalar(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` (a few fp32 values) summed over ``group``: the optimizer's
+    global norm over a TP group (one ``grad_all_reduce``)."""
+    return _all_reduce_counted(t.reshape(-1), group, "grad_all_reduce",
+                               "grad_bytes").reshape(t.shape)
+
+
+def dp_mean(ts: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """The mean over ``group``'s ranks of each tensor of ``ts``, in fp32,
+    with one all-reduce of one fp32 bucket (``grad_all_reduce``): the data
+    group's gradient average."""
+    flat = torch.cat([t.reshape(-1).float() for t in ts])
+    total = _all_reduce_counted(flat, group, "grad_all_reduce", "grad_bytes")
+    total /= dist.get_world_size(group)
+    return [c.view(t.shape) for c, t in zip(total.split([t.numel() for t in ts]), ts)]
 
 
 # --------------------------------------------------------------------- ranks
@@ -405,6 +519,10 @@ def rank_compressed_psum(partial: torch.Tensor, group, spec: MXSpec, *,
     sums in fp32 and hands the total over in this dtype (float32 or
     bfloat16), as the reference's kernel route does. Returns the partial's
     shape and dtype."""
+    if _needs_grad(partial):
+        return _PassThrough.apply(partial, lambda p: rank_compressed_psum(
+            p, group, spec, keep_local_fp=keep_local_fp, accum_dtype=accum_dtype,
+            variant=variant, strict=strict, overlap_chunks=overlap_chunks))
     accum = _ACCUM[accum_dtype]
     n = dist.get_world_size(group)
     f = partial.shape[-1]
@@ -423,20 +541,22 @@ def rank_compressed_psum(partial: torch.Tensor, group, spec: MXSpec, *,
 
 def rank_psum(partial: torch.Tensor, group) -> torch.Tensor:
     """The dense reduction of this rank's partial over ``group``: one
-    all-reduce in the partial's dtype (the reference's ``lax.psum``)."""
-    t0 = time.perf_counter()
-    w = wire(partial, group)
-    if w is partial:
-        w = w.clone()
-    dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
-    _count("all_reduce", w, t0)
-    return w.to(partial.device)
+    all-reduce in the partial's dtype (the reference's ``lax.psum``). Its
+    backward is the identity (every rank's replicated code hands back the
+    same cotangent); where rank code reads the output, ``copy_to_group``
+    after it reduces that code's gradient."""
+    if _needs_grad(partial):
+        return _PassThrough.apply(partial, lambda p: rank_psum(p, group))
+    return _all_reduce_counted(partial, group, "all_reduce", "bytes")
 
 
 def rank_all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``x`` concatenated along the last axis in rank order,
     moved uncompressed in ``x``'s dtype: a column-parallel output made
-    whole on every rank (one ``dense_all_gather``)."""
+    whole on every rank (one ``dense_all_gather``). Its backward keeps this
+    rank's slice of the cotangent."""
+    if _needs_grad(x):
+        return _GatherLast.apply(x, group)
     out = _all_gather(x, group, "dense_all_gather")
     _TP["dense_all_gather_bytes"] += x.numel() * x.element_size()
     return torch.cat(out.unbind(0), dim=-1)

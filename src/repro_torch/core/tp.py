@@ -26,6 +26,18 @@ the row-parallel reductions the paper compresses:
 
 The two are exclusive.
 
+Training (autograd through either path): on a TP group the replicated
+input of a ``column_linear`` goes through ``collectives.copy_to_group`` at
+its caller (once for the products that share it, as q/k/v do) and that of
+``fused_mlp``'s gate and up inside it, so its gradient is summed over the
+group in backward (each rank's columns give only their share); the rank
+reductions' own backwards are in ``collectives``. The
+simulated compressed reduction has the reference's gradient, zero: the
+reference's ``fake_quantize`` has no custom gradient, so nothing flows back
+through a quantized partial (its inputs are detached here). ``remat``
+recomputes each layer in backward (``torch.utils.checkpoint``,
+non-reentrant), as the reference's ``_maybe_remat``.
+
 Data-parallel ranks (the reference's ``data`` mesh axis): ``dp_group`` is a
 ``torch.distributed`` group of the ``dp_size`` ranks that hold the same TP
 shard (one column of a ``data x model`` grid; ``tp_group`` is its row). Every
@@ -64,7 +76,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.collectives import (
-    compressed_psum, masked_owner_psum, psum_maybe_compressed, transport,
+    compressed_psum, copy_to_group, masked_owner_psum, psum_maybe_compressed, transport,
 )
 from repro_torch.core.policy import CompressionPolicy, NO_COMPRESSION
 from repro_torch.kernels import ops
@@ -86,6 +98,7 @@ class TPContext:
     kv_group: Any = None     # torch.distributed ProcessGroup of the kv ranks
     tp_group: Any = None     # torch.distributed ProcessGroup of the TP ranks
     dp_group: Any = None     # torch.distributed ProcessGroup of the data ranks
+    remat: bool = False      # recompute each layer in backward (training)
 
     def __post_init__(self):
         ranks = self.tp_group is not None or self.dp_group is not None
@@ -156,7 +169,8 @@ class TPContext:
 def column_linear(ctx: TPContext, x: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ w with w (Fin, Fout): on a TP group, this rank's output
-    columns (``w`` is its shard); no collective either way."""
+    columns (``w`` is its shard); no collective. In training the caller
+    passes a replicated ``x`` through ``copy_to_group`` first."""
     y = torch.matmul(x, w.to(x.dtype))
     return y if bias is None else y + bias.to(y.dtype)
 
@@ -179,8 +193,9 @@ def row_linear(ctx: TPContext, x: torch.Tensor, w: torch.Tensor,
             and x.shape[-1] % n == 0
             and w.shape[-1] % policy.spec.block_size == 0):
         fin, fout = x.shape[-1], w.shape[-1]
-        xs = x.reshape(-1, n, fin // n).transpose(0, 1)            # (n, M, c)
-        ws = w.reshape(n, fin // n, fout).to(x.dtype)              # (n, c, o)
+        # detached: the reference's gradient through fake_quantize is zero
+        xs = x.detach().reshape(-1, n, fin // n).transpose(0, 1)   # (n, M, c)
+        ws = w.detach().reshape(n, fin // n, fout).to(x.dtype)     # (n, c, o)
         parts = torch.matmul(xs, ws)                                # (n, M, o)
         y = compressed_psum(parts, policy.spec)
         if policy.variant == "two_phase":
@@ -199,7 +214,9 @@ def fused_mlp(ctx: TPContext, x: torch.Tensor, w_gate: Optional[torch.Tensor],
     """Column (gate, up) + activation + row (down): ``act(x @ gate) * (x @
     up)`` (``act(x @ up)`` without a gate), then ``row_linear`` with
     ``down``. On a TP group the weights are this rank's shards: the hidden
-    columns stay on the rank and only ``down``'s reduction crosses ranks."""
+    columns stay on the rank and only ``down``'s reduction crosses ranks
+    (and, in training, one backward all-reduce of ``x``'s gradient)."""
+    x = copy_to_group(x, ctx.tp_group)
     h = column_linear(ctx, x, w_up)
     h = act(column_linear(ctx, x, w_gate)) * h if w_gate is not None else act(h)
     return row_linear(ctx, h, w_down, n_tokens=n_tokens)

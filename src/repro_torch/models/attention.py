@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import copy_to_group
 from repro_torch.core.formats import KVCacheSpec, MXSpec
 from repro_torch.core.mx import MXCompressed
 from repro_torch.core.tp import (
@@ -67,14 +68,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _qkv(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig, positions):
     """Project to q (B, S, H, hd) and flat k/v (B, S, kv_dim), RoPE applied."""
     B, S = x.shape[:2]
+    x = copy_to_group(x, ctx.tp_group)   # training: one backward all-reduce for q, k, v
     q = column_linear(ctx, x, params["wq"]["w"], params["wq"].get("b"))
     k = column_linear(ctx, x, params["wk"]["w"], params["wk"].get("b"))
     v = column_linear(ctx, x, params["wv"]["w"], params["wv"].get("b"))
     q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"]["w"])
-        k = rms_norm(k, params["k_norm"]["w"])
+        q = rms_norm(q, copy_to_group(params["q_norm"]["w"], ctx.tp_group))
+        k = rms_norm(k, copy_to_group(params["k_norm"]["w"], ctx.tp_group))
     if positions is not None:
         rope = make_rope(positions, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, rope)
@@ -118,10 +120,11 @@ def attention(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig, *, pos:
     reduction the policy compresses. Returns (out (B, S, d_model), cache)."""
     B, S = x.shape[:2]
     if cross_kv is not None:
+        x = copy_to_group(x, ctx.tp_group)
         q = column_linear(ctx, x, params["wq"]["w"], params["wq"].get("b"))
         q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
         if cfg.qk_norm:
-            q = rms_norm(q, params["q_norm"]["w"])
+            q = rms_norm(q, copy_to_group(params["q_norm"]["w"], ctx.tp_group))
         t_pos = torch.arange(cross_kv.k.shape[1], device=x.device, dtype=torch.int32)
         out = _attend(q, cross_kv.k.to(q.dtype), cross_kv.v.to(q.dtype),
                       torch.zeros(S, device=x.device, dtype=torch.int32), t_pos, window=None,

@@ -1,7 +1,9 @@
 """Weight bridge: the reference's parameter tree, already converted to numpy,
 into the port's parameter dict — so both frameworks compute with identical
 weights (tests build the numpy tree with ``jax.tree.map(np.asarray, params)``
-on the reference's ``Model.init_params``)."""
+on the reference's ``Model.init_params``) — and its optimizer state
+(``opt_state_from_numpy``); a rank's shard of a tree (``shard_params``) and
+its inverse over the ranks of a group (``gather_params``)."""
 from __future__ import annotations
 
 from typing import Any
@@ -12,11 +14,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (
-    check_supported, expert_range, is_expert_leaf, layer_block, param_shapes, shard_leaf,
-    torch_dtype,
+    check_supported, expert_range, is_expert_leaf, layer_block, param_shapes, shard_axis,
+    shard_leaf, torch_dtype,
 )
 
-__all__ = ["params_from_numpy", "shard_params"]
+__all__ = ["params_from_numpy", "shard_params", "gather_params", "opt_state_from_numpy"]
 
 
 def _convert(node: Any, dtype: torch.dtype, device: torch.device, path: str):
@@ -100,3 +102,59 @@ def shard_params(tree, cfg: ModelConfig, rank: int, n: int, *, dp_rank: int = 0,
 
     return walk(tree, "", "")
 
+
+
+def opt_state_from_numpy(opt, cfg: ModelConfig, device: str | torch.device = "cuda"):
+    """The reference's ``OptState`` (``mu``, ``nu``: numpy trees like the
+    params; ``step``) as the port's: fp32 moment tensors on ``device``,
+    checked against ``cfg``'s tree, and an int step."""
+    from repro_torch.training.optimizer import OptState
+
+    dev = resolve_device(device)
+    moments = [_convert(t, torch.float32, dev, "") for t in (opt.mu, opt.nu)]
+    for m in moments:
+        _check_tree(m, param_shapes(cfg), "")
+    return OptState(mu=moments[0], nu=moments[1], step=int(np.asarray(opt.step)))
+
+
+def _gather(t: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``axis`` in rank order (one
+    uncounted all-gather: a checkpoint's, not a step's)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.collectives import wire
+
+    w = wire(t.detach(), group)
+    parts = [torch.empty_like(w) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, w, group=group)
+    return torch.cat(parts, dim=axis).to(t.device)
+
+
+def gather_params(tree, cfg: ModelConfig, ctx):
+    """The inverse of ``shard_params``: a tree of this rank's tensors (the
+    params, or moments like them) made whole on every rank of ``ctx``'s
+    groups. Each TP-sharded leaf is all-gathered along its shard axis over
+    the TP group, and on a data group a routed-expert leaf that holds the
+    data rank's ``E / dp`` experts along the expert axis over the data
+    group; replicated leaves come back as they are. Every rank calls it
+    (the gathers are collective)."""
+    n, dp = ctx.tp_size, ctx.dp_size
+    lo, hi = expert_range(cfg, 0, dp)
+
+    def leaf(t, key, parent, block):
+        if is_expert_leaf(parent, key, t.ndim) and hi - lo < cfg.n_experts:
+            t = _gather(t, ctx.dp_group, 0)
+        axis = shard_axis(parent, key, block)
+        if axis is not None and n > 1:
+            t = _gather(t, ctx.tp_group, axis % t.ndim)
+        return t
+
+    def walk(node, key, parent, block=None):
+        if isinstance(node, dict):
+            return {k: walk(node[k], k, key, block) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, key, parent, layer_block(cfg, key, i, block))
+                    for i, v in enumerate(node)]
+        return leaf(node, key, parent, block)
+
+    return walk(tree, "", "")

@@ -83,7 +83,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.collectives import rank_all_gather
+from repro_torch.core.collectives import copy_to_group, rank_all_gather
 from repro_torch.core.tp import TPContext, column_linear
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
@@ -92,14 +92,16 @@ from repro_torch.models.attention import (
 from repro_torch.models.common import Initializer, embed, int_scalar, rms_norm, unembed
 from repro_torch.models.mlp import mlp
 from repro_torch.models.transformer import (
-    apply_layer, apply_stack, feed_forward, init_layer_cache,
+    add_aux, apply_layer, apply_stack, feed_forward, init_layer_cache,
 )
 
-__all__ = ["Model", "torch_dtype", "param_shapes", "shard_axis", "shard_leaf", "expert_range",
+__all__ = ["Model", "AUX_WEIGHTS", "torch_dtype", "param_shapes", "shard_axis", "shard_leaf", "expert_range",
            "is_expert_leaf",
            "layer_block", "recurrent_layer", "check_supported", "XLSTM_KINDS"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+AUX_WEIGHTS = {"load_balance": 1e-2, "router_z": 1e-3}   # the reference's, model.py:31
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -366,6 +368,52 @@ class Model:
         config itself."""
         return self.cfg.tp_shard(ctx.tp_size, ctx.dp_size)
 
+    # ----------------------------------------------------------------- train
+
+    def loss(self, ctx: TPContext, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's ``Model.loss``: next-token cross-entropy of
+        ``batch["targets"]`` (B, S) over fp32 logits (``logsumexp`` minus
+        the target's logit, mean over every position), plus each MoE aux
+        loss weighted by ``AUX_WEIGHTS`` over ``n_layers``. Returns (loss,
+        metrics ``{"ce", aux losses..., "loss"}``), 0-d tensors. A vision
+        model takes its loss on the text positions only (after
+        ``n_patches``); an encoder-decoder runs the encoder over
+        ``batch["encoder_frames"]`` and each decoder layer, then its
+        cross-attention (the reference's ``_encdec_decoder``). The stack is
+        recomputed in backward under ``ctx.remat`` (not the encoder's, nor
+        an encoder-decoder's decoder: the reference's ``_encdec_decoder``
+        calls its layers directly). On a TP group every rank computes the
+        same loss; in backward the collectives' own gradients and
+        ``copy_to_group`` make every rank's gradient of a replicated leaf
+        the whole model's, and of a sharded leaf its shard's."""
+        cfg = self.local_cfg(ctx)
+        x = self._embed_inputs(ctx, params, batch)
+        if cfg.encoder_decoder:
+            cross = self._cross_kv(ctx, params, self._encode(ctx, params,
+                                                             batch["encoder_frames"]))
+            aux: Dict[str, torch.Tensor] = {}
+            for i, spec in enumerate(cfg.layers):
+                x, _, losses = apply_layer(ctx, cfg, spec, params["layers"][i], x, pos=0,
+                                           aux=True)
+                x = self._cross(ctx, cfg, params["xattn"][i], x, cross[i])
+                add_aux(aux, losses)
+        else:
+            x, _, aux = apply_stack(ctx, cfg, params["layers"], x, pos=0, aux=True)
+        x = rms_norm(x, params["final_norm"]["w"])
+        if cfg.frontend == "vision":
+            x = x[:, cfg.n_patches:]   # loss on text positions only
+        head = params.get("lm_head", params["embed"])["w"]
+        logits = unembed(ctx, x, head).float()
+        tgt = logits.gather(-1, batch["targets"].long()[..., None])[..., 0]
+        ce = torch.mean(torch.logsumexp(logits, dim=-1) - tgt)
+        total = ce
+        metrics = {"ce": ce}
+        for k, v in aux.items():
+            total = total + AUX_WEIGHTS.get(k, 0.0) * v / max(1, cfg.n_layers)
+            metrics[k] = v
+        metrics["loss"] = total
+        return total, metrics
+
     # ----------------------------------------------------------------- serve
 
     def _embed(self, ctx: TPContext, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -381,7 +429,7 @@ class Model:
         x = self._embed(ctx, params, batch["tokens"])
         if self.cfg.frontend == "vision" and "patch_embeds" in batch:
             pe = batch["patch_embeds"].to(x.dtype)
-            pe = column_linear(ctx, pe, params["mm_proj"]["w"])
+            pe = column_linear(ctx, copy_to_group(pe, ctx.tp_group), params["mm_proj"]["w"])
             if ctx.tp_group is not None:
                 pe = rank_all_gather(pe, ctx.tp_group)
             x = torch.cat([pe, x], dim=1)
@@ -405,6 +453,7 @@ class Model:
         the encoder's output (no bias, no k-norm, no RoPE: the reference's);
         on a TP group the rank's kv heads, from its columns of ``wk`` /
         ``wv``."""
+        enc_out = copy_to_group(enc_out, ctx.tp_group)   # training: read by the rank's heads
         return [KVCache(k=torch.matmul(enc_out, xp["core"]["wk"]["w"].to(enc_out.dtype)),
                         v=torch.matmul(enc_out, xp["core"]["wv"]["w"].to(enc_out.dtype)))
                 for xp in params["xattn"]]

@@ -55,6 +55,13 @@ group of the call and sums the ranks' partial outputs with one dense
 all-reduce over the TP group and one over the data group. Shared experts
 are dense MLPs (``models/mlp.py``): their ``down`` reduction is the
 policy's compressed one on every path.
+
+Training: ``moe(..., aux=True)`` gives the reference's aux losses; on a TP
+group the routed experts' tokens and gates go through
+``collectives.copy_to_group`` (their gradient shares summed in backward) and
+``rank_psum``'s backward is the identity. The island has no backward here
+(its all-to-alls' backwards are a later slice): training refuses a MoE on a
+data group.
 """
 from __future__ import annotations
 
@@ -65,8 +72,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.collectives import (
-    compressed_all_to_all, count_island, dense_all_to_all, dp_all_gather, psum_maybe_compressed,
-    rank_psum, tp_counts,
+    compressed_all_to_all, copy_to_group, count_island, dense_all_to_all, dp_all_gather,
+    psum_maybe_compressed, rank_psum, tp_counts,
 )
 from repro_torch.core.tp import TPContext
 from repro_torch.models.mlp import mlp
@@ -224,6 +231,11 @@ def moe(ctx: TPContext, params, x: torch.Tensor, cfg: ModelConfig, *,
         eo = _island(ctx, params, expert_in[0])
         out = dp_all_gather(_combine(eo[None], dest, st, sg, Tg), ctx.dp_group)
     else:
+        # training on a TP group: the replicated tokens and gates meet this
+        # rank's d_ff slice (a partial of every expert row), so each rank's
+        # gradient of them is a share, summed over the group in backward
+        # (the router itself runs replicated)
+        x2, gates = copy_to_group(x2, ctx.tp_group), copy_to_group(gates, ctx.tp_group)
         if T <= DENSE_MAX_TOKENS:
             out = _dense_mixture(params, x2, gates, idx, first)
         else:

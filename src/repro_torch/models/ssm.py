@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.collectives import rank_psum
+from repro_torch.core.collectives import copy_to_group, rank_psum
 from repro_torch.core.tp import TPContext, column_linear, row_linear
 from repro_torch.device import resolve_device
 
@@ -126,7 +126,8 @@ def mamba(ctx: TPContext, params, u: torch.Tensor, cfg: ModelConfig, *,
     it keeps its state)."""
     B, S, _ = u.shape
     N, dtr = cfg.ssm_d_state, cfg.dt_rank
-    x = column_linear(ctx, u, params["in_x"]["w"])     # (B, S, di): this rank's channels
+    u = copy_to_group(u, ctx.tp_group)   # training: one backward all-reduce for in_x, in_z
+    x = column_linear(ctx, u, params["in_x"]["w"])   # (B, S, di): rank's channels
     z = column_linear(ctx, u, params["in_z"]["w"])
     x_conv = causal_conv(x, params["conv_w"].to(x.dtype), params["conv_b"],
                          cache.conv if cache is not None else None)
@@ -139,6 +140,9 @@ def mamba(ctx: TPContext, params, u: torch.Tensor, cfg: ModelConfig, *,
     if ctx.tp_group is not None:   # this rank's share of d_inner: a partial, summed in fp32
         bcd = rank_psum(torch.matmul(x.float(), params["x_proj"]["w"].float()),
                         ctx.tp_group).to(x.dtype)
+        # read by the rank's dt_proj columns and channels: in training each
+        # rank's gradient of it is a share, summed over the group
+        bcd = copy_to_group(bcd, ctx.tp_group)
     else:
         bcd = torch.matmul(x, params["x_proj"]["w"].to(x.dtype))      # contracts over di
     dt_raw = bcd[..., :dtr]

@@ -8,9 +8,10 @@ config has an FFN; an mLSTM or sLSTM layer owns its projections and has no
 second sublayer and no ``ln2``."""
 from __future__ import annotations
 
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.tp import TPContext
@@ -21,15 +22,20 @@ from repro_torch.models.moe import moe
 from repro_torch.models.ssm import init_mamba_cache, mamba
 from repro_torch.models.xlstm import init_mlstm_cache, init_slstm_cache, mlstm, slstm
 
-__all__ = ["apply_layer", "apply_stack", "feed_forward", "init_layer_cache"]
+__all__ = ["apply_layer", "apply_stack", "feed_forward", "init_layer_cache", "add_aux"]
 
 
 def feed_forward(ctx: TPContext, cfg: ModelConfig, spec: LayerSpec, params,
-                 h: torch.Tensor) -> torch.Tensor:
+                 h: torch.Tensor, aux: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
     """The layer's second sublayer on the normed residual ``h``: the MoE
-    (routed plus shared experts) on a ``spec.moe`` layer, else the MLP."""
+    (routed plus shared experts) on a ``spec.moe`` layer, else the MLP. A
+    MoE adds its aux losses into ``aux`` when one is given."""
     if spec.moe:
-        return moe(ctx, params["moe"], h, cfg)[0]
+        out, losses = moe(ctx, params["moe"], h, cfg, aux=aux is not None)
+        if aux is not None:
+            aux.update(losses)
+        return out
     return mlp(ctx, params["mlp"], h, cfg)
 
 
@@ -50,14 +56,15 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int
 
 
 def apply_layer(ctx: TPContext, cfg: ModelConfig, spec: LayerSpec, params,
-                x: torch.Tensor, *, pos: int, cache: Any = None, decode: bool = False
-                ) -> Tuple[torch.Tensor, Any]:
+                x: torch.Tensor, *, pos: int, cache: Any = None, decode: bool = False,
+                aux: bool = False):
     """One pre-norm layer: x + core(norm(x)), attention, Mamba, mLSTM or
     sLSTM (``decode``: a recurrent block's one-token state update), then
     for an attention or Mamba layer + the MLP or MoE of norm(x)
-    (``feed_forward``). Returns (x, cache). (The reference also returns the
-    MoE aux losses, which serving never reads; ``moe(..., aux=True)``
-    computes them.)"""
+    (``feed_forward``). Returns (x, cache), or with ``aux`` (x, cache, the
+    MoE aux losses: empty for a layer without a MoE), as the reference's
+    returns them (serving does not ask)."""
+    losses: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, params["ln1"]["w"])
     if spec.kind == "attn":
         out, cache = attention(ctx, params["core"], h, cfg, pos=pos, cache=cache,
@@ -69,19 +76,40 @@ def apply_layer(ctx: TPContext, cfg: ModelConfig, spec: LayerSpec, params,
         out, cache = blocks[spec.kind](ctx, params["core"], h, cfg, cache=cache,
                                        decode=decode)
     x = x + out
-    if spec.kind in ("mlstm", "slstm"):   # the block owns its feed-forward
-        return x, cache
-    h = rms_norm(x, params["ln2"]["w"])
-    return x + feed_forward(ctx, cfg, spec, params, h), cache
+    if spec.kind not in ("mlstm", "slstm"):   # an xLSTM block owns its feed-forward
+        h = rms_norm(x, params["ln2"]["w"])
+        x = x + feed_forward(ctx, cfg, spec, params, h, losses if aux else None)
+    return (x, cache, losses) if aux else (x, cache)
+
+
+def add_aux(total: Dict[str, torch.Tensor], losses: Dict[str, torch.Tensor]) -> None:
+    """Sum a layer's aux losses into ``total`` (the reference's order)."""
+    for k, v in losses.items():
+        total[k] = total[k] + v if k in total else v
 
 
 def apply_stack(ctx: TPContext, cfg: ModelConfig, params_list, x: torch.Tensor, *,
-                pos: int, caches: Optional[List[Any]] = None, decode: bool = False
-                ) -> Tuple[torch.Tensor, Optional[List[Any]]]:
-    """Every layer of ``cfg`` in order; returns (x, new caches or None)."""
+                pos: int, caches: Optional[List[Any]] = None, decode: bool = False,
+                aux: bool = False):
+    """Every layer of ``cfg`` in order; returns (x, new caches or None), or
+    with ``aux`` (x, caches, the MoE aux losses summed over layers). Under
+    ``ctx.remat`` with grad enabled each layer is recomputed in backward
+    (``torch.utils.checkpoint``, non-reentrant: the reference's
+    ``_maybe_remat``)."""
     new_caches = []
+    total: Dict[str, torch.Tensor] = {}
     for i, spec in enumerate(cfg.layers):
-        x, c = apply_layer(ctx, cfg, spec, params_list[i], x, pos=pos,
-                           cache=caches[i] if caches is not None else None, decode=decode)
+        def layer(x, spec=spec, params_i=params_list[i],
+                  c=caches[i] if caches is not None else None):
+            out = apply_layer(ctx, cfg, spec, params_i, x, pos=pos, cache=c, decode=decode,
+                              aux=aux)
+            return out if aux else (*out, {})
+
+        if ctx.remat and torch.is_grad_enabled():
+            x, c, losses = checkpoint(layer, x, use_reentrant=False)
+        else:
+            x, c, losses = layer(x)
+        add_aux(total, losses)
         new_caches.append(c)
-    return x, (new_caches if caches is not None else None)
+    caches_out = new_caches if caches is not None else None
+    return (x, caches_out, total) if aux else (x, caches_out)

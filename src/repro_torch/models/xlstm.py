@@ -65,7 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.collectives import rank_psum
+from repro_torch.core.collectives import copy_to_group, rank_psum
 from repro_torch.core.tp import TPContext, column_linear, fused_mlp, row_linear
 from repro_torch.device import resolve_device
 from repro_torch.models.ssm import causal_conv
@@ -165,7 +165,9 @@ def _qkv_gates(ctx: TPContext, params, xi: torch.Tensor, xc: torch.Tensor,
         return [torch.matmul(x, params[k]["w"].to(x.dtype)) for k, x in names]
     parts = torch.cat([torch.matmul(x.float(), params[k]["w"].float()) for k, x in names],
                       dim=-1)
-    full = rank_psum(parts, ctx.tp_group).to(xi.dtype)
+    # each rank reads its columns: in training the shares of the gradient
+    # are summed over the group
+    full = copy_to_group(rank_psum(parts, ctx.tp_group).to(xi.dtype), ctx.tp_group)
     r, N = ctx.tp_rank, ctx.tp_size
     di, H = cfg.mlstm_d_inner, cfg.mlstm_heads
     q, k, v, li, f = torch.split(full, [di * N] * 3 + [H * N] * 2, dim=-1)
@@ -186,6 +188,7 @@ def mlstm(ctx: TPContext, params, u: torch.Tensor, cfg: ModelConfig, *,
                          f"cache {'given' if cache is not None else 'missing'})")
     di, H = cfg.mlstm_d_inner, cfg.mlstm_heads      # this rank's channels and heads
     dh = di // H
+    u = copy_to_group(u, ctx.tp_group)   # training: one backward all-reduce for up, z
     xi = column_linear(ctx, u, params["up"]["w"])
     zg = column_linear(ctx, u, params["z"]["w"])
     history = cache.conv if cache is not None else None
@@ -200,8 +203,8 @@ def mlstm(ctx: TPContext, params, u: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = heads(q) * dh**-0.5, heads(k), heads(v)
     li = li.float().transpose(1, 2)                                     # (B, H, S)
     f_bias = params["wf"]["b"].float()
-    if ctx.tp_group is not None:   # the bias is whole on every rank
-        f_bias = f_bias[ctx.tp_rank * H:(ctx.tp_rank + 1) * H]
+    if ctx.tp_group is not None:   # the bias is whole on every rank: each reads its heads
+        f_bias = copy_to_group(f_bias, ctx.tp_group)[ctx.tp_rank * H:(ctx.tp_rank + 1) * H]
     lf = F.logsigmoid(f.float() + f_bias).transpose(1, 2)
 
     if cache is not None:

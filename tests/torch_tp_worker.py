@@ -397,3 +397,178 @@ def run_kvtp_rank(grid, rank: int, device, job: dict) -> dict:
     except ValueError as e:
         out["overlap"] = str(e)
     return out
+
+
+# ------------------------------------------------------------------ training
+
+
+def torch_batch(batch_np: dict, device="cpu", rows=slice(None)) -> dict:
+    """A numpy batch (tokens, targets, extra inputs) as tensors: ``rows`` of
+    it."""
+    return {k: torch.as_tensor(np.ascontiguousarray(v[rows]), device=device)
+            for k, v in batch_np.items()}
+
+
+def loss_and_grads(model: Model, params, ctx: TPContext, batch: dict):
+    """(loss, metrics, gradient tree like ``params``; zeros where the loss
+    does not reach a leaf) of ``Model.loss``."""
+    from repro_torch.training.optimizer import leaves, rebuild
+
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    loss, metrics = model.loss(ctx, params, batch)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    for p in flat:
+        p.requires_grad_(False)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
+    return (float(loss.detach()), {k: float(v.detach()) for k, v in metrics.items()},
+            rebuild(params, grads))
+
+
+def to_numpy(tree):
+    """A tree of tensors as fp32 numpy (dict keys kept)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
+    return tree.detach().float().numpy().copy()
+
+
+def _rank_train_grads(group, cfg, params_np, batch_np, policy) -> dict:
+    """``Model.loss`` and its gradient on this TP rank, the gradient made
+    whole (``convert.gather_params``) on every rank."""
+    from repro_torch.models.convert import gather_params
+
+    ctx = TPContext(policy=policy, tp_group=group)
+    model, params = _params(group, cfg, params_np, "cpu")
+    loss, metrics, grads = loss_and_grads(model, params, ctx, torch_batch(batch_np))
+    C.reset_tp_counts()
+    return dict(loss=loss, metrics=metrics, grads=to_numpy(gather_params(grads, cfg, ctx)))
+
+
+def _rank_train_steps(ctx: TPContext, cfg, params_np, batches_np, opt_cfg, rows) -> dict:
+    """``make_train_step`` steps from ``params_np`` (this rank's TP shard,
+    fresh moments) over ``batches_np`` (``rows`` of each): the losses, the
+    TP and data counters of the last step and the params made whole."""
+    from repro_torch.models.convert import gather_params
+    from repro_torch.training import init_train_state, make_train_step
+
+    model = Model(cfg)
+    tree = params_np if ctx.tp_size == 1 else shard_params(params_np, cfg, ctx.tp_rank,
+                                                          ctx.tp_size)
+    state = init_train_state(model, params_from_numpy(tree, cfg.tp_shard(ctx.tp_size), "cpu"))
+    step = make_train_step(model, ctx, opt_cfg)
+    losses = []
+    for b in batches_np:
+        C.reset_tp_counts()
+        state, metrics = step(state, torch_batch(b, rows=rows))
+        losses.append(float(metrics["loss"]))
+    return dict(losses=losses, counts=C.tp_counts(),
+                params=to_numpy(gather_params(state["params"], cfg, ctx)))
+
+
+def _rank_checkpoint(ctx: TPContext, cfg, ck: dict) -> dict:
+    """Save the checkpoint of ``ck``'s whole state (params, moments, step)
+    from this rank's shard of it (the first rank writes to ``ck["path"]``),
+    then restore ``ck["restore"]`` (a one-rank file) into this rank's
+    shard."""
+    from repro_torch.models.convert import opt_state_from_numpy
+    from repro_torch.training import restore_checkpoint, save_checkpoint
+    from repro_torch.training.optimizer import OptState
+
+    n, r = ctx.tp_size, ctx.tp_rank
+    local = cfg.tp_shard(n)
+    shard = lambda t: shard_params(t, cfg, r, n)
+    opt = opt_state_from_numpy(OptState(mu=shard(ck["mu"]), nu=shard(ck["nu"]), step=ck["step"]),
+                               local, "cpu")
+    state = {"params": params_from_numpy(shard(ck["params"]), local, "cpu"), "opt": opt}
+    save_checkpoint(ck["path"], state, step=ck["step"], cfg=cfg, ctx=ctx)
+    back = restore_checkpoint(ck["restore"], state, cfg=cfg, ctx=ctx)
+    return dict(params=to_numpy(back["params"]), mu=to_numpy(back["opt"].mu),
+                step=back["opt"].step)
+
+
+def _train_refusals(group, dp_group, job: dict) -> dict:
+    """``make_train_step``'s refusals on this rank's groups, by exception
+    type and message (None: built): a MoE on the data group, and
+    ``keep_local_fp`` on the TP group; the same MoE on the TP group and
+    the same policy on the data group are built."""
+    from repro_torch.training import AdamWConfig, make_train_step
+
+    moe_cfg, dense_cfg = job["grads"]["mixtral"]["cfg"], job["grads"]["internlm2"]["cfg"]
+    local_fp = dataclasses.replace(PAPER_DEFAULT, keep_local_fp=True)
+    cases = {"moe/dp": (moe_cfg, TPContext(dp_group=dp_group)),
+             "moe/tp": (moe_cfg, TPContext(tp_group=group)),
+             "keep_local_fp/tp": (dense_cfg, TPContext(policy=local_fp, tp_group=group)),
+             "keep_local_fp/dp": (dense_cfg, TPContext(policy=local_fp, dp_group=dp_group))}
+    out = {}
+    for name, (cfg, ctx) in cases.items():
+        try:
+            make_train_step(Model(cfg), ctx, AdamWConfig())
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+STE_CASES = {"gather": {}, "gather/overlap2": dict(overlap_chunks=2),
+             "two_phase": dict(variant="two_phase", strict=True),
+             "accum_bf16": dict(accum_dtype="bfloat16"), "bf16": {}}
+
+
+def _backward_probe(group, rank: int) -> dict:
+    """Each rank collective's backward on this rank: a (6, 64) partial (the
+    rank's own values) through the collective, then ``backward`` with the
+    same cotangent on every rank (``copy_to_group``: the rank's multiple of
+    it); the input's gradient and the TP counters after the forward and
+    after the backward."""
+    x = torch.randn(6, 64, generator=torch.Generator().manual_seed(11)) * (rank + 1)
+    cot = torch.randn(6, 64, generator=torch.Generator().manual_seed(12))
+    group_n = dist.get_world_size(group)
+    calls = {name: (lambda t, kw=kw: C.rank_compressed_psum(t, group, SPEC, **kw))
+             for name, kw in STE_CASES.items()}
+    calls.update(rank_psum=lambda t: C.rank_psum(t, group),
+                 rank_all_gather=lambda t: C.rank_all_gather(t[:, :64 // group_n], group),
+                 copy_to_group=lambda t: C.copy_to_group(t, group))
+    out = {}
+    for name, call in calls.items():
+        xi = (x.bfloat16() if name == "bf16" else x).clone().requires_grad_(True)
+        C.reset_tp_counts()
+        y = call(xi)
+        forward = C.tp_counts()
+        y.backward((cot * (rank + 1) if name == "copy_to_group" else cot).to(y.dtype))
+        out[name] = dict(grad=xi.grad.float().numpy().copy(), dtype=str(xi.grad.dtype),
+                         forward=forward, backward=C.tp_counts(), out_dtype=str(y.dtype))
+    return out
+
+
+def run_train_rank(group, rank: int, device, job: dict) -> dict:
+    """What each of the 2 ranks of ``tests/test_torch_train_tp.py`` runs: for
+    each model of ``job["grads"]`` the loss and the gathered gradient on the
+    TP group, dense and (``compressed``) under PAPER_DEFAULT; each rank
+    collective's backward (``_backward_probe``); ``job["steps"]``
+    train steps on the TP group and on a data group of the same two ranks
+    (each taking its rows of the global batch); the checkpoint of
+    ``job["checkpoint"]`` saved and restored on the TP group;
+    ``make_train_step``'s refusals (``_train_refusals``)."""
+    dp_group = dist.new_group([0, 1])   # the same two ranks as a data group
+    out = {"grads": {}, "backward": _backward_probe(group, rank),
+           "refusals": _train_refusals(group, dp_group, job)}
+    for key, m in job["grads"].items():
+        out["grads"][key] = {"dense": _rank_train_grads(group, m["cfg"], m["params"],
+                                                        m["batch"], NO_COMPRESSION)}
+        if m.get("compressed"):
+            out["grads"][key]["compressed"] = _rank_train_grads(
+                group, m["cfg"], m["params"], m["batch"], PAPER_DEFAULT)
+    s = job["steps"]
+    out["tp_steps"] = _rank_train_steps(TPContext(tp_group=group), s["cfg"], s["params"],
+                                        s["batches"], s["opt_cfg"], slice(None))
+    half = len(s["batches"][0]["tokens"]) // 2
+    out["dp_steps"] = _rank_train_steps(TPContext(dp_group=dp_group), s["cfg"], s["params"],
+                                        s["batches"], s["opt_cfg"],
+                                        slice(rank * half, (rank + 1) * half))
+    ck = job["checkpoint"]
+    out["checkpoint"] = _rank_checkpoint(TPContext(tp_group=group), ck["cfg"], ck)
+    return out
+
